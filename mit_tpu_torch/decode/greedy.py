@@ -1,0 +1,119 @@
+"""Batched KV-cached greedy decoding (port of ``mit_tpu/decode/greedy.py``).
+
+Start from START, append the argmax of each step's logits, stop a row at
+END (later positions hold PAD) and stop the loop when every row has ended.
+The KV cache grows through a ladder of sizes (16, 32, ..., max_len), so
+short captions never pay the attention reads of a max_len-sized cache.
+``lax.while_loop``'s early exit becomes a host check of ``finished.all()``
+before each step.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from mit_tpu_torch.decode.step import (
+    DecodeCache,
+    decoder_step,
+    grow_cache,
+    init_cache,
+    prepare_decode_params,
+)
+from mit_tpu_torch.models.decoder import DecoderConfig
+
+
+def _bucket_schedule(max_len: int, first: int = 16) -> Tuple[int, ...]:
+    """KV-cache growth ladder: first, 2*first, ... capped at max_len."""
+    buckets = []
+    b = first
+    while b < max_len:
+        buckets.append(b)
+        b *= 2
+    buckets.append(max_len)
+    return tuple(buckets)
+
+
+def check_bucket_sizes(bucket_sizes, max_len: int) -> Tuple[int, ...]:
+    if bucket_sizes is None:
+        bucket_sizes = _bucket_schedule(max_len)
+    bucket_sizes = tuple(bucket_sizes)
+    if (
+        not bucket_sizes
+        or tuple(sorted(set(bucket_sizes))) != bucket_sizes
+        or bucket_sizes[-1] != max_len
+    ):
+        raise ValueError(
+            "bucket_sizes must be strictly increasing and end at "
+            f"max_len={max_len}: {bucket_sizes}"
+        )
+    return bucket_sizes
+
+
+def laddered_decode_loop(
+    params: dict,                      # prepare_decode_params output
+    cfg: DecoderConfig,
+    cache: DecodeCache,                # allocated at bucket_sizes[0]
+    tokens: torch.Tensor,              # (B, max_len), slot 0 = START; written in place
+    end_id: int,
+    pad_id: int,
+    max_len: int,
+    bucket_sizes: Tuple[int, ...],
+    compute_dtype,
+) -> torch.Tensor:
+    """The greedy token loop over the cache ladder → tokens."""
+    finished = torch.zeros(tokens.shape[0], dtype=torch.bool,
+                           device=tokens.device)
+    pos = 0
+    for i, bucket in enumerate(bucket_sizes):
+        if i > 0:
+            cache = grow_cache(cache, bucket)
+        # a step at pos needs cache slot pos, so this bucket serves pos < bucket
+        while pos < min(bucket, max_len - 1):
+            if bool(finished.all()):
+                return tokens
+            logits, cache = decoder_step(
+                params, cfg, tokens[:, pos], pos, cache, compute_dtype,
+                key_pad=(tokens == pad_id)[:, :bucket],
+            )
+            nxt = torch.where(finished, pad_id, logits.argmax(-1))
+            tokens[:, pos + 1] = nxt
+            finished |= nxt == end_id
+            pos += 1
+    return tokens
+
+
+@torch.inference_mode()
+def greedy_generate(
+    params: dict,
+    cfg: DecoderConfig,
+    memory: torch.Tensor,              # (B, 1, D) projected decoder memory
+    start_id: int,
+    end_id: int,
+    pad_id: int,
+    max_len: int,
+    memory_padding_mask: Optional[torch.Tensor] = None,
+    compute_dtype=torch.float32,
+    bucket_sizes: Optional[Tuple[int, ...]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """→ (tokens (B, max_len) int64 incl. the leading START, lengths (B,)).
+
+    ``lengths`` counts tokens incl. START and END (when generated);
+    positions past a row's END hold PAD.
+    """
+    if max_len > cfg.max_seq_len:
+        raise ValueError(
+            f"max_len={max_len} exceeds the positional table "
+            f"(max_seq_len={cfg.max_seq_len})"
+        )
+    bucket_sizes = check_bucket_sizes(bucket_sizes, max_len)
+    cache = init_cache(params, cfg, memory, memory_padding_mask,
+                       bucket_sizes[0], compute_dtype)
+    params = prepare_decode_params(params, compute_dtype)
+    tokens = torch.full((memory.shape[0], max_len), pad_id, dtype=torch.long,
+                        device=memory.device)
+    tokens[:, 0] = start_id
+    tokens = laddered_decode_loop(params, cfg, cache, tokens, end_id, pad_id,
+                                  max_len, bucket_sizes, compute_dtype)
+    return tokens, (tokens != pad_id).sum(dim=1)

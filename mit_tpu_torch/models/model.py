@@ -1,0 +1,104 @@
+"""Image → text model: frozen vision encoder + decoder (port of
+``mit_tpu/models/model.py``, inference side).
+
+Parameters are ``{"encoder", "decoder"}`` plus ``"projection"`` when the
+encoder width differs from the decoder width. Memory modes: "cls" (the
+projected CLS token, length 1) and "full" (the whole patch sequence).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional
+
+import torch
+
+from mit_tpu_torch.models.decoder import DecoderConfig, init_decoder_params
+from mit_tpu_torch.models.vision import (
+    VisionConfig,
+    config_for_encoder,
+    init_vision_params,
+    vision_forward,
+)
+
+INT8_NOT_PORTED = (
+    "the int8 encoder (vision_forward_int8 and its kernels) is not ported "
+    "yet: ROADMAP.md, queue 1, the int8 arm"
+)
+
+
+class ModelConfig(NamedTuple):
+    encoder_name: str
+    vision: VisionConfig
+    decoder: DecoderConfig
+    memory_mode: str = "cls"            # "cls" | "full"
+
+    @classmethod
+    def build(cls, cfg, vocab_size: Optional[int] = None) -> "ModelConfig":
+        """From a ``mit_tpu.config.Config``; the tokenizer's actual vocab
+        size, when given, overrides ``cfg.VOCAB_SIZE``."""
+        decoder = DecoderConfig(
+            vocab_size=vocab_size if vocab_size is not None else cfg.VOCAB_SIZE,
+            embed_dim=cfg.DECODER_EMBED_DIM,
+            num_heads=cfg.DECODER_HEADS,
+            num_layers=cfg.DECODER_LAYERS,
+            ff_dim=cfg.DECODER_FF_DIM,
+            max_seq_len=cfg.MAX_SEQ_LEN,
+            dropout=cfg.DECODER_DROPOUT,
+            pad_idx=cfg.PAD_TOKEN_ID,
+        )
+        return cls(
+            encoder_name=cfg.ENCODER_MODEL_NAME,
+            vision=config_for_encoder(cfg.ENCODER_MODEL_NAME),
+            decoder=decoder,
+            memory_mode=cfg.MEMORY_MODE,
+        )
+
+    @property
+    def needs_projection(self) -> bool:
+        return self.vision.hidden_size != self.decoder.embed_dim
+
+
+def init_model_params(generator: torch.Generator, mcfg: ModelConfig,
+                      device=None) -> dict:
+    """Random weights from ``generator`` (drawn on the CPU), on ``device``."""
+    params = {
+        "encoder": init_vision_params(generator, mcfg.vision, device),
+        "decoder": init_decoder_params(generator, mcfg.decoder, device),
+    }
+    if mcfg.needs_projection:
+        d_in, d_out = mcfg.vision.hidden_size, mcfg.decoder.embed_dim
+        lim = math.sqrt(6.0 / (d_in + d_out))
+        w = (torch.rand(d_in, d_out, generator=generator) * 2 - 1) * lim
+        params["projection"] = {"w": w.to(device),
+                                "b": torch.zeros(d_out, device=device)}
+    return params
+
+
+def encode_images(
+    params: dict,
+    mcfg: ModelConfig,
+    pixel_values: torch.Tensor,          # (B, 3, H, W)
+    compute_dtype=torch.float32,
+    use_kernel: bool = True,
+) -> torch.Tensor:
+    """Frozen-encoder features before projection: (B, 1, H_enc) in "cls"
+    mode, (B, N+1, H_enc) in "full" mode."""
+    enc = params["encoder"]
+    if "patch" in enc:                   # int8 tree (quantize_vision_params)
+        raise NotImplementedError(INT8_NOT_PORTED)
+    hidden = vision_forward(
+        enc, mcfg.vision, pixel_values, compute_dtype, use_kernel,
+        cls_only=mcfg.memory_mode == "cls",
+    )
+    return hidden.detach()
+
+
+def project_features(params: dict, mcfg: ModelConfig, features: torch.Tensor,
+                     compute_dtype=torch.float32) -> torch.Tensor:
+    """features (B, S, H_enc) → decoder memory (B, S, D)."""
+    cd = compute_dtype
+    if mcfg.needs_projection:
+        p = params["projection"]
+        return features.to(cd) @ p["w"].to(cd) + p["b"].to(cd)
+    return features.to(cd)
