@@ -11,22 +11,52 @@ the script exits non-zero without printing the result line.
             and power limit.
 2. build    Builds every kernel from mit_tpu_torch/csrc with nvcc for
             sm_90a; prints the build seconds and ptxas' register report.
-3. kernels  flash_attention_btd against its plain PyTorch version on the
-            card, in f32 (limit 1e-4) and bf16 (limit 2e-2), TF32 off, at
-            the encoder shape (64, 197, 768), the decoder shape
-            (64, 100, 512, causal, a pad that masks every key of batch row
-            0) and the 577-token shape (8, 577, 768); then both timed at the
-            encoder shape (CUDA events, turns plain, kernel, kernel, plain).
+3. kernels  Every kernel against its plain PyTorch version on the card,
+            TF32 off, each timed at its ViT-B batch-64 shape (CUDA events,
+            turns plain, kernel, kernel, plain):
+            - flash_attention_btd in f32 (limit 1e-4) and bf16 (limit 2e-2)
+              at the encoder shape (64, 197, 768), the decoder shape
+              (64, 100, 512, causal, a pad that masks every key of batch
+              row 0) and the 577-token shape (8, 577, 768);
+            - quantize_rows, without and with its LayerNorm, on (12608, 768)
+              and (12608, 3072) f32 and bf16 rows with an all-zero row:
+              codes and scales bitwise equal without the LayerNorm, codes
+              within one step (at most 1e-3 of them) with it;
+            - int8_gemm at K x N = 768 x 2304, 768 x 768, 768 x 3072 and
+              3072 x 768, M = 12608 and 197: int32 accumulators bitwise
+              equal, and each shape's epilogue of the fused layer (plus
+              gelu, quick_gelu and the bf16 residual) within rtol 2e-6 (f32
+              out) or one bf16 rounding;
+            - flash_attention_btd_fusedqkv at (64, 197, 3 x 768), f32 (1e-4),
+              bf16 (2e-2) and the fused layer's numerics (bf16 in, f32 out,
+              2e-2);
+            - int8_linear (the patch embedding) and fused_int8_mlp at 12608
+              rows, relative L2 <= 1e-3;
+            - fused_int8_vit_layer at ViT-B (64, 197, 768), F 3072, 12 heads,
+              and fused_int8_vit_layer_split at ViT-L (8, 257, 1024), F 4096,
+              16 heads, bf16: relative L2 <= 5e-3 (the JAX package's bound
+              between its layer kernel and its composition).
 4. slice    The default captioning path at full width: ViT-B/16 encoder in
             CLS-memory mode, projection 768 -> 512, 6-layer 512-wide
             decoder, vocab 10000, max_len 100, random weights from a seeded
             torch.Generator, pixels from a numpy seed, through
             Captioner.memory_from_pixels / generate_from_memory.
-            f32 batch 8: the kernel path's memory and greedy tokens equal
-            the plain attention path's. Then the launch counter is reset,
-            the bf16 batch-64 path runs REPS times, and it must have
-            launched the kernel 11 times per encode call (layers 1-11; the
-            CLS-only last layer needs no kernel); prints captions/s.
+            Float arm, f32 batch 8: the kernel path's memory and greedy
+            tokens equal the plain attention path's.
+            int8 arm (Captioner(..., encoder_quant="int8"), quantized at
+            load), f32 batch 8: the kernel path's memory within 3 times the
+            plain int8 path's own move under a one-ulp change of the pixels
+            (relative L2; quantization makes the arm discontinuous), cosine
+            to the float arm's memory > 0.999; greedy-token agreement
+            printed, not gated.
+            bf16 batch 64: every launch counter is set to 0 before each
+            path and read after it. The float arm and the int8 arm (fused
+            layers) run REPS times each, the int8 per-op form once; each
+            must launch exactly its kernels per encode call (float:
+            flash_attention_btd 11; int8 fused: fused_int8_vit_layer 11,
+            int8_linear 3, fused_int8_mlp 1; int8 per-op: int8_linear 25,
+            fused_int8_mlp 12, flash_attention_btd_fusedqkv 11). Prints
+            captions/s of both arms and their median encoder ms.
 5. result   One JSON line describing each kernel, then the last line,
             {"ok": true, "device": {...}}.
 """
@@ -49,6 +79,24 @@ SHAPES = [("encoder", 64, 197, 768, False), ("decoder", 64, 100, 512, True),
           ("blip384", 8, 577, 768, False)]
 TIMED_ITERS = 20
 REPS = 3
+ENC_REPS = 10            # encoder-only timings per arm, in alternating turns
+FLOOR_FACTOR = 3         # int8 slice bound, in units of its own noise floor
+M_FULL = 64 * 197        # the encoder's rows at batch 64
+# K x N of the fused layer's GEMMs, with the epilogue each has on the path
+GEMMS = [("qkv", 768, 2304, "none", None, "bfloat16"),
+         ("out_proj", 768, 768, "none", "bfloat16", "float32"),
+         ("fc1", 768, 3072, "gelu", None, "float32"),
+         ("fc2", 3072, 768, "none", "float32", "bfloat16")]
+# launches per encode call of each path (bf16, batch 64)
+PER_ENCODE = {
+    "float": {"flash_attention_btd": 11},
+    "int8": {"fused_int8_vit_layer": 11, "int8_linear": 3,
+             "fused_int8_mlp": 1, "flash_attention_btd_fusedqkv": 11,
+             "quantize_rows": 49, "int8_gemm": 49},
+    "int8_per_op": {"int8_linear": 25, "fused_int8_mlp": 12,
+                    "flash_attention_btd_fusedqkv": 11, "quantize_rows": 49,
+                    "int8_gemm": 49},
+}
 
 
 class SpecialIds(NamedTuple):
@@ -127,6 +175,294 @@ def check_kernels(torch):
     return errors, times
 
 
+def wrappers():
+    """Every kernel wrapper with a launch counter, by name."""
+    from mit_tpu_torch.ops import flash_attention, int8_layer, int8_mlp
+
+    return {
+        "flash_attention_btd": flash_attention.flash_attention_btd,
+        "flash_attention_btd_fusedqkv":
+            flash_attention.flash_attention_btd_fusedqkv,
+        "quantize_rows": int8_mlp.quantize_rows,
+        "int8_gemm": int8_mlp.int8_gemm,
+        "int8_linear": int8_mlp.int8_linear,
+        "fused_int8_mlp": int8_mlp.fused_int8_mlp,
+        "fused_int8_vit_layer": int8_layer.fused_int8_vit_layer,
+        "fused_int8_vit_layer_split": int8_layer.fused_int8_vit_layer_split,
+    }
+
+
+def reset_counts():
+    for fn in wrappers().values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {name: fn.launches for name, fn in wrappers().items()}
+
+
+def timed_turns(torch, kern, plain):
+    """Mean ms of kernel and plain, in turns plain, kernel, kernel, plain."""
+    runs = {"plain": [], "kernel": []}
+    for which in ("plain", "kernel", "kernel", "plain"):
+        runs[which].append(cuda_ms(torch, kern if which == "kernel" else plain))
+    return runs
+
+
+def rel_l2(a, b):
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+def random_qlinear(torch, k, n, seed):
+    """A quantized (K, N) weight from N(0, 0.02) and a N(0, 0.02) bias."""
+    from mit_tpu_torch.ops.quant import QuantizedLinear, quantize_weight
+
+    g = torch.Generator().manual_seed(seed)
+    q = quantize_weight(torch.randn(k, n, generator=g) * 0.02,
+                        torch.randn(n, generator=g) * 0.02)
+    return QuantizedLinear(*(a.cuda() for a in q))
+
+
+def random_rows(torch, m, k, dtype, seed, zero_row=True):
+    x = np.random.default_rng(seed).normal(size=(m, k)).astype(np.float32)
+    if zero_row:
+        x[1] = 0.0
+    return torch.from_numpy(x).to("cuda", dtype)
+
+
+def random_ln(torch, d, seed):
+    r = np.random.default_rng(seed)
+    to = lambda a: torch.from_numpy(a.astype(np.float32)).cuda()
+    return {"scale": to(1 + 0.1 * r.normal(size=d)),
+            "bias": to(0.1 * r.normal(size=d))}
+
+
+def report(results, name, err, runs, what):
+    ms = statistics.mean(runs["kernel"])
+    plain_ms = statistics.mean(runs["plain"])
+    print(f"time {name:28s} {what}: kernel {runs['kernel']} ms, plain "
+          f"{runs['plain']} ms")
+    results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+
+
+def check_int8_kernels(torch):
+    """The int8 arm's kernels against their plain versions; returns, per
+    wrapper, the max abs error and both times at its ViT-B shape."""
+    from mit_tpu_torch.ops import int8_layer, int8_mlp
+    from mit_tpu_torch.ops.flash_attention import (
+        flash_attention_btd_fusedqkv,
+        flash_attention_btd_fusedqkv_reference,
+    )
+
+    results = {}
+
+    # quantize_rows: bitwise without the LayerNorm, one step with it
+    for k in (768, 3072):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = random_rows(torch, M_FULL, k, dtype, seed=k)
+            ln = random_ln(torch, k, seed=k + 1)
+            for with_ln in (False, True):
+                args = (x, ln if with_ln else None, 1e-12)
+                x8, sx = int8_mlp.quantize_rows(*args)
+                r8, rsx = int8_mlp.quantize_rows_reference(*args)
+                torch.cuda.synchronize()
+                diff = (x8.int() - r8.int()).abs()
+                flips = (diff > 0).float().mean().item()
+                srel = ((sx - rsx).abs() / rsx).max().item()
+                print(f"quantize_rows ({M_FULL}, {k}) {str(dtype)[6:]:8s} "
+                      f"ln={with_ln}: max code diff {diff.max().item()}, "
+                      f"share of codes differing {flips:.2e}, max scale "
+                      f"rel diff {srel:.2e}, all-zero row's max code "
+                      f"{x8[1].abs().max().item()}")
+                ok = (diff.max().item() <= 1 and flips <= 1e-3
+                      and srel <= 1e-5) if with_ln else (
+                    torch.equal(x8, r8) and torch.equal(sx, rsx)
+                    and not x8[1].any())
+                if not ok:
+                    raise AssertionError(f"quantize_rows disagrees: K={k} "
+                                         f"{dtype} ln={with_ln}")
+    x = random_rows(torch, M_FULL, 3072, torch.float32, seed=3)
+    (x8, sx), (r8, rsx) = (int8_mlp.quantize_rows(x),
+                           int8_mlp.quantize_rows_reference(x))
+    err = max((x8.int() - r8.int()).abs().max().item(),
+              (sx - rsx).abs().max().item())
+    runs = timed_turns(torch, lambda: int8_mlp.quantize_rows(x),
+                       lambda: int8_mlp.quantize_rows_reference(x))
+    report(results, "quantize_rows", err, runs,
+           f"({M_FULL}, 3072) f32, the fc2 input (error: codes and scales)")
+
+    # int8_gemm: exact accumulators, then each epilogue of the path
+    gemm_ms = {"kernel": [0.0, 0.0], "plain": [0.0, 0.0]}
+    gemm_err = 0.0
+    for i, (name, k, n, act, res, out) in enumerate(GEMMS):
+        q = random_qlinear(torch, k, n, seed=10 + i)
+        out_dtype = getattr(torch, out)
+        for m in (M_FULL, 197):
+            a8, sx = int8_mlp.quantize_rows(
+                random_rows(torch, m, k, torch.float32, seed=20 + i))
+            a8[0] = 127                      # 127² · K: past f32's 2²⁴
+            acc = int8_mlp.int8_gemm(a8, sx, q, out_dtype=torch.int32)
+            exact = torch.equal(
+                acc, int8_mlp.int8_gemm_reference(a8, sx, q,
+                                                  out_dtype=torch.int32))
+            epilogues = [(act, res, out_dtype)]
+            if name == "fc1":
+                epilogues.append(("quick_gelu", None, torch.float32))
+            if name == "out_proj":
+                epilogues.append(("none", "float32", torch.bfloat16))
+            for e_act, e_res, e_out in epilogues:
+                residual = None if e_res is None else random_rows(
+                    torch, m, n, getattr(torch, e_res), seed=30 + i)
+                y = int8_mlp.int8_gemm(a8, sx, q, e_act, residual, e_out)
+                ref = int8_mlp.int8_gemm_reference(a8, sx, q, e_act,
+                                                   residual, e_out)
+                torch.cuda.synchronize()
+                err = (y.float() - ref.float()).abs().max().item()
+                tol = ({"rtol": 2e-6, "atol": 1e-6} if e_out == torch.float32
+                       else {"rtol": 8e-3, "atol": 1e-5})
+                close = torch.allclose(y.float(), ref.float(), **tol)
+                print(f"int8_gemm {name:8s} M={m:5d} K={k} N={n} act={e_act} "
+                      f"residual={e_res} out={str(e_out)[6:]}: int32 exact="
+                      f"{exact}, max_abs_err={err:.3e} ({tol})")
+                if not (exact and close):
+                    raise AssertionError(f"int8_gemm disagrees: {name} M={m}")
+                if m == M_FULL and e_act == act and e_res == res:
+                    gemm_err = max(gemm_err, err)
+            if m == M_FULL:
+                residual = None if res is None else random_rows(
+                    torch, m, n, getattr(torch, res), seed=30 + i)
+                runs = timed_turns(
+                    torch,
+                    lambda: int8_mlp.int8_gemm(a8, sx, q, act, residual,
+                                               out_dtype),
+                    lambda: int8_mlp.int8_gemm_reference(a8, sx, q, act,
+                                                         residual, out_dtype))
+                tops = 2 * m * k * n / (statistics.mean(runs["kernel"]) * 1e9)
+                print(f"time int8_gemm {name:8s} M={m} K={k} N={n}: kernel "
+                      f"{runs['kernel']} ms ({tops:.1f} TOP/s), plain "
+                      f"{runs['plain']} ms")
+                for w in ("kernel", "plain"):
+                    for j in range(2):
+                        gemm_ms[w][j] += runs[w][j]
+    report(results, "int8_gemm", gemm_err, gemm_ms,
+           "the four GEMMs of one layer, summed")
+
+    # fused-QKV attention, both output modes
+    qkv32 = random_rows(torch, M_FULL, 3 * 768, torch.float32, seed=40,
+                        zero_row=False).reshape(64, 197, 3 * 768)
+    for dtype, layer in ((torch.float32, False), (torch.bfloat16, False),
+                         (torch.bfloat16, True)):
+        qkv = qkv32.to(dtype)
+        out = flash_attention_btd_fusedqkv(qkv, 64, layer)
+        ref = flash_attention_btd_fusedqkv_reference(qkv, 64, layer)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        limit = TOL[str(dtype)[6:]]
+        print(f"flash_attention_btd_fusedqkv (64, 197, 2304) "
+              f"{str(dtype)[6:]:8s} layer_numerics={layer}: max_abs_err="
+              f"{err:.3e} limit={limit:.0e} out={str(out.dtype)[6:]}")
+        if not err <= limit or torch.isnan(out).any():
+            raise AssertionError("flash_attention_btd_fusedqkv disagrees")
+        if dtype == torch.bfloat16 and not layer:
+            runs = timed_turns(
+                torch, lambda: flash_attention_btd_fusedqkv(qkv, 64),
+                lambda: flash_attention_btd_fusedqkv_reference(qkv, 64))
+            report(results, "flash_attention_btd_fusedqkv", err, runs,
+                   "(64, 197, 2304) bf16")
+        if layer:
+            runs = timed_turns(
+                torch, lambda: flash_attention_btd_fusedqkv(qkv, 64, True),
+                lambda: flash_attention_btd_fusedqkv_reference(qkv, 64, True))
+            print(f"time attention stage of the fused layer: kernel "
+                  f"{runs['kernel']} ms, plain {runs['plain']} ms")
+
+    # int8_linear (the patch embedding) and fused_int8_mlp
+    patches = random_rows(torch, 64 * 196, 768, torch.bfloat16, seed=50
+                          ).reshape(64, 196, 768)
+    q = random_qlinear(torch, 768, 768, seed=51)
+    x = random_rows(torch, M_FULL, 768, torch.bfloat16, seed=52
+                    ).reshape(64, 197, 768)
+    q1 = random_qlinear(torch, 768, 3072, seed=53)
+    q2 = random_qlinear(torch, 3072, 768, seed=54)
+    for name, kern, plain, what in (
+        ("int8_linear", lambda: int8_mlp.int8_linear(patches, q),
+         lambda: int8_mlp.int8_linear_reference(patches, q),
+         "(64, 196, 768) bf16, the patch embedding"),
+        ("fused_int8_mlp", lambda: int8_mlp.fused_int8_mlp(x, q1, q2),
+         lambda: int8_mlp.fused_int8_mlp_reference(x, q1, q2),
+         "(64, 197, 768) bf16, F 3072, gelu"),
+    ):
+        out, ref = kern(), plain()
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        rel = rel_l2(out, ref)
+        print(f"{name} {what}: relative L2 {rel:.3e} (limit 1e-3), "
+              f"max_abs_err={err:.3e}")
+        if not rel <= 1e-3:
+            raise AssertionError(f"{name} disagrees")
+        report(results, name, err, timed_turns(torch, kern, plain), what)
+
+    # the whole layer: ViT-B (one pass) and ViT-L (the split form)
+    for name, b, t, d, f, heads in (
+        ("fused_int8_vit_layer", 64, 197, 768, 3072, 12),
+        ("fused_int8_vit_layer_split", 8, 257, 1024, 4096, 16),
+    ):
+        x = random_rows(torch, b * t, d, torch.bfloat16, seed=60,
+                        zero_row=False).reshape(b, t, d)
+        args = (random_ln(torch, d, 61), random_qlinear(torch, d, 3 * d, 62),
+                random_qlinear(torch, d, d, 63), random_ln(torch, d, 64),
+                random_qlinear(torch, d, f, 65),
+                random_qlinear(torch, f, d, 66), heads, 1e-12)
+        kern_fn = getattr(int8_layer, name)
+        plain_fn = getattr(int8_layer, name + "_reference")
+        out, ref = kern_fn(x, *args), plain_fn(x, *args)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        rel = rel_l2(out, ref)
+        what = f"({b}, {t}, {d}) F {f} {heads} heads bf16"
+        print(f"{name} {what}: relative L2 {rel:.3e} (limit 5e-3), "
+              f"max_abs_err={err:.3e}")
+        if not rel <= 5e-3 or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"{name} disagrees")
+        report(results, name, err,
+               timed_turns(torch, lambda: kern_fn(x, *args),
+                           lambda: plain_fn(x, *args)), what)
+    return results
+
+
+def drive(torch, name, cap, px, reps):
+    """The main path of one arm: every counter set to 0, `reps` encode and
+    decode calls, the counters read and held to PER_ENCODE. Returns
+    captions/s (median), the counts and the last batch's memory."""
+    reset_counts()
+    seconds, enc_s = [], []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        mem = cap.memory_from_pixels(px)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        tokens = cap.generate_from_memory(mem)
+        t2 = time.perf_counter()
+        seconds.append(t2 - t0)
+        enc_s.append(t1 - t0)
+    counts = read_counts()
+    want = {k: PER_ENCODE[name].get(k, 0) * reps for k in counts}
+    b = px.shape[0]
+    rate = b / statistics.median(seconds)
+    steps = max(len(t) for t in tokens) - 1
+    per_encode = {k: v / reps for k, v in counts.items() if v}
+    print(f"slice bf16 B={b} {name}: {rate:.1f} captions/s (median of {reps} "
+          f"runs {[round(s, 4) for s in seconds]} s; encode "
+          f"{[round(s, 4) for s in enc_s]} s; {steps} decode steps); "
+          f"launches per encode call {per_encode}, every other counter 0")
+    if counts != want:
+        raise AssertionError(f"{name}: launches {counts}, want {want} "
+                             f"({reps} encode calls)")
+    if not (bool(torch.isfinite(mem).all()) and mem.shape == (b, 1, 512)):
+        raise AssertionError(f"{name}: bad memory {tuple(mem.shape)}")
+    return rate, counts, tokens
+
+
 def check_slice(torch):
     from mit_tpu_torch.decode.api import Captioner
     from mit_tpu_torch.models.decoder import DecoderConfig
@@ -173,35 +509,101 @@ def check_slice(torch):
     if per_encode != 11 or not err <= 1e-4 or not same:
         raise AssertionError("f32 slice: kernel path disagrees with plain path")
 
-    # bf16, batch 64: the counted and timed main path
-    cap = Captioner(params, mcfg, ids, torch.bfloat16)
-    px = pixels.to("cuda")
-    cap.generate_from_memory(cap.memory_from_pixels(px))      # warm-up
+    # int8 arm, f32, batch 8: kernel path against the plain int8 path and
+    # against the float arm. The int8 encoder is discontinuous where a
+    # value crosses a rounding boundary of its code: a change of the input
+    # in its last bit flips a code, and twelve layers of requantization
+    # spread that flip (the float arm moves by about 1e-6 where the int8
+    # arm moves by about 2e-2). So the bound is measured in the run: the
+    # kernel path may differ from the plain path by at most FLOOR_FACTOR
+    # times what a one-ulp change of the pixels (x (1 + 1e-7)) moves the
+    # plain path itself. Phase 3 holds each kernel to its own rounding.
+    q8 = Captioner(params, mcfg, ids, torch.float32, encoder_quant="int8")
+    q8_plain = Captioner(params, mcfg, ids, torch.float32, use_kernel=False,
+                         encoder_quant="int8")
+    px8 = pixels[:8]
+    mem_q = q8.memory_from_pixels(px8)
+    mem_qp = q8_plain.memory_from_pixels(px8)
+    floor = rel_l2(q8_plain.memory_from_pixels(px8 * (1 + 1e-7)), mem_qp)
     torch.cuda.synchronize()
-    flash_attention_btd.launches = 0
-    seconds, enc_s, steps = [], [], 0
-    for _ in range(REPS):
-        t0 = time.perf_counter()
-        mem = cap.memory_from_pixels(px)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        tokens = cap.generate_from_memory(mem)
-        t2 = time.perf_counter()
-        seconds.append(t2 - t0)
-        enc_s.append(t1 - t0)
-        steps = max(len(t) for t in tokens) - 1
-    launches = flash_attention_btd.launches
-    assert bool(torch.isfinite(mem).all()) and mem.shape == (64, 1, 512)
+    rel = rel_l2(mem_q, mem_qp)
+    cos = lambda a: torch.nn.functional.cosine_similarity(
+        a.flatten(), mem_k.flatten(), dim=0).item()
+    tok_q = q8.generate_from_memory(mem_q)
+    tok_qp = q8_plain.generate_from_memory(mem_qp)
+    check_tokens(tok_q, 8)
+    agree = np.mean([a == b for ta, tb in zip(tok_q, tok_qp)
+                     for a, b in zip(ta, tb)])
+    agree_float = np.mean([a == b for ta, tb in zip(tok_q, tok_k)
+                           for a, b in zip(ta, tb)])
+    print(f"slice int8 f32 B=8: memory kernel vs plain int8 relative L2 "
+          f"{rel:.3e} (limit {FLOOR_FACTOR} x {floor:.3e}, the plain int8 "
+          f"path's move under pixels x (1 + 1e-7)), max_abs_err="
+          f"{(mem_q - mem_qp).abs().max().item():.3e}; cosine to the float "
+          f"arm: kernel {cos(mem_q):.6f}, plain {cos(mem_qp):.6f} (limit "
+          f"> 0.999); greedy-token agreement kernel vs plain int8 "
+          f"{agree:.4f}, int8 vs float {agree_float:.4f} (not gated)")
+    if not (0 < floor and rel <= FLOOR_FACTOR * floor and cos(mem_q) > 0.999
+            and bool(torch.isfinite(mem_q).all())):
+        raise AssertionError("int8 f32 slice: kernel path disagrees")
+    del kern, plain, q8, q8_plain
+
+    # bf16, batch 64: the counted and timed main paths of both arms
+    arms = {
+        "float": Captioner(params, mcfg, ids, torch.bfloat16),
+        "int8": Captioner(params, mcfg, ids, torch.bfloat16,
+                          encoder_quant="int8"),
+    }
+    px = pixels.to("cuda")
+    for cap in arms.values():                                  # warm-up
+        cap.generate_from_memory(cap.memory_from_pixels(px))
+    torch.cuda.synchronize()
+    enc_ms = {arm: [] for arm in arms}
+    for turn in range(ENC_REPS):
+        for arm in (("float", "int8") if turn % 2 == 0 else ("int8", "float")):
+            t0 = time.perf_counter()
+            arms[arm].memory_from_pixels(px)
+            torch.cuda.synchronize()
+            enc_ms[arm].append((time.perf_counter() - t0) * 1e3)
+    for arm, ms in enc_ms.items():
+        q1, q2, q3 = statistics.quantiles(ms, n=4)
+        print(f"encoder bf16 B=64 {arm}: median {q2:.3f} ms (quartiles "
+              f"{q1:.3f}-{q3:.3f}, {ENC_REPS} runs in alternating turns)")
+
+    rates, counts = {}, {}
+    for arm in ("float", "int8"):
+        rates[arm], counts[arm], tokens = drive(torch, arm, arms[arm], px, REPS)
+        check_tokens(tokens, 64)
+    per_op = Captioner(params, mcfg, ids, torch.bfloat16, encoder_quant="int8",
+                       fused_layers=False)
+    per_op.memory_from_pixels(px[:2])                          # warm-up
+    torch.cuda.synchronize()
+    _, counts["int8_per_op"], tokens = drive(torch, "int8_per_op", per_op, px, 1)
     check_tokens(tokens, 64)
-    rate = 64 / statistics.median(seconds)
-    print(f"slice bf16 B=64: {rate:.1f} captions/s (median of {REPS} runs "
-          f"{[round(s, 4) for s in seconds]} s; encode {[round(s, 4) for s in enc_s]} s; "
-          f"{steps} decode steps); kernel launches {launches} "
-          f"(want {11 * REPS} = 11 x {REPS} encode calls)")
-    if launches != 11 * REPS:
-        raise AssertionError("main path did not launch flash_attention_btd "
-                             "11 times per encode call")
-    return launches
+    return {"rates": rates, "enc_ms": {a: statistics.median(m)
+                                       for a, m in enc_ms.items()},
+            "counts": counts}
+
+
+# kernel name -> (source, the TPU kernel it replaces, the path whose run
+# gives its launch count)
+KERNELS = {
+    "flash_attention_btd": ("flash_attention_btd.cu",
+                            "mit_tpu/ops/pallas_attention.py:160", "float"),
+    "flash_attention_btd_fusedqkv": ("flash_attention_btd.cu",
+                                     "mit_tpu/ops/pallas_attention.py:196",
+                                     "int8_per_op"),
+    "quantize_rows": ("quantize_rows.cu",
+                      "mit_tpu/ops/pallas_int8_mlp.py:72", "int8"),
+    "int8_gemm": ("int8_gemm.cu", "mit_tpu/ops/pallas_int8_mlp.py:212",
+                  "int8"),
+    "int8_linear": ("int8_gemm.cu", "mit_tpu/ops/pallas_int8_mlp.py:212",
+                    "int8"),
+    "fused_int8_mlp": ("int8_gemm.cu", "mit_tpu/ops/pallas_int8_mlp.py:88",
+                       "int8"),
+    "fused_int8_vit_layer": ("int8_gemm.cu",
+                             "mit_tpu/ops/pallas_int8_layer.py:263", "int8"),
+}
 
 
 def main() -> int:
@@ -234,25 +636,35 @@ def main() -> int:
 
     print("== 3 kernels", flush=True)
     errors, times = check_kernels(torch)
+    int8 = check_int8_kernels(torch)
 
     print("== 4 slice", flush=True)
-    launches = check_slice(torch)
+    slice_ = check_slice(torch)
+    rates, enc_ms = slice_["rates"], slice_["enc_ms"]
+    print(f"captions/s bf16 B=64: float {rates['float']:.2f}, int8 "
+          f"{rates['int8']:.2f}; median encoder ms: float "
+          f"{enc_ms['float']:.3f}, int8 {enc_ms['int8']:.3f}")
 
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "mit_tpu"))
     if loaded:
         raise AssertionError(f"the smoke imported JAX-side modules: {loaded}")
 
     print("== 5 result", flush=True)
-    print(json.dumps({"kernels": [{
-        "name": "flash_attention_btd",
-        "route": "cuda",
-        "source": "mit_tpu_torch/csrc/flash_attention_btd.cu",
-        "replaces": "mit_tpu/ops/pallas_attention.py:160",
-        "launches": launches,
+    results = dict(int8, flash_attention_btd={
         "max_abs_err": errors[("encoder", "bfloat16")],
         "ms": times["bfloat16"]["kernel"],
         "plain_ms": times["bfloat16"]["plain"],
-    }]}))
+    })
+    lines = []
+    for name, (source, replaces, path) in KERNELS.items():
+        launches = slice_["counts"][path][name]
+        if launches == 0:
+            raise AssertionError(f"{name} was not launched on its path")
+        lines.append({"name": name, "route": "cuda",
+                      "source": f"mit_tpu_torch/csrc/{source}",
+                      "replaces": replaces, "launches": launches,
+                      **results[name]})
+    print(json.dumps({"kernels": lines}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -32,6 +32,18 @@
 // round p against a running max and rescale the sums. The price is the
 // q.k^T product computed twice (three tile products instead of two).
 //
+// Fused QKV. The same kernel also replaces _attn_kernel_btd_fusedqkv
+// (pallas_attention.py:196, behind flash_attention_btd_fusedqkv) and the
+// attention stage of the int8 whole-layer kernel (_attn_body in
+// mit_tpu/ops/pallas_int8_layer.py:69-127). There q, k and v are the column
+// blocks 0, D and 2D of one (B, T, 3D) tensor, as the fused QKV projection
+// writes it: the loads take a row stride (3D) and a column offset, so no
+// split or copy of that tensor is made. The whole-layer kernel's numerics
+// differ in three places, selected by the LAYER template flag: the scores
+// are scaled by log2(e)/sqrt(64) and exponentiated with exp2f (the same p
+// up to rounding), the context is o * (1 / rowsum) rather than o / rowsum,
+// and it is written in f32 from bf16 qkv.
+//
 // Every entry point returns cudaGetLastError() after its launch; the Python
 // wrapper raises when it is not cudaSuccess.
 
@@ -48,6 +60,8 @@ constexpr int THREADS = 128;    // 16 column lanes x 8 row lanes
 constexpr int LD = HD + 1;      // padded shared-memory row: no bank conflicts
 constexpr int PLD = BK + 1;
 constexpr float NEG_INF = -1e9f;
+constexpr float SCALE = 0.125f;                        // 1/sqrt(64), exact
+constexpr float SCALE2 = 0.18033688011112042f;         // log2(e)/sqrt(64)
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -82,7 +96,8 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src, int nrows,
 __device__ __forceinline__ void tile_scores(float s[4][4], const float* qs,
                                             const float* ks, int q0, int k0,
                                             int S, const float* pad_row,
-                                            bool causal, int tx, int ty) {
+                                            bool causal, int tx, int ty,
+                                            float scale) {
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -99,7 +114,6 @@ __device__ __forceinline__ void tile_scores(float s[4][4], const float* qs,
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
   }
-  const float scale = 0.125f;   // 1/sqrt(64), exact
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty + 8 * i;
@@ -114,12 +128,15 @@ __device__ __forceinline__ void tile_scores(float s[4][4], const float* qs,
   }
 }
 
-template <typename T>
+// q rows have stride ldq, k and v rows stride ldkv, out rows stride D
+// (the model width); head h is columns h*64 .. h*64+63 of each.
+template <typename T, typename OutT, bool LAYER>
 __global__ void __launch_bounds__(THREADS)
 flash_attention_btd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v,
-                           const float* __restrict__ pad, T* __restrict__ out,
-                           int Tq, int S, int D, bool causal) {
+                           const float* __restrict__ pad,
+                           OutT* __restrict__ out, int Tq, int S, int D,
+                           int ldq, int ldkv, bool causal) {
   __shared__ float qs[BQ * LD];
   __shared__ float kvs[BK * LD];   // the K tile, then the V tile
   __shared__ float ps[BQ * PLD];
@@ -130,12 +147,13 @@ flash_attention_btd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tx = threadIdx.x & 15;
   const int ty = threadIdx.x >> 4;
 
-  const T* qb = q + ((size_t)b * Tq + q0) * D + h * HD;
-  const T* kb = k + (size_t)b * S * D + h * HD;
-  const T* vb = v + (size_t)b * S * D + h * HD;
+  const T* qb = q + ((size_t)b * Tq + q0) * ldq + h * HD;
+  const T* kb = k + (size_t)b * S * ldkv + h * HD;
+  const T* vb = v + (size_t)b * S * ldkv + h * HD;
   const float* pad_row = pad != nullptr ? pad + (size_t)b * S : nullptr;
+  const float scale = LAYER ? SCALE2 : SCALE;
 
-  load_tile(qs, qb, BQ, min(BQ, Tq - q0), D);
+  load_tile(qs, qb, BQ, min(BQ, Tq - q0), ldq);
 
   float s[4][4];
 
@@ -143,9 +161,9 @@ flash_attention_btd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float m[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
   for (int k0 = 0; k0 < S; k0 += BK) {
     __syncthreads();
-    load_tile(kvs, kb + (size_t)k0 * D, BK, min(BK, S - k0), D);
+    load_tile(kvs, kb + (size_t)k0 * ldkv, BK, min(BK, S - k0), ldkv);
     __syncthreads();
-    tile_scores(s, qs, kvs, q0, k0, S, pad_row, causal, tx, ty);
+    tile_scores(s, qs, kvs, q0, k0, S, pad_row, causal, tx, ty, scale);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -168,19 +186,19 @@ flash_attention_btd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int k0 = 0; k0 < S; k0 += BK) {
     __syncthreads();
-    load_tile(kvs, kb + (size_t)k0 * D, BK, min(BK, S - k0), D);
+    load_tile(kvs, kb + (size_t)k0 * ldkv, BK, min(BK, S - k0), ldkv);
     __syncthreads();
-    tile_scores(s, qs, kvs, q0, k0, S, pad_row, causal, tx, ty);
+    tile_scores(s, qs, kvs, q0, k0, S, pad_row, causal, tx, ty, scale);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m[i]);
+        const float p = LAYER ? exp2f(s[i][j] - m[i]) : expf(s[i][j] - m[i]);
         l[i] += p;
         ps[(ty + 8 * i) * PLD + tx + 16 * j] = round_like(p, v);
       }
     __syncthreads();
-    load_tile(kvs, vb + (size_t)k0 * D, BK, min(BK, S - k0), D);
+    load_tile(kvs, vb + (size_t)k0 * ldkv, BK, min(BK, S - k0), ldkv);
     __syncthreads();
 #pragma unroll 8
     for (int c = 0; c < BK; ++c) {
@@ -201,28 +219,40 @@ flash_attention_btd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int off = 8; off > 0; off >>= 1)
       l[i] += __shfl_xor_sync(0xffffffffu, l[i], off);
 
-  T* ob = out + ((size_t)b * Tq + q0) * D + h * HD;
+  OutT* ob = out + ((size_t)b * Tq + q0) * D + h * HD;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = ty + 8 * i;
     if (q0 + r >= Tq) continue;
+    const float inv = LAYER ? __fdiv_rn(1.f, l[i]) : 0.f;
 #pragma unroll
     for (int j = 0; j < 4; ++j)
-      store(ob + (size_t)r * D + tx + 16 * j, o[i][j] / l[i]);
+      store(ob + (size_t)r * D + tx + 16 * j,
+            LAYER ? __fmul_rn(o[i][j], inv) : o[i][j] / l[i]);
   }
 }
 
-template <typename T>
+template <typename T, typename OutT = T, bool LAYER = false>
 int launch(const void* q, const void* k, const void* v, const void* pad,
-           void* out, int B, int Tq, int S, int D, int causal, int has_pad,
-           void* stream) {
+           void* out, int B, int Tq, int S, int D, int ldq, int ldkv,
+           int causal, int has_pad, void* stream) {
   const dim3 grid((Tq + BQ - 1) / BQ, D / HD, B);
-  flash_attention_btd_kernel<T><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v),
-      has_pad ? static_cast<const float*>(pad) : nullptr, static_cast<T*>(out),
-      Tq, S, D, causal != 0);
+  flash_attention_btd_kernel<T, OutT, LAYER>
+      <<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v),
+          has_pad ? static_cast<const float*>(pad) : nullptr,
+          static_cast<OutT*>(out), Tq, S, D, ldq, ldkv, causal != 0);
   return static_cast<int>(cudaGetLastError());
+}
+
+// q, k and v as the column blocks of one (B, T, 3D) tensor
+template <typename T, typename OutT = T, bool LAYER = false>
+int launch_fused(const void* qkv, void* out, int B, int T_, int D,
+                 void* stream) {
+  const T* q = static_cast<const T*>(qkv);
+  return launch<T, OutT, LAYER>(q, q + D, q + 2 * D, nullptr, out, B, T_, T_,
+                                D, 3 * D, 3 * D, 0, 0, stream);
 }
 
 }  // namespace
@@ -234,7 +264,7 @@ extern "C" int mit_flash_attention_btd_f32(const void* q, const void* k,
                                            void* out, int B, int Tq, int S,
                                            int D, int causal, int has_pad,
                                            void* stream) {
-  return launch<float>(q, k, v, pad, out, B, Tq, S, D, causal, has_pad,
+  return launch<float>(q, k, v, pad, out, B, Tq, S, D, D, D, causal, has_pad,
                        stream);
 }
 
@@ -243,6 +273,22 @@ extern "C" int mit_flash_attention_btd_bf16(const void* q, const void* k,
                                             void* out, int B, int Tq, int S,
                                             int D, int causal, int has_pad,
                                             void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, pad, out, B, Tq, S, D, causal,
+  return launch<__nv_bfloat16>(q, k, v, pad, out, B, Tq, S, D, D, D, causal,
                                has_pad, stream);
+}
+
+// qkv: (B, T, 3D) contiguous; out: (B, T, D). mode 0: f32 in and out;
+// mode 1: bf16 in and out; mode 2: bf16 in, f32 out, the whole-layer
+// kernel's numerics (exp2, o * (1 / rowsum)). D must be a multiple of 64.
+extern "C" int mit_flash_attention_fusedqkv(const void* qkv, void* out, int B,
+                                            int T, int D, int mode,
+                                            void* stream) {
+  switch (mode) {
+    case 0: return launch_fused<float>(qkv, out, B, T, D, stream);
+    case 1: return launch_fused<__nv_bfloat16>(qkv, out, B, T, D, stream);
+    case 2:
+      return launch_fused<__nv_bfloat16, float, true>(qkv, out, B, T, D,
+                                                      stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -17,6 +17,7 @@ import torch
 from mit_tpu_torch.data.preprocess import HostPreprocessor
 from mit_tpu_torch.decode.greedy import greedy_generate
 from mit_tpu_torch.models.model import ModelConfig, encode_images, project_features
+from mit_tpu_torch.models.vision import quantize_vision_params
 
 DECODE_NOT_PORTED = (
     "only greedy decoding is ported; beam search and sampling are not yet: "
@@ -29,8 +30,14 @@ class Captioner:
     tokenizer. The tokenizer needs ``pad_id``, ``start_id``, ``end_id`` for
     decoding, and ``decode`` and ``unk_token`` for :meth:`postprocess`.
 
-    ``use_kernel=False`` runs the encoder's attention through the plain
-    PyTorch path instead of ``flash_attention_btd``, for comparison.
+    ``use_kernel=False`` runs the encoder's kernels' plain PyTorch versions
+    instead, for comparison.
+
+    ``encoder_quant``: "none" keeps the float encoder; "int8" quantizes the
+    frozen encoder's GEMMs to int8 (W8A8) once, here at load; "int8_defect"
+    is the quality gate's negative control, int8 with every layer's fc2
+    scale doubled, never to be served. ``fused_layers`` picks the int8
+    encoder's form (``vision_forward_int8``).
     """
 
     def __init__(
@@ -40,12 +47,26 @@ class Captioner:
         tokenizer,
         compute_dtype=torch.float32,
         use_kernel: bool = True,
+        encoder_quant: str = "none",
+        fused_layers: bool = True,
     ):
+        if encoder_quant not in ("none", "int8", "int8_defect"):
+            raise ValueError(
+                "encoder_quant must be 'none', 'int8' or 'int8_defect', "
+                f"got {encoder_quant!r}"
+            )
+        if encoder_quant.startswith("int8") and "patch" not in params["encoder"]:
+            enc = quantize_vision_params(params["encoder"], mcfg.vision)
+            if encoder_quant == "int8_defect":
+                fc2 = enc["layers"]["fc2"]
+                enc["layers"]["fc2"] = fc2._replace(scale=fc2.scale * 2.0)
+            params = dict(params, encoder=enc)
         self.params = params
         self.mcfg = mcfg
         self.tokenizer = tokenizer
         self.compute_dtype = compute_dtype
         self.use_kernel = use_kernel
+        self.fused_layers = fused_layers
         self.device = params["decoder"]["token_embedding"].device
         self.preprocessor = HostPreprocessor(
             mcfg.encoder_name, image_size=mcfg.vision.image_size
@@ -62,7 +83,8 @@ class Captioner:
         """Preprocessed NCHW f32 pixel batch → decoder memory (B, S, D)."""
         pixels = pixels.to(device=self.device, dtype=torch.float32)
         feats = encode_images(self.params, self.mcfg, pixels,
-                              self.compute_dtype, self.use_kernel)
+                              self.compute_dtype, self.use_kernel,
+                              self.fused_layers)
         return project_features(self.params, self.mcfg, feats,
                                 self.compute_dtype)
 
@@ -139,10 +161,11 @@ class Captioner:
 
 
 def load_captioner(checkpoint_path: str, cfg, compute_dtype=torch.float32,
-                   device="cuda") -> Captioner:
+                   device="cuda", encoder_quant: str = "none") -> Captioner:
     """Captioner from a reference-layout safetensors checkpoint and the
     tokenizer files of ``cfg`` (a ``mit_tpu.config.Config``): tokenizer →
-    model config with the actual vocab size → weights onto ``device``."""
+    model config with the actual vocab size → weights onto ``device``,
+    the encoder quantized as ``encoder_quant`` says."""
     from mit_tpu.text.tokenizer import get_tokenizer
     from mit_tpu_torch.train.checkpoint import load_safetensors
 
@@ -150,4 +173,5 @@ def load_captioner(checkpoint_path: str, cfg, compute_dtype=torch.float32,
     cfg = cfg.with_tokenizer_ids(tokenizer)
     mcfg = ModelConfig.build(cfg, vocab_size=tokenizer.get_vocab_size())
     params = load_safetensors(checkpoint_path, mcfg, device)
-    return Captioner(params, mcfg, tokenizer, compute_dtype)
+    return Captioner(params, mcfg, tokenizer, compute_dtype,
+                     encoder_quant=encoder_quant)

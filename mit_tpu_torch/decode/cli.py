@@ -1,7 +1,8 @@
 """Captioning CLI on the GPU (port of ``mit_tpu/decode/cli.py``, greedy).
 
     python -m mit_tpu_torch.decode.cli --image_path img.jpg [more.jpg ...] \
-        [--checkpoint_path ckpt.safetensors] [--data_dir DIR] [--device cuda]
+        [--checkpoint_path ckpt.safetensors] [--data_dir DIR] [--device cuda] \
+        [--encoder_quant {none,int8}]
 
 Runs on a CUDA device only: without one it raises instead of running on the
 CPU.
@@ -33,6 +34,10 @@ def main(argv=None) -> int:
     parser.add_argument(
         "--device", type=str, default="cuda",
         help="CUDA device to run on (default: cuda).",
+    )
+    parser.add_argument(
+        "--encoder_quant", type=str, default="none", choices=["none", "int8"],
+        help="Quantize the frozen encoder's GEMMs to int8 (W8A8) at load.",
     )
     args = parser.parse_args(argv)
 
@@ -80,7 +85,8 @@ def main(argv=None) -> int:
     from mit_tpu_torch.decode.api import load_captioner
 
     print(f"Loading model from {ckpt_path}...")
-    captioner = load_captioner(ckpt_path, cfg, device=args.device)
+    captioner = load_captioner(ckpt_path, cfg, device=args.device,
+                               encoder_quant=args.encoder_quant)
     images = [Image.open(p).convert("RGB") for p in args.image_path]
     print("Generating text...")
     captions = captioner.caption_batch(images)

@@ -1,9 +1,10 @@
 """Build and bind the hand-written CUDA kernels in ``mit_tpu_torch/csrc``.
 
-The ``.cu`` sources expose plain C entry points. At first use they are
-compiled with ``nvcc`` for ``sm_90a`` into one shared library under
+The ``.cu`` sources expose plain C entry points. At first use each source
+is compiled with ``nvcc`` for ``sm_90a``, all of them at once in parallel,
+and the objects are linked into one shared library under
 ``mit_tpu_torch/_build/`` (named by a hash of the sources and flags, so an
-edited source builds anew) and loaded with ``ctypes``. Pointers and the
+edited source builds anew), which is loaded with ``ctypes``. Pointers and the
 stream travel as integers: ``tensor.data_ptr()`` and
 ``torch.cuda.current_stream().cuda_stream``. Every entry point returns the
 launch's ``cudaGetLastError()``; :func:`check` raises when it is not 0.
@@ -18,6 +19,7 @@ import ctypes
 import hashlib
 import os
 import subprocess
+import tempfile
 import threading
 from pathlib import Path
 
@@ -25,17 +27,22 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 # -Xptxas -v reports registers, shared memory and spills per kernel; the
-# report is kept beside the library as <library>.log.
+# report is kept beside the library as <library>.log. No --use_fast_math:
+# the int8 quantizers' divides and square roots must stay IEEE.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 # name -> argtypes of every C entry point the library exports
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 ENTRY_POINTS = {
     "mit_flash_attention_btd_f32": [_P] * 5 + [_I] * 6 + [_P],
     "mit_flash_attention_btd_bf16": [_P] * 5 + [_I] * 6 + [_P],
+    "mit_flash_attention_fusedqkv": [_P] * 2 + [_I] * 4 + [_P],
+    "mit_quantize_rows_f32": [_P] * 5 + [_I, _I, _F, _P],
+    "mit_quantize_rows_bf16": [_P] * 5 + [_I, _I, _F, _P],
+    "mit_int8_gemm": [_P] * 7 + [_I] * 6 + [_P],
 }
 
 _lib = None
@@ -62,23 +69,39 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile ``csrc/*.cu`` into the shared library unless it is built."""
+    """Compile ``csrc/*.cu`` into the shared library unless it is built:
+    one ``nvcc -c`` per source, all started together, then one link."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *map(str, sorted(CSRC.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
-    out.with_name(out.name + ".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)   # atomic: a concurrent build sees all or nothing
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        tmp = Path(tmp)
+        jobs = []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj, log = tmp / f"{src.stem}.o", tmp / f"{src.stem}.log"
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            with open(log, "w") as f:
+                proc = subprocess.Popen(cmd, stdout=f,
+                                        stderr=subprocess.STDOUT, text=True)
+            jobs.append((cmd, proc, obj, log))
+        failed = [(cmd, proc.wait(), log) for cmd, proc, _, log in jobs]
+        failed = [(cmd, rc, log) for cmd, rc, log in failed if rc != 0]
+        if failed:
+            raise RuntimeError("\n".join(
+                f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{log.read_text()}"
+                for cmd, rc, log in failed
+            ))
+        lib = tmp / "lib.so"
+        cmd = [nvcc, "-shared", "-o", str(lib), *(str(j[2]) for j in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed to link ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        out.with_name(out.name + ".log").write_text(
+            "".join(j[3].read_text() for j in jobs))
+        os.replace(lib, out)   # atomic: a concurrent build sees all or nothing
     return out
 
 

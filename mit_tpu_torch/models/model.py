@@ -19,11 +19,7 @@ from mit_tpu_torch.models.vision import (
     config_for_encoder,
     init_vision_params,
     vision_forward,
-)
-
-INT8_NOT_PORTED = (
-    "the int8 encoder (vision_forward_int8 and its kernels) is not ported "
-    "yet: ROADMAP.md, queue 1, the int8 arm"
+    vision_forward_int8,
 )
 
 
@@ -81,16 +77,27 @@ def encode_images(
     pixel_values: torch.Tensor,          # (B, 3, H, W)
     compute_dtype=torch.float32,
     use_kernel: bool = True,
+    fused_layers: bool = True,
 ) -> torch.Tensor:
     """Frozen-encoder features before projection: (B, 1, H_enc) in "cls"
-    mode, (B, N+1, H_enc) in "full" mode."""
+    mode, (B, N+1, H_enc) in "full" mode.
+
+    An int8 encoder tree (``quantize_vision_params``, recognized by its
+    ``"patch"`` weight) runs :func:`vision_forward_int8`, in the form that
+    ``fused_layers`` picks; a float tree runs :func:`vision_forward`.
+    """
     enc = params["encoder"]
-    if "patch" in enc:                   # int8 tree (quantize_vision_params)
-        raise NotImplementedError(INT8_NOT_PORTED)
-    hidden = vision_forward(
-        enc, mcfg.vision, pixel_values, compute_dtype, use_kernel,
-        cls_only=mcfg.memory_mode == "cls",
-    )
+    cls_only = mcfg.memory_mode == "cls"
+    if "patch" in enc:
+        hidden = vision_forward_int8(
+            enc, mcfg.vision, pixel_values, compute_dtype, use_kernel,
+            cls_only=cls_only, fused_layers=fused_layers,
+        )
+    else:
+        hidden = vision_forward(
+            enc, mcfg.vision, pixel_values, compute_dtype, use_kernel,
+            cls_only=cls_only,
+        )
     return hidden.detach()
 
 

@@ -18,6 +18,21 @@ import torch.nn.functional as F
 
 from mit_tpu_torch.models.convert import layer_params, params_from_jax
 from mit_tpu_torch.ops.attention import layer_norm, multihead_attention
+from mit_tpu_torch.ops.flash_attention import (
+    flash_attention_btd_fusedqkv,
+    flash_attention_btd_fusedqkv_reference,
+)
+from mit_tpu_torch.ops.int8_layer import (
+    fused_int8_vit_layer,
+    fused_int8_vit_layer_reference,
+)
+from mit_tpu_torch.ops.int8_mlp import (
+    fused_int8_mlp,
+    fused_int8_mlp_reference,
+    int8_linear,
+    int8_linear_reference,
+)
+from mit_tpu_torch.ops.quant import quantize_weight
 
 
 class VisionConfig(NamedTuple):
@@ -211,6 +226,132 @@ def vision_forward(
 
     if cfg.ln_post:
         x = layer_norm(params["ln_post"], x, eps)
+    return x
+
+
+# ----------------------------------------------------------------------
+# int8 (W8A8) encoder: every GEMM int8 × int8 → int32 with per-row dynamic
+# activation scales; LayerNorm, softmax, GELU and residuals stay f32/bf16.
+# ----------------------------------------------------------------------
+def quantize_vision_params(params: dict, cfg: VisionConfig) -> dict:
+    """Float encoder params → int8 GEMM weights (``QuantizedLinear``
+    leaves), as ``mit_tpu.models.vision.quantize_vision_params``: the same
+    codes and scales, with Q, K and V fused into one (L, D, 3D) weight.
+    Layer norms, cls and pos pass through unchanged."""
+    lay = params["layers"]
+    attn = lay["attn"]
+    cat = lambda *ts: torch.cat(ts, dim=-1)
+    qp = {
+        "patch": quantize_weight(
+            params["patch_w"], params["patch_b"] if cfg.patch_bias else None,
+        ),
+        "cls": params["cls"],
+        "pos": params["pos"],
+        "layers": {
+            "attn": {
+                "qkv": quantize_weight(cat(attn["wq"], attn["wk"], attn["wv"]),
+                                       cat(attn["bq"], attn["bk"], attn["bv"])),
+                "o": quantize_weight(attn["wo"], attn["bo"]),
+            },
+            "ln1": lay["ln1"],
+            "ln2": lay["ln2"],
+            "fc1": quantize_weight(lay["fc1"], lay["b1"]),
+            "fc2": quantize_weight(lay["fc2"], lay["b2"]),
+        },
+    }
+    for k in ("ln_pre", "ln_post"):
+        if k in params:
+            qp[k] = params[k]
+    return qp
+
+
+def vision_forward_int8(
+    qparams: dict,
+    cfg: VisionConfig,
+    pixel_values: torch.Tensor,           # (B, 3, H, W) f32 NCHW
+    compute_dtype=torch.bfloat16,
+    use_kernel: bool = True,
+    cls_only: bool = False,
+    fused_layers: bool = True,
+) -> torch.Tensor:
+    """int8 twin of :func:`vision_forward` over :func:`quantize_vision_params`
+    weights (port of ``mit_tpu.models.vision.vision_forward_int8``).
+
+    The JAX package picks its layer kernel by what fits the TPU's VMEM; the
+    port keeps its two tiers as the two numeric forms they are:
+
+    - ``fused_layers=True`` (the default, the TPU's form at ViT-B): full
+      layers run :func:`~mit_tpu_torch.ops.int8_layer.fused_int8_vit_layer`
+      (LayerNorm in f32 before quantizing, bf16 qkv, f32 context and
+      residual stream);
+    - ``fused_layers=False``: the per-op form, ``int8_linear`` for QKV and
+      the out-projection, ``flash_attention_btd_fusedqkv`` and
+      ``fused_int8_mlp``, with plain LayerNorms and residual adds in the
+      compute dtype.
+
+    Patch embedding and the CLS-only last layer go through ``int8_linear``
+    and ``fused_int8_mlp`` in both forms; the last layer's one-query
+    attention is plain einsums, as in the JAX package. ``use_kernel=False``
+    runs every kernel's plain version instead.
+    """
+    if use_kernel:
+        linear, mlp = int8_linear, fused_int8_mlp
+        attn, layer_fn = flash_attention_btd_fusedqkv, fused_int8_vit_layer
+    else:
+        linear, mlp = int8_linear_reference, fused_int8_mlp_reference
+        attn = flash_attention_btd_fusedqkv_reference
+        layer_fn = fused_int8_vit_layer_reference
+    cd = compute_dtype
+    eps = cfg.layer_norm_eps
+    b = pixel_values.shape[0]
+    d = cfg.hidden_size
+    heads, hd = cfg.num_heads, d // cfg.num_heads
+    act = "quick_gelu" if cfg.hidden_act == "quick_gelu" else "gelu"
+
+    patch_q = qparams["patch"]
+    if patch_q.bias is None:
+        patch_q = patch_q._replace(bias=torch.zeros(
+            d, dtype=torch.float32, device=patch_q.scale.device))
+    x = linear(_patchify(pixel_values.to(cd), cfg.patch_size), patch_q, cd)
+    cls = qparams["cls"].to(cd).expand(b, 1, d)
+    x = torch.cat([cls, x], dim=1) + qparams["pos"].to(cd)[None]
+    if cfg.ln_pre:
+        x = layer_norm(qparams["ln_pre"], x, eps)
+
+    def attn_block(x, layer):
+        qkv = linear(layer_norm(layer["ln1"], x, eps), layer["attn"]["qkv"], cd)
+        return x + linear(attn(qkv, hd), layer["attn"]["o"], cd)
+
+    def mlp_block(x, layer):
+        h = layer_norm(layer["ln2"], x, eps)
+        return x + mlp(h, layer["fc1"], layer["fc2"], act, cd)
+
+    def full_layer(x, layer):
+        if fused_layers:
+            return layer_fn(x, layer["ln1"], layer["attn"]["qkv"],
+                            layer["attn"]["o"], layer["ln2"], layer["fc1"],
+                            layer["fc2"], heads, eps, act)
+        return mlp_block(attn_block(x, layer), layer)
+
+    n_full = cfg.num_layers - 1 if cls_only else cfg.num_layers
+    for i in range(n_full):
+        x = full_layer(x, layer_params(qparams["layers"], i))
+
+    if cls_only:
+        layer = layer_params(qparams["layers"], cfg.num_layers - 1)
+        qkv = linear(layer_norm(layer["ln1"], x, eps), layer["attn"]["qkv"], cd)
+        s = qkv.shape[1]
+        q1 = qkv[:, 0, :d].reshape(b, heads, hd)
+        k = qkv[:, :, d:2 * d].reshape(b, s, heads, hd)
+        v = qkv[:, :, 2 * d:].reshape(b, s, heads, hd)
+        scores = torch.einsum("bhd,bshd->bhs", q1.float(), k.float())
+        probs = torch.softmax(scores / math.sqrt(hd), dim=-1)
+        ctx = torch.einsum("bhs,bshd->bhd", probs.to(cd), v)
+        a = linear(ctx.reshape(b, 1, d), layer["attn"]["o"], cd)
+        x = mlp_block(x[:, :1] + a, layer)
+
+    if cfg.ln_post:
+        x = layer_norm(qparams["ln_post"], x, eps)
     return x
 
 

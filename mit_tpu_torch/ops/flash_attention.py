@@ -13,8 +13,23 @@ and its output feeds the out-projection with no head split or merge.
   probabilities before P·V, where the kernel divides by the row sum after
   P·V (as the Pallas kernel does), so the two agree to rounding.
 
+:func:`flash_attention_btd_fusedqkv` (port of the TPU kernel of the same
+name) takes one fused (B, T, 3D) qkv tensor, as the int8 encoder's fused
+QKV projection writes it: q, k and v are column offsets 0, D and 2D of it,
+read in place by the same CUDA kernel with a row stride of 3D. It has two
+output modes:
+
+- the TPU ``flash_attention_btd_fusedqkv``: bidirectional, unpadded,
+  ``exp(s·scale − m)``, p rounded to qkv's dtype for P·V, division by the
+  row sum, output in qkv's dtype;
+- ``layer_numerics=True``, the attention stage of the TPU
+  ``fused_int8_vit_layer`` (``pallas_int8_layer.py:95-125``): bf16 qkv,
+  f32 scores, ``exp2(s·scale2 − m)`` with ``scale2 = log2(e)/√hd``, p
+  rounded to bf16 for P·V, multiplication by ``1/rowsum`` after P·V, and
+  an f32 context.
+
 Forward only: the TPU backward recomputes through plain ops and training is
-not ported yet, so the wrapper raises on inputs that require grad.
+not ported yet, so the wrappers raise on inputs that require grad.
 """
 
 from __future__ import annotations
@@ -27,6 +42,7 @@ import torch
 from mit_tpu_torch.ops.masks import causal_mask
 
 KERNEL_HEAD_DIM = 64
+LOG2E = 1.4426950408889634
 
 
 def flash_attention_btd_reference(
@@ -137,3 +153,90 @@ def flash_attention_btd(
 
 
 flash_attention_btd.launches = 0
+
+
+# ----------------------------------------------------------------------
+# fused (B, T, 3D) qkv
+# ----------------------------------------------------------------------
+def flash_attention_btd_fusedqkv_reference(
+    qkv: torch.Tensor, head_dim: int = 64, layer_numerics: bool = False,
+) -> torch.Tensor:
+    """Plain PyTorch attention over fused qkv (B, T, 3D) → (B, T, D).
+
+    Without ``layer_numerics`` it is :func:`flash_attention_btd_reference`
+    on the three column blocks. With it, the fused layer's numerics in f32
+    (see the module docstring).
+    """
+    b, t, d3 = qkv.shape
+    d = d3 // 3
+    q, k, v = qkv.split(d, dim=-1)
+    if not layer_numerics:
+        return flash_attention_btd_reference(q, k, v, None, False, head_dim)
+    h = d // head_dim
+    split = lambda x: x.reshape(b, t, h, head_dim).transpose(1, 2).float()
+    scores = torch.einsum("bhtd,bhsd->bhts", split(q), split(k))
+    scores = scores * (LOG2E / math.sqrt(head_dim))
+    p = torch.exp2(scores - scores.amax(-1, keepdim=True))
+    o = torch.einsum("bhts,bhsd->bhtd", p.to(torch.bfloat16).float(), split(v))
+    o = o * (1.0 / p.sum(-1, keepdim=True))
+    return o.transpose(1, 2).reshape(b, t, d)
+
+
+def _check_fusedqkv(qkv: torch.Tensor, head_dim: int,
+                    layer_numerics: bool) -> None:
+    if head_dim != KERNEL_HEAD_DIM:
+        raise ValueError(
+            f"the CUDA kernel takes head_dim {KERNEL_HEAD_DIM}, got {head_dim}"
+        )
+    allowed = ((torch.bfloat16,) if layer_numerics
+               else (torch.float32, torch.bfloat16))
+    if qkv.dtype not in allowed:
+        raise TypeError(f"qkv must be one of {allowed}, got {qkv.dtype}")
+    if qkv.dim() != 3 or qkv.shape[2] % (3 * head_dim):
+        raise ValueError(
+            f"qkv must be (B, T, 3D) with D a multiple of {head_dim}, got "
+            f"{tuple(qkv.shape)}"
+        )
+    b, t, _ = qkv.shape
+    if b == 0 or t == 0 or b > 65535:
+        raise ValueError(f"unsupported shape qkv {tuple(qkv.shape)}")
+    if not qkv.is_contiguous():
+        raise ValueError("qkv must be contiguous")
+
+
+def flash_attention_btd_fusedqkv(
+    qkv: torch.Tensor, head_dim: int = 64, layer_numerics: bool = False,
+) -> torch.Tensor:
+    """Bidirectional, unpadded attention over fused qkv (B, T, 3D) →
+    context (B, T, D): in qkv's dtype, or f32 with ``layer_numerics``."""
+    if torch.is_grad_enabled() and qkv.requires_grad:
+        raise RuntimeError(
+            "flash_attention_btd_fusedqkv is forward-only; run it under "
+            "torch.no_grad() or torch.inference_mode()"
+        )
+    if qkv.device.type == "cpu":
+        return flash_attention_btd_fusedqkv_reference(qkv, head_dim,
+                                                      layer_numerics)
+    if qkv.device.type != "cuda":
+        raise ValueError(
+            f"flash_attention_btd_fusedqkv has no kernel for {qkv.device}"
+        )
+    _check_fusedqkv(qkv, head_dim, layer_numerics)
+
+    from mit_tpu_torch import kernels
+
+    b, t, d3 = qkv.shape
+    out_dtype = torch.float32 if layer_numerics else qkv.dtype
+    out = torch.empty((b, t, d3 // 3), dtype=out_dtype, device=qkv.device)
+    mode = 2 if layer_numerics else int(qkv.dtype == torch.bfloat16)
+    with torch.cuda.device(qkv.device):
+        rc = kernels.lib().mit_flash_attention_fusedqkv(
+            qkv.data_ptr(), out.data_ptr(), b, t, d3 // 3, mode,
+            torch.cuda.current_stream(qkv.device).cuda_stream,
+        )
+    kernels.check(rc, "mit_flash_attention_fusedqkv")
+    flash_attention_btd_fusedqkv.launches += 1
+    return out
+
+
+flash_attention_btd_fusedqkv.launches = 0

@@ -1,4 +1,4 @@
-"""The CUDA kernel of mit_tpu_torch against its plain PyTorch version.
+"""The CUDA kernels of mit_tpu_torch against their plain PyTorch versions.
 
 Torch only (no JAX), so the card's tests run without JAX:
 
@@ -6,7 +6,7 @@ Torch only (no JAX), so the card's tests run without JAX:
 
 Tests marked ``cuda`` need an NVIDIA GPU and skip without one; they build
 the kernels from ``mit_tpu_torch/csrc`` on first use. The rest check, on
-the CPU, what surrounds the kernel: input validation, the launch counter
+the CPU, what surrounds the kernels: input validation, the launch counters
 and the build's failure path.
 """
 
@@ -15,11 +15,16 @@ import pytest
 import torch
 
 from mit_tpu_torch import kernels
+from mit_tpu_torch.ops import int8_layer, int8_mlp
 from mit_tpu_torch.ops.flash_attention import (
     _check_cuda_inputs,
+    _check_fusedqkv,
     flash_attention_btd,
+    flash_attention_btd_fusedqkv,
+    flash_attention_btd_fusedqkv_reference,
     flash_attention_btd_reference,
 )
+from mit_tpu_torch.ops.quant import QuantizedLinear, quantize_weight
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
@@ -119,3 +124,270 @@ def test_failed_build_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc failed"):
         kernels.build()
     assert not list(tmp_path.iterdir())
+
+
+# ----------------------------------------------------------------------
+# the int8 encoder's kernels
+# ----------------------------------------------------------------------
+def _qlinear(k, n, device, seed=0, bias=True):
+    r = np.random.default_rng(seed)
+    w = torch.from_numpy((r.normal(size=(k, n)) * 0.05).astype(np.float32))
+    b = torch.from_numpy(r.normal(size=(n,)).astype(np.float32)) if bias else None
+    q = quantize_weight(w, b)
+    return QuantizedLinear(*(None if a is None else a.to(device) for a in q))
+
+
+def _rows(m, k, dtype, device, seed=1):
+    x = np.random.default_rng(seed).normal(size=(m, k)).astype(np.float32) * 2
+    x[0] = 0.0                                       # the 1e-8 amax floor
+    return torch.from_numpy(x).to(device, dtype)
+
+
+def _ln(k, device, seed=2):
+    r = np.random.default_rng(seed)
+    to = lambda a: torch.from_numpy(a.astype(np.float32)).to(device)
+    return {"scale": to(1 + 0.1 * r.normal(size=k)),
+            "bias": to(0.1 * r.normal(size=k))}
+
+
+def _rel(a, b):
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_ln", [False, True], ids=["plain", "ln"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("m,k", [(197, 768), (300, 3072), (5, 16), (3, 1000)])
+def test_quantize_rows_matches_plain_on_card(cuda, dtype, with_ln, m, k):
+    x = _rows(m, k, dtype, cuda)
+    ln = _ln(k, cuda) if with_ln else None
+    before = int8_mlp.quantize_rows.launches
+    x8, sx = int8_mlp.quantize_rows(x, ln, 1e-5)
+    r8, rsx = int8_mlp.quantize_rows_reference(x, ln, 1e-5)
+    torch.cuda.synchronize()
+    assert int8_mlp.quantize_rows.launches == before + 1
+    assert x8.dtype == torch.int8 and sx.shape == (m,)
+    if not with_ln:      # the same f32 row: bitwise the same codes and scales
+        assert torch.equal(x8, r8) and torch.equal(sx, rsx)
+        assert not x8[0].any()
+    else:                # the LayerNorm's sums run in another order
+        diff = (x8.int() - r8.int()).abs()
+        assert diff.max().item() <= 1
+        assert (diff > 0).float().mean().item() <= 1e-3
+        torch.testing.assert_close(sx, rsx, rtol=1e-5, atol=0)
+
+
+GEMM_SHAPES = [(768, 2304), (768, 768), (768, 3072), (3072, 768)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [197, 1000, 7])
+@pytest.mark.parametrize("k,n", GEMM_SHAPES + [(48, 40)])
+def test_int8_gemm_accumulators_are_exact_on_card(cuda, m, k, n):
+    q = _qlinear(k, n, cuda)
+    a8 = torch.randint(-127, 128, (m, k), dtype=torch.int8,
+                       generator=torch.Generator().manual_seed(m)).to(cuda)
+    a8[0] = 127                                      # 127² · K: past 2²⁴
+    sx = torch.rand(m, device=cuda)
+    acc = int8_mlp.int8_gemm(a8, sx, q, out_dtype=torch.int32)
+    ref = int8_mlp.int8_gemm_reference(a8, sx, q, out_dtype=torch.int32)
+    torch.cuda.synchronize()
+    assert acc.dtype == torch.int32 and torch.equal(acc, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("act,res", [
+    ("none", None), ("gelu", None), ("quick_gelu", None),
+    ("none", torch.float32), ("none", torch.bfloat16),
+])
+def test_int8_gemm_epilogues_match_plain_on_card(cuda, act, res, out_dtype):
+    m, k, n = 300, 768, 1024
+    q = _qlinear(k, n, cuda, bias=act != "quick_gelu")
+    a8, sx = int8_mlp.quantize_rows(_rows(m, k, torch.float32, cuda))
+    residual = None if res is None else _rows(m, n, res, cuda, seed=3)
+    before = int8_mlp.int8_gemm.launches
+    out = int8_mlp.int8_gemm(a8, sx, q, act, residual, out_dtype)
+    ref = int8_mlp.int8_gemm_reference(a8, sx, q, act, residual, out_dtype)
+    torch.cuda.synchronize()
+    assert int8_mlp.int8_gemm.launches == before + 1
+    assert out.dtype == out_dtype and out.shape == (m, n)
+    # the same f32 operations in the same order; quick_gelu's expf and
+    # PyTorch's sigmoid differ in the last ulp, bf16 then rounds once
+    tol = ({"rtol": 2e-6, "atol": 1e-6} if out_dtype == torch.float32
+           else {"rtol": 8e-3, "atol": 1e-5})
+    torch.testing.assert_close(out, ref, **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["f32", "bf16", "layer"])
+@pytest.mark.parametrize("b,t,d", [(4, 197, 768), (2, 257, 1024), (3, 13, 128)])
+def test_fusedqkv_matches_plain_on_card(cuda, mode, b, t, d):
+    dtype = torch.float32 if mode == "f32" else torch.bfloat16
+    layer = mode == "layer"
+    qkv = torch.from_numpy(np.random.default_rng(4).normal(
+        size=(b, t, 3 * d)).astype(np.float32)).to(cuda, dtype)
+    before = flash_attention_btd_fusedqkv.launches
+    out = flash_attention_btd_fusedqkv(qkv, 64, layer)
+    ref = flash_attention_btd_fusedqkv_reference(qkv, 64, layer)
+    torch.cuda.synchronize()
+    assert flash_attention_btd_fusedqkv.launches == before + 1
+    assert out.shape == (b, t, d)
+    assert out.dtype == (torch.float32 if layer else dtype)
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= TOL[dtype], err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", ["gelu", "quick_gelu"])
+def test_int8_linear_and_mlp_match_plain_on_card(cuda, act):
+    x = _rows(394, 768, torch.bfloat16, cuda).reshape(2, 197, 768)
+    q, q1, q2 = _qlinear(768, 2304, cuda), _qlinear(768, 3072, cuda, 5), \
+        _qlinear(3072, 768, cuda, 6)
+    lin = int8_mlp.int8_linear(x, q, torch.bfloat16)
+    mlp = int8_mlp.fused_int8_mlp(x, q1, q2, act, torch.float32)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(lin, int8_mlp.int8_linear_reference(x, q),
+                               rtol=8e-3, atol=1e-5)
+    ref = int8_mlp.fused_int8_mlp_reference(x, q1, q2, act, torch.float32)
+    assert mlp.shape == (2, 197, 768) and _rel(mlp, ref) < 1e-3
+
+
+@pytest.mark.cuda
+def test_int8_linear_pads_k_on_card(cuda):
+    """CLIP ViT-L/14's patch embedding: K = 588 is no multiple of 16."""
+    x = _rows(2 * 256, 588, torch.bfloat16, cuda).reshape(2, 256, 588)
+    q = _qlinear(588, 1024, cuda)
+    out = int8_mlp.int8_linear(x, q, torch.float32)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        out, int8_mlp.int8_linear_reference(x, q, torch.float32),
+        rtol=2e-6, atol=1e-6)
+
+
+def _layer_weights(d, f, device):
+    return (_ln(d, device, 7), _qlinear(d, 3 * d, device, 8),
+            _qlinear(d, d, device, 9), _ln(d, device, 10),
+            _qlinear(d, f, device, 11), _qlinear(f, d, device, 12))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", [False, True], ids=["mega", "split"])
+@pytest.mark.parametrize("b,t,d,f,heads", [(2, 197, 768, 3072, 12),
+                                           (2, 257, 1024, 4096, 16)],
+                         ids=["vit-b", "vit-l"])
+def test_fused_int8_vit_layer_matches_plain_on_card(cuda, b, t, d, f, heads,
+                                                    split):
+    x = _rows(b * t, d, torch.bfloat16, cuda).reshape(b, t, d)
+    args = _layer_weights(d, f, cuda)
+    fn = (int8_layer.fused_int8_vit_layer_split if split
+          else int8_layer.fused_int8_vit_layer)
+    ref_fn = (int8_layer.fused_int8_vit_layer_split_reference if split
+              else int8_layer.fused_int8_vit_layer_reference)
+    before = fn.launches
+    out = fn(x, *args, heads, 1e-6)
+    ref = ref_fn(x, *args, heads, 1e-6)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert out.dtype == x.dtype and out.shape == x.shape
+    # the JAX package's own bound between its layer kernel and composition
+    assert _rel(out, ref) <= 5e-3
+
+
+@pytest.mark.cuda
+def test_int8_wrappers_reject_what_they_do_not_take(cuda):
+    x = _rows(8, 64, torch.float32, cuda)
+    q = _qlinear(64, 64, cuda)
+    a8, sx = int8_mlp.quantize_rows(x)
+    with pytest.raises(TypeError):
+        int8_mlp.quantize_rows(x.half())
+    with pytest.raises(ValueError, match="multiple of 16"):
+        int8_mlp.int8_gemm(a8[:, :40].contiguous(), sx, _qlinear(40, 64, cuda))
+    with pytest.raises(ValueError, match="K-contiguous"):
+        int8_mlp.int8_gemm(a8, sx, q._replace(w8=q.w8.contiguous()))
+    with pytest.raises(TypeError):
+        int8_mlp.int8_linear(x.half(), q)
+    with pytest.raises(TypeError):
+        int8_mlp.fused_int8_mlp(x.half(), q, q)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention_btd_fusedqkv(
+            torch.zeros(2, 5, 96, device=cuda), 32)
+    with pytest.raises(TypeError):
+        flash_attention_btd_fusedqkv(
+            torch.zeros(2, 5, 192, device=cuda), 64, layer_numerics=True)
+    with pytest.raises(TypeError):
+        int8_layer.fused_int8_vit_layer(
+            x.half().reshape(2, 4, 64), *_layer_weights(64, 128, cuda), 1,
+            1e-6)
+
+
+@pytest.mark.parametrize("change,error", [
+    (dict(k=40), ValueError),                 # K not a multiple of 16
+    (dict(n=12), ValueError),                 # N not a multiple of 8
+    (dict(layout="row"), ValueError),         # w8 not K-contiguous
+    (dict(a_dtype=torch.int32), TypeError),
+    (dict(act="relu"), ValueError),
+    (dict(out_dtype=torch.float16), TypeError),
+    (dict(res_dtype=torch.float16), TypeError),
+    (dict(sx_len=7), ValueError),
+])
+def test_int8_gemm_input_checks(change, error):
+    k, n = change.get("k", 64), change.get("n", 32)
+    a8 = torch.zeros(8, k, dtype=change.get("a_dtype", torch.int8))
+    q = quantize_weight(torch.ones(k, n), torch.zeros(n))
+    if change.get("layout") == "row":
+        q = q._replace(w8=q.w8.contiguous())
+    res = torch.zeros(8, n, dtype=change.get("res_dtype", torch.float32))
+    with pytest.raises(error):
+        int8_mlp._check_gemm(a8, torch.ones(change.get("sx_len", 8)), q,
+                             change.get("act", "none"), res,
+                             change.get("out_dtype", torch.float32))
+
+
+@pytest.mark.parametrize("change,error", [
+    (dict(dtype=torch.float16), TypeError),
+    (dict(shape=(4,)), ValueError),
+    (dict(shape=(2, 13000)), ValueError),
+    (dict(ln_len=5), ValueError),
+])
+def test_quantize_rows_input_checks(change, error):
+    x = torch.zeros(change.get("shape", (3, 8)),
+                    dtype=change.get("dtype", torch.float32))
+    n = change.get("ln_len", 8)
+    with pytest.raises(error):
+        int8_mlp._check_quantize_rows(x, {"scale": torch.ones(n),
+                                          "bias": torch.zeros(n)})
+
+
+@pytest.mark.parametrize("change,error", [
+    (dict(head_dim=32), ValueError),
+    (dict(dtype=torch.float16), TypeError),
+    (dict(layer=True, dtype=torch.float32), TypeError),
+    (dict(width=3 * 96), ValueError),
+])
+def test_fusedqkv_input_checks(change, error):
+    qkv = torch.zeros(2, 5, change.get("width", 3 * 128),
+                      dtype=change.get("dtype", torch.bfloat16))
+    with pytest.raises(error):
+        _check_fusedqkv(qkv, change.get("head_dim", 64),
+                        change.get("layer", False))
+
+
+def test_int8_cpu_tensors_take_the_plain_versions():
+    x = _rows(6, 64, torch.float32, "cpu").reshape(2, 3, 64)
+    q = _qlinear(64, 64, "cpu")
+    wrappers = [int8_mlp.quantize_rows, int8_mlp.int8_gemm,
+                int8_mlp.int8_linear, int8_mlp.fused_int8_mlp,
+                flash_attention_btd_fusedqkv, int8_layer.fused_int8_vit_layer]
+    before = [w.launches for w in wrappers]
+    torch.testing.assert_close(int8_mlp.int8_linear(x, q),
+                               int8_mlp.int8_linear_reference(x, q))
+    torch.testing.assert_close(int8_mlp.fused_int8_mlp(x, q, q),
+                               int8_mlp.fused_int8_mlp_reference(x, q, q))
+    args = _layer_weights(64, 64, "cpu")
+    torch.testing.assert_close(
+        int8_layer.fused_int8_vit_layer(x, *args, 1, 1e-6),
+        int8_layer.fused_int8_vit_layer_reference(x, *args, 1, 1e-6))
+    assert [w.launches for w in wrappers] == before

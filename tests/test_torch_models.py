@@ -155,15 +155,26 @@ def test_encode_and_project_match_jax():
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-4)
 
 
-def test_int8_encoder_tree_is_not_ported():
+def test_int8_encoder_tree_converts_and_routes():
+    """params_from_jax carries the JAX int8 tree across, and encode_images
+    routes it to vision_forward_int8, as the JAX encode_images does."""
     jcfg, tcfg = _model_configs()
-    params = jmodel.init_model_params(jax.random.PRNGKey(0), jcfg)
-    q8 = quantize_vision_params(params["encoder"], jcfg.vision)
-    with pytest.raises(TypeError):
-        params_from_jax(_host(q8))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmodel.encode_images({"encoder": {"patch": None}}, tcfg,
-                             torch.zeros(1, 3, 32, 32))
+    params = _host(jmodel.init_model_params(jax.random.PRNGKey(0), jcfg))
+    params["encoder"] = _host(
+        quantize_vision_params(params["encoder"], jcfg.vision))
+    px = _pixels(seed=8)
+    ref = jmodel.encode_images(params, jcfg, jnp.asarray(px))
+    tp = params_from_jax(params)
+    out = tmodel.encode_images(tp, tcfg, torch.from_numpy(px))
+    want = tvis.vision_forward_int8(tp["encoder"], tcfg.vision,
+                                    torch.from_numpy(px), torch.float32,
+                                    cls_only=True)
+    torch.testing.assert_close(out, want, rtol=0, atol=0)
+    assert out.shape == (2, 1, 48)
+    # d = 48 takes the JAX per-op tier: the port's per-op form is its twin
+    per_op = tmodel.encode_images(tp, tcfg, torch.from_numpy(px),
+                                  fused_layers=False)
+    np.testing.assert_allclose(per_op.numpy(), np.asarray(ref), atol=1e-4)
 
 
 def test_model_config_build_matches_jax():
