@@ -57,13 +57,40 @@ the script exits non-zero without printing the result line.
             int8_linear 3, fused_int8_mlp 1; int8 per-op: int8_linear 25,
             fused_int8_mlp 12, flash_attention_btd_fusedqkv 11). Prints
             captions/s of both arms and their median encoder ms.
-5. result   One JSON line describing each kernel, then the last line,
+            Phase 3 also holds the dropout-attention kernels (training's
+            decoder self-attention) to their plain versions at (32, 8, 99,
+            99, 64), causal with padded keys (every key of batch row 0), and
+            at a ragged (3, 2, 7, 9), f32 and bf16: the dump kernel's
+            keep-mask bitwise equal to keep_mask; the forward within 1e-5
+            (f32) or 2e-2 (bf16) absolute; dq, dk and dv within 1e-5 (f32)
+            or 1e-2 (bf16) of their largest value. It times forward and
+            backward, kernel against plain, at the bf16 training shape,
+            and the dump kernel against keep_mask at (32, 8, 99, 99).
+5. train    Training at the default model's full width: a random ViT-B/16
+            builds the CLS feature cache of 64 pixel images made in the run
+            (FeatureCache.build, through flash_attention_btd); decoder 6 x
+            512, 8 heads, FF 2048, vocab 10000, T 99, batch 32, the config's
+            AdamW, clip 5.0 and dropout 0.1, token ids from a numpy seed.
+            (a) f32, 5 steps, the kernel path against the plain path
+            (flash_attention_dropout_plain; the same seeds, so the same
+            hash masks and the same other masks): losses within 1e-4
+            relative. (b) launches: 6 dropout forward and 6 backward per
+            step with fused dropout; 6 flash_attention_btd and no dropout
+            launch per step at dropout 0. (c) bf16, 30 steps on one batch:
+            the loss falls. (d) an eval step, then safetensors and train
+            state saved, restored, and one step from the restore equal to
+            one step without it. (e) steps/s and images/s at bf16 batch 32,
+            fused dropout on and off (the plain dropout path), median and
+            quartiles of RUNS runs in alternating turns. Every counter is
+            set to 0 before the cache build and (c), and read after them.
+6. result   One JSON line describing each kernel, then the last line,
             {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -97,6 +124,36 @@ PER_ENCODE = {
                     "flash_attention_btd_fusedqkv": 11, "quantize_rows": 49,
                     "int8_gemm": 49},
 }
+
+
+# training phase
+TRAIN_BATCH = 32
+TRAIN_IMAGES = 64
+TRAIN_SEED = 1234
+BF16_STEPS = 30
+RUNS = 5                 # throughput runs per configuration
+RUN_STEPS = 10           # steps per throughput run
+DROPOUT_SHAPES = [("decoder", 32, 8, 99, 99, True), ("ragged", 3, 2, 7, 9, False)]
+DROPOUT_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2e-2, 1e-2)}
+
+
+class TrainConfig(NamedTuple):
+    """The training knobs of mit_tpu.config.Config, at its defaults (the
+    smoke imports nothing of the JAX package)."""
+
+    LEARNING_RATE: float = 1e-4
+    WEIGHT_DECAY: float = 1e-5
+    GRAD_CLIP_VALUE: float = 5.0
+    ADAM_BETA1: float = 0.9
+    ADAM_BETA2: float = 0.98
+    ADAM_EPS: float = 1e-9
+    WARMUP_STEPS: int = 0
+    NUM_EPOCHS: int = 20
+    DECODER_DROPOUT: float = 0.1
+
+    def to_json(self) -> str:
+        """The train-state sidecar's config entry."""
+        return json.dumps(self._asdict())
 
 
 class SpecialIds(NamedTuple):
@@ -177,9 +234,18 @@ def check_kernels(torch):
 
 def wrappers():
     """Every kernel wrapper with a launch counter, by name."""
-    from mit_tpu_torch.ops import flash_attention, int8_layer, int8_mlp
+    from mit_tpu_torch.ops import (
+        dropout_attention,
+        flash_attention,
+        int8_layer,
+        int8_mlp,
+    )
 
     return {
+        "flash_attention_dropout": dropout_attention.flash_attention_dropout_fwd,
+        "flash_attention_dropout_bwd":
+            dropout_attention.flash_attention_dropout_bwd,
+        "dump_dropout_mask": dropout_attention.dump_dropout_mask,
         "flash_attention_btd": flash_attention.flash_attention_btd,
         "flash_attention_btd_fusedqkv":
             flash_attention.flash_attention_btd_fusedqkv,
@@ -585,6 +651,294 @@ def check_slice(torch):
             "counts": counts}
 
 
+def dropout_inputs(torch, b, h, t, s, dtype, seed=SEED):
+    """q, k ~ N(0, 1), v ~ U(-1, 1) in (B, H, T|S, 64), do ~ N(0, 1); pads
+    mask about a fifth of the keys and every key of batch row 0."""
+    r = np.random.default_rng(seed)
+    to = lambda a: torch.from_numpy(a.astype(np.float32)).to("cuda", dtype)
+    q, k = to(r.normal(size=(b, h, t, 64))), to(r.normal(size=(b, h, s, 64)))
+    v = to(r.uniform(-1, 1, size=(b, h, s, 64)))
+    do = to(r.normal(size=(b, h, t, 64)))
+    pad = np.where(r.random((b, s)) > 0.8, -1e9, 0.0).astype(np.float32)
+    pad[0] = -1e9
+    return q, k, v, torch.from_numpy(pad).cuda(), do
+
+
+def check_dropout_kernels(torch):
+    """The dropout-attention kernels against their plain versions; returns,
+    per wrapper, the max abs error and both times at the bf16 training
+    shape (32, 8, 99, 99, 64)."""
+    from mit_tpu_torch.ops import dropout_attention as da
+
+    seed, rate = 20261016, 0.1
+    results, errs = {}, {"fwd": 0.0, "bwd": 0.0}
+    for name, b, h, t, s, causal in DROPOUT_SHAPES:
+        for r_seed, r_rate in ((seed, rate), (2**31 - 2, 0.5)):
+            got = da.dump_dropout_mask(b, h, t, s, r_seed, r_rate, "cuda")
+            want = da.keep_mask(t, s, r_rate, r_seed,
+                                torch.arange(b * h, device="cuda"))
+            torch.cuda.synchronize()
+            same = torch.equal(got, want.reshape(b, h, t, s))
+            print(f"dump_dropout_mask {name} ({b}, {h}, {t}, {s}) seed "
+                  f"{r_seed} rate {r_rate}: bitwise equal to keep_mask={same}, "
+                  f"kept {got.float().mean().item():.4f}")
+            if not same:
+                raise AssertionError("dump_dropout_mask disagrees")
+        if name == "decoder":
+            cells = torch.arange(b * h, device="cuda")
+            dump_runs = timed_turns(
+                torch, lambda: da.dump_dropout_mask(b, h, t, s, seed, rate,
+                                                    "cuda"),
+                lambda: da.keep_mask(t, s, rate, seed, cells))
+            print(f"time dump_dropout_mask          ({b}, {h}, {t}, {s}): "
+                  f"kernel {dump_runs['kernel']} ms, plain "
+                  f"{dump_runs['plain']} ms (not on the training path)")
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype)[6:]
+            fwd_tol, bwd_tol = DROPOUT_TOL[dname]
+            q, k, v, pad, do = dropout_inputs(torch, b, h, t, s, dtype)
+            out = da.flash_attention_dropout_fwd(q, k, v, pad, seed, causal, rate)
+            ref = da.flash_attention_dropout_reference(q, k, v, pad, seed,
+                                                       causal, rate)
+            grads = da.flash_attention_dropout_bwd(q, k, v, pad, do, seed,
+                                                   causal, rate)
+            ref_grads = da.flash_attention_dropout_reference_backward(
+                q, k, v, pad, do, seed, causal, rate)
+            torch.cuda.synchronize()
+            fwd_err = (out.float() - ref.float()).abs().max().item()
+            bwd_abs = [(g.float() - r.float()).abs().max().item()
+                       for g, r in zip(grads, ref_grads)]
+            bwd_rel = [e / r.float().abs().max().item()
+                       for e, r in zip(bwd_abs, ref_grads)]
+            finite = all(bool(torch.isfinite(x).all()) for x in (out, *grads))
+            print(f"flash_attention_dropout {name} ({b}, {h}, {t}, {s}) "
+                  f"causal={causal} {dname:8s}: forward max_abs_err "
+                  f"{fwd_err:.3e} (limit {fwd_tol:.0e}); dq, dk, dv max_abs_err "
+                  f"{[f'{e:.3e}' for e in bwd_abs]}, over their largest value "
+                  f"{[f'{e:.3e}' for e in bwd_rel]} (limit {bwd_tol:.0e}); "
+                  f"finite={finite}")
+            if not (finite and fwd_err <= fwd_tol
+                    and max(bwd_rel) <= bwd_tol):
+                raise AssertionError(f"dropout attention disagrees: {name} "
+                                     f"{dname}")
+            if name == "decoder" and dtype == torch.bfloat16:
+                errs = {"fwd": fwd_err, "bwd": max(bwd_abs)}
+                fwd_runs = timed_turns(
+                    torch,
+                    lambda: da.flash_attention_dropout_fwd(q, k, v, pad, seed,
+                                                           causal, rate),
+                    lambda: da.flash_attention_dropout_reference(
+                        q, k, v, pad, seed, causal, rate))
+                bwd_runs = timed_turns(
+                    torch,
+                    lambda: da.flash_attention_dropout_bwd(q, k, v, pad, do,
+                                                           seed, causal, rate),
+                    lambda: da.flash_attention_dropout_reference_backward(
+                        q, k, v, pad, do, seed, causal, rate))
+    what = "(32, 8, 99, 99, 64) bf16 causal+pad"
+    report(results, "flash_attention_dropout", errs["fwd"], fwd_runs,
+           what + ", forward")
+    report(results, "flash_attention_dropout_bwd", errs["bwd"], bwd_runs,
+           what + ", backward")
+    return results
+
+
+class PixelSet:
+    """Stands in for ImageTextDataset in FeatureCache.build: image names and
+    seeded pixels, no files and no Pillow."""
+
+    def __init__(self, n, size, seed):
+        self.image_paths = [f"image{i:04d}" for i in range(n)]
+        self._pixels = np.random.default_rng(seed).uniform(
+            -1, 1, (n, 3, size, size)).astype(np.float32)
+
+    def load_image(self, path):
+        return self._pixels[int(path[5:])]
+
+
+def token_batch(rng, b, t, vocab, ids):
+    """(B, t + 1) caption ids: START, random tokens, END, then PAD, with
+    lengths from 8 to t + 1."""
+    toks = np.full((b, t + 1), ids.pad_id, np.int64)
+    for row, n in zip(toks, rng.integers(8, t + 2, b)):
+        row[0] = ids.start_id
+        row[1:n - 1] = rng.integers(4, vocab, n - 2)
+        row[n - 1] = ids.end_id
+    return toks
+
+
+def check_training(torch):
+    """Phase 5: the training path at full width (see the module docstring).
+    Returns the counts of the counted run and the throughput."""
+    import tempfile
+
+    from mit_tpu_torch.data.dataset import to_device
+    from mit_tpu_torch.models.decoder import DecoderConfig
+    from mit_tpu_torch.models.model import (
+        ModelConfig,
+        init_model_params,
+        split_trainable,
+    )
+    from mit_tpu_torch.models.vision import PRESETS
+    from mit_tpu_torch.train import checkpoint as ckpt
+    from mit_tpu_torch.train.features import FeatureCache, attach_features
+    from mit_tpu_torch.train.steps import (
+        init_train_state,
+        make_eval_step,
+        make_optimizer,
+        make_train_step,
+        tree_leaves,
+        tree_map,
+    )
+
+    tcfg = TrainConfig()
+    ids = SpecialIds()
+    name = "google/vit-base-patch16-224-in21k"
+    mcfg = ModelConfig(name, PRESETS[name],
+                       DecoderConfig(vocab_size=10000,
+                                     dropout=tcfg.DECODER_DROPOUT), "cls")
+    params = init_model_params(torch.Generator().manual_seed(TRAIN_SEED), mcfg,
+                               "cuda")
+    trainable, frozen = split_trainable(params)
+    rng = np.random.default_rng(TRAIN_SEED)
+    t = mcfg.decoder.max_seq_len - 1
+    pixels = PixelSet(TRAIN_IMAGES, mcfg.vision.image_size, TRAIN_SEED)
+    toks = token_batch(rng, TRAIN_IMAGES, t, mcfg.decoder.vocab_size, ids)
+
+    def batch(i):
+        rows = slice(i * TRAIN_BATCH, (i + 1) * TRAIN_BATCH)
+        b = attach_features({
+            "image_paths": pixels.image_paths[rows],
+            "decoder_input_tokens": toks[rows, :-1],
+            "target_tokens": toks[rows, 1:]}, cache)
+        del b["image_paths"]
+        return to_device(b, "cuda")
+
+    optimizer, _ = make_optimizer(tcfg)
+
+    def steps(dtype, fused, use_kernel=True, cfg=mcfg):
+        return make_train_step(cfg, optimizer, ids.pad_id, dtype,
+                               from_features=True, fused_dropout=fused,
+                               use_kernel=use_kernel)
+
+    # the counted main path: the cache build, then (c)
+    reset_counts()
+    t0 = time.perf_counter()
+    cache = FeatureCache.build(pixels, frozen["encoder"], mcfg, "cuda",
+                               batch_size=TRAIN_BATCH, verbose=False,
+                               compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    batches = [batch(0), batch(1)]
+    fixed = batches[0]
+    step = steps(torch.bfloat16, True)
+    state = init_train_state(trainable, optimizer)
+    losses = []
+    for _ in range(BF16_STEPS):
+        state, loss = step(state, {}, fixed, TRAIN_SEED)
+        losses.append(loss)
+    losses = [x.item() for x in losses]
+    counts = read_counts()
+    per_step = {k: counts[k] / BF16_STEPS for k in
+                ("flash_attention_dropout", "flash_attention_dropout_bwd")}
+    print(f"train cache: {tuple(cache.features.shape)} {cache.features.dtype} "
+          f"from {TRAIN_IMAGES} images in {build_s:.3f} s, "
+          f"flash_attention_btd launches {counts['flash_attention_btd']} "
+          f"(want {11 * TRAIN_IMAGES // TRAIN_BATCH})")
+    print(f"train (c) bf16 B={TRAIN_BATCH} T={t}, {BF16_STEPS} steps on one "
+          f"batch: loss first {losses[0]:.6f}, last {losses[-1]:.6f}, min "
+          f"{min(losses):.6f}; (b) launches per step {per_step}, every "
+          f"other counter 0: {counts}")
+    want = {k: 0 for k in counts}
+    want.update(flash_attention_btd=11 * TRAIN_IMAGES // TRAIN_BATCH,
+                flash_attention_dropout=6 * BF16_STEPS,
+                flash_attention_dropout_bwd=6 * BF16_STEPS)
+    if counts != want:
+        raise AssertionError(f"training launches {counts}, want {want}")
+    if not (all(np.isfinite(losses)) and losses[-1] < 0.9 * losses[0]):
+        raise AssertionError(f"bf16 loss did not fall: {losses}")
+
+    # (b) at dropout 0: flash_attention_btd in the forward, no dropout kernel
+    no_drop = mcfg._replace(decoder=mcfg.decoder._replace(dropout=0.0))
+    reset_counts()
+    steps(torch.bfloat16, True, cfg=no_drop)(
+        init_train_state(trainable, optimizer), {}, fixed, TRAIN_SEED)
+    torch.cuda.synchronize()
+    counts0 = {k: v for k, v in read_counts().items() if v}
+    print(f"train (b) dropout 0, one step: launches {counts0}")
+    if counts0 != {"flash_attention_btd": 6}:
+        raise AssertionError(f"dropout-0 launches {counts0}")
+
+    # (a) f32: kernel path against plain path, same seeds
+    traj = {}
+    for use_kernel in (True, False):
+        st = init_train_state(trainable, optimizer)
+        run = steps(torch.float32, True, use_kernel)
+        out = []
+        for i in range(5):
+            st, loss = run(st, {}, batches[i % 2], TRAIN_SEED)
+            out.append(loss.item())
+        traj[use_kernel] = out
+    rel = max(abs(a - b) / abs(b) for a, b in zip(traj[True], traj[False]))
+    print(f"train (a) f32 5 steps: kernel losses {traj[True]}, plain losses "
+          f"{traj[False]}; max relative difference {rel:.3e} (limit 1e-4)")
+    if not rel <= 1e-4:
+        raise AssertionError("f32 kernel and plain training disagree")
+
+    # (d) eval, save, restore, one step each way
+    ev = make_eval_step(mcfg, ids.pad_id, torch.bfloat16, from_features=True)
+    nll, count = ev(state.params, batches[1])
+    val = nll.item() / count.item()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "model.safetensors")
+        ckpt.save_safetensors(path, {**state.params, **frozen}, mcfg)
+        ckpt.save_train_state(os.path.join(tmp, "latest"), state, 0, val,
+                              tcfg)
+        loaded = ckpt.load_safetensors(path, mcfg, "cuda")
+        restored, epoch, best = ckpt.restore_train_state(
+            os.path.join(tmp, "latest"), init_train_state(trainable, optimizer))
+        size = os.path.getsize(path)
+    weights_same = all(tree_leaves(tree_map(
+        torch.equal, {**state.params, **frozen}, loaded)))
+    a_state, a_loss = step(state, {}, batches[1], TRAIN_SEED)
+    b_state, b_loss = step(restored, {}, batches[1], TRAIN_SEED)
+    resume_same = torch.equal(a_loss, b_loss) and all(
+        torch.equal(x, y) for x, y in zip(tree_leaves(a_state.params),
+                                          tree_leaves(b_state.params)))
+    print(f"train (d) eval loss {val:.6f} over {count.item():.0f} tokens; "
+          f"safetensors {size} bytes, reloaded equal={weights_same}; resume "
+          f"(step {restored.step}, epoch {epoch}, best {best:.6f}): one step "
+          f"equal to the uninterrupted one={resume_same} (loss "
+          f"{a_loss.item():.6f})")
+    if not (weights_same and resume_same and restored.step == BF16_STEPS
+            and np.isfinite(val)):
+        raise AssertionError("save, restore and resume disagree")
+
+    # (e) throughput, fused dropout on and off, in alternating turns
+    runs = {True: [], False: []}
+    st0 = init_train_state(trainable, optimizer)
+    for fused in (True, False):                               # warm-up
+        steps(torch.bfloat16, fused)(st0, {}, fixed, TRAIN_SEED)
+    for turn in range(RUNS):
+        for fused in ((True, False) if turn % 2 == 0 else (False, True)):
+            run, st = steps(torch.bfloat16, fused), st0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(RUN_STEPS):
+                st, loss = run(st, {}, batches[i % 2], TRAIN_SEED)
+            torch.cuda.synchronize()
+            runs[fused].append(RUN_STEPS / (time.perf_counter() - t0))
+    rates = {}
+    for fused, sps in runs.items():
+        q1, q2, q3 = statistics.quantiles(sps, n=4)
+        rates["fused" if fused else "plain"] = q2
+        print(f"train (e) bf16 B={TRAIN_BATCH} fused_dropout={fused}: "
+              f"{q2:.3f} steps/s median (quartiles {q1:.3f}-{q3:.3f}, "
+              f"{RUNS} runs of {RUN_STEPS} steps), {q2 * TRAIN_BATCH:.1f} "
+              f"images/s; runs {[round(x, 3) for x in sps]}")
+    return {"counts": counts, "rates": rates}
+
+
 # kernel name -> (source, the TPU kernel it replaces, the path whose run
 # gives its launch count)
 KERNELS = {
@@ -603,6 +957,12 @@ KERNELS = {
                        "int8"),
     "fused_int8_vit_layer": ("int8_gemm.cu",
                              "mit_tpu/ops/pallas_int8_layer.py:263", "int8"),
+    "flash_attention_dropout": ("flash_attention_dropout.cu",
+                                "mit_tpu/ops/pallas_dropout_attention.py:77",
+                                "train"),
+    "flash_attention_dropout_bwd": ("flash_attention_dropout.cu",
+                                    "mit_tpu/ops/pallas_dropout_attention.py:91",
+                                    "train"),
 }
 
 
@@ -637,6 +997,7 @@ def main() -> int:
     print("== 3 kernels", flush=True)
     errors, times = check_kernels(torch)
     int8 = check_int8_kernels(torch)
+    dropout = check_dropout_kernels(torch)
 
     print("== 4 slice", flush=True)
     slice_ = check_slice(torch)
@@ -645,12 +1006,19 @@ def main() -> int:
           f"{rates['int8']:.2f}; median encoder ms: float "
           f"{enc_ms['float']:.3f}, int8 {enc_ms['int8']:.3f}")
 
+    print("== 5 train", flush=True)
+    train = check_training(torch)
+    slice_["counts"]["train"] = train["counts"]
+    print(f"training bf16 B={TRAIN_BATCH}: fused dropout "
+          f"{train['rates']['fused']:.3f} steps/s, plain dropout "
+          f"{train['rates']['plain']:.3f} steps/s (medians)")
+
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "mit_tpu"))
     if loaded:
         raise AssertionError(f"the smoke imported JAX-side modules: {loaded}")
 
-    print("== 5 result", flush=True)
-    results = dict(int8, flash_attention_btd={
+    print("== 6 result", flush=True)
+    results = dict(int8, **dropout, flash_attention_btd={
         "max_abs_err": errors[("encoder", "bfloat16")],
         "ms": times["bfloat16"]["kernel"],
         "plain_ms": times["bfloat16"]["plain"],

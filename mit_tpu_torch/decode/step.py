@@ -13,7 +13,6 @@ same. In CLS memory mode the cross-attention is a per-layer constant
 
 from __future__ import annotations
 
-import functools
 import math
 from typing import NamedTuple, Optional, Tuple
 
@@ -29,10 +28,6 @@ FULL_MEMORY_NOT_PORTED = (
     "decoding over full-sequence or padded memory is not ported yet: "
     "ROADMAP.md, queue 1, beam, sampling and the service"
 )
-
-# one positional table per (max_len, width, dtype, device), shared by steps
-_position_table = functools.lru_cache(maxsize=8)(sinusoid_table)
-
 
 class DecodeCache(NamedTuple):
     """Per-generation state. ``k`` and ``v`` are written in place."""
@@ -126,7 +121,7 @@ def decoder_step(
     device = tokens.device
 
     x = params["emb"][tokens] * torch.tensor(math.sqrt(d), dtype=cd)
-    x = x + _position_table(cfg.max_seq_len, d, cd, device)[pos]
+    x = x + sinusoid_table(cfg.max_seq_len, d, cd, device)[pos]
 
     visible = (torch.arange(t_max, device=device) <= pos)[None, :]   # (1, T)
     if key_pad is not None:

@@ -35,7 +35,7 @@ NVCC_FLAGS = (
 )
 
 # name -> argtypes of every C entry point the library exports
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
 ENTRY_POINTS = {
     "mit_flash_attention_btd_f32": [_P] * 5 + [_I] * 6 + [_P],
     "mit_flash_attention_btd_bf16": [_P] * 5 + [_I] * 6 + [_P],
@@ -43,6 +43,9 @@ ENTRY_POINTS = {
     "mit_quantize_rows_f32": [_P] * 5 + [_I, _I, _F, _P],
     "mit_quantize_rows_bf16": [_P] * 5 + [_I, _I, _F, _P],
     "mit_int8_gemm": [_P] * 7 + [_I] * 6 + [_P],
+    "mit_flash_attention_dropout_fwd": [_P] * 5 + [_I] * 6 + [_U, _U, _F, _P],
+    "mit_flash_attention_dropout_bwd": [_P] * 8 + [_I] * 6 + [_U, _U, _F, _P],
+    "mit_dump_dropout_mask": [_P] + [_I] * 3 + [_U, _U, _P],
 }
 
 _lib = None

@@ -1,5 +1,5 @@
-"""Parameter trees: JAX param pytree → the port's parameters, and per-layer
-views.
+"""Parameter trees: JAX param pytree → the port's parameters and back, and
+per-layer views.
 
 The port stores parameters in the JAX package's own tree layout (nested
 dicts, (in, out) matrices, layer parameters stacked on a leading axis), so
@@ -38,6 +38,17 @@ def params_from_jax(tree, device=None, dtype=torch.float32):
     # a copy: the source may be a read-only view (a JAX buffer, a file)
     return torch.tensor(np.asarray(tree, dtype=np.float32), dtype=dtype,
                         device=device)
+
+
+def params_to_jax(tree):
+    """The reverse of :func:`params_from_jax` for float trees: nested dicts
+    of tensors → the same dicts of float32 numpy arrays on the host, the JAX
+    package's layout leaf by leaf."""
+    if isinstance(tree, dict):
+        return {k: params_to_jax(v) for k, v in tree.items()}
+    if not isinstance(tree, torch.Tensor):
+        raise TypeError(f"cannot convert {type(tree).__name__}")
+    return tree.detach().to("cpu", torch.float32).numpy()
 
 
 def layer_params(stacked: dict, i: int) -> dict:

@@ -1,11 +1,13 @@
-"""Transformer decoder (port of ``mit_tpu/models/decoder.py``, inference).
+"""Transformer decoder (port of ``mit_tpu/models/decoder.py``).
 
-Embedding × √D → sinusoidal positions → post-LN layers (causal + key-pad
-self-attention through ``flash_attention_btd``; cross-attention, which
+Embedding × √D → sinusoidal positions → dropout → post-LN layers (causal +
+key-pad self-attention through ``flash_attention_btd``, or the dropout
+kernels while training with ``fused_dropout``; cross-attention, which
 collapses to ``out_proj(v_proj(memory))`` for a length-1 CLS memory; ReLU
-FFN) → f32 vocab projection. Parameters keep the JAX tree: layer
-parameters stacked on a leading axis, (in, out) matrices. No dropout: the
-port has no training step yet.
+FFN) → f32 vocab projection. Dropout, while training, falls on the
+embedding, the three residual branches, the FFN hidden and the attention
+probabilities, as in the JAX decoder. Parameters keep the JAX tree: layer
+parameters stacked on a leading axis, (in, out) matrices.
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ import torch
 
 from mit_tpu_torch.models.convert import layer_params, params_from_jax
 from mit_tpu_torch.ops.attention import (
+    DropoutGenerators,
+    dropout,
     layer_norm,
     multihead_attention,
     single_key_cross_attention,
@@ -90,11 +94,26 @@ def decoder_forward(
     memory_padding_mask: Optional[torch.Tensor] = None,  # (B, S) bool, True=pad
     compute_dtype=torch.float32,
     use_kernel: bool = True,
+    deterministic: bool = True,
+    generator: Optional[DropoutGenerators] = None,
+    fused_dropout: bool = False,
 ) -> torch.Tensor:
-    """Teacher-forced full-sequence forward → logits (B, T, V) in f32."""
+    """Teacher-forced full-sequence forward → logits (B, T, V) in f32.
+
+    ``deterministic=False`` applies dropout at ``cfg.dropout``, drawn from
+    ``generator``; ``fused_dropout`` sends the self-attention's probability
+    dropout through the hash-mask kernels (``MIT_FUSED_DROPOUT=1`` in the
+    JAX package), else the plain path drops out the probabilities.
+    """
     b, t = tgt_tokens.shape
     d = cfg.embed_dim
     cd = compute_dtype
+    drop = cfg.dropout
+    if drop > 0.0 and not deterministic and generator is None:
+        raise ValueError("dropout needs a generator")
+    drop_kw = dict(dropout_rate=drop, generator=generator,
+                   deterministic=deterministic)
+    dr = lambda x: dropout(x, drop, generator, deterministic)
 
     tgt_pad = padding_add(tgt_tokens, cfg.pad_idx)
     single_key = memory.shape[1] == 1 and memory_padding_mask is None
@@ -106,7 +125,7 @@ def decoder_forward(
         math.sqrt(d), dtype=cd
     )
     pos = sinusoid_table(cfg.max_seq_len, d, cd, memory.device)
-    x = emb + pos[None, :t]
+    x = dr(emb + pos[None, :t])
     mem = memory.to(cd)
 
     for i in range(cfg.num_layers):
@@ -114,21 +133,22 @@ def decoder_forward(
         sa = multihead_attention(
             layer["self"], x, x, cfg.num_heads, compute_dtype=cd,
             use_kernel=use_kernel, causal=True, pad_add=tgt_pad,
+            fused_dropout=fused_dropout, **drop_kw,
         )
-        x = layer_norm(layer["ln1"], x + sa)
+        x = layer_norm(layer["ln1"], x + dr(sa))
         if single_key:
             ca = single_key_cross_attention(
-                layer["cross"], t, mem, cfg.num_heads, cd
+                layer["cross"], t, mem, cfg.num_heads, cd, **drop_kw
             )
         else:
             ca = multihead_attention(
                 layer["cross"], x, mem, cfg.num_heads, mem_mask, cd,
-                use_kernel=False,
+                use_kernel=False, **drop_kw,
             )
-        x = layer_norm(layer["ln2"], x + ca)
+        x = layer_norm(layer["ln2"], x + dr(ca))
         f = layer["ffn"]
-        h = torch.relu(x @ f["w1"].to(cd) + f["b1"].to(cd))
-        x = layer_norm(layer["ln3"], x + (h @ f["w2"].to(cd) + f["b2"].to(cd)))
+        h = dr(torch.relu(x @ f["w1"].to(cd) + f["b1"].to(cd)))
+        x = layer_norm(layer["ln3"], x + dr(h @ f["w2"].to(cd) + f["b2"].to(cd)))
 
     logits = x.float() @ params["fc_out_w"].float()
     return logits + params["fc_out_b"].float()
@@ -190,3 +210,35 @@ def params_from_torch_state_dict(sd: dict, cfg: DecoderConfig,
         "fc_out_b": get("fc_out.bias"),
     }
     return params_from_jax(params, device)
+
+
+def torch_state_dict_from_params(params: dict, prefix: str = "") -> dict:
+    """The reverse of :func:`params_from_torch_state_dict`: the reference's
+    torch naming with numpy f32 values, (out, in) matrices and packed
+    (3D, D) in_proj."""
+    p = lambda a: a.detach().to("cpu", torch.float32).numpy()
+    out = {
+        prefix + "token_embedding.weight": p(params["token_embedding"]),
+        prefix + "fc_out.weight": p(params["fc_out_w"]).T,
+        prefix + "fc_out.bias": p(params["fc_out_b"]),
+    }
+    layers = params["layers"]
+    for i in range(layers["self"]["wq"].shape[0]):
+        base = f"{prefix}transformer_decoder.layers.{i}."
+        for mod, key in (("self_attn", "self"), ("multihead_attn", "cross")):
+            a = layers[key]
+            out[base + mod + ".in_proj_weight"] = np.concatenate(
+                [p(a[w][i]).T for w in ("wq", "wk", "wv")], axis=0)
+            out[base + mod + ".in_proj_bias"] = np.concatenate(
+                [p(a[b][i]) for b in ("bq", "bk", "bv")])
+            out[base + mod + ".out_proj.weight"] = p(a["wo"][i]).T
+            out[base + mod + ".out_proj.bias"] = p(a["bo"][i])
+        f = layers["ffn"]
+        out[base + "linear1.weight"] = p(f["w1"][i]).T
+        out[base + "linear1.bias"] = p(f["b1"][i])
+        out[base + "linear2.weight"] = p(f["w2"][i]).T
+        out[base + "linear2.bias"] = p(f["b2"][i])
+        for n in (1, 2, 3):
+            out[base + f"norm{n}.weight"] = p(layers[f"ln{n}"]["scale"][i])
+            out[base + f"norm{n}.bias"] = p(layers[f"ln{n}"]["bias"][i])
+    return out

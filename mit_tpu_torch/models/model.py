@@ -1,9 +1,12 @@
 """Image → text model: frozen vision encoder + decoder (port of
-``mit_tpu/models/model.py``, inference side).
+``mit_tpu/models/model.py``).
 
 Parameters are ``{"encoder", "decoder"}`` plus ``"projection"`` when the
-encoder width differs from the decoder width. Memory modes: "cls" (the
-projected CLS token, length 1) and "full" (the whole patch sequence).
+encoder width differs from the decoder width; :func:`split_trainable`
+parts them into the trainable projection and decoder and the frozen
+encoder. Memory modes: "cls" (the projected CLS token, length 1) and "full"
+(the whole patch sequence). The encoder runs under ``torch.no_grad()``,
+the counterpart of the JAX package's ``stop_gradient``.
 """
 
 from __future__ import annotations
@@ -13,7 +16,12 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from mit_tpu_torch.models.decoder import DecoderConfig, init_decoder_params
+from mit_tpu_torch.models.decoder import (
+    DecoderConfig,
+    decoder_forward,
+    init_decoder_params,
+)
+from mit_tpu_torch.ops.attention import DropoutGenerators
 from mit_tpu_torch.models.vision import (
     VisionConfig,
     config_for_encoder,
@@ -88,17 +96,16 @@ def encode_images(
     """
     enc = params["encoder"]
     cls_only = mcfg.memory_mode == "cls"
-    if "patch" in enc:
-        hidden = vision_forward_int8(
-            enc, mcfg.vision, pixel_values, compute_dtype, use_kernel,
-            cls_only=cls_only, fused_layers=fused_layers,
-        )
-    else:
-        hidden = vision_forward(
+    with torch.no_grad():
+        if "patch" in enc:
+            return vision_forward_int8(
+                enc, mcfg.vision, pixel_values, compute_dtype, use_kernel,
+                cls_only=cls_only, fused_layers=fused_layers,
+            )
+        return vision_forward(
             enc, mcfg.vision, pixel_values, compute_dtype, use_kernel,
             cls_only=cls_only,
         )
-    return hidden.detach()
 
 
 def project_features(params: dict, mcfg: ModelConfig, features: torch.Tensor,
@@ -109,3 +116,55 @@ def project_features(params: dict, mcfg: ModelConfig, features: torch.Tensor,
         p = params["projection"]
         return features.to(cd) @ p["w"].to(cd) + p["b"].to(cd)
     return features.to(cd)
+
+
+def split_trainable(params: dict):
+    """(trainable, frozen): the encoder is frozen, the projection and the
+    decoder train."""
+    frozen = {"encoder": params["encoder"]}
+    trainable = {k: v for k, v in params.items() if k != "encoder"}
+    return trainable, frozen
+
+
+def merge_params(trainable: dict, frozen: dict) -> dict:
+    return {**trainable, **frozen}
+
+
+def forward_from_features(
+    params: dict,
+    mcfg: ModelConfig,
+    features: torch.Tensor,             # (B, S, H_enc) cached encoder output
+    tgt_tokens: torch.Tensor,           # (B, T)
+    deterministic: bool = True,
+    generator: Optional[DropoutGenerators] = None,
+    compute_dtype=torch.float32,
+    use_kernel: bool = True,
+    fused_dropout: bool = False,
+) -> torch.Tensor:
+    """Teacher-forced logits (B, T, V) in f32 from encoder features."""
+    memory = project_features(params, mcfg, features, compute_dtype)
+    return decoder_forward(
+        params["decoder"], mcfg.decoder, tgt_tokens, memory, None,
+        compute_dtype, use_kernel, deterministic, generator, fused_dropout,
+    )
+
+
+def model_forward(
+    params: dict,
+    mcfg: ModelConfig,
+    pixel_values: torch.Tensor,
+    tgt_tokens: torch.Tensor,
+    deterministic: bool = True,
+    generator: Optional[DropoutGenerators] = None,
+    compute_dtype=torch.float32,
+    use_kernel: bool = True,
+    fused_dropout: bool = False,
+) -> torch.Tensor:
+    """Teacher-forced logits (B, T, V) from pixels: the frozen encoder,
+    then :func:`forward_from_features`."""
+    features = encode_images(params, mcfg, pixel_values, compute_dtype,
+                             use_kernel)
+    return forward_from_features(
+        params, mcfg, features, tgt_tokens, deterministic, generator,
+        compute_dtype, use_kernel, fused_dropout,
+    )

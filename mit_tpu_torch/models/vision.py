@@ -364,6 +364,34 @@ def _np(a):
     return np.asarray(a, dtype=np.float32)
 
 
+def _hf_layout(cfg: VisionConfig):
+    """(per-layer module names, final LayerNorm name) of a family's HF
+    vision tower."""
+    if cfg.family == "vit":
+        lyr = "encoder.layer.{i}."
+        return {
+            "q": lyr + "attention.attention.query",
+            "k": lyr + "attention.attention.key",
+            "v": lyr + "attention.attention.value",
+            "o": lyr + "attention.output.dense",
+            "ln1": lyr + "layernorm_before",
+            "ln2": lyr + "layernorm_after",
+            "fc1": lyr + "intermediate.dense",
+            "fc2": lyr + "output.dense",
+        }, "layernorm"
+    lyr = "encoder.layers.{i}."   # clip / blip share the CLIP-style naming
+    return {
+        "q": lyr + "self_attn.q_proj",
+        "k": lyr + "self_attn.k_proj",
+        "v": lyr + "self_attn.v_proj",
+        "o": lyr + "self_attn.out_proj",
+        "ln1": lyr + "layer_norm1",
+        "ln2": lyr + "layer_norm2",
+        "fc1": lyr + "mlp.fc1",
+        "fc2": lyr + "mlp.fc2",
+    }, "post_layernorm"
+
+
 def params_from_hf_vision(sd: dict, cfg: VisionConfig, prefix: str = "",
                           device=None) -> dict:
     """Convert an HF vision state dict (any of the three families).
@@ -373,25 +401,14 @@ def params_from_hf_vision(sd: dict, cfg: VisionConfig, prefix: str = "",
     """
     g = lambda n: _np(sd[prefix + n])
     L, d = cfg.num_layers, cfg.hidden_size
+    names, ln_post = _hf_layout(cfg)
 
     if cfg.family == "vit":
         conv_w = g("embeddings.patch_embeddings.projection.weight")
         patch_b = g("embeddings.patch_embeddings.projection.bias")
         cls = g("embeddings.cls_token").reshape(d)
         pos = g("embeddings.position_embeddings").reshape(-1, d)
-        lyr = "encoder.layer.{i}."
-        names = {
-            "q": lyr + "attention.attention.query",
-            "k": lyr + "attention.attention.key",
-            "v": lyr + "attention.attention.value",
-            "o": lyr + "attention.output.dense",
-            "ln1": lyr + "layernorm_before",
-            "ln2": lyr + "layernorm_after",
-            "fc1": lyr + "intermediate.dense",
-            "fc2": lyr + "output.dense",
-        }
-        ln_post = "layernorm"
-    else:  # clip / blip share the CLIP-style encoder naming
+    else:
         conv_w = g("embeddings.patch_embedding.weight")
         cls = g("embeddings.class_embedding").reshape(d)
         if cfg.family == "clip":
@@ -400,18 +417,6 @@ def params_from_hf_vision(sd: dict, cfg: VisionConfig, prefix: str = "",
         else:  # blip
             patch_b = g("embeddings.patch_embedding.bias")
             pos = g("embeddings.position_embedding").reshape(-1, d)
-        lyr = "encoder.layers.{i}."
-        names = {
-            "q": lyr + "self_attn.q_proj",
-            "k": lyr + "self_attn.k_proj",
-            "v": lyr + "self_attn.v_proj",
-            "o": lyr + "self_attn.out_proj",
-            "ln1": lyr + "layer_norm1",
-            "ln2": lyr + "layer_norm2",
-            "fc1": lyr + "mlp.fc1",
-            "fc2": lyr + "mlp.fc2",
-        }
-        ln_post = "post_layernorm"
 
     def per_layer(fmt, kind):
         if kind == "w":   # torch Linear (out, in) → (in, out)
@@ -466,6 +471,65 @@ def params_from_hf_vision(sd: dict, cfg: VisionConfig, prefix: str = "",
         params["ln_post"] = {"scale": g(ln_post + ".weight"),
                              "bias": g(ln_post + ".bias")}
     return params_from_jax(params, device)
+
+
+def hf_vision_state_dict_from_params(params: dict, cfg: VisionConfig,
+                                     prefix: str = "") -> dict:
+    """The reverse of :func:`params_from_hf_vision` for a float tree: HF
+    naming with numpy f32 values (``mit_tpu.models.vision.
+    hf_vision_state_dict_from_params``)."""
+    p = _np
+    d, L = cfg.hidden_size, cfg.num_layers
+    names, ln_post = _hf_layout(cfg)
+    out = {}
+    patch_w = p(params["patch_w"]).T.reshape(d, 3, cfg.patch_size,
+                                              cfg.patch_size)
+    if cfg.family == "vit":
+        emb = prefix + "embeddings."
+        out[emb + "patch_embeddings.projection.weight"] = patch_w
+        out[emb + "patch_embeddings.projection.bias"] = p(params["patch_b"])
+        out[emb + "cls_token"] = p(params["cls"]).reshape(1, 1, d)
+        out[emb + "position_embeddings"] = p(params["pos"]).reshape(1, -1, d)
+    else:
+        emb = prefix + "embeddings."
+        out[emb + "patch_embedding.weight"] = patch_w
+        if cfg.family == "blip":
+            out[emb + "patch_embedding.bias"] = p(params["patch_b"])
+            out[emb + "class_embedding"] = p(params["cls"]).reshape(1, 1, d)
+            out[emb + "position_embedding"] = p(params["pos"]).reshape(1, -1, d)
+        else:  # clip
+            out[emb + "class_embedding"] = p(params["cls"])
+            out[emb + "position_embedding.weight"] = p(params["pos"])
+
+    lay = params["layers"]
+    attn = lay["attn"]
+    for i in range(L):
+        name = lambda key: prefix + names[key].format(i=i)
+        if cfg.family == "blip":
+            base = prefix + f"encoder.layers.{i}.self_attn."
+            out[base + "qkv.weight"] = np.concatenate(
+                [p(attn[w][i]).T for w in ("wq", "wk", "wv")], axis=0)
+            out[base + "qkv.bias"] = np.concatenate(
+                [p(attn[b][i]) for b in ("bq", "bk", "bv")])
+            out[base + "projection.weight"] = p(attn["wo"][i]).T
+            out[base + "projection.bias"] = p(attn["bo"][i])
+        else:
+            for key in "qkvo":
+                out[name(key) + ".weight"] = p(attn["w" + key][i]).T
+                out[name(key) + ".bias"] = p(attn["b" + key][i])
+        for ln in ("ln1", "ln2"):
+            out[name(ln) + ".weight"] = p(lay[ln]["scale"][i])
+            out[name(ln) + ".bias"] = p(lay[ln]["bias"][i])
+        for fc, b in (("fc1", "b1"), ("fc2", "b2")):
+            out[name(fc) + ".weight"] = p(lay[fc][i]).T
+            out[name(fc) + ".bias"] = p(lay[b][i])
+    if cfg.ln_pre:
+        out[prefix + "pre_layrnorm.weight"] = p(params["ln_pre"]["scale"])
+        out[prefix + "pre_layrnorm.bias"] = p(params["ln_pre"]["bias"])
+    if cfg.ln_post:
+        out[prefix + ln_post + ".weight"] = p(params["ln_post"]["scale"])
+        out[prefix + ln_post + ".bias"] = p(params["ln_post"]["bias"])
+    return out
 
 
 def detect_hf_prefix(sd: dict, cfg: VisionConfig) -> str:

@@ -4,10 +4,15 @@ Port of ``mit_tpu/ops/pallas_attention.py:flash_attention_btd``. Heads are
 D-column blocks of ``head_dim``, so the Q/K/V projections feed the kernel
 and its output feeds the out-projection with no head split or merge.
 
-- :func:`flash_attention_btd` is the wrapper. For CPU tensors it runs
-  :func:`flash_attention_btd_reference`; for CUDA tensors it launches the
-  hand-written kernel ``csrc/flash_attention_btd.cu`` or raises. It adds one
-  to ``flash_attention_btd.launches`` at each kernel launch.
+- :func:`flash_attention_btd` is the wrapper, differentiable in q, k and
+  v. For CPU tensors it runs :func:`flash_attention_btd_reference`; for
+  CUDA tensors it launches the hand-written kernel
+  ``csrc/flash_attention_btd.cu`` or raises. It adds one to
+  ``flash_attention_btd.launches`` at each kernel launch. The kernel is
+  forward-only: the backward recomputes the attention through
+  :func:`flash_attention_btd_reference` under autograd, as the JAX
+  package's ``_bwd_btd`` recomputes through XLA (``pallas_attention.py:
+  372-379``), so training at dropout 0 and eval run the kernel forward.
 - :func:`flash_attention_btd_reference` is the plain PyTorch version, the
   twin of ``_xla_attention_btd`` / ``_xla_attention``: it normalizes the
   probabilities before P·V, where the kernel divides by the row sum after
@@ -28,8 +33,8 @@ output modes:
   rounded to bf16 for P·V, multiplication by ``1/rowsum`` after P·V, and
   an f32 context.
 
-Forward only: the TPU backward recomputes through plain ops and training is
-not ported yet, so the wrappers raise on inputs that require grad.
+The fused-QKV wrapper is forward-only (the encoder is frozen) and raises on
+an input that requires grad.
 """
 
 from __future__ import annotations
@@ -109,24 +114,8 @@ def _check_cuda_inputs(q, k, v, pad_add, head_dim) -> None:
         )
 
 
-def flash_attention_btd(
-    q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
-    pad_add: Optional[torch.Tensor] = None,
-    causal: bool = False,
-    head_dim: int = 64,
-) -> torch.Tensor:
-    """Fused attention: q (B, T, D); k/v (B, S, D); pad_add (B, S) or None.
-
-    ``pad_add=None`` means no key is padding (the encoder's case) and skips
-    the pad add, as ``has_pad=False`` does in the JAX kernel.
-    """
-    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
-        raise RuntimeError(
-            "flash_attention_btd is forward-only; run it under "
-            "torch.no_grad() or torch.inference_mode()"
-        )
+def _flash_forward_btd(q, k, v, pad_add, causal, head_dim):
+    """The forward: the plain version for CPU tensors, the kernel for CUDA."""
     if q.device.type == "cpu":
         return flash_attention_btd_reference(q, k, v, pad_add, causal, head_dim)
     if q.device.type != "cuda":
@@ -150,6 +139,43 @@ def flash_attention_btd(
     kernels.check(rc, name)
     flash_attention_btd.launches += 1
     return out
+
+
+class _FlashAttentionBTD(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, pad_add, causal, head_dim):
+        ctx.save_for_backward(q, k, v, pad_add)
+        ctx.args = (causal, head_dim)
+        return _flash_forward_btd(q, k, v, pad_add, causal, head_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, pad_add = ctx.saved_tensors
+        causal, head_dim = ctx.args
+        qkv = [x.detach().requires_grad_() for x in (q, k, v)]
+        with torch.enable_grad():
+            out = flash_attention_btd_reference(*qkv, pad_add, causal, head_dim)
+        dq, dk, dv = torch.autograd.grad(out, qkv, g)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention_btd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    pad_add: Optional[torch.Tensor] = None,
+    causal: bool = False,
+    head_dim: int = 64,
+) -> torch.Tensor:
+    """Fused attention: q (B, T, D); k/v (B, S, D); pad_add (B, S) or None.
+
+    ``pad_add=None`` means no key is padding (the encoder's case) and skips
+    the pad add, as ``has_pad=False`` does in the JAX kernel. The gradient
+    in q, k and v recomputes through the plain version.
+    """
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        return _FlashAttentionBTD.apply(q, k, v, pad_add, causal, head_dim)
+    return _flash_forward_btd(q, k, v, pad_add, causal, head_dim)
 
 
 flash_attention_btd.launches = 0

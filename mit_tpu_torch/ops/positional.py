@@ -2,15 +2,20 @@
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
 
+@functools.lru_cache(maxsize=16)
 def sinusoid_table(max_len: int, d_model: int, dtype=torch.float32,
                    device=None) -> torch.Tensor:
     """(max_len, d_model) table; even dims sin, odd dims cos.
 
     Computed in float64 with numpy, as the JAX package does, then cast.
+    Cached per arguments: the copy to a device would otherwise wait for the
+    device at every forward. Callers must not write to the table.
     """
     position = np.arange(max_len, dtype=np.float64)[:, None]
     div_term = np.exp(

@@ -18,7 +18,10 @@ from mit_tpu.ops.pallas_attention import flash_attention_btd as jax_flash_btd
 from mit_tpu.ops.positional import sinusoid_table as jax_sinusoid_table
 from mit_tpu_torch.models.convert import params_from_jax
 from mit_tpu_torch.ops import attention as tattn
-from mit_tpu_torch.ops.flash_attention import flash_attention_btd
+from mit_tpu_torch.ops.flash_attention import (
+    flash_attention_btd,
+    flash_attention_btd_reference,
+)
 from mit_tpu_torch.ops.masks import NEG_INF, causal_mask
 from mit_tpu_torch.ops.positional import sinusoid_table
 
@@ -58,11 +61,19 @@ def test_flash_btd_matches_jax_kernel(causal, has_pad, t, s):
 
 
 def test_flash_btd_is_forward_only():
-    q = torch.zeros(1, 4, D, requires_grad=True)
-    with pytest.raises(RuntimeError, match="forward-only"):
-        flash_attention_btd(q, q, q, None, False, HD)
+    """The kernel is forward-only: with grad the wrapper's backward
+    recomputes through the plain version (JAX's ``_bwd_btd``)."""
+    q = torch.randn(1, 4, D, generator=torch.Generator().manual_seed(0),
+                    requires_grad=True)
+    out = flash_attention_btd(q, q, q, None, False, HD)
+    assert out.requires_grad and out.shape == q.shape
+    (g,) = torch.autograd.grad(out.sum(), q)
+    (want,) = torch.autograd.grad(
+        flash_attention_btd_reference(q, q, q, None, False, HD).sum(), q)
+    # q feeds q, k and v: their three gradients are summed in another order
+    torch.testing.assert_close(g, want, rtol=0, atol=1e-6)
     with torch.no_grad():
-        assert flash_attention_btd(q, q, q, None, False, HD).shape == q.shape
+        assert not flash_attention_btd(q, q, q, None, False, HD).requires_grad
 
 
 def _attn_params(r, d=D):

@@ -15,7 +15,7 @@ import pytest
 import torch
 
 from mit_tpu_torch import kernels
-from mit_tpu_torch.ops import int8_layer, int8_mlp
+from mit_tpu_torch.ops import dropout_attention, int8_layer, int8_mlp
 from mit_tpu_torch.ops.flash_attention import (
     _check_cuda_inputs,
     _check_fusedqkv,
@@ -85,8 +85,15 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         flash_attention_btd(q.transpose(0, 1).contiguous().transpose(0, 1),
                             k, v, pad, False, 64)
-    with pytest.raises(RuntimeError, match="forward-only"):
-        flash_attention_btd(q.requires_grad_(), k, v, pad, False, 64)
+    # forward-only kernel: the gradient recomputes through the plain version
+    qg = q.detach().requires_grad_()
+    before = flash_attention_btd.launches
+    (g,) = torch.autograd.grad(
+        flash_attention_btd(qg, k, v, pad, False, 64).sum(), qg)
+    (want,) = torch.autograd.grad(
+        flash_attention_btd_reference(qg, k, v, pad, False, 64).sum(), qg)
+    assert flash_attention_btd.launches == before + 1
+    torch.testing.assert_close(g, want, rtol=0, atol=0)
 
 
 def test_cpu_tensors_take_the_plain_version():
@@ -391,3 +398,115 @@ def test_int8_cpu_tensors_take_the_plain_versions():
         int8_layer.fused_int8_vit_layer(x, *args, 1, 1e-6),
         int8_layer.fused_int8_vit_layer_reference(x, *args, 1, 1e-6))
     assert [w.launches for w in wrappers] == before
+
+
+# ----------------------------------------------------------------------
+# the dropout-attention kernels (training's decoder self-attention)
+# ----------------------------------------------------------------------
+def _heads(b, h, t, s, dtype, device, seed=7):
+    """q, k ~ N(0, 1), v ~ U(-1, 1) in (B, H, T|S, 64); (B, S) pads with
+    every key of batch row 0 masked."""
+    r = np.random.default_rng(seed)
+    to = lambda a: torch.from_numpy(a.astype(np.float32)).to(device, dtype)
+    q = to(r.normal(size=(b, h, t, 64)))
+    k = to(r.normal(size=(b, h, s, 64)))
+    v = to(r.uniform(-1, 1, size=(b, h, s, 64)))
+    pad = np.where(r.random((b, s)) > 0.8, -1e9, 0.0).astype(np.float32)
+    pad[0] = -1e9
+    return q, k, v, torch.from_numpy(pad).to(device)
+
+
+def _norm_err(a, b):
+    """Max abs difference over b's largest value (a gradient that is exactly
+    zero, as dq and dk over a single key, counts as 1)."""
+    scale = torch.clamp(b.float().abs().max(), min=1.0 if not b.any() else 0.0)
+    return ((a.float() - b.float()).abs().max() / scale).item()
+
+
+DROPOUT_SHAPES = [(4, 8, 99, 99, True), (3, 2, 7, 9, False),
+                  (2, 2, 128, 128, True), (2, 1, 1, 1, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,rate", [(0, 0.1), (2**31 - 2, 0.5), (5, 0.0)])
+@pytest.mark.parametrize("b,h,t,s", [(2, 3, 7, 9), (32, 8, 99, 99)])
+def test_dump_dropout_mask_is_bitwise_plain_on_card(cuda, b, h, t, s, seed,
+                                                    rate):
+    before = dropout_attention.dump_dropout_mask.launches
+    got = dropout_attention.dump_dropout_mask(b, h, t, s, seed, rate, cuda)
+    want = dropout_attention.keep_mask(
+        t, s, rate, seed, torch.arange(b * h, device=cuda)).reshape(b, h, t, s)
+    torch.cuda.synchronize()
+    assert dropout_attention.dump_dropout_mask.launches == before + 1
+    assert got.dtype == torch.bool and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,h,t,s,causal", DROPOUT_SHAPES)
+def test_dropout_attention_matches_plain_on_card(cuda, dtype, b, h, t, s,
+                                                 causal):
+    """Forward within 1e-5 (f32: the same operations summed in another
+    order) or TOL (bf16: one rounding of the output); dq, dk, dv within
+    1e-5 (f32) and 1e-2 (bf16) of their largest value."""
+    q, k, v, pad = _heads(b, h, t, s, dtype, cuda)
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(1)
+                     ).to(cuda, dtype)
+    seed, rate = 1234, 0.1
+    fwd = dropout_attention.flash_attention_dropout_fwd
+    bwd = dropout_attention.flash_attention_dropout_bwd
+    before = (fwd.launches, bwd.launches)
+    out = fwd(q, k, v, pad, seed, causal, rate)
+    grads = bwd(q, k, v, pad, do, seed, causal, rate)
+    ref = dropout_attention.flash_attention_dropout_reference(
+        q, k, v, pad, seed, causal, rate)
+    ref_grads = dropout_attention.flash_attention_dropout_reference_backward(
+        q, k, v, pad, do, seed, causal, rate)
+    torch.cuda.synchronize()
+    assert (fwd.launches, bwd.launches) == (before[0] + 1, before[1] + 1)
+    assert out.dtype == dtype and not torch.isnan(out).any()
+    fwd_limit = 1e-5 if dtype == torch.float32 else TOL[dtype]
+    assert (out.float() - ref.float()).abs().max().item() <= fwd_limit
+    limit = 1e-5 if dtype == torch.float32 else 1e-2
+    for g, r in zip(grads, ref_grads):
+        assert g.dtype == dtype and g.shape == r.shape
+        assert _norm_err(g, r) <= limit
+
+
+@pytest.mark.cuda
+def test_dropout_attention_autograd_on_card(cuda):
+    """The autograd Function launches the forward and backward kernels and
+    gives the plain autograd version's gradients."""
+    q, k, v, pad = _heads(4, 8, 99, 99, torch.float32, cuda)
+    grads = []
+    counts = []
+    for fn in (dropout_attention.flash_attention_dropout,
+               dropout_attention.flash_attention_dropout_plain):
+        qkv = [x.clone().requires_grad_() for x in (q, k, v)]
+        before = (dropout_attention.flash_attention_dropout_fwd.launches,
+                  dropout_attention.flash_attention_dropout_bwd.launches)
+        out = fn(*qkv, pad, 99, True, 0.1)
+        grads.append(torch.autograd.grad(out.square().sum(), qkv))
+        counts.append((dropout_attention.flash_attention_dropout_fwd.launches
+                       - before[0],
+                       dropout_attention.flash_attention_dropout_bwd.launches
+                       - before[1]))
+    torch.cuda.synchronize()
+    assert counts == [(1, 1), (0, 0)]
+    for a, b in zip(*grads):
+        assert _norm_err(a, b) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_dropout_kernels_reject_what_they_do_not_take(cuda):
+    q, k, v, pad = _heads(2, 2, 9, 9, torch.float32, cuda)
+    fwd = dropout_attention.flash_attention_dropout_fwd
+    with pytest.raises(TypeError):
+        fwd(q.half(), k.half(), v.half(), pad, 0, True, 0.1)
+    with pytest.raises(ValueError, match="contiguous"):
+        fwd(q.transpose(2, 3).contiguous().transpose(2, 3), k, v, pad, 0,
+            True, 0.1)
+    big = torch.zeros(1, 1, 129, 64, device=cuda)
+    with pytest.raises(ValueError, match="128"):
+        fwd(big, big, big, torch.zeros(1, 129, device=cuda), 0, True, 0.1)
