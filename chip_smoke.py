@@ -83,8 +83,40 @@ the script exits non-zero without printing the result line.
             fused dropout on and off (the plain dropout path), median and
             quartiles of RUNS runs in alternating turns. Every counter is
             set to 0 before the cache build and (c), and read after them.
-6. result   One JSON line describing each kernel, then the last line,
-            {"ok": true, "device": {...}}.
+            Phase 3 also holds fused_decode_layer to its plain version at
+            (B, T) = (64, 16), (64, 100), (192, 100) and a ragged (3, 7),
+            D 512, F 2048, with a scalar and with per-row positions, a madd
+            that masks PAD keys and one fully masked row, with and without
+            the in-kernel cache write: f32 within 1e-5 on x' and on the
+            fresh rows, bf16 within 0.05 (then a table of its times at 1, 2
+            and 4 batch rows per block, with and without the staggered walk
+            over the weights); and flash_attention (the
+            (B, H, T, hd) kernel) at (8, 12, 577, 64), f32 (1e-5) and bf16
+            (2e-2), and at the causal padded decoder shape (64, 8, 100, 64).
+            Yardsticks, timed and used nowhere in the port: one
+            F.scaled_dot_product_attention call at each attention kernel's
+            shape and torch._int_mm at each int8_gemm shape.
+            Phase 4 also drives the decode routes on the ViT-B model. f32
+            batch 8: greedy tokens of the fused route (fused_decode_layer
+            in every layer of every step) equal the unfused route's, and
+            the kernel's equal its plain version's run through the same
+            step; beam K = 3 tokens equal between the routes, scores within
+            rtol = atol = 1e-5; beam_size 1 and temperature 0 equal greedy; a sampled
+            batch (temperature 1, top-k 50, top-p 0.9) repeats under the
+            same seed. bf16 batch 64: one fused step under torch.profiler
+            runs one matrix product (the logits) and no softmax, einsum or
+            LayerNorm op; the fused greedy run launches exactly num_layers
+            kernels a step; captions/s and ms per step of greedy fused
+            against unfused in alternating turns, and of beam K = 3; a
+            32-step trace of each greedy route (device kernels and
+            device-busy time per step). Then
+            the BLIP-384 encoder (577 tokens) at full depth, f32 batch 8:
+            11 flash_attention launches per encode call and no
+            flash_attention_btd, memory within 1e-4 of the plain path's.
+6. result   One JSON line describing each kernel (its error, its time, its
+            plain version's time, its bound and, where one PyTorch call
+            computes the same function, that call's time), then the last
+            line, {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -124,6 +156,20 @@ PER_ENCODE = {
                     "flash_attention_btd_fusedqkv": 11, "quantize_rows": 49,
                     "int8_gemm": 49},
 }
+
+
+# peak rates of one H100 SXM (NVIDIA's data sheet, dense) for the bounds
+MEM_BYTES_PER_S = 3.35e12
+PEAK_OPS = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12}
+# fused decode layer: (B, T) at D 512, F 2048, 8 heads
+DECODE_SHAPES = [(64, 16), (64, 100), (192, 100), (3, 7)]
+# max abs error of x' and of the fresh rows. f32: summation order over 512
+# or 2048 terms at values of order 1 (the fresh rows reach 3e-6 to 4e-6
+# against cuBLAS; the JAX package's 1e-6 is at its test's width of 64)
+DECODE_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (0.05, 0.05)}
+BHTD_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+DECODE_REPS = 4          # timed greedy runs per route, in alternating turns
+BLIP = "Salesforce/blip-image-captioning-base"
 
 
 # training phase
@@ -227,14 +273,21 @@ def check_kernels(torch):
             runs[which].append(cuda_ms(torch, kern if which == "kernel" else plain))
         dname = str(dtype).split(".")[1]
         times[dname] = {w: statistics.mean(r) for w, r in runs.items()}
+        times[dname].update(attention_bound(b, d // 64, t, t, dtype))
+        times[dname]["library_ms"] = sdpa_ms(
+            torch, heads_view(q), heads_view(k), heads_view(v))
         print(f"time at encoder shape {dname:8s} kernel {runs['kernel']} ms, "
-              f"plain {runs['plain']} ms (mean of {TIMED_ITERS} calls each)")
+              f"plain {runs['plain']} ms (mean of {TIMED_ITERS} calls each); "
+              f"bound {times[dname]['bound_ms']:.5f} ms by "
+              f"{times[dname]['bound_by']}, library call "
+              f"{times[dname]['library_ms']:.4f} ms")
     return errors, times
 
 
 def wrappers():
     """Every kernel wrapper with a launch counter, by name."""
     from mit_tpu_torch.ops import (
+        decode_layer,
         dropout_attention,
         flash_attention,
         int8_layer,
@@ -242,6 +295,8 @@ def wrappers():
     )
 
     return {
+        "fused_decode_layer": decode_layer.fused_decode_layer,
+        "flash_attention": flash_attention.flash_attention,
         "flash_attention_dropout": dropout_attention.flash_attention_dropout_fwd,
         "flash_attention_dropout_bwd":
             dropout_attention.flash_attention_dropout_bwd,
@@ -303,12 +358,56 @@ def random_ln(torch, d, seed):
             "bias": to(0.1 * r.normal(size=d))}
 
 
-def report(results, name, err, runs, what):
+def bound(nbytes, ops, kind):
+    """The least time the card could take: the larger of the bytes the
+    function must move (each input read once, each output written once) over
+    the memory rate and its operations over the peak rate for their type."""
+    by_bytes = nbytes / MEM_BYTES_PER_S * 1e3
+    by_ops = ops / PEAK_OPS[kind] * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def attention_bound(b, h, t, s, dtype, n_products=2, extra_bytes=0):
+    """q, k, v read and the output written once; two (T, S, 64) products."""
+    size = 2 if "bfloat16" in str(dtype) else 4
+    nbytes = (2 * b * h * t * 64 + 2 * b * h * s * 64) * size + extra_bytes
+    ops = n_products * 2 * b * h * t * s * 64
+    return bound(nbytes, ops, "bf16" if size == 2 else "f32")
+
+
+def sdpa_ms(torch, q, k, v, causal=False, pad=None, dropout_p=0.0):
+    """One F.scaled_dot_product_attention call over (B, H, T, hd) views: the
+    library's time for the same function, a yardstick only."""
+    mask = None
+    if pad is not None or causal:
+        t, s = q.shape[2], k.shape[2]
+        mask = torch.zeros((q.shape[0], 1, t, s), dtype=q.dtype, device="cuda")
+        if causal:
+            mask = mask + torch.full((t, s), -1e9, dtype=q.dtype,
+                                     device="cuda").triu(1)
+        if pad is not None:
+            mask = mask + pad[:, None, None, :].to(q.dtype)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return cuda_ms(torch, lambda: sdpa(q, k, v, attn_mask=mask,
+                                       dropout_p=dropout_p))
+
+
+def heads_view(x, hd=64):
+    """(B, T, D) → the (B, H, T, hd) view the library call takes."""
+    b, t, d = x.shape
+    return x.view(b, t, d // hd, hd).transpose(1, 2)
+
+
+def report(results, name, err, runs, what, bound_, library_ms=None):
     ms = statistics.mean(runs["kernel"])
     plain_ms = statistics.mean(runs["plain"])
+    lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
     print(f"time {name:28s} {what}: kernel {runs['kernel']} ms, plain "
-          f"{runs['plain']} ms")
-    results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+          f"{runs['plain']} ms, bound {bound_['bound_ms']:.5f} ms by "
+          f"{bound_['bound_by']}, library call {lib}")
+    results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     **bound_, "library_ms": library_ms}
 
 
 def check_int8_kernels(torch):
@@ -355,11 +454,14 @@ def check_int8_kernels(torch):
     runs = timed_turns(torch, lambda: int8_mlp.quantize_rows(x),
                        lambda: int8_mlp.quantize_rows_reference(x))
     report(results, "quantize_rows", err, runs,
-           f"({M_FULL}, 3072) f32, the fc2 input (error: codes and scales)")
+           f"({M_FULL}, 3072) f32, the fc2 input (error: codes and scales)",
+           bound(M_FULL * 3072 * 5 + M_FULL * 4, 3 * M_FULL * 3072, "f32"))
 
     # int8_gemm: exact accumulators, then each epilogue of the path
     gemm_ms = {"kernel": [0.0, 0.0], "plain": [0.0, 0.0]}
     gemm_err = 0.0
+    gemm_bound = {"bytes": 0.0, "operations": 0.0}
+    gemm_lib = 0.0
     for i, (name, k, n, act, res, out) in enumerate(GEMMS):
         q = random_qlinear(torch, k, n, seed=10 + i)
         out_dtype = getattr(torch, out)
@@ -410,8 +512,21 @@ def check_int8_kernels(torch):
                 for w in ("kernel", "plain"):
                     for j in range(2):
                         gemm_ms[w][j] += runs[w][j]
+                size = lambda name: 0 if name is None else (
+                    2 if name == "bfloat16" else 4)
+                one = bound(m * k + k * n + 4 * m + 8 * n
+                            + m * n * (size(res) + size(out)),
+                            2 * m * k * n, "int8")
+                gemm_bound[one["bound_by"]] += one["bound_ms"]
+                lib = cuda_ms(torch, lambda: torch._int_mm(a8, q.w8))
+                gemm_lib += lib
+                print(f"     int8_gemm {name:8s} bound {one['bound_ms']:.5f} "
+                      f"ms by {one['bound_by']}; torch._int_mm (no scales, "
+                      f"bias or epilogue) {lib:.4f} ms")
     report(results, "int8_gemm", gemm_err, gemm_ms,
-           "the four GEMMs of one layer, summed")
+           "the four GEMMs of one layer, summed",
+           {"bound_ms": sum(gemm_bound.values()),
+            "bound_by": max(gemm_bound, key=gemm_bound.get)}, gemm_lib)
 
     # fused-QKV attention, both output modes
     qkv32 = random_rows(torch, M_FULL, 3 * 768, torch.float32, seed=40,
@@ -434,7 +549,10 @@ def check_int8_kernels(torch):
                 torch, lambda: flash_attention_btd_fusedqkv(qkv, 64),
                 lambda: flash_attention_btd_fusedqkv_reference(qkv, 64))
             report(results, "flash_attention_btd_fusedqkv", err, runs,
-                   "(64, 197, 2304) bf16")
+                   "(64, 197, 2304) bf16",
+                   attention_bound(64, 12, 197, 197, dtype),
+                   sdpa_ms(torch, *(heads_view(x)
+                                    for x in qkv.split(768, dim=-1))))
         if layer:
             runs = timed_turns(
                 torch, lambda: flash_attention_btd_fusedqkv(qkv, 64, True),
@@ -450,13 +568,18 @@ def check_int8_kernels(torch):
                     ).reshape(64, 197, 768)
     q1 = random_qlinear(torch, 768, 3072, seed=53)
     q2 = random_qlinear(torch, 3072, 768, seed=54)
-    for name, kern, plain, what in (
+    mp = 64 * 196
+    for name, kern, plain, what, bound_ in (
         ("int8_linear", lambda: int8_mlp.int8_linear(patches, q),
          lambda: int8_mlp.int8_linear_reference(patches, q),
-         "(64, 196, 768) bf16, the patch embedding"),
+         "(64, 196, 768) bf16, the patch embedding",
+         bound(mp * 768 * 4 + 768 * 768 + 8 * 768, 2 * mp * 768 * 768,
+               "int8")),
         ("fused_int8_mlp", lambda: int8_mlp.fused_int8_mlp(x, q1, q2),
          lambda: int8_mlp.fused_int8_mlp_reference(x, q1, q2),
-         "(64, 197, 768) bf16, F 3072, gelu"),
+         "(64, 197, 768) bf16, F 3072, gelu",
+         bound(M_FULL * 768 * 4 + 2 * 768 * 3072 + 8 * 3840,
+               4 * M_FULL * 768 * 3072, "int8")),
     ):
         out, ref = kern(), plain()
         torch.cuda.synchronize()
@@ -466,7 +589,8 @@ def check_int8_kernels(torch):
               f"max_abs_err={err:.3e}")
         if not rel <= 1e-3:
             raise AssertionError(f"{name} disagrees")
-        report(results, name, err, timed_turns(torch, kern, plain), what)
+        report(results, name, err, timed_turns(torch, kern, plain), what,
+               bound_)
 
     # the whole layer: ViT-B (one pass) and ViT-L (the split form)
     for name, b, t, d, f, heads in (
@@ -490,10 +614,174 @@ def check_int8_kernels(torch):
               f"max_abs_err={err:.3e}")
         if not rel <= 5e-3 or not bool(torch.isfinite(out).all()):
             raise AssertionError(f"{name} disagrees")
+        # x read and written in bf16, int8 weights read once; four int8
+        # products and the attention's two bf16 products
+        by_bytes = (b * t * d * 4 + 4 * d * d + 2 * d * f) / MEM_BYTES_PER_S
+        by_ops = (2 * b * t * (4 * d * d + 2 * d * f) / PEAK_OPS["int8"]
+                  + 4 * b * t * t * d / PEAK_OPS["bf16"])
         report(results, name, err,
                timed_turns(torch, lambda: kern_fn(x, *args),
-                           lambda: plain_fn(x, *args)), what)
+                           lambda: plain_fn(x, *args)), what,
+               {"bound_ms": max(by_bytes, by_ops) * 1e3,
+                "bound_by": "bytes" if by_bytes >= by_ops else "operations"})
     return results
+
+
+def decode_layer_inputs(torch, b, t, dtype, per_row, seed=SEED):
+    """One layer call at D 512, F 2048, 8 heads: x, pos, madd, caches, cross
+    and a one-layer stack of weights. madd hides the keys past pos and about
+    a tenth of the others (generated PADs); batch row 1 is fully masked."""
+    from mit_tpu_torch.ops.decode_layer import pack_decode_layers
+
+    d, f = 512, 2048
+    r = np.random.default_rng(seed)
+    to = lambda a, dt=dtype: torch.from_numpy(
+        np.asarray(a, np.float32)).to("cuda", dt)
+    x = to(r.normal(size=(b, d)))
+    kc, vc = to(r.normal(size=(b, t, d))), to(r.normal(size=(b, t, d)))
+    cross = to(r.normal(size=(b, d)), torch.float32)
+    pos = r.integers(0, t, b).astype(np.int32) if per_row else t // 2
+    visible = np.arange(t)[None, :] <= np.broadcast_to(pos, (b,))[:, None]
+    visible &= r.random((b, t)) > 0.1
+    madd = np.where(visible, 0.0, -1e9)
+    madd[1] = -1e9
+    w = lambda k, n: to(r.normal(size=(1, k, n)) / np.sqrt(k))
+    vec = lambda n, dt=dtype: to(0.1 * r.normal(size=(1, n)), dt)
+    ln = lambda: {"scale": 1 + vec(d, torch.float32),
+                  "bias": vec(d, torch.float32)}
+    lay = pack_decode_layers({
+        "wqkv": w(d, 3 * d), "bqkv": vec(3 * d), "wo": w(d, d), "bo": vec(d),
+        "w1": w(d, f), "b1": vec(f), "w2": w(f, d), "b2": vec(d),
+        "ln1": ln(), "ln2": ln(), "ln3": ln()})
+    if per_row:
+        pos = torch.from_numpy(pos).cuda()
+    return x, pos, to(madd, torch.float32), kc, vc, cross, lay
+
+
+def decode_layer_bound(b, t, dtype, d=512, f=2048):
+    """Weights, both caches, x, madd and cross read once, three (B, D) rows
+    written; four products and the two attention contractions."""
+    size = 2 if "bfloat16" in str(dtype) else 4
+    weights = (4 * d * d + 2 * d * f) * size + (9 * d + 3 * d + f) * 4
+    rows = b * (d * size + 4 + t * 4 + 2 * t * d * size + d * 4 + 3 * d * size)
+    ops = 2 * b * (4 * d * d + 2 * d * f) + 4 * b * t * d
+    return bound(weights + rows, ops, "bf16" if size == 2 else "f32")
+
+
+def check_decode_layer_kernel(torch):
+    """fused_decode_layer against fused_decode_layer_plain; returns its
+    error and times at the main path's largest shape, bf16 (64, 100)."""
+    from mit_tpu_torch.ops.decode_layer import (
+        fused_decode_layer,
+        fused_decode_layer_plain,
+    )
+
+    results = {}
+    for b, t in DECODE_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype)[6:]
+            xtol, rtol = DECODE_TOL[dname]
+            for per_row in (False, True):
+                x, pos, madd, kc, vc, cross, lay = decode_layer_inputs(
+                    torch, b, t, dtype, per_row)
+                args = (x, pos, madd, kc, vc, cross, lay, 0, 8)
+                out = fused_decode_layer(*args)
+                ref = fused_decode_layer_plain(*args)
+                k2, v2 = kc.clone(), vc.clone()
+                wrote = fused_decode_layer(x, pos, madd, k2, v2, cross, lay,
+                                           0, 8, write_cache=True)
+                k3, v3 = kc.clone(), vc.clone()
+                fused_decode_layer_plain(x, pos, madd, k3, v3, cross, lay, 0,
+                                         8, write_cache=True)
+                torch.cuda.synchronize()
+                errs = [(o.float() - r.float()).abs().max().item()
+                        for o, r in zip(out, ref)]
+                same = all(torch.equal(a, c) for a, c in zip(out, wrote))
+                cache_ok = (
+                    (k2.float() - k3.float()).abs().max().item() <= rtol
+                    and (v2.float() - v3.float()).abs().max().item() <= rtol
+                    and (k2 != kc).any(-1).sum().item() <= b)
+                finite = all(bool(torch.isfinite(o).all()) for o in out)
+                print(f"fused_decode_layer B={b} T={t} {dname:8s} "
+                      f"per_row_pos={per_row}: max_abs_err x' {errs[0]:.3e} "
+                      f"(limit {xtol:.0e}), k_new {errs[1]:.3e}, v_new "
+                      f"{errs[2]:.3e} (limit {rtol:.0e}); write_cache: same "
+                      f"outputs={same}, rows in place={cache_ok}; "
+                      f"finite={finite}")
+                if not (finite and same and cache_ok and errs[0] <= xtol
+                        and max(errs[1:]) <= rtol):
+                    raise AssertionError(
+                        f"fused_decode_layer disagrees: B={b} T={t} {dname}")
+            if b == 3:
+                continue
+            runs = timed_turns(torch, lambda: fused_decode_layer(*args),
+                               lambda: fused_decode_layer_plain(*args))
+            shape = f"({b}, {t}) {dname}"
+            main = (b, t, dtype) == (64, 100, torch.bfloat16)
+            report(results,
+                   "fused_decode_layer" if main else
+                   f"fused_decode_layer {shape}", errs[0], runs,
+                   f"{shape}, D 512, F 2048" if main else "D 512, F 2048",
+                   decode_layer_bound(b, t, dtype))
+    # the kernel's two design choices against their alternatives
+    for b, t, dtype in ((64, 100, torch.bfloat16), (192, 100, torch.bfloat16),
+                        (64, 100, torch.float32)):
+        args = (*decode_layer_inputs(torch, b, t, dtype, True), 0, 8)
+        cells = []
+        for rows in (None, 1, 2, 4):
+            for stagger in (True, False):
+                ms = cuda_ms(torch, lambda: fused_decode_layer(
+                    *args, rows_per_block=rows, stagger=stagger))
+                cells.append(f"rows {rows or 'by B'} stagger "
+                             f"{'on' if stagger else 'off'} {ms:.4f}")
+        print(f"design fused_decode_layer ({b}, {t}) {str(dtype)[6:]}, ms: "
+              + "; ".join(cells))
+    return {"fused_decode_layer": results["fused_decode_layer"]}
+
+
+def bhtd_inputs(torch, b, h, t, padded, dtype, seed=SEED):
+    q, k, v, pad = attention_inputs(torch, b, t, h * 64, padded, dtype, seed)
+    split = lambda x: heads_view(x).contiguous()
+    return split(q), split(k), split(v), pad
+
+
+def check_bhtd_kernel(torch):
+    """flash_attention, the (B, H, T, hd) kernel, against its plain version;
+    returns its error and times at the BLIP-384 f32 encoder's shape."""
+    from mit_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_reference,
+    )
+
+    results = {}
+    for name, b, h, t, padded in (("blip384", 8, 12, 577, False),
+                                  ("decoder", 64, 8, 100, True)):
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype)[6:]
+            q, k, v, pad = bhtd_inputs(torch, b, h, t, padded, dtype)
+            out = flash_attention(q, k, v, pad, padded)
+            ref = flash_attention_reference(q, k, v, pad, padded)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            finite = bool(torch.isfinite(out).all())
+            print(f"flash_attention {name:8s} ({b}, {h}, {t}, 64) "
+                  f"causal+pad={padded} {dname:8s} max_abs_err={err:.3e} "
+                  f"limit={BHTD_TOL[dname]:.0e} finite={finite}")
+            if not (finite and err <= BHTD_TOL[dname]):
+                raise AssertionError(f"flash_attention disagrees: {name} {dname}")
+            if name != "blip384":
+                continue
+            runs = timed_turns(
+                torch, lambda: flash_attention(q, k, v, pad, padded),
+                lambda: flash_attention_reference(q, k, v, pad, padded))
+            what = f"({b}, {h}, {t}, 64) {dname}"
+            report(results,
+                   "flash_attention" if dtype == torch.float32 else
+                   "flash_attention bf16", err, runs, what,
+                   attention_bound(b, h, t, t, dtype),
+                   sdpa_ms(torch, q, k, v))
+    return {"flash_attention": results["flash_attention"]}
+
 
 
 def drive(torch, name, cap, px, reps):
@@ -651,6 +939,236 @@ def check_slice(torch):
             "counts": counts}
 
 
+def trace_decode(torch, cap, mem, label, max_len=33):
+    """One greedy generation of max_len - 1 steps under torch.profiler:
+    device kernels per step, device-busy time per step and its share of the
+    traced wall time, and the kernels that take most of it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    cap.generate_from_memory(mem, max_len=max_len)             # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        cap.generate_from_memory(mem, max_len=max_len)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    steps = max_len - 1
+    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_us = lambda e: getattr(e, "self_device_time_total", 0)
+    total = sum(busy_us(e) for e in dev)
+    if not dev or total <= 0:
+        print(f"trace {label}: the profiler recorded no device time")
+        return None
+    top = sorted(dev, key=busy_us, reverse=True)[:6]
+    print(f"trace {label} bf16 B={mem.shape[0]}, {steps} steps: "
+          f"{sum(e.count for e in dev) / steps:.1f} device kernels and copies "
+          f"per step, device busy {total / steps / 1e3:.3f} ms per step, "
+          f"traced wall {wall_ms / steps:.3f} ms per step (busy share "
+          f"{total / 1e3 / wall_ms:.3f}); most device time: "
+          + "; ".join(f"{e.key[:48]} {busy_us(e) / steps / 1e3:.3f} ms x "
+                      f"{e.count / steps:.1f}" for e in top))
+    return {"kernels_per_step": sum(e.count for e in dev) / steps,
+            "busy_ms_per_step": total / steps / 1e3}
+
+
+def check_decode_routes(torch):
+    """Phase 4, the decode routes on the ViT-B model (see the module
+    docstring). Returns the fused greedy run's counts and the rates."""
+    from mit_tpu_torch.decode import step as step_mod
+    from mit_tpu_torch.decode.api import Captioner
+    from mit_tpu_torch.decode.beam import beam_generate
+    from mit_tpu_torch.models.decoder import DecoderConfig
+    from mit_tpu_torch.models.model import ModelConfig, init_model_params
+    from mit_tpu_torch.models.vision import PRESETS
+    from mit_tpu_torch.ops.decode_layer import fused_decode_layer_plain
+
+    name = "google/vit-base-patch16-224-in21k"
+    mcfg = ModelConfig(name, PRESETS[name], DecoderConfig(vocab_size=10000),
+                       "cls")
+    dcfg, ids = mcfg.decoder, SpecialIds()
+    params = init_model_params(torch.Generator().manual_seed(SEED), mcfg, "cuda")
+    size = mcfg.vision.image_size
+    pixels = torch.from_numpy(
+        np.random.default_rng(SEED).uniform(-1, 1, (64, 3, size, size))
+        .astype(np.float32))
+
+    # f32, batch 8
+    unfused = Captioner(params, mcfg, ids, torch.float32)
+    fused = Captioner(params, mcfg, ids, torch.float32, fused_decode=True)
+    mem = unfused.memory_from_pixels(pixels[:8])
+    tok_u = unfused.generate_from_memory(mem)
+    reset_counts()
+    tok_f = fused.generate_from_memory(mem)
+    steps = max(len(t) for t in tok_f) - 1
+    launches = read_counts()["fused_decode_layer"]
+    kernel_fn = step_mod.fused_decode_layer
+    step_mod.fused_decode_layer = fused_decode_layer_plain
+    try:                                  # the same route on the plain version
+        tok_p = fused.generate_from_memory(mem)
+    finally:
+        step_mod.fused_decode_layer = kernel_fn
+    print(f"decode f32 B=8 greedy: fused == unfused tokens {tok_f == tok_u}, "
+          f"kernel == plain version tokens {tok_f == tok_p}; {steps} steps, "
+          f"{launches} fused_decode_layer launches (want "
+          f"{dcfg.num_layers * steps}); lengths {[len(t) for t in tok_f]}")
+    if not (tok_f == tok_u and tok_f == tok_p
+            and launches == dcfg.num_layers * steps):
+        raise AssertionError("f32 greedy: the fused route disagrees")
+
+    beams = {}
+    for route in (False, True):
+        beams[route] = beam_generate(
+            params["decoder"], dcfg, mem, ids.start_id, ids.end_id, ids.pad_id,
+            dcfg.max_seq_len, 3, compute_dtype=torch.float32, fused=route)
+    same = torch.equal(beams[True][0], beams[False][0])
+    score_err = (beams[True][1] - beams[False][1]).abs().max().item()
+    # the JAX package's bound between its two routes; a sum of 99
+    # log-probabilities near -800 has an f32 spacing of 6e-5
+    close = torch.allclose(beams[True][1], beams[False][1], rtol=1e-5,
+                           atol=1e-5)
+    finite = bool(torch.isfinite(beams[True][1]).all())
+    one = fused.generate_from_memory(mem, method="beam", beam_size=1)
+    cold = fused.generate_from_memory(mem, method="sample", temperature=0.0)
+    gen = lambda: torch.Generator(device="cuda").manual_seed(SEED + 1)
+    draw = dict(method="sample", temperature=1.0, top_k=50, top_p=0.9)
+    s1 = fused.generate_from_memory(mem, generator=gen(), **draw)
+    s2 = fused.generate_from_memory(mem, generator=gen(), **draw)
+    print(f"decode f32 B=8 beam K=3: fused == unfused tokens {same}, scores "
+          f"max_abs_diff {score_err:.3e} (rtol = atol = 1e-5: {close}), best scores "
+          f"{[round(x, 3) for x in beams[True][1].tolist()]}; beam_size 1 == "
+          f"greedy {one == tok_f}; temperature 0 == greedy {cold == tok_f}; "
+          f"sampled batch repeats under one seed {s1 == s2}, differs from "
+          f"greedy {s1 != tok_f}")
+    if not (same and finite and close and one == tok_f
+            and cold == tok_f and s1 == s2 and s1 != tok_f):
+        raise AssertionError("f32 beam or sampling: the fused route disagrees")
+    del unfused, fused
+
+    # bf16, batch 64
+    caps = {False: Captioner(params, mcfg, ids, torch.bfloat16),
+            True: Captioner(params, mcfg, ids, torch.bfloat16,
+                            fused_decode=True)}
+    mem = caps[True].memory_from_pixels(pixels.to("cuda"))
+    for cap in caps.values():                                  # warm-up
+        cap.generate_from_memory(mem, max_len=20)
+    torch.cuda.synchronize()
+
+    # one fused step: which ops run between the embedding and the logits
+    prep = step_mod.prepare_decode_params(params["decoder"], torch.bfloat16,
+                                          fused=True)
+    cache = step_mod.init_cache(params["decoder"], dcfg, mem, None, 16,
+                                torch.bfloat16)
+    toks = torch.full((64,), ids.start_id, dtype=torch.long, device="cuda")
+    reset_counts()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        step_mod.decoder_step(prep, dcfg, toks, 0, cache, torch.bfloat16,
+                              fused=True)
+    torch.cuda.synchronize()
+    ops = {e.key: e.count for e in prof.key_averages()}
+    products = sum(n for k, n in ops.items() if k in (
+        "aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm"))
+    banned = {k: n for k, n in ops.items() if any(w in k for w in (
+        "softmax", "einsum", "layer_norm", "scaled_dot_product"))}
+    one_step = read_counts()["fused_decode_layer"]
+    print(f"decode bf16 B=64, one fused step: {one_step} fused_decode_layer "
+          f"launches (want {dcfg.num_layers}), {products} matrix product "
+          f"op (want 1, the logits), softmax/einsum/LayerNorm ops {banned} "
+          f"(want none); {sum(ops.values())} ops in all")
+    if one_step != dcfg.num_layers or products != 1 or banned:
+        raise AssertionError("the fused step runs unfused layer ops")
+
+    # the counted and timed main path: greedy, fused against unfused
+    seconds = {False: [], True: []}
+    reset_counts()
+    for turn in range(DECODE_REPS):
+        for route in ((True, False) if turn % 2 == 0 else (False, True)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tokens = caps[route].generate_from_memory(mem)
+            seconds[route].append(time.perf_counter() - t0)
+            steps = max(len(t) for t in tokens) - 1
+            assert len(tokens) == 64 and all(
+                t[0] == ids.start_id and 2 <= len(t) <= 100
+                and all(0 <= x < dcfg.vocab_size for x in t) for t in tokens)
+    counts = read_counts()
+    want = {k: 0 for k in counts}
+    want["fused_decode_layer"] = dcfg.num_layers * steps * DECODE_REPS
+    rates = {}
+    for route, secs in seconds.items():
+        label = "fused" if route else "unfused"
+        rates[label] = 64 / statistics.median(secs)
+        print(f"decode bf16 B=64 greedy {label}: {rates[label]:.1f} captions/s, "
+              f"{statistics.median(secs) / steps * 1e3:.3f} ms per step "
+              f"(median of {DECODE_REPS} runs {[round(x, 4) for x in secs]} s, "
+              f"{steps} steps, encoder not included)")
+    print(f"decode bf16 B=64 greedy fused: {counts['fused_decode_layer']} "
+          f"launches in {DECODE_REPS} runs = {dcfg.num_layers} per step, "
+          f"every other counter 0")
+    if counts != want:
+        raise AssertionError(f"fused greedy launches {counts}, want {want}")
+
+    for route in (True, False):
+        trace_decode(torch, caps[route], mem,
+                     "greedy fused" if route else "greedy unfused")
+    for route in (True, False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tokens = caps[route].generate_from_memory(mem, method="beam",
+                                                  beam_size=3)
+        dt = time.perf_counter() - t0
+        steps = max(len(t) for t in tokens) - 1
+        label = "fused" if route else "unfused"
+        rates[f"beam_{label}"] = 64 / dt
+        print(f"decode bf16 B=64 beam K=3 {label}: {64 / dt:.1f} captions/s, "
+              f"{dt / steps * 1e3:.3f} ms per step (one run of {dt:.4f} s, "
+              f"{steps} steps, 192 rows)")
+    return {"counts": counts, "rates": rates}
+
+
+def check_blip(torch):
+    """Phase 4, the BLIP-384 encoder (577 tokens, D 768) at full depth, f32
+    batch 8: its self-attention takes flash_attention, the (B, H, T, hd)
+    kernel. Returns the counts of one encode call."""
+    from mit_tpu_torch.decode.api import Captioner
+    from mit_tpu_torch.models.decoder import DecoderConfig
+    from mit_tpu_torch.models.model import ModelConfig, init_model_params
+    from mit_tpu_torch.models.vision import PRESETS
+
+    mcfg = ModelConfig(BLIP, PRESETS[BLIP], DecoderConfig(vocab_size=10000),
+                       "cls")
+    params = init_model_params(torch.Generator().manual_seed(SEED), mcfg, "cuda")
+    size = mcfg.vision.image_size
+    pixels = torch.from_numpy(
+        np.random.default_rng(SEED).uniform(-1, 1, (8, 3, size, size))
+        .astype(np.float32))
+    kern = Captioner(params, mcfg, SpecialIds(), torch.float32)
+    plain = Captioner(params, mcfg, SpecialIds(), torch.float32,
+                      use_kernel=False)
+    kern.memory_from_pixels(pixels[:2])                        # warm-up
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mem_k = kern.memory_from_pixels(pixels)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = read_counts()
+    mem_p = plain.memory_from_pixels(pixels)
+    err = (mem_k - mem_p).abs().max().item()
+    ok = mem_k.shape == (8, 1, 512) and bool(torch.isfinite(mem_k).all())
+    print(f"blip384 f32 B=8 ({mcfg.vision.seq_len} tokens, "
+          f"{mcfg.vision.num_layers} layers): launches per encode call "
+          f"{ {k: v for k, v in counts.items() if v} } (want flash_attention "
+          f"11 and nothing else); memory kernel vs plain max_abs_err="
+          f"{err:.3e} (limit 1e-4); encode {ms:.3f} ms (one call)")
+    want = {k: 0 for k in counts}
+    want["flash_attention"] = 11
+    if counts != want or not ok or not err <= 1e-4:
+        raise AssertionError("BLIP-384 f32: the kernel path disagrees")
+    return counts
+
+
 def dropout_inputs(torch, b, h, t, s, dtype, seed=SEED):
     """q, k ~ N(0, 1), v ~ U(-1, 1) in (B, H, T|S, 64), do ~ N(0, 1); pads
     mask about a fifth of the keys and every key of batch row 0."""
@@ -736,10 +1254,17 @@ def check_dropout_kernels(torch):
                     lambda: da.flash_attention_dropout_reference_backward(
                         q, k, v, pad, do, seed, causal, rate))
     what = "(32, 8, 99, 99, 64) bf16 causal+pad"
+    _, b, h, t, s, _ = DROPOUT_SHAPES[0]
+    q, k, v, pad, _ = dropout_inputs(torch, b, h, t, s, torch.bfloat16)
     report(results, "flash_attention_dropout", errs["fwd"], fwd_runs,
-           what + ", forward")
+           what + ", forward",
+           attention_bound(b, h, t, s, torch.bfloat16, extra_bytes=b * s * 4),
+           sdpa_ms(torch, q, k, v, True, pad, dropout_p=rate))
+    # q, k, v and do read, dq, dk and dv written; five (T, S, 64) products
     report(results, "flash_attention_dropout_bwd", errs["bwd"], bwd_runs,
-           what + ", backward")
+           what + ", backward",
+           bound((3 * t + 4 * s) * b * h * 64 * 2 + b * s * 4,
+                 5 * 2 * b * h * t * s * 64, "bf16"))
     return results
 
 
@@ -963,6 +1488,11 @@ KERNELS = {
     "flash_attention_dropout_bwd": ("flash_attention_dropout.cu",
                                     "mit_tpu/ops/pallas_dropout_attention.py:91",
                                     "train"),
+    "fused_decode_layer": ("decode_layer.cu",
+                           "mit_tpu/ops/pallas_decode_layer.py:60",
+                           "decode_fused"),
+    "flash_attention": ("flash_attention_btd.cu",
+                        "mit_tpu/ops/pallas_attention.py:86", "blip384"),
 }
 
 
@@ -998,6 +1528,8 @@ def main() -> int:
     errors, times = check_kernels(torch)
     int8 = check_int8_kernels(torch)
     dropout = check_dropout_kernels(torch)
+    decode_layer = check_decode_layer_kernel(torch)
+    bhtd = check_bhtd_kernel(torch)
 
     print("== 4 slice", flush=True)
     slice_ = check_slice(torch)
@@ -1005,6 +1537,11 @@ def main() -> int:
     print(f"captions/s bf16 B=64: float {rates['float']:.2f}, int8 "
           f"{rates['int8']:.2f}; median encoder ms: float "
           f"{enc_ms['float']:.3f}, int8 {enc_ms['int8']:.3f}")
+    routes = check_decode_routes(torch)
+    slice_["counts"]["decode_fused"] = routes["counts"]
+    print("decode captions/s bf16 B=64 (decoding only): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in routes["rates"].items()))
+    slice_["counts"]["blip384"] = check_blip(torch)
 
     print("== 5 train", flush=True)
     train = check_training(torch)
@@ -1018,10 +1555,12 @@ def main() -> int:
         raise AssertionError(f"the smoke imported JAX-side modules: {loaded}")
 
     print("== 6 result", flush=True)
-    results = dict(int8, **dropout, flash_attention_btd={
+    btd = times["bfloat16"]
+    results = dict(int8, **dropout, **decode_layer, **bhtd, flash_attention_btd={
         "max_abs_err": errors[("encoder", "bfloat16")],
-        "ms": times["bfloat16"]["kernel"],
-        "plain_ms": times["bfloat16"]["plain"],
+        "ms": btd["kernel"], "plain_ms": btd["plain"],
+        "bound_ms": btd["bound_ms"], "bound_by": btd["bound_by"],
+        "library_ms": btd["library_ms"],
     })
     lines = []
     for name, (source, replaces, path) in KERNELS.items():

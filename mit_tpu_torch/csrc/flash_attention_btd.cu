@@ -44,6 +44,21 @@
 // up to rounding), the context is o * (1 / rowsum) rather than o / rowsum,
 // and it is written in f32 from bf16 qkv.
 //
+// (B, H, T, hd) layout. The same kernel also replaces _attn_kernel_allheads
+// (pallas_attention.py:86, behind flash_attention / _flash_forward), which
+// the JAX package runs where one (T, D) batch cell would not fit its fast
+// memory. The Pallas cell holds every head's whole (T, hd) and (S, hd) tiles
+// and one (T, S) score block; here the grid is the same (batch, head,
+// 32-query tile) and K and V stream in the same 64-row tiles, with a row
+// stride of 64 and head h of batch b at ((b*H + h)*T) rows (the BHTD
+// template flag). Its numerics differ in one place: the probabilities are
+// normalized BEFORE P.V, probs = p / rowsum(p), rounded to v's dtype, and
+// the product is the output. So pass 1 also takes the row sum, online per
+// thread (a running max and a sum rescaled when the max grows, combined
+// across the 16 lanes of a row at the end), and pass 2 divides p by it
+// before rounding. The sum differs from a sum of exp(s - final max) only in
+// f32 rounding order.
+//
 // Every entry point returns cudaGetLastError() after its launch; the Python
 // wrapper raises when it is not cudaSuccess.
 
@@ -129,8 +144,10 @@ __device__ __forceinline__ void tile_scores(float s[4][4], const float* qs,
 }
 
 // q rows have stride ldq, k and v rows stride ldkv, out rows stride D
-// (the model width); head h is columns h*64 .. h*64+63 of each.
-template <typename T, typename OutT, bool LAYER>
+// (the model width); head h is columns h*64 .. h*64+63 of each. With BHTD
+// the tensors are (B, H, T|S, 64): ldq = ldkv = D = 64 and head h of batch b
+// starts (b*H + h) * (Tq or S) rows in.
+template <typename T, typename OutT, bool LAYER, bool BHTD>
 __global__ void __launch_bounds__(THREADS)
 flash_attention_btd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v,
@@ -147,9 +164,11 @@ flash_attention_btd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tx = threadIdx.x & 15;
   const int ty = threadIdx.x >> 4;
 
-  const T* qb = q + ((size_t)b * Tq + q0) * ldq + h * HD;
-  const T* kb = k + (size_t)b * S * ldkv + h * HD;
-  const T* vb = v + (size_t)b * S * ldkv + h * HD;
+  const size_t cell = BHTD ? (size_t)b * gridDim.y + h : (size_t)b;
+  const int col0 = BHTD ? 0 : h * HD;
+  const T* qb = q + (cell * Tq + q0) * ldq + col0;
+  const T* kb = k + cell * S * ldkv + col0;
+  const T* vb = v + cell * S * ldkv + col0;
   const float* pad_row = pad != nullptr ? pad + (size_t)b * S : nullptr;
   const float scale = LAYER ? SCALE2 : SCALE;
 
@@ -157,27 +176,45 @@ flash_attention_btd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   float s[4][4];
 
-  // Pass 1: exact row max over every key tile.
+  // Pass 1: exact row max over every key tile (BHTD: and the row sum).
   float m[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
+  float l[4] = {0.f, 0.f, 0.f, 0.f};
   for (int k0 = 0; k0 < S; k0 += BK) {
     __syncthreads();
     load_tile(kvs, kb + (size_t)k0 * ldkv, BK, min(BK, S - k0), ldkv);
     __syncthreads();
     tile_scores(s, qs, kvs, q0, k0, S, pad_row, causal, tx, ty, scale);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < 4; ++i) {
+      float mt = m[i];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) m[i] = fmaxf(m[i], s[i][j]);
+      for (int j = 0; j < 4; ++j) mt = fmaxf(mt, s[i][j]);
+      // this thread's columns so far may all lie past S: then mt is -inf
+      if (BHTD && mt > -INFINITY) {
+        float sum = l[i] * expf(m[i] - mt);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) sum += expf(s[i][j] - mt);
+        l[i] = sum;
+      }
+      m[i] = mt;
+    }
   }
   // the 16 lanes that share a row are one half-warp
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 4; ++i) {
+    const float mine = m[i];
 #pragma unroll
     for (int off = 8; off > 0; off >>= 1)
       m[i] = fmaxf(m[i], __shfl_xor_sync(0xffffffffu, m[i], off));
+    if (BHTD) {
+      l[i] *= expf(mine - m[i]);     // 0 * exp(-inf) = 0 for an empty lane
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        l[i] += __shfl_xor_sync(0xffffffffu, l[i], off);
+    }
+  }
 
-  // Pass 2: p = exp(s - max), its row sum, and P.V.
-  float l[4] = {0.f, 0.f, 0.f, 0.f};
+  // Pass 2: p = exp(s - max), its row sum, and P.V (BHTD: p / rowsum, P.V).
   float o[4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -193,8 +230,9 @@ flash_attention_btd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const float p = LAYER ? exp2f(s[i][j] - m[i]) : expf(s[i][j] - m[i]);
-        l[i] += p;
+        float p = LAYER ? exp2f(s[i][j] - m[i]) : expf(s[i][j] - m[i]);
+        if (BHTD) p = __fdiv_rn(p, l[i]);
+        else l[i] += p;
         ps[(ty + 8 * i) * PLD + tx + 16 * j] = round_like(p, v);
       }
     __syncthreads();
@@ -213,13 +251,15 @@ flash_attention_btd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int j = 0; j < 4; ++j) o[i][j] = fmaf(pv[i], vv[j], o[i][j]);
     }
   }
+  if (!BHTD) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int off = 8; off > 0; off >>= 1)
-      l[i] += __shfl_xor_sync(0xffffffffu, l[i], off);
+      for (int off = 8; off > 0; off >>= 1)
+        l[i] += __shfl_xor_sync(0xffffffffu, l[i], off);
+  }
 
-  OutT* ob = out + ((size_t)b * Tq + q0) * D + h * HD;
+  OutT* ob = out + (cell * Tq + q0) * D + col0;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = ty + 8 * i;
@@ -228,16 +268,18 @@ flash_attention_btd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < 4; ++j)
       store(ob + (size_t)r * D + tx + 16 * j,
-            LAYER ? __fmul_rn(o[i][j], inv) : o[i][j] / l[i]);
+            BHTD ? o[i][j]
+                 : LAYER ? __fmul_rn(o[i][j], inv) : o[i][j] / l[i]);
   }
 }
 
-template <typename T, typename OutT = T, bool LAYER = false>
+template <typename T, typename OutT = T, bool LAYER = false,
+          bool BHTD = false>
 int launch(const void* q, const void* k, const void* v, const void* pad,
            void* out, int B, int Tq, int S, int D, int ldq, int ldkv,
-           int causal, int has_pad, void* stream) {
-  const dim3 grid((Tq + BQ - 1) / BQ, D / HD, B);
-  flash_attention_btd_kernel<T, OutT, LAYER>
+           int causal, int has_pad, void* stream, int heads = 0) {
+  const dim3 grid((Tq + BQ - 1) / BQ, BHTD ? heads : D / HD, B);
+  flash_attention_btd_kernel<T, OutT, LAYER, BHTD>
       <<<grid, THREADS, 0, (cudaStream_t)stream>>>(
           static_cast<const T*>(q), static_cast<const T*>(k),
           static_cast<const T*>(v),
@@ -291,4 +333,21 @@ extern "C" int mit_flash_attention_fusedqkv(const void* qkv, void* out, int B,
                                                       stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// q, out: (B, H, Tq, 64); k, v: (B, H, S, 64), all contiguous and of one
+// dtype (is_bf16 or f32); pad: (B, S) f32, read only when has_pad.
+// Probabilities are normalized before P.V (see the head of this file).
+extern "C" int mit_flash_attention_bhtd(const void* q, const void* k,
+                                        const void* v, const void* pad,
+                                        void* out, int B, int H, int Tq, int S,
+                                        int causal, int has_pad, int is_bf16,
+                                        void* stream) {
+  if (B < 1 || B > 65535 || H < 1 || H > 65535 || Tq < 1 || S < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (is_bf16)
+    return launch<__nv_bfloat16, __nv_bfloat16, false, true>(
+        q, k, v, pad, out, B, Tq, S, HD, HD, HD, causal, has_pad, stream, H);
+  return launch<float, float, false, true>(q, k, v, pad, out, B, Tq, S, HD, HD,
+                                           HD, causal, has_pad, stream, H);
 }

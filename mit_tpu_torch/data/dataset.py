@@ -43,7 +43,7 @@ class ImageTextDataset:
     """Flattened (image, caption) pairs with lazy per-item preprocessing.
 
     ``tokenizer`` needs ``encode``, ``pad_id`` and ``end_id`` (the JAX
-    package's ``mit_tpu.text.Tokenizer``)."""
+    package's and the port's ``text.Tokenizer``)."""
 
     def __init__(self, image_dir: str, captions_file: str, max_seq_len: int,
                  tokenizer, encoder_name: str, verbose: bool = True,

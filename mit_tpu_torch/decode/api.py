@@ -1,10 +1,11 @@
-"""High-level captioning API (port of ``mit_tpu/decode/api.py``, greedy).
+"""High-level captioning API (port of ``mit_tpu/decode/api.py``).
 
 ``Captioner`` encodes a batch of images to decoder memory and decodes
-captions with the KV-cached greedy loop; ``postprocess`` is the reference's
-text clean-up (cut at the first END, strip START, decode with specials kept,
-drop UNK, collapse whitespace). Beam search and sampling are not ported yet
-and raise ``NotImplementedError``.
+captions with the KV-cached loops: ``method`` "greedy", "beam" (real beam
+search, ``beam_size`` beams) or "sample" (temperature, top-k, top-p, drawn
+from a ``torch.Generator``). ``postprocess`` is the reference's text
+clean-up (cut at the first END, strip START, decode with specials kept,
+drop UNK, collapse whitespace).
 """
 
 from __future__ import annotations
@@ -15,15 +16,11 @@ import numpy as np
 import torch
 
 from mit_tpu_torch.data.preprocess import HostPreprocessor
+from mit_tpu_torch.decode.beam import beam_generate
 from mit_tpu_torch.decode.greedy import greedy_generate
+from mit_tpu_torch.decode.sampling import sample_generate
 from mit_tpu_torch.models.model import ModelConfig, encode_images, project_features
 from mit_tpu_torch.models.vision import quantize_vision_params
-
-DECODE_NOT_PORTED = (
-    "only greedy decoding is ported; beam search and sampling are not yet: "
-    "ROADMAP.md, queue 1, beam, sampling and the service"
-)
-
 
 class Captioner:
     """Holds parameters (on their device), the model config and a
@@ -38,6 +35,12 @@ class Captioner:
     is the quality gate's negative control, int8 with every layer's fc2
     scale doubled, never to be served. ``fused_layers`` picks the int8
     encoder's form (``vision_forward_int8``).
+
+    ``fused_decode`` runs every decode step's layers in the fused
+    decode-layer kernel (``decoder_step(fused=True)``), under every method.
+    It is off by default, as ``MIT_FUSED_DECODE`` is in the JAX package: it
+    changes bf16 numerics. ``beam_size`` is the default of ``method="beam"``
+    (the config's ``BEAM_SIZE``).
     """
 
     def __init__(
@@ -49,6 +52,8 @@ class Captioner:
         use_kernel: bool = True,
         encoder_quant: str = "none",
         fused_layers: bool = True,
+        fused_decode: bool = False,
+        beam_size: int = 3,
     ):
         if encoder_quant not in ("none", "int8", "int8_defect"):
             raise ValueError(
@@ -67,6 +72,8 @@ class Captioner:
         self.compute_dtype = compute_dtype
         self.use_kernel = use_kernel
         self.fused_layers = fused_layers
+        self.fused_decode = fused_decode
+        self.beam_size = beam_size
         self.device = params["decoder"]["token_embedding"].device
         self.preprocessor = HostPreprocessor(
             mcfg.encoder_name, image_size=mcfg.vision.image_size
@@ -91,19 +98,23 @@ class Captioner:
     # ------------------------------------------------------------------
     def generate(self, image, start_token_id: Optional[int] = None,
                  end_token_id: Optional[int] = None, max_len: int = 100,
-                 method: str = "greedy") -> List[int]:
-        """One image → token ids incl. START and (if produced) END."""
+                 method: str = "greedy", beam_size: Optional[int] = None,
+                 **sample_kwargs) -> List[int]:
+        """One image → token ids incl. START and (if produced) END.
+        ``method="sample"`` takes temperature, top_k, top_p and generator."""
         return self.generate_batch(
-            [image], start_token_id, end_token_id, max_len, method
+            [image], start_token_id, end_token_id, max_len, method, beam_size,
+            **sample_kwargs,
         )[0]
 
     def generate_batch(self, images: Sequence,
                        start_token_id: Optional[int] = None,
                        end_token_id: Optional[int] = None, max_len: int = 100,
-                       method: str = "greedy") -> List[List[int]]:
+                       method: str = "greedy", beam_size: Optional[int] = None,
+                       **sample_kwargs) -> List[List[int]]:
         return self.generate_from_memory(
             self.memory_from_images(images), start_token_id, end_token_id,
-            max_len, method,
+            max_len, method, beam_size, **sample_kwargs,
         )
 
     def generate_from_memory(
@@ -113,23 +124,47 @@ class Captioner:
         end_token_id: Optional[int] = None,
         max_len: int = 100,
         method: str = "greedy",
+        beam_size: Optional[int] = None,
+        temperature: float = 1.0,
+        top_k: int = 0,
+        top_p: float = 1.0,
+        generator: Optional[torch.Generator] = None,
     ) -> List[List[int]]:
-        if method in ("beam", "sample"):
-            raise NotImplementedError(DECODE_NOT_PORTED)
-        if method != "greedy":
-            raise ValueError(
-                f"Unsupported generation method: {method}. "
-                "Choose 'greedy', 'beam' or 'sample'."
-            )
+        """Decoder memory (B, 1, D) → token id lists. ``generator`` (on the
+        memory's device) feeds ``method="sample"``; None seeds one with 0, as
+        the JAX package's ``rng=None`` is ``PRNGKey(0)``."""
         tok = self.tokenizer
         start_id = tok.start_id if start_token_id is None else start_token_id
         end_id = tok.end_id if end_token_id is None else end_token_id
         # the decoder's positional table caps generation length
         max_len = min(max_len, self.mcfg.decoder.max_seq_len)
-        tokens, lengths = greedy_generate(
-            self.params["decoder"], self.mcfg.decoder, memory, start_id,
-            end_id, tok.pad_id, max_len, compute_dtype=self.compute_dtype,
-        )
+        dec, dcfg = self.params["decoder"], self.mcfg.decoder
+        common = dict(compute_dtype=self.compute_dtype, fused=self.fused_decode)
+        if method == "greedy":
+            tokens, lengths = greedy_generate(
+                dec, dcfg, memory, start_id, end_id, tok.pad_id, max_len,
+                **common,
+            )
+        elif method == "beam":
+            tokens, _ = beam_generate(
+                dec, dcfg, memory, start_id, end_id, tok.pad_id, max_len,
+                beam_size or self.beam_size, **common,
+            )
+            lengths = (tokens != tok.pad_id).sum(dim=1)
+        elif method == "sample":
+            if generator is None:
+                generator = torch.Generator(device=memory.device)
+                generator.manual_seed(0)
+            tokens, lengths = sample_generate(
+                dec, dcfg, memory, generator, start_id, end_id, tok.pad_id,
+                max_len, temperature=temperature, top_k=top_k, top_p=top_p,
+                **common,
+            )
+        else:
+            raise ValueError(
+                f"Unsupported generation method: {method}. "
+                "Choose 'greedy', 'beam' or 'sample'."
+            )
         tokens = tokens.cpu().numpy()
         lengths = lengths.cpu().numpy()
         return [tokens[i, : lengths[i]].tolist() for i in range(tokens.shape[0])]
@@ -148,25 +183,30 @@ class Captioner:
         return " ".join(text.split())
 
     def caption(self, image, method: str = "greedy",
-                max_len: Optional[int] = None) -> str:
-        return self.caption_batch([image], method, max_len)[0]
+                max_len: Optional[int] = None,
+                beam_size: Optional[int] = None) -> str:
+        return self.caption_batch([image], method, max_len, beam_size)[0]
 
     def caption_batch(self, images: Sequence, method: str = "greedy",
-                      max_len: Optional[int] = None) -> List[str]:
+                      max_len: Optional[int] = None,
+                      beam_size: Optional[int] = None) -> List[str]:
         ids = self.generate_batch(
             images, max_len=max_len or self.mcfg.decoder.max_seq_len,
-            method=method,
+            method=method, beam_size=beam_size,
         )
         return [self.postprocess(s) for s in ids]
 
 
 def load_captioner(checkpoint_path: str, cfg, compute_dtype=torch.float32,
-                   device="cuda", encoder_quant: str = "none") -> Captioner:
+                   device="cuda", encoder_quant: str = "none",
+                   fused_decode: bool = False) -> Captioner:
     """Captioner from a reference-layout safetensors checkpoint and the
-    tokenizer files of ``cfg`` (a ``mit_tpu.config.Config``): tokenizer →
-    model config with the actual vocab size → weights onto ``device``,
-    the encoder quantized as ``encoder_quant`` says."""
-    from mit_tpu.text.tokenizer import get_tokenizer
+    tokenizer files of ``cfg`` (a ``mit_tpu_torch.config.Config``):
+    tokenizer → model config with the actual vocab size → weights onto
+    ``device``, the encoder quantized as ``encoder_quant`` says."""
+    # imported here: the tokenizer needs the ``regex`` package, which the
+    # captioning path over token ids does not
+    from mit_tpu_torch.text.tokenizer import get_tokenizer
     from mit_tpu_torch.train.checkpoint import load_safetensors
 
     tokenizer = get_tokenizer(cfg, force_reload=True)
@@ -174,4 +214,5 @@ def load_captioner(checkpoint_path: str, cfg, compute_dtype=torch.float32,
     mcfg = ModelConfig.build(cfg, vocab_size=tokenizer.get_vocab_size())
     params = load_safetensors(checkpoint_path, mcfg, device)
     return Captioner(params, mcfg, tokenizer, compute_dtype,
-                     encoder_quant=encoder_quant)
+                     encoder_quant=encoder_quant, fused_decode=fused_decode,
+                     beam_size=cfg.BEAM_SIZE)

@@ -1,11 +1,14 @@
-"""Captioning CLI on the GPU (port of ``mit_tpu/decode/cli.py``, greedy).
+"""Captioning CLI on the GPU (port of ``mit_tpu/decode/cli.py``).
 
     python -m mit_tpu_torch.decode.cli --image_path img.jpg [more.jpg ...] \
-        [--checkpoint_path ckpt.safetensors] [--data_dir DIR] [--device cuda] \
+        [--checkpoint_path ckpt.safetensors] [--method {greedy,beam}] \
+        [--beam_size K] [--data_dir DIR] [--device cuda] \
         [--encoder_quant {none,int8}]
 
-Runs on a CUDA device only: without one it raises instead of running on the
-CPU.
+``MIT_FUSED_DECODE=1`` runs every decode step's layers in the fused
+decode-layer kernel, as it does in the JAX package; only this CLI reads it,
+the library takes ``fused_decode`` / ``fused`` arguments. Runs on a CUDA
+device only: without one it raises instead of running on the CPU.
 """
 
 from __future__ import annotations
@@ -28,6 +31,11 @@ def main(argv=None) -> int:
         help="Path to the .safetensors model checkpoint file.",
     )
     parser.add_argument(
+        "--method", type=str, default="greedy", choices=["greedy", "beam"],
+        help="Decoding method (beam uses config BEAM_SIZE unless --beam_size).",
+    )
+    parser.add_argument("--beam_size", type=int, default=None)
+    parser.add_argument(
         "--data_dir", type=str, default=None,
         help="Override config DATA_DIR (tokenizer/checkpoint location).",
     )
@@ -48,7 +56,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available: this CLI runs on the GPU only")
 
-    from mit_tpu.config import CONFIG
+    from mit_tpu_torch.config import CONFIG
 
     cfg = CONFIG if args.data_dir is None else CONFIG.replace(DATA_DIR=args.data_dir)
 
@@ -85,11 +93,13 @@ def main(argv=None) -> int:
     from mit_tpu_torch.decode.api import load_captioner
 
     print(f"Loading model from {ckpt_path}...")
-    captioner = load_captioner(ckpt_path, cfg, device=args.device,
-                               encoder_quant=args.encoder_quant)
+    captioner = load_captioner(
+        ckpt_path, cfg, device=args.device, encoder_quant=args.encoder_quant,
+        fused_decode=os.environ.get("MIT_FUSED_DECODE") == "1")
     images = [Image.open(p).convert("RGB") for p in args.image_path]
     print("Generating text...")
-    captions = captioner.caption_batch(images)
+    captions = captioner.caption_batch(images, method=args.method,
+                                       beam_size=args.beam_size)
     for path, caption in zip(args.image_path, captions):
         print("\n---")
         print(f"Image: {path}")

@@ -5,7 +5,8 @@ END (later positions hold PAD) and stop the loop when every row has ended.
 The KV cache grows through a ladder of sizes (16, 32, ..., max_len), so
 short captions never pay the attention reads of a max_len-sized cache.
 ``lax.while_loop``'s early exit becomes a host check of ``finished.all()``
-before each step.
+before each step. :func:`laddered_decode_loop` takes the rule that picks
+the next token, so greedy decoding and sampling share it.
 """
 
 from __future__ import annotations
@@ -56,13 +57,17 @@ def laddered_decode_loop(
     cfg: DecoderConfig,
     cache: DecodeCache,                # allocated at bucket_sizes[0]
     tokens: torch.Tensor,              # (B, max_len), slot 0 = START; written in place
+    select_fn,                         # (logits (B, V) f32, generator) → (B,) ids
+    generator: Optional[torch.Generator],   # handed to select_fn
     end_id: int,
     pad_id: int,
     max_len: int,
     bucket_sizes: Tuple[int, ...],
     compute_dtype,
+    fused: bool = False,
 ) -> torch.Tensor:
-    """The greedy token loop over the cache ladder → tokens."""
+    """The token loop over the cache ladder → tokens. ``select_fn`` picks
+    each step's next tokens from the logits; finished rows get PAD."""
     finished = torch.zeros(tokens.shape[0], dtype=torch.bool,
                            device=tokens.device)
     pos = 0
@@ -75,13 +80,34 @@ def laddered_decode_loop(
                 return tokens
             logits, cache = decoder_step(
                 params, cfg, tokens[:, pos], pos, cache, compute_dtype,
-                key_pad=(tokens == pad_id)[:, :bucket],
+                key_pad=(tokens == pad_id)[:, :bucket], fused=fused,
             )
-            nxt = torch.where(finished, pad_id, logits.argmax(-1))
+            nxt = torch.where(finished, pad_id, select_fn(logits, generator))
             tokens[:, pos + 1] = nxt
             finished |= nxt == end_id
             pos += 1
     return tokens
+
+
+def start_tokens(batch: int, max_len: int, start_id: int, pad_id: int,
+                 device) -> torch.Tensor:
+    """(B, max_len) int64 of PAD with START in slot 0."""
+    tokens = torch.full((batch, max_len), pad_id, dtype=torch.long,
+                        device=device)
+    tokens[:, 0] = start_id
+    return tokens
+
+
+def check_max_len(max_len: int, cfg: DecoderConfig) -> None:
+    if max_len > cfg.max_seq_len:
+        raise ValueError(
+            f"max_len={max_len} exceeds the positional table "
+            f"(max_seq_len={cfg.max_seq_len})"
+        )
+
+
+def select_argmax(logits: torch.Tensor, generator=None) -> torch.Tensor:
+    return logits.argmax(-1)
 
 
 @torch.inference_mode()
@@ -96,24 +122,22 @@ def greedy_generate(
     memory_padding_mask: Optional[torch.Tensor] = None,
     compute_dtype=torch.float32,
     bucket_sizes: Optional[Tuple[int, ...]] = None,
+    fused: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """→ (tokens (B, max_len) int64 incl. the leading START, lengths (B,)).
 
     ``lengths`` counts tokens incl. START and END (when generated);
-    positions past a row's END hold PAD.
+    positions past a row's END hold PAD. ``fused`` runs every step's layers
+    in the fused decode-layer kernel.
     """
-    if max_len > cfg.max_seq_len:
-        raise ValueError(
-            f"max_len={max_len} exceeds the positional table "
-            f"(max_seq_len={cfg.max_seq_len})"
-        )
+    check_max_len(max_len, cfg)
     bucket_sizes = check_bucket_sizes(bucket_sizes, max_len)
     cache = init_cache(params, cfg, memory, memory_padding_mask,
                        bucket_sizes[0], compute_dtype)
-    params = prepare_decode_params(params, compute_dtype)
-    tokens = torch.full((memory.shape[0], max_len), pad_id, dtype=torch.long,
-                        device=memory.device)
-    tokens[:, 0] = start_id
-    tokens = laddered_decode_loop(params, cfg, cache, tokens, end_id, pad_id,
-                                  max_len, bucket_sizes, compute_dtype)
+    params = prepare_decode_params(params, compute_dtype, fused)
+    tokens = start_tokens(memory.shape[0], max_len, start_id, pad_id,
+                          memory.device)
+    tokens = laddered_decode_loop(params, cfg, cache, tokens, select_argmax,
+                                  None, end_id, pad_id, max_len, bucket_sizes,
+                                  compute_dtype, fused)
     return tokens, (tokens != pad_id).sum(dim=1)

@@ -9,6 +9,14 @@ which only serves to stop XLA's defensive cache copies — the result is the
 same. In CLS memory mode the cross-attention is a per-layer constant
 (softmax over one key is 1), computed once per sequence by
 :func:`init_cache`.
+
+``decoder_step(..., fused=True)`` is the JAX package's ``MIT_FUSED_DECODE``
+route: every layer runs :func:`~mit_tpu_torch.ops.decode_layer.
+fused_decode_layer`, one kernel launch per layer on a CUDA device, which
+also writes the fresh K/V rows into the caches. Its bf16 numerics are the
+kernel's, not the unfused step's (f32 fresh rows at ``t == pos``,
+unrounded probabilities, an f32 residual stream). The switch is an
+argument, never the environment: only the CLI reads ``MIT_FUSED_DECODE``.
 """
 
 from __future__ import annotations
@@ -21,13 +29,19 @@ import torch
 from mit_tpu_torch.models.convert import layer_params
 from mit_tpu_torch.models.decoder import DecoderConfig
 from mit_tpu_torch.ops.attention import layer_norm
+from mit_tpu_torch.ops.decode_layer import (
+    fused_decode_layer,
+    pack_decode_layers,
+    positions,
+)
 from mit_tpu_torch.ops.masks import NEG_INF
 from mit_tpu_torch.ops.positional import sinusoid_table
 
 FULL_MEMORY_NOT_PORTED = (
     "decoding over full-sequence or padded memory is not ported yet: "
-    "ROADMAP.md, queue 1, beam, sampling and the service"
+    "ROADMAP.md, queue 1, full-memory decoding and the service"
 )
+
 
 class DecodeCache(NamedTuple):
     """Per-generation state. ``k`` and ``v`` are written in place."""
@@ -70,15 +84,17 @@ def init_cache(
     )
 
 
-def prepare_decode_params(params: dict, compute_dtype=torch.float32) -> dict:
+def prepare_decode_params(params: dict, compute_dtype=torch.float32,
+                          fused: bool = False) -> dict:
     """Cast the weights to the compute dtype and fuse Q/K/V, once per
     generation rather than once per step. LayerNorm parameters and the
-    logits bias stay f32."""
+    logits bias stay f32. With ``fused`` the result also holds the fused
+    kernel's per-layer operands (``"fused_layers"``)."""
     cd = compute_dtype
     layers = params["layers"]
     s, f = layers["self"], layers["ffn"]
     f32 = lambda p: {"scale": p["scale"].float(), "bias": p["bias"].float()}
-    return {
+    out = {
         "emb": params["token_embedding"].to(cd),
         "layers": {
             "wqkv": torch.cat([s["wq"], s["wk"], s["wv"]], -1).to(cd),
@@ -93,25 +109,35 @@ def prepare_decode_params(params: dict, compute_dtype=torch.float32) -> dict:
         "fc_w": params["fc_out_w"].to(cd),
         "fc_b": params["fc_out_b"].float(),
     }
+    if fused:
+        out["fused_layers"] = pack_decode_layers(out["layers"])
+    return out
 
 
 def decoder_step(
     params: dict,
     cfg: DecoderConfig,
     tokens: torch.Tensor,              # (B,) current input token ids
-    pos: int,                          # position of `tokens`
+    pos,                               # int position of `tokens`; fused: or (B,)
     cache: DecodeCache,
     compute_dtype=torch.float32,
     key_pad: Optional[torch.Tensor] = None,   # (B, T_max) bool, True = PAD key
+    fused: bool = False,
 ) -> Tuple[torch.Tensor, DecodeCache]:
     """One decode step → (logits (B, V) f32, cache).
 
     Takes raw decoder params or :func:`prepare_decode_params` output.
     ``key_pad`` marks generated-PAD positions, which stay masked as keys, as
-    the reference's per-step ``tgt_key_padding_mask`` masks them.
+    the reference's per-step ``tgt_key_padding_mask`` masks them. ``fused``
+    runs every layer in the fused decode-layer kernel (see the module
+    docstring); there ``pos`` may be a (B,) int32 tensor of per-row
+    positions, and no position is read back from the device.
     """
+    per_row = isinstance(pos, torch.Tensor) and pos.dim() > 0
+    if per_row and not fused:
+        raise TypeError("per-row positions need the fused route (fused=True)")
     if "emb" not in params:
-        params = prepare_decode_params(params, compute_dtype)
+        params = prepare_decode_params(params, compute_dtype, fused)
     cd = compute_dtype
     h, d = cfg.num_heads, cfg.embed_dim
     hd = d // h
@@ -123,9 +149,27 @@ def decoder_step(
     x = params["emb"][tokens] * torch.tensor(math.sqrt(d), dtype=cd)
     x = x + sinusoid_table(cfg.max_seq_len, d, cd, device)[pos]
 
-    visible = (torch.arange(t_max, device=device) <= pos)[None, :]   # (1, T)
+    steps = torch.arange(t_max, device=device)
+    visible = (steps[None, :] <= pos[:, None]) if per_row else \
+        (steps <= pos)[None, :]                                       # (B|1, T)
     if key_pad is not None:
         visible = visible & ~key_pad                                  # (B, T)
+
+    if fused:
+        packed = params.get("fused_layers") or pack_decode_layers(lay)
+        # one additive f32 mask for all layers; -1e9, not -inf, so a fully
+        # masked row stays finite
+        madd = torch.where(visible, 0.0, NEG_INF).expand(b, t_max).contiguous()
+        posv = positions(pos, b, device).contiguous()
+        cross = cache.cross_const.float()
+        for i in range(cfg.num_layers):
+            x, _, _ = fused_decode_layer(
+                x, posv, madd, cache.k[i], cache.v[i], cross[i], packed, i, h,
+                write_cache=True,
+            )
+        logits = x.float() @ params["fc_w"].float() + params["fc_b"]
+        return logits, cache
+
     visible = visible[:, None, :]                                     # (B|1, 1, T)
     scale = 1.0 / math.sqrt(hd)
 
@@ -164,3 +208,12 @@ def grow_cache(cache: DecodeCache, bucket: int) -> DecodeCache:
 
     return cache._replace(k=[grow(a) for a in cache.k],
                           v=[grow(a) for a in cache.v])
+
+
+def reindex_cache(cache: DecodeCache, idx: torch.Tensor) -> DecodeCache:
+    """Gather batch rows (beam reordering): idx (B,) into the batch dim."""
+    return DecodeCache(
+        [a.index_select(0, idx) for a in cache.k],
+        [a.index_select(0, idx) for a in cache.v],
+        cache.cross_const.index_select(1, idx),
+    )

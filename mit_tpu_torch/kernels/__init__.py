@@ -40,6 +40,8 @@ ENTRY_POINTS = {
     "mit_flash_attention_btd_f32": [_P] * 5 + [_I] * 6 + [_P],
     "mit_flash_attention_btd_bf16": [_P] * 5 + [_I] * 6 + [_P],
     "mit_flash_attention_fusedqkv": [_P] * 2 + [_I] * 4 + [_P],
+    "mit_flash_attention_bhtd": [_P] * 5 + [_I] * 7 + [_P],
+    "mit_fused_decode_layer": [_P] * 23 + [_I] * 6 + [_F, _P],
     "mit_quantize_rows_f32": [_P] * 5 + [_I, _I, _F, _P],
     "mit_quantize_rows_bf16": [_P] * 5 + [_I, _I, _F, _P],
     "mit_int8_gemm": [_P] * 7 + [_I] * 6 + [_P],

@@ -39,7 +39,7 @@ class ModelConfig(NamedTuple):
 
     @classmethod
     def build(cls, cfg, vocab_size: Optional[int] = None) -> "ModelConfig":
-        """From a ``mit_tpu.config.Config``; the tokenizer's actual vocab
+        """From a ``mit_tpu_torch.config.Config``; the tokenizer's actual vocab
         size, when given, overrides ``cfg.VOCAB_SIZE``."""
         decoder = DecoderConfig(
             vocab_size=vocab_size if vocab_size is not None else cfg.VOCAB_SIZE,

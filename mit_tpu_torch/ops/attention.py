@@ -26,7 +26,11 @@ from mit_tpu_torch.ops.dropout_attention import (
     flash_attention_dropout,
     flash_attention_dropout_plain,
 )
-from mit_tpu_torch.ops.flash_attention import flash_attention_btd
+from mit_tpu_torch.ops.flash_attention import (
+    flash_attention,
+    flash_attention_btd,
+    takes_bhtd,
+)
 from mit_tpu_torch.ops.masks import causal_mask
 
 _M64 = (1 << 64) - 1
@@ -111,7 +115,9 @@ def multihead_attention(
       heads merged. The mask is given structurally as ``causal`` +
       ``pad_add``.
     - no dropout and ``use_kernel`` (``use_flash`` in the JAX package): the
-      score/mask/softmax/P·V chain runs in :func:`flash_attention_btd`.
+      score/mask/softmax/P·V chain runs in :func:`flash_attention_btd`, or,
+      at the shapes :func:`takes_bhtd` names (the BLIP-384 encoder in f32),
+      in :func:`flash_attention` between a head split and a head merge.
     - otherwise the plain path, which also takes a materialized additive
       ``mask`` broadcastable to (B, H, T, S) and drops out the probabilities
       with a Bernoulli mask drawn from ``generator.device``.
@@ -146,7 +152,12 @@ def multihead_attention(
             raise ValueError(
                 "the kernel path takes causal/pad_add, not a dense mask"
             )
-        out = flash_attention_btd(q, k, v, pad_add, causal, hd)
+        if takes_bhtd(t, s, d, q.element_size()):
+            out = _merge_heads(flash_attention(
+                *(_split_heads(x, num_heads).contiguous() for x in (q, k, v)),
+                pad_add, causal))
+        else:
+            out = flash_attention_btd(q, k, v, pad_add, causal, hd)
         return out @ params["wo"].to(cd) + params["bo"].to(cd)
 
     if mask is None and (causal or pad_add is not None):

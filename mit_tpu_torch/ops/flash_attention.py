@@ -1,4 +1,5 @@
-"""``flash_attention_btd``: attention in the native (B, T, D) layout.
+"""``flash_attention_btd`` and ``flash_attention``: the fused attention
+kernels, in the native (B, T, D) layout and in (B, H, T, hd).
 
 Port of ``mit_tpu/ops/pallas_attention.py:flash_attention_btd``. Heads are
 D-column blocks of ``head_dim``, so the Q/K/V projections feed the kernel
@@ -35,6 +36,14 @@ output modes:
 
 The fused-QKV wrapper is forward-only (the encoder is frozen) and raises on
 an input that requires grad.
+
+:func:`flash_attention` (port of ``pallas_attention.py:flash_attention``)
+takes q (B, H, T, hd) and k, v (B, H, S, hd). It is a second entry of the
+same CUDA source, and its numerics are not ``flash_attention_btd``'s: the
+probabilities are normalized before P·V and rounded to v's dtype, where the
+(B, T, D) kernel divides by the row sum after P·V. :func:`takes_bhtd` is the
+shape rule by which ``multihead_attention`` picks between the two, the JAX
+package's rule, so both packages run the same numerics at the same shapes.
 """
 
 from __future__ import annotations
@@ -266,3 +275,139 @@ def flash_attention_btd_fusedqkv(
 
 
 flash_attention_btd_fusedqkv.launches = 0
+
+
+# ----------------------------------------------------------------------
+# (B, H, T, hd) layout
+# ----------------------------------------------------------------------
+BTD_CELL_BYTES = 8 * 1024 * 1024
+
+
+def takes_bhtd(t: int, s: int, d: int, itemsize: int) -> bool:
+    """True where a self- or cross-attention of q (B, t, d) over k (B, s, d)
+    goes to :func:`flash_attention` and not :func:`flash_attention_btd`.
+
+    The JAX package's rule (``_btd_fits_vmem``): one batch cell's q, k, v
+    and output tiles plus an f32 score block above 8 MiB. Its reason, the
+    TPU's fast memory, does not hold on this card; the rule is kept so that
+    a model runs the same numerics in both packages, until both kernels are
+    measured against each other on the card.
+    """
+    return (2 * t * d + 2 * s * d) * itemsize + t * s * 4 > BTD_CELL_BYTES
+
+
+def flash_attention_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    pad_add: Optional[torch.Tensor] = None,
+    causal: bool = True,
+) -> torch.Tensor:
+    """Plain PyTorch attention: q (B, H, T, hd), k/v (B, H, S, hd) →
+    (B, H, T, hd) in q's dtype. f32 scores and softmax, the probabilities
+    cast to q's dtype, f32 accumulation of P·V (``_xla_attention``)."""
+    t, s = q.shape[2], k.shape[2]
+    scores = torch.einsum("bhtd,bhsd->bhts", q.float(), k.float()) / math.sqrt(
+        q.shape[-1])
+    if causal:
+        scores = scores + causal_mask(t, s, q.device)
+    if pad_add is not None:
+        scores = scores + pad_add[:, None, None, :].float()
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bhts,bhsd->bhtd", probs.float(), v.float()).to(q.dtype)
+
+
+def _check_bhtd(q, k, v, pad_add) -> None:
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"k is {k.dtype}, v is {v.dtype}, q is {q.dtype}")
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(
+            f"need q (B, H, T, hd) and k, v (B, H, S, hd); got "
+            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
+        )
+    b, h, t, hd = q.shape
+    s = k.shape[2]
+    if hd != KERNEL_HEAD_DIM:
+        raise ValueError(
+            f"the CUDA kernel takes head_dim {KERNEL_HEAD_DIM}, got {hd}"
+        )
+    if tuple(k.shape) != (b, h, s, hd):
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} disagree")
+    if min(b, h, t, s) == 0 or b > 65535 or h > 65535:
+        raise ValueError(f"unsupported shape q {tuple(q.shape)}, S={s}")
+    tensors = [q, k, v] + ([] if pad_add is None else [pad_add])
+    if any(x.device != q.device for x in tensors):
+        raise ValueError("q, k, v and pad_add must be on one device")
+    if not all(x.is_contiguous() for x in tensors):
+        raise ValueError("q, k, v and pad_add must be contiguous")
+    if pad_add is not None and (
+        pad_add.dtype != torch.float32 or tuple(pad_add.shape) != (b, s)
+    ):
+        raise ValueError(
+            f"pad_add must be float32 ({b}, {s}), got {pad_add.dtype} "
+            f"{tuple(pad_add.shape)}"
+        )
+
+
+def _flash_forward(q, k, v, pad_add, causal):
+    """The forward: the plain version for CPU tensors, the kernel for CUDA."""
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, pad_add, causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention has no kernel for {q.device}")
+    _check_bhtd(q, k, v, pad_add)
+
+    from mit_tpu_torch import kernels
+
+    b, h, t, _ = q.shape
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        rc = kernels.lib().mit_flash_attention_bhtd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if pad_add is None else pad_add.data_ptr(), out.data_ptr(),
+            b, h, t, k.shape[2], int(causal), int(pad_add is not None),
+            int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    kernels.check(rc, "mit_flash_attention_bhtd")
+    flash_attention.launches += 1
+    return out
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, pad_add, causal):
+        ctx.save_for_backward(q, k, v, pad_add)
+        ctx.causal = causal
+        return _flash_forward(q, k, v, pad_add, causal)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, pad_add = ctx.saved_tensors
+        qkv = [x.detach().requires_grad_() for x in (q, k, v)]
+        with torch.enable_grad():
+            out = flash_attention_reference(*qkv, pad_add, ctx.causal)
+        dq, dk, dv = torch.autograd.grad(out, qkv, g)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    pad_add: Optional[torch.Tensor] = None,
+    causal: bool = True,
+) -> torch.Tensor:
+    """Fused attention: q (B, H, T, hd); k/v (B, H, S, hd); pad_add (B, S)
+    additive f32 or None (no key is padding). ``causal=True`` for decoder
+    self-attention, False for the encoder's. The gradient in q, k and v
+    recomputes through the plain version, as the JAX package's recomputes
+    through XLA."""
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, pad_add, causal)
+    return _flash_forward(q, k, v, pad_add, causal)
+
+
+flash_attention.launches = 0

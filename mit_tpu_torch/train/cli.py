@@ -5,7 +5,7 @@
         [--no_wandb] [--no_cache] [--encoder_quant {none,int8}] \
         [--train_state_interval N] [--device cuda]
 
-Flags override the values of ``mit_tpu.config``. ``MIT_FUSED_DROPOUT=1``
+Flags override the values of ``mit_tpu_torch.config``. ``MIT_FUSED_DROPOUT=1``
 sends the decoder self-attention's dropout through the hash-mask CUDA
 kernels (the JAX package's switch of the same name); it is read here, once.
 Runs on a CUDA device only: without one it raises instead of training on
@@ -57,7 +57,7 @@ def main(argv=None) -> int:
         raise RuntimeError("CUDA is not available: this CLI runs on the GPU only")
     fused_dropout = os.environ.get("MIT_FUSED_DROPOUT") == "1"
 
-    from mit_tpu.config import CONFIG
+    from mit_tpu_torch.config import CONFIG
 
     cfg = CONFIG
     if args.data_dir:

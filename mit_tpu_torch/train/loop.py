@@ -73,8 +73,8 @@ def setup_wandb(cfg):
 
 def ensure_tokenizer(cfg):
     """Train the BPE tokenizer from every caption if its files are missing,
-    then load it (``mit_tpu.text``, JAX-free)."""
-    from mit_tpu.text.tokenizer import get_tokenizer, train_tokenizer
+    then load it (needs the ``regex`` package)."""
+    from mit_tpu_torch.text.tokenizer import get_tokenizer, train_tokenizer
 
     if not (os.path.exists(cfg.VOCAB_PATH) and os.path.exists(cfg.MERGES_PATH)):
         print("Tokenizer files missing — training from captions ...")
@@ -122,12 +122,12 @@ def train(
 ) -> Dict:
     """Run the training job on ``device``; returns a summary dict.
 
-    ``cfg`` is a ``mit_tpu.config.Config`` (the package default when None).
+    ``cfg`` is a ``mit_tpu_torch.config.Config`` (the package default when None).
     ``fused_dropout`` sends the decoder self-attention's dropout through
     the hash-mask kernels (the CLI reads ``MIT_FUSED_DROPOUT``).
     """
     if cfg is None:
-        from mit_tpu.config import CONFIG as cfg
+        from mit_tpu_torch.config import CONFIG as cfg
     t_setup = time.time()
     if tuple(cfg.MESH_SHAPE) != (1, 1):
         raise NotImplementedError(MESH_NOT_PORTED)
@@ -138,7 +138,7 @@ def train(
             f"ENCODER_QUANT must be 'none' or 'int8', got {cfg.ENCODER_QUANT!r}")
     device = torch.device(device)
     if auto_prepare:
-        from mit_tpu.data.prepare import prepare_flickr30k
+        from mit_tpu_torch.data.prepare import prepare_flickr30k
 
         prepare_flickr30k(cfg)
     os.makedirs(cfg.OUTPUT_DIR, exist_ok=True)

@@ -148,7 +148,7 @@ class Optimizer(NamedTuple):
 
 
 def make_optimizer(cfg, steps_per_epoch: Optional[int] = None):
-    """(optimizer, schedule) from a ``mit_tpu.config.Config``, as
+    """(optimizer, schedule) from a ``mit_tpu_torch.config.Config``, as
     ``mit_tpu.train.steps.make_optimizer``."""
     schedule = make_schedule(cfg, steps_per_epoch)
     clip = cfg.GRAD_CLIP_VALUE if cfg.GRAD_CLIP_VALUE and \

@@ -158,3 +158,147 @@ def test_positional_and_masks_match_jax():
     )
     np.testing.assert_array_equal(causal_mask(9).numpy(),
                                   np.asarray(jax_causal_mask(9)))
+
+
+# ----------------------------------------------------------------------
+# flash_attention, the (B, H, T, hd) kernel, and the rule that picks it
+# ----------------------------------------------------------------------
+def _bhtd(r, t, s, dtype):
+    q, k, v = (r.normal(size=(B, H, n, HD)).astype(np.float32)
+               for n in (t, s, s))
+    return [np.array(jnp.asarray(a, dtype).astype(jnp.float32))
+            for a in (q, k, v)]      # values exact in `dtype`
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5), ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("t,s", [(13, 13), (9, 21)])
+@pytest.mark.parametrize("causal,has_pad", [(True, True), (False, True),
+                                            (False, False)])
+def test_flash_bhtd_matches_jax_kernel(causal, has_pad, t, s, dtype, tol):
+    """The port's flash_attention (its plain version, on the CPU) against
+    the JAX package's Pallas kernel in interpret mode and its XLA version."""
+    from mit_tpu.ops.pallas_attention import _xla_attention
+    from mit_tpu.ops.pallas_attention import flash_attention as jax_flash
+    from mit_tpu_torch.ops.flash_attention import flash_attention
+
+    r = np.random.default_rng(5)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    q, k, v = _bhtd(r, t, s, jdt)
+    pad = _pad(r, s) if has_pad else np.zeros((B, s), np.float32)
+    jq, jk, jv = (jnp.asarray(a, jdt) for a in (q, k, v))
+    ref = jax_flash(jq, jk, jv, jnp.asarray(pad), causal)
+    xla = _xla_attention(jq, jk, jv, jnp.asarray(pad), causal)
+    out = flash_attention(
+        *(torch.from_numpy(a).to(tdt) for a in (q, k, v)),
+        torch.from_numpy(pad) if has_pad else None, causal)
+    assert out.dtype == tdt and out.shape == (B, H, t, HD)
+    got = out.float().numpy()
+    assert np.isfinite(got).all()
+    for want in (ref, xla):
+        np.testing.assert_allclose(
+            got, np.asarray(want.astype(jnp.float32)), rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bhtd_gradient_matches_jax(causal):
+    """Differentiable in q, k and v: the backward recomputes through the
+    plain version, as the JAX package's recomputes through XLA."""
+    import jax
+
+    from mit_tpu.ops.pallas_attention import flash_attention as jax_flash
+    from mit_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_reference,
+    )
+
+    r = np.random.default_rng(6)
+    q, k, v = _bhtd(r, 7, 11, jnp.float32)
+    pad = _pad(r, 11, fully_masked_row=False)
+    g = r.normal(size=(B, H, 7, HD)).astype(np.float32)
+    ref = jax.grad(
+        lambda q, k, v: (jax_flash(q, k, v, jnp.asarray(pad), causal)
+                         * jnp.asarray(g)).sum(), argnums=(0, 1, 2),
+    )(*(jnp.asarray(a) for a in (q, k, v)))
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    out = flash_attention(tq, tk, tv, torch.from_numpy(pad), causal)
+    assert out.requires_grad
+    grads = torch.autograd.grad((out * torch.from_numpy(g)).sum(), (tq, tk, tv))
+    for got, want in zip(grads, ref):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                                   atol=1e-5)
+    plain = torch.autograd.grad(
+        (flash_attention_reference(tq, tk, tv, torch.from_numpy(pad), causal)
+         * torch.from_numpy(g)).sum(), (tq, tk, tv))
+    for got, want in zip(grads, plain):
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+    with torch.no_grad():
+        assert not flash_attention(tq, tk, tv, None, causal).requires_grad
+
+
+def test_dispatch_rule_matches_jax_over_the_presets():
+    """takes_bhtd names the shapes that the JAX package sends to
+    flash_attention: of the presets' encoders and the decoder, in both
+    dtypes, only BLIP-384 in f32."""
+    import jax
+
+    from mit_tpu.ops.pallas_attention import _btd_fits_vmem
+    from mit_tpu_torch.models.vision import PRESETS
+    from mit_tpu_torch.ops.flash_attention import takes_bhtd
+
+    shapes = {name: (cfg.seq_len, cfg.seq_len, cfg.hidden_size)
+              for name, cfg in PRESETS.items()}
+    shapes["decoder"] = (100, 100, 512)
+    shapes["decoder over full BLIP memory"] = (100, 577, 512)
+    taken = set()
+    for name, (t, s, d) in shapes.items():
+        for dtype, size in ((jnp.float32, 4), (jnp.bfloat16, 2)):
+            q = jax.ShapeDtypeStruct((2, t, d), dtype)
+            k = jax.ShapeDtypeStruct((2, s, d), dtype)
+            assert takes_bhtd(t, s, d, size) == (not _btd_fits_vmem(q, k, 64)), \
+                (name, dtype)
+            if takes_bhtd(t, s, d, size):
+                taken.add((name, size))
+    assert taken == {("Salesforce/blip-image-captioning-base", 4)}
+    # the boundary itself: a cell of exactly 8 MiB stays on flash_attention_btd
+    assert not takes_bhtd(512, 512, 768, 4) or (
+        4 * 512 * 768 * 4 + 512 * 512 * 4 <= 8 * 1024 * 1024)
+    assert takes_bhtd(577, 577, 768, 4) and not takes_bhtd(577, 577, 768, 2)
+
+
+def test_blip384_f32_encoder_takes_flash_attention_and_matches_jax(monkeypatch):
+    """The BLIP-384 encoder at full width (577 tokens, D 768) and reduced
+    depth, f32: the port sends its self-attention to flash_attention, and
+    its output equals the JAX package's with the Pallas kernels on."""
+    import jax
+
+    from mit_tpu.models import vision as jvis
+    from mit_tpu_torch.models import vision as tvis
+
+    name = "Salesforce/blip-image-captioning-base"
+    tcfg = tvis.PRESETS[name]._replace(num_layers=2)
+    jcfg = jvis.VisionConfig(**tcfg._asdict())
+    params = jax.tree.map(
+        np.asarray, jvis.init_vision_params(jax.random.PRNGKey(0), jcfg))
+    px = np.random.default_rng(0).normal(size=(1, 3, 384, 384)).astype(
+        np.float32)
+    calls = {"bhtd": 0, "btd": 0}
+
+    def counted(key, fn):
+        def wrapper(*a, **kw):
+            calls[key] += 1
+            return fn(*a, **kw)
+        return wrapper
+
+    monkeypatch.setattr(tattn, "flash_attention",
+                        counted("bhtd", tattn.flash_attention))
+    monkeypatch.setattr(tattn, "flash_attention_btd",
+                        counted("btd", tattn.flash_attention_btd))
+    ref = jvis.vision_forward(params, jcfg, jnp.asarray(px), use_pallas=True)
+    out = tvis.vision_forward(params_from_jax(params), tcfg,
+                              torch.from_numpy(px))
+    assert calls == {"bhtd": 2, "btd": 0}
+    assert out.shape == ref.shape == (1, 577, 768)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-4)
+    tvis.vision_forward(params_from_jax(params), tcfg, torch.from_numpy(px),
+                        compute_dtype=torch.bfloat16)
+    assert calls == {"bhtd": 2, "btd": 2}         # bf16 stays on the BTD kernel

@@ -175,9 +175,17 @@ def test_checkpoint_to_captions_matches_jax(tmp_path):
     captions = ours.caption_batch(images)
     assert captions == ref.caption_batch(images)
     assert all(isinstance(c, str) and "<END>" not in c for c in captions)
-    for method in ("beam", "sample"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ours.caption(images[0], method=method)
+    # beam search is ported: the same captions as the JAX package's; the
+    # checkpoint's config carries BEAM_SIZE to the default beam width
+    assert ours.beam_size == cfg.BEAM_SIZE
+    assert (ours.generate_batch(images, method="beam")
+            == ref.generate_batch(images, method="beam"))
+    assert (ours.caption_batch(images, method="beam", beam_size=2)
+            == ref.caption_batch(images, method="beam", beam_size=2))
+    # sampling draws from its own generator: temperature 0 is greedy
+    assert (ours.generate_batch(images, method="sample", temperature=0.0)
+            == ours.generate_batch(images))
+    assert isinstance(ours.caption(images[0], method="sample"), str)
     with pytest.raises(ValueError, match="nucleus"):
         ours.caption(images[0], method="nucleus")
 

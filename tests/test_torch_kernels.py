@@ -510,3 +510,193 @@ def test_dropout_kernels_reject_what_they_do_not_take(cuda):
     big = torch.zeros(1, 1, 129, 64, device=cuda)
     with pytest.raises(ValueError, match="128"):
         fwd(big, big, big, torch.zeros(1, 129, device=cuda), 0, True, 0.1)
+
+
+# ----------------------------------------------------------------------
+# the fused decode layer and the (B, H, T, hd) attention kernel
+# ----------------------------------------------------------------------
+def _decode_layer_case(b, t, dtype, device, per_row, f=2048, seed=0):
+    """One layer call at D 512, 8 heads: madd hides the keys past pos and a
+    tenth of the others; batch row 1 is fully masked."""
+    from mit_tpu_torch.ops.decode_layer import pack_decode_layers
+
+    d = 512
+    r = np.random.default_rng(seed)
+    to = lambda a, dt=dtype: torch.from_numpy(
+        np.asarray(a, np.float32)).to(device, dt)
+    x = to(r.normal(size=(b, d)))
+    kc, vc = to(r.normal(size=(b, t, d))), to(r.normal(size=(b, t, d)))
+    cross = to(r.normal(size=(b, d)), torch.float32)
+    pos = r.integers(0, t, b).astype(np.int32) if per_row else t // 2
+    visible = np.arange(t)[None, :] <= np.broadcast_to(pos, (b,))[:, None]
+    visible &= r.random((b, t)) > 0.1
+    madd = np.where(visible, 0.0, -1e9)
+    if b > 1:
+        madd[1] = -1e9
+    w = lambda k, n: to(r.normal(size=(1, k, n)) / np.sqrt(k))
+    vec = lambda n, dt=dtype: to(0.1 * r.normal(size=(1, n)), dt)
+    ln = lambda: {"scale": 1 + vec(d, torch.float32),
+                  "bias": vec(d, torch.float32)}
+    lay = pack_decode_layers({
+        "wqkv": w(d, 3 * d), "bqkv": vec(3 * d), "wo": w(d, d), "bo": vec(d),
+        "w1": w(d, f), "b1": vec(f), "w2": w(f, d), "b2": vec(d),
+        "ln1": ln(), "ln2": ln(), "ln3": ln()})
+    if per_row:
+        pos = torch.from_numpy(pos).to(device)
+    return [x, pos, to(madd, torch.float32), kc, vc, cross, lay, 0, 8]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_row", [False, True], ids=["scalar_pos", "row_pos"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,t,f", [(64, 16, 2048), (64, 100, 2048),
+                                   (192, 100, 2048), (3, 7, 2048),
+                                   (5, 33, 1024), (1, 1, 4096)])
+def test_fused_decode_layer_matches_plain_on_card(cuda, b, t, f, dtype, per_row):
+    from mit_tpu_torch.ops.decode_layer import (
+        fused_decode_layer,
+        fused_decode_layer_plain,
+    )
+
+    args = _decode_layer_case(b, t, dtype, cuda, per_row, f)
+    before = fused_decode_layer.launches
+    out = fused_decode_layer(*args)
+    torch.cuda.synchronize()
+    assert fused_decode_layer.launches == before + 1
+    ref = fused_decode_layer_plain(*args)
+    # f32: summation order over 512 to 4096 terms at values of order 1
+    tol = 1e-5 if dtype == torch.float32 else 0.05
+    for o, r in zip(out, ref):
+        assert o.dtype == dtype and bool(torch.isfinite(o).all())
+        assert (o.float() - r.float()).abs().max().item() <= tol
+    k2, v2 = args[3].clone(), args[4].clone()
+    wrote = fused_decode_layer(*args[:3], k2, v2, *args[5:], write_cache=True)
+    for o, w in zip(out, wrote):
+        assert torch.equal(o, w)
+    posv = args[1] if per_row else torch.full((b,), args[1], device=cuda)
+    rows = torch.arange(b, device=cuda)
+    assert torch.equal(k2[rows, posv.long()], out[1])
+    assert torch.equal(v2[rows, posv.long()], out[2])
+    assert (k2 != args[3]).any(-1).sum().item() <= b
+
+
+@pytest.mark.cuda
+def test_fused_decode_layer_rejects_what_it_does_not_take(cuda):
+    from mit_tpu_torch.ops.decode_layer import fused_decode_layer
+
+    args = _decode_layer_case(4, 8, torch.float32, cuda, False)
+    with pytest.raises(ValueError, match="8 heads"):
+        fused_decode_layer(*args[:8], 4)
+    with pytest.raises(TypeError, match="x is"):
+        fused_decode_layer(args[0].bfloat16(), *args[1:])
+    with pytest.raises(ValueError, match="madd must be"):
+        fused_decode_layer(*args[:2], args[2][:, :-1], *args[3:])
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_decode_layer(*args[:3], args[3].transpose(0, 1).contiguous()
+                           .transpose(0, 1), *args[4:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stagger", [True, False], ids=["stagger", "lockstep"])
+@pytest.mark.parametrize("rows", [1, 2, 4])
+@pytest.mark.parametrize("b", [7, 64])
+def test_fused_decode_layer_design_choices_agree_on_card(cuda, b, rows, stagger):
+    """Rows per block and the staggered walk change f32 summation order
+    only: every choice stays within the kernel's bound of the plain version."""
+    from mit_tpu_torch.ops.decode_layer import (
+        fused_decode_layer,
+        fused_decode_layer_plain,
+    )
+
+    args = _decode_layer_case(b, 33, torch.float32, cuda, True)
+    out = fused_decode_layer(*args, rows_per_block=rows, stagger=stagger)
+    for o, r in zip(out, fused_decode_layer_plain(*args)):
+        assert (o - r).abs().max().item() <= 1e-5
+
+
+def test_fused_decode_layer_cpu_takes_the_plain_version():
+    from mit_tpu_torch.ops.decode_layer import (
+        fused_decode_layer,
+        fused_decode_layer_plain,
+    )
+
+    args = _decode_layer_case(3, 7, torch.float32, "cpu", True, f=64)
+    before = fused_decode_layer.launches
+    out = fused_decode_layer(*args, rows_per_block=2, stagger=False)
+    assert fused_decode_layer.launches == before
+    for o, r in zip(out, fused_decode_layer_plain(*args)):
+        assert torch.equal(o, r)
+    with pytest.raises(ValueError, match="rows_per_block"):
+        fused_decode_layer(*args, rows_per_block=3)
+
+
+def _bhtd_inputs(b, h, t, s, padded, dtype, device, seed=0):
+    q, k, v, pad = _inputs(b, t, s, h * 64, padded, dtype, device, seed)
+    split = lambda x: x.view(b, -1, h, 64).transpose(1, 2).contiguous()
+    return split(q), split(k), split(v), pad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,h,t,s,causal,padded", [
+    (2, 12, 577, 577, False, False),     # BLIP-384 encoder
+    (4, 8, 100, 100, True, True),        # decoder self-attention
+    (3, 2, 33, 70, False, True),         # ragged, cross lengths
+    (2, 3, 5, 9, True, False),           # fewer keys than a lane group
+])
+def test_flash_attention_bhtd_matches_plain_on_card(cuda, dtype, b, h, t, s,
+                                                    causal, padded):
+    from mit_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_reference,
+    )
+
+    q, k, v, pad = _bhtd_inputs(b, h, t, s, padded, dtype, cuda)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, pad, causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    ref = flash_attention_reference(q, k, v, pad, causal)
+    assert out.dtype == dtype and not torch.isnan(out).any()
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+def test_flash_attention_bhtd_autograd_and_rejections_on_card(cuda):
+    from mit_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_reference,
+    )
+
+    q, k, v, pad = _bhtd_inputs(2, 2, 9, 9, True, torch.float32, cuda)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = flash_attention(*leaves, pad, True)
+    grads = torch.autograd.grad(out.sum(), leaves)
+    want = torch.autograd.grad(
+        flash_attention_reference(*leaves, pad, True).sum(), leaves)
+    for g, w in zip(grads, want):
+        assert (g - w).abs().max().item() <= 1e-5
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention(q[..., :32].contiguous(), k[..., :32].contiguous(),
+                        v[..., :32].contiguous(), None, False)
+    with pytest.raises(TypeError, match="k is"):
+        flash_attention(q, k.bfloat16(), v, None, False)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(q.transpose(2, 3).contiguous().transpose(2, 3), k, v,
+                        None, False)
+
+
+def test_flash_attention_bhtd_cpu_takes_the_plain_version():
+    from mit_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_reference,
+    )
+
+    q, k, v, pad = _bhtd_inputs(2, 2, 5, 7, True, torch.float32, "cpu")
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, pad, False)
+    assert flash_attention.launches == before
+    assert torch.equal(out, flash_attention_reference(q, k, v, pad, False))
