@@ -18,6 +18,15 @@ the script exits non-zero without printing the result line.
               at the encoder shape (64, 197, 768), the decoder shape
               (64, 100, 512, causal, a pad that masks every key of batch
               row 0) and the 577-token shape (8, 577, 768);
+            - the bf16 tensor-core kernel of flash_attention_btd against the
+              CUDA-core kernel it replaced (reached only from here) and the
+              plain version at those shapes and at CLIP ViT-L's (8, 257,
+              1024), limit 2e-2 each way, the fully masked batch row uniform;
+              its time beside the CUDA-core kernel's, the profiler's device
+              time, the bound and the library call; then a table of its
+              tilings (one warpgroup of 64 query rows a block, or two) at
+              the encoder shape; the same comparison for the fused-QKV
+              entry, both bf16 modes;
             - quantize_rows, without and with its LayerNorm, on (12608, 768)
               and (12608, 3072) f32 and bf16 rows with an all-zero row:
               codes and scales bitwise equal without the LayerNorm, codes
@@ -237,6 +246,128 @@ def cuda_ms(torch, fn, iters=TIMED_ITERS):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def cudacore_bf16(torch, q, k, v, pad, causal, layer=False):
+    """bf16 attention through the CUDA-core kernel, which every bf16 call ran
+    before the tensor-core kernel: the yardstick of the redesign, reached
+    only from here. q, k, v: (B, T|S, D) with unit column stride (the column
+    blocks of a fused qkv tensor will do)."""
+    from mit_tpu_torch import kernels
+
+    b, t, d = q.shape
+    out = torch.empty((b, t, d), device=q.device,
+                      dtype=torch.float32 if layer else torch.bfloat16)
+    rc = kernels.lib().mit_flash_attention_btd_bf16_cudacore(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if pad is None else pad.data_ptr(), out.data_ptr(), b, t,
+        k.shape[1], d, q.stride(1), k.stride(1), int(causal),
+        int(pad is not None), int(layer),
+        torch.cuda.current_stream().cuda_stream)
+    kernels.check(rc, "mit_flash_attention_btd_bf16_cudacore")
+    return out
+
+
+def tiled_bf16(torch, q, k, v, pad, causal, tiling):
+    """The tensor-core kernel at a tiling other than the wrapper's."""
+    from mit_tpu_torch import kernels
+
+    b, t, d = q.shape
+    out = torch.empty_like(q)
+    rc = kernels.lib().mit_flash_attention_btd_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if pad is None else pad.data_ptr(), out.data_ptr(), b, t,
+        k.shape[1], d, int(causal), int(pad is not None), *tiling,
+        torch.cuda.current_stream().cuda_stream)
+    kernels.check(rc, "mit_flash_attention_btd_bf16")
+    return out
+
+
+def device_ms(torch, fn, iters=TIMED_ITERS):
+    """Mean device milliseconds per call by torch.profiler's kernel times:
+    what the card spends, where cuda_ms is bounded below by the host's time
+    to enqueue a call. None if the profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(getattr(e, "self_device_time_total", 0)
+                for e in prof.key_averages())
+    return total / iters / 1e3 if total > 0 else None
+
+
+def check_bf16_design(torch):
+    """The tensor-core kernel against the CUDA-core kernel it replaced, at
+    every bf16 shape of SHAPES and at CLIP ViT-L's (8, 257, 1024); then the
+    table of tilings at the encoder shape."""
+    from mit_tpu_torch.ops.flash_attention import (
+        BF16_WARPS,
+        bf16_tiling,
+        flash_attention_btd,
+        flash_attention_btd_reference,
+    )
+
+    dtype = torch.bfloat16
+    for name, b, t, d, padded in SHAPES + [("vit-l", 8, 257, 1024, False)]:
+        q, k, v, pad = attention_inputs(torch, b, t, d, padded, dtype)
+        out = flash_attention_btd(q, k, v, pad, padded, 64)
+        old = cudacore_bf16(torch, q, k, v, pad, padded)
+        ref = flash_attention_btd_reference(q, k, v, pad, padded, 64)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        err_old = (old.float() - ref.float()).abs().max().item()
+        diff = (out.float() - old.float()).abs().max().item()
+        uniform = True
+        if padded:      # batch row 0: every key padded, so uniform over them
+            want = torch.stack([v[0, :i + 1].float().mean(0)
+                                for i in range(t)])
+            uniform = bool((out[0].float() - want).abs().max()
+                           <= TOL["bfloat16"])
+        runs = timed_turns(
+            torch, lambda: flash_attention_btd(q, k, v, pad, padded, 64),
+            lambda: cudacore_bf16(torch, q, k, v, pad, padded))
+        bound_ = attention_bound(b, d // 64, t, t, dtype,
+                                 extra_bytes=b * t * 4 if padded else 0)
+        lib = sdpa_ms(torch, heads_view(q), heads_view(k), heads_view(v),
+                      padded, pad)
+        dev = device_ms(
+            torch, lambda: flash_attention_btd(q, k, v, pad, padded, 64))
+        print(f"bf16 tensor-core vs CUDA-core {name:8s} B={b} T=S={t} D={d} "
+              f"causal+pad={padded} tiling {bf16_tiling(t)}: max_abs_err vs "
+              f"plain {err:.3e} (CUDA-core kernel {err_old:.3e}), vs the "
+              f"CUDA-core kernel {diff:.3e}, limit 2e-02; fully masked row "
+              f"uniform={uniform}; tensor-core {runs['kernel']} ms (device "
+              f"time {'not measured' if dev is None else f'{dev:.4f} ms'}), "
+              f"CUDA-core {runs['plain']} ms, bound "
+              f"{bound_['bound_ms']:.5f} ms by "
+              f"{bound_['bound_by']}, library call {lib:.4f} ms")
+        if not (max(err, diff) <= TOL["bfloat16"] and uniform
+                and bool(torch.isfinite(out).all())):
+            raise AssertionError(f"bf16 tensor-core kernel disagrees: {name}")
+
+    _, b, t, d, _ = SHAPES[0]
+    q, k, v, _ = attention_inputs(torch, b, t, d, False, dtype)
+    ref = flash_attention_btd_reference(q, k, v, None, False, 64)
+    was_ms = cuda_ms(torch,
+                     lambda: cudacore_bf16(torch, q, k, v, None, False))
+    cells = [f"CUDA-core kernel {was_ms:.4f}"]
+    for tiling in [bf16_tiling(t, w) for w in BF16_WARPS]:
+        out = tiled_bf16(torch, q, k, v, None, False, tiling)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        if not err <= TOL["bfloat16"]:
+            raise AssertionError(f"tiling {tiling} disagrees: {err}")
+        ms = cuda_ms(torch, lambda: tiled_bf16(torch, q, k, v, None, False,
+                                               tiling))
+        warps, rows = tiling
+        cells.append(f"{warps} warps, {rows} rows a block "
+                     f"({-(-t // rows)} blocks a head) {ms:.4f}")
+    print(f"design flash_attention_btd ({b}, {t}, {d}) bf16, ms (the "
+          f"wrapper takes {bf16_tiling(t)}): " + "; ".join(cells))
 
 
 def check_kernels(torch):
@@ -544,6 +675,20 @@ def check_int8_kernels(torch):
               f"{err:.3e} limit={limit:.0e} out={str(out.dtype)[6:]}")
         if not err <= limit or torch.isnan(out).any():
             raise AssertionError("flash_attention_btd_fusedqkv disagrees")
+        if dtype == torch.bfloat16:
+            blocks = qkv.split(768, dim=-1)
+            was = cudacore_bf16(torch, *blocks, None, False, layer)
+            torch.cuda.synchronize()
+            diff = (out.float() - was.float()).abs().max().item()
+            was_ms = cuda_ms(torch, lambda: cudacore_bf16(
+                torch, *blocks, None, False, layer))
+            now_ms = cuda_ms(torch, lambda: flash_attention_btd_fusedqkv(
+                qkv, 64, layer))
+            print(f"     tensor-core vs CUDA-core kernel, layer_numerics="
+                  f"{layer}: max_abs_diff {diff:.3e} (limit {limit:.0e}); "
+                  f"{now_ms:.4f} ms against {was_ms:.4f} ms")
+            if not diff <= limit:
+                raise AssertionError("fused qkv: the two bf16 kernels disagree")
         if dtype == torch.bfloat16 and not layer:
             runs = timed_turns(
                 torch, lambda: flash_attention_btd_fusedqkv(qkv, 64),
@@ -1208,9 +1353,14 @@ def check_dropout_kernels(torch):
                 torch, lambda: da.dump_dropout_mask(b, h, t, s, seed, rate,
                                                     "cuda"),
                 lambda: da.keep_mask(t, s, rate, seed, cells))
+            # nothing read; one byte written per (row, key)
+            dump_bound = bound(b * h * t * s, 0, "f32")
             print(f"time dump_dropout_mask          ({b}, {h}, {t}, {s}): "
                   f"kernel {dump_runs['kernel']} ms, plain "
-                  f"{dump_runs['plain']} ms (not on the training path)")
+                  f"{dump_runs['plain']} ms, bound "
+                  f"{dump_bound['bound_ms']:.5f} ms by "
+                  f"{dump_bound['bound_by']}, library call none (not on the "
+                  f"training path)")
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype)[6:]
             fwd_tol, bwd_tol = DROPOUT_TOL[dname]
@@ -1526,6 +1676,7 @@ def main() -> int:
 
     print("== 3 kernels", flush=True)
     errors, times = check_kernels(torch)
+    check_bf16_design(torch)
     int8 = check_int8_kernels(torch)
     dropout = check_dropout_kernels(torch)
     decode_layer = check_decode_layer_kernel(torch)

@@ -38,8 +38,10 @@ NVCC_FLAGS = (
 _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
 ENTRY_POINTS = {
     "mit_flash_attention_btd_f32": [_P] * 5 + [_I] * 6 + [_P],
-    "mit_flash_attention_btd_bf16": [_P] * 5 + [_I] * 6 + [_P],
-    "mit_flash_attention_fusedqkv": [_P] * 2 + [_I] * 4 + [_P],
+    "mit_flash_attention_btd_bf16": [_P] * 5 + [_I] * 8 + [_P],
+    "mit_flash_attention_fusedqkv": [_P] * 2 + [_I] * 6 + [_P],
+    # for measurements only: bf16 through the CUDA-core kernel
+    "mit_flash_attention_btd_bf16_cudacore": [_P] * 5 + [_I] * 9 + [_P],
     "mit_flash_attention_bhtd": [_P] * 5 + [_I] * 7 + [_P],
     "mit_fused_decode_layer": [_P] * 23 + [_I] * 6 + [_F, _P],
     "mit_quantize_rows_f32": [_P] * 5 + [_I, _I, _F, _P],

@@ -7,8 +7,10 @@ and its output feeds the out-projection with no head split or merge.
 
 - :func:`flash_attention_btd` is the wrapper, differentiable in q, k and
   v. For CPU tensors it runs :func:`flash_attention_btd_reference`; for
-  CUDA tensors it launches the hand-written kernel
-  ``csrc/flash_attention_btd.cu`` or raises. It adds one to
+  CUDA tensors it launches a hand-written kernel of
+  ``csrc/flash_attention_btd.cu`` or raises: bf16 on the tensor cores
+  (wgmma), at the tiling :func:`bf16_tiling` gives, f32 on the CUDA cores
+  (:func:`btd_entry`). It adds one to
   ``flash_attention_btd.launches`` at each kernel launch. The kernel is
   forward-only: the backward recomputes the attention through
   :func:`flash_attention_btd_reference` under autograd, as the JAX
@@ -22,7 +24,7 @@ and its output feeds the out-projection with no head split or merge.
 :func:`flash_attention_btd_fusedqkv` (port of the TPU kernel of the same
 name) takes one fused (B, T, 3D) qkv tensor, as the int8 encoder's fused
 QKV projection writes it: q, k and v are column offsets 0, D and 2D of it,
-read in place by the same CUDA kernel with a row stride of 3D. It has two
+read in place by the same CUDA kernels with a row stride of 3D. It has two
 output modes:
 
 - the TPU ``flash_attention_btd_fusedqkv``: bidirectional, unpadded,
@@ -57,6 +59,41 @@ from mit_tpu_torch.ops.masks import causal_mask
 
 KERNEL_HEAD_DIM = 64
 LOG2E = 1.4426950408889634
+# warps a block of the bf16 (tensor-core) kernel: one warpgroup or two, and a
+# warpgroup owns 64 query rows
+BF16_WARPS = (4, 8)
+BF16_GROUP_ROWS = 64
+
+
+def bf16_tiling(t: int, warps: Optional[int] = None) -> tuple[int, int]:
+    """``(warps, rows)`` for the bf16 kernel at ``t`` query rows: the warps
+    of a block and the query rows a block owns, 64 a warpgroup of 4 warps.
+
+    The 64-row groups of ``t`` are split evenly over the fewest blocks that
+    hold them (320 rows on 8 warps: 128 + 128 + 64). Left to the rule, a
+    block has one warpgroup up to 64 rows and two above: at the ViT-B
+    encoder's 197 rows two read a head's K and V half as often and took
+    0.059 ms against 0.069 (an H100 at 700 W).
+    """
+    if t < 1:
+        raise ValueError(f"need at least one query row, got {t}")
+    groups = -(-t // BF16_GROUP_ROWS)
+    if warps is None:
+        warps = BF16_WARPS[0] if groups == 1 else BF16_WARPS[1]
+    elif warps not in BF16_WARPS:
+        raise ValueError(f"warps must be one of {BF16_WARPS}, got {warps}")
+    blocks = -(-groups // (warps // 4))
+    return warps, BF16_GROUP_ROWS * -(-groups // blocks)
+
+
+def btd_entry(dtype: torch.dtype) -> str:
+    """The C entry point that runs ``flash_attention_btd`` in ``dtype``:
+    the tensor-core kernel for bf16, the CUDA-core kernel for f32."""
+    if dtype == torch.bfloat16:
+        return "mit_flash_attention_btd_bf16"
+    if dtype == torch.float32:
+        return "mit_flash_attention_btd_f32"
+    raise TypeError(f"q must be float32 or bfloat16, got {dtype}")
 
 
 def flash_attention_btd_reference(
@@ -135,15 +172,15 @@ def _flash_forward_btd(q, k, v, pad_add, causal, head_dim):
 
     b, t, d = q.shape
     out = torch.empty_like(q)
-    name = ("mit_flash_attention_btd_bf16" if q.dtype == torch.bfloat16
-            else "mit_flash_attention_btd_f32")
+    name = btd_entry(q.dtype)
     fn = getattr(kernels.lib(), name)
+    tiling = bf16_tiling(t) if q.dtype == torch.bfloat16 else ()
     with torch.cuda.device(q.device):
         rc = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if pad_add is None else pad_add.data_ptr(), out.data_ptr(),
             b, t, k.shape[1], d, int(causal), int(pad_add is not None),
-            torch.cuda.current_stream(q.device).cuda_stream,
+            *tiling, torch.cuda.current_stream(q.device).cuda_stream,
         )
     kernels.check(rc, name)
     flash_attention_btd.launches += 1
@@ -267,6 +304,7 @@ def flash_attention_btd_fusedqkv(
     with torch.cuda.device(qkv.device):
         rc = kernels.lib().mit_flash_attention_fusedqkv(
             qkv.data_ptr(), out.data_ptr(), b, t, d3 // 3, mode,
+            *bf16_tiling(t),         # read by the bf16 modes only
             torch.cuda.current_stream(qkv.device).cuda_stream,
         )
     kernels.check(rc, "mit_flash_attention_fusedqkv")

@@ -17,8 +17,10 @@ import torch
 from mit_tpu_torch import kernels
 from mit_tpu_torch.ops import dropout_attention, int8_layer, int8_mlp
 from mit_tpu_torch.ops.flash_attention import (
+    BF16_WARPS,
     _check_cuda_inputs,
     _check_fusedqkv,
+    bf16_tiling,
     flash_attention_btd,
     flash_attention_btd_fusedqkv,
     flash_attention_btd_fusedqkv_reference,
@@ -61,6 +63,21 @@ def _inputs(b, t, s, d, padded, dtype, device, seed=0):
     (3, 13, 70, 128, True, True),        # ragged tiles, T != S
     (2, 1, 1, 64, False, True),
     (2, 33, 65, 64, False, True),
+    # the bf16 kernel's tiling: 16-row warps, 64-key tiles, 16-key steps
+    (2, 16, 15, 64, False, False),
+    (2, 17, 16, 128, False, True),
+    (2, 15, 17, 64, True, False),
+    (2, 64, 63, 512, False, True),
+    (2, 65, 64, 128, True, True),        # causal, T > S
+    (2, 63, 65, 128, True, True),        # causal, T < S
+    (2, 129, 128, 64, False, False),
+    (2, 197, 208, 768, False, True),
+    (2, 208, 197, 128, True, True),
+    (2, 256, 257, 64, True, False),
+    (1, 257, 256, 1024, False, False),   # CLIP ViT-L
+    (1, 300, 577, 128, True, True),      # streaming, causal with T < S
+    (1, 577, 100, 64, True, True),       # causal with T > S
+    (2, 5, 577, 64, False, True),
 ])
 def test_kernel_matches_plain_on_card(cuda, dtype, b, t, s, d, causal, padded):
     q, k, v, pad = _inputs(b, t, s, d, padded, dtype, cuda)
@@ -73,6 +90,89 @@ def test_kernel_matches_plain_on_card(cuda, dtype, b, t, s, d, causal, padded):
     assert not torch.isnan(out).any()
     err = (out.float() - ref.float()).abs().max().item()
     assert err <= TOL[dtype], err
+    if padded:
+        # batch row 0: every key padded. Query row i comes out uniform over
+        # the keys that share its maximum: all of them, or keys 0..i if causal
+        heads = lambda x: x.float().reshape(x.shape[0], x.shape[1], -1, 64)
+        want = torch.stack([
+            heads(v)[0, :min(i + 1, s) if causal else s].mean(0)
+            for i in range(t)])
+        assert (heads(out)[0] - want).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("warps", BF16_WARPS)
+@pytest.mark.parametrize("b,t,s,d,causal,padded", [
+    (2, 197, 197, 128, False, False), (3, 100, 100, 128, True, True),
+    (2, 70, 300, 64, True, True), (2, 300, 65, 64, True, True),
+    (1, 577, 577, 64, False, True), (2, 1, 17, 64, False, False),
+])
+def test_bf16_tilings_match_plain_on_card(cuda, warps, b, t, s, d, causal,
+                                          padded):
+    """Both tilings of the bf16 kernel (one warpgroup a block, or two), not
+    only the one the wrapper's rule picks."""
+    q, k, v, pad = _inputs(b, t, s, d, padded, torch.bfloat16, cuda)
+    if padded and b > 1:
+        pad[1, 0] = -1e9             # a causal row 0 that sees a pad only
+    out = torch.empty_like(q)
+    rc = kernels.lib().mit_flash_attention_btd_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if pad is None else pad.data_ptr(), out.data_ptr(), b, t, s, d,
+        int(causal), int(padded), *bf16_tiling(t, warps),
+        torch.cuda.current_stream().cuda_stream)
+    kernels.check(rc, "mit_flash_attention_btd_bf16")
+    ref = flash_attention_btd_reference(q, k, v, pad, causal, 64)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= TOL[torch.bfloat16], err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [16, 32])
+def test_bf16_fragments_are_not_permuted_on_card(cuda, s):
+    """One-hot probabilities pick single rows of v: a permuted accumulator
+    or A fragment would pick another row, at no change in norm."""
+    t, d = 16, 64
+    q = torch.zeros(1, t, d, device=cuda)
+    k = torch.zeros(1, s, d, device=cuda)
+    pick = torch.tensor([(5 * i + 3) % s for i in range(t)], device=cuda)
+    q[0, torch.arange(t), torch.arange(t)] = 64.0      # score 512 at one key
+    k[0, pick, torch.arange(t, device=cuda)] = 64.0
+    v = torch.arange(s * d, device=cuda).reshape(1, s, d) % 251 / 16.0
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    out = flash_attention_btd(q, k, v, None, False, 64)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out[0], v[0, pick], rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,s,extra", [(100, 100, 28), (197, 197, 60),
+                                       (70, 130, 200), (300, 64, 513)])
+def test_bf16_causal_tile_skipping_is_exact_on_card(cuda, t, s, extra):
+    """A causal call equals the same call over a wider S whose extra keys
+    are padded away: the key tiles above the diagonal that the kernel skips
+    add nothing, also in a row whose visible keys are all padded."""
+    q, k, v, pad = _inputs(3, t, s, 128, True, torch.bfloat16, cuda)
+    pad[1, 0] = -1e9                 # query row 0 of batch row 1 sees a pad only
+    wide = lambda x: torch.cat([x, torch.randn(
+        3, extra, 128, device=cuda, generator=torch.Generator(cuda).manual_seed(
+            5)).to(x.dtype)], 1)
+    pad_wide = torch.cat([pad, torch.full((3, extra), -1e9, device=cuda)], 1)
+    out = flash_attention_btd(q, k, v, pad, True, 64)
+    out_wide = flash_attention_btd(q, wide(k), wide(v), pad_wide, True, 64)
+    ref = flash_attention_btd_reference(q, k, v, pad, True, 64)
+    ref_wide = flash_attention_btd_reference(q, wide(k), wide(v), pad_wide,
+                                             True, 64)
+    torch.cuda.synchronize()
+    for got, want in ((out, ref), (out_wide, ref_wide)):
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= TOL[torch.bfloat16], err
+    # rows whose visible keys are all padded share their maximum with the
+    # extra keys (both sit at -1e9 or -2e9), in the reference as here
+    visible = (torch.tril(torch.ones(t, s, device=cuda)) * (pad == 0)[:, None]
+               ).sum(-1) > 0
+    torch.testing.assert_close(out_wide[visible], out[visible], rtol=0, atol=0)
 
 
 @pytest.mark.cuda
@@ -230,7 +330,11 @@ def test_int8_gemm_epilogues_match_plain_on_card(cuda, act, res, out_dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["f32", "bf16", "layer"])
-@pytest.mark.parametrize("b,t,d", [(4, 197, 768), (2, 257, 1024), (3, 13, 128)])
+@pytest.mark.parametrize("b,t,d", [
+    (4, 197, 768), (2, 257, 1024), (3, 13, 128), (2, 1, 64), (2, 15, 64),
+    (2, 16, 128), (2, 17, 64), (2, 63, 512), (2, 64, 64), (2, 65, 128),
+    (2, 128, 64), (2, 208, 128), (2, 256, 64), (1, 577, 768),
+])
 def test_fusedqkv_matches_plain_on_card(cuda, mode, b, t, d):
     dtype = torch.float32 if mode == "f32" else torch.bfloat16
     layer = mode == "layer"
