@@ -17,7 +17,9 @@ the script exits non-zero without printing the result line.
             - flash_attention_btd in f32 (limit 1e-4) and bf16 (limit 2e-2)
               at the encoder shape (64, 197, 768), the decoder shape
               (64, 100, 512, causal, a pad that masks every key of batch
-              row 0) and the 577-token shape (8, 577, 768);
+              row 0) and the 577-token shape (8, 577, 768); the f32 kernel
+              also against the port's first CUDA-core kernel (reached only
+              from here), with that kernel's time beside it;
             - the bf16 tensor-core kernel of flash_attention_btd against the
               CUDA-core kernel it replaced (reached only from here) and the
               plain version at those shapes and at CLIP ViT-L's (8, 257,
@@ -74,7 +76,13 @@ the script exits non-zero without printing the result line.
             (f32) or 2e-2 (bf16) absolute; dq, dk and dv within 1e-5 (f32)
             or 1e-2 (bf16) of their largest value. It times forward and
             backward, kernel against plain, at the bf16 training shape,
-            and the dump kernel against keep_mask at (32, 8, 99, 99).
+            and the dump kernel against keep_mask at (32, 8, 99, 99). The
+            bf16 forward (tensor cores) also has its keep-mask recovered
+            from its output (q = k = 0, v one-hot) and compared bit for bit
+            with keep_mask at those shapes and (2, 2, 128, 128), at both of
+            its tilings, then a table of its tilings beside the CUDA-core
+            kernel it replaced and the library call with dropout (CUDA
+            events and the profiler's device time).
 5. train    Training at the default model's full width: a random ViT-B/16
             builds the CLS feature cache of 64 pixel images made in the run
             (FeatureCache.build, through flash_attention_btd); decoder 6 x
@@ -101,7 +109,20 @@ the script exits non-zero without printing the result line.
             and 4 batch rows per block, with and without the staggered walk
             over the weights); and flash_attention (the
             (B, H, T, hd) kernel) at (8, 12, 577, 64), f32 (1e-5) and bf16
-            (2e-2), and at the causal padded decoder shape (64, 8, 100, 64).
+            (2e-2), and at the causal padded decoder shape (64, 8, 100, 64),
+            each also against the first CUDA-core kernel; at the 577-token
+            shape that kernel's time, the profiler's device time, and
+            flash_attention_btd on the same numbers in (B, T, D).
+            Phase 3 ends with the kernels of csrc/attention_any_shape.cu,
+            which take the shapes the tiled kernels do not: every attention
+            wrapper at head widths 128, 96 and 32 (causal, padded, a fully
+            padded batch row), f32 and bf16, at the tiled kernels' limits;
+            the dropout wrappers, forward and backward, at 160 tokens and
+            at head widths 128 and 32; the dropout forward's keep-mask
+            recovered from its output bit for bit; then multihead_attention
+            on the card, 512 wide in 4 heads over 160 tokens, without and
+            with fused dropout, which must launch a kernel at every call
+            and agree with the plain path in output and input gradient.
             Yardsticks, timed and used nowhere in the port: one
             F.scaled_dot_product_attention call at each attention kernel's
             shape and torch._int_mm at each int8_gemm shape.
@@ -122,10 +143,18 @@ the script exits non-zero without printing the result line.
             the BLIP-384 encoder (577 tokens) at full depth, f32 batch 8:
             11 flash_attention launches per encode call and no
             flash_attention_btd, memory within 1e-4 of the plain path's.
+            Every path of phases 4 and 5 also reads the route counters of
+            multihead_attention and decoder_step (set to 0 with the launch
+            counters): every attention call went to a kernel wrapper, none
+            to the plain path, and every step asked to fuse ran the fused
+            layers.
 6. result   One JSON line describing each kernel (its error, its time, its
             plain version's time, its bound and, where one PyTorch call
-            computes the same function, that call's time), then the last
-            line, {"ok": true, "device": {...}}.
+            computes the same function, that call's time; for the kernels
+            near the host's issue floor also the profiler's device time of
+            the kernel and of the library call), before it the same for the
+            any-shape kernels, then the last line,
+            {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -283,6 +312,27 @@ def tiled_bf16(torch, q, k, v, pad, causal, tiling):
     return out
 
 
+def first_kernel(torch, q, k, v, pad, causal):
+    """Attention through the port's first CUDA-core kernel, which f32 calls
+    and every (B, H, T, hd) call ran before their redesign: a yardstick,
+    reached only from here. q (B, T, D) f32 with k, v (B, S, D), or q
+    (B, H, T, 64) f32 or bf16 with k, v (B, H, S, 64), all contiguous."""
+    from mit_tpu_torch import kernels
+
+    bhtd = q.dim() == 4
+    b, t = (q.shape[0], q.shape[2]) if bhtd else q.shape[:2]
+    h = q.shape[1] if bhtd else q.shape[2] // 64
+    out = torch.empty_like(q)
+    rc = kernels.lib().mit_flash_attention_v1(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if pad is None else pad.data_ptr(), out.data_ptr(), b, h, t,
+        k.shape[-2], int(causal), int(pad is not None),
+        int(q.dtype == torch.bfloat16), int(bhtd),
+        torch.cuda.current_stream().cuda_stream)
+    kernels.check(rc, "mit_flash_attention_v1")
+    return out
+
+
 def device_ms(torch, fn, iters=TIMED_ITERS):
     """Mean device milliseconds per call by torch.profiler's kernel times:
     what the card spends, where cuda_ms is bounded below by the host's time
@@ -405,13 +455,25 @@ def check_kernels(torch):
         dname = str(dtype).split(".")[1]
         times[dname] = {w: statistics.mean(r) for w, r in runs.items()}
         times[dname].update(attention_bound(b, d // 64, t, t, dtype))
-        times[dname]["library_ms"] = sdpa_ms(
-            torch, heads_view(q), heads_view(k), heads_view(v))
+        lib = sdpa_call(torch, heads_view(q), heads_view(k), heads_view(v))
+        times[dname]["library_ms"] = cuda_ms(torch, lib)
+        times[dname]["device_ms"] = device_ms(torch, kern)
+        times[dname]["library_device_ms"] = device_ms(torch, lib)
+        was = ""
+        if dtype == torch.float32:
+            old = first_kernel(torch, q, k, v, pad, padded)
+            torch.cuda.synchronize()
+            diff = (old - kern()).abs().max().item()
+            if not diff <= TOL[dname]:
+                raise AssertionError(f"f32 kernel against the first: {diff}")
+            was = (f", the first CUDA-core kernel "
+                   f"{cuda_ms(torch, lambda: first_kernel(torch, q, k, v, pad, padded)):.4f}"
+                   f" ms (max abs difference {diff:.3e})")
         print(f"time at encoder shape {dname:8s} kernel {runs['kernel']} ms, "
               f"plain {runs['plain']} ms (mean of {TIMED_ITERS} calls each); "
               f"bound {times[dname]['bound_ms']:.5f} ms by "
               f"{times[dname]['bound_by']}, library call "
-              f"{times[dname]['library_ms']:.4f} ms")
+              f"{times[dname]['library_ms']:.4f} ms{was}")
     return errors, times
 
 
@@ -444,9 +506,36 @@ def wrappers():
     }
 
 
+def dispatchers():
+    """The functions that pick a route by shape, with their counters."""
+    from mit_tpu_torch.decode.step import decoder_step
+    from mit_tpu_torch.ops.attention import multihead_attention
+
+    return {"attention": multihead_attention, "decode": decoder_step}
+
+
 def reset_counts():
     for fn in wrappers().values():
         fn.launches = 0
+    for fn in dispatchers().values():
+        fn.routes = {k: 0 for k in fn.routes}
+
+
+def hold_routes(label, attention=None, decode=None):
+    """The route counters since reset_counts: every multihead_attention call
+    went to a kernel wrapper (`attention` of them) and none to the plain
+    path, and the decode steps took the fused and unfused routes `decode`
+    times. A rule that is wrong at the model's geometry fails here."""
+    got = {name: dict(fn.routes) for name, fn in dispatchers().items()}
+    print(f"routes {label}: multihead_attention {got['attention']}, "
+          f"decoder_step {got['decode']}")
+    if got["attention"]["plain"] or (
+            attention is not None and got["attention"]["kernel"] != attention):
+        raise AssertionError(f"{label}: attention routes {got['attention']}, "
+                             f"want {attention} kernel and no plain")
+    if decode is not None and got["decode"] != decode:
+        raise AssertionError(f"{label}: decode routes {got['decode']}, "
+                             f"want {decode}")
 
 
 def read_counts():
@@ -507,9 +596,10 @@ def attention_bound(b, h, t, s, dtype, n_products=2, extra_bytes=0):
     return bound(nbytes, ops, "bf16" if size == 2 else "f32")
 
 
-def sdpa_ms(torch, q, k, v, causal=False, pad=None, dropout_p=0.0):
-    """One F.scaled_dot_product_attention call over (B, H, T, hd) views: the
-    library's time for the same function, a yardstick only."""
+def sdpa_call(torch, q, k, v, causal=False, pad=None, dropout_p=0.0):
+    """One F.scaled_dot_product_attention call over (B, H, T, hd) views, as
+    a function of no arguments: the library's way to the same function, a
+    yardstick only."""
     mask = None
     if pad is not None or causal:
         t, s = q.shape[2], k.shape[2]
@@ -520,8 +610,12 @@ def sdpa_ms(torch, q, k, v, causal=False, pad=None, dropout_p=0.0):
         if pad is not None:
             mask = mask + pad[:, None, None, :].to(q.dtype)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    return cuda_ms(torch, lambda: sdpa(q, k, v, attn_mask=mask,
-                                       dropout_p=dropout_p))
+    return lambda: sdpa(q, k, v, attn_mask=mask, dropout_p=dropout_p)
+
+
+def sdpa_ms(torch, q, k, v, causal=False, pad=None, dropout_p=0.0):
+    """The library call's time by CUDA events."""
+    return cuda_ms(torch, sdpa_call(torch, q, k, v, causal, pad, dropout_p))
 
 
 def heads_view(x, hd=64):
@@ -530,15 +624,27 @@ def heads_view(x, hd=64):
     return x.view(b, t, d // hd, hd).transpose(1, 2)
 
 
-def report(results, name, err, runs, what, bound_, library_ms=None):
+def report(results, name, err, runs, what, bound_, library_ms=None,
+           device=None, library_device=None):
+    """`device` and `library_device`, where given, are the profiler's device
+    times of the kernel and of the library call: below about 0.05 ms the
+    events (`ms`, `library_ms`) read the host's time to issue a call, and
+    only the device times compare the two."""
     ms = statistics.mean(runs["kernel"])
     plain_ms = statistics.mean(runs["plain"])
     lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
-    print(f"time {name:28s} {what}: kernel {runs['kernel']} ms, plain "
+    if library_device is not None:
+        lib += f" (device time {library_device:.4f} ms)"
+    dev = "" if device is None else f" (device time {device:.4f} ms)"
+    print(f"time {name:28s} {what}: kernel {runs['kernel']} ms{dev}, plain "
           f"{runs['plain']} ms, bound {bound_['bound_ms']:.5f} ms by "
           f"{bound_['bound_by']}, library call {lib}")
     results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      **bound_, "library_ms": library_ms}
+    if device is not None:
+        results[name]["device_ms"] = device
+    if library_device is not None:
+        results[name]["library_device_ms"] = library_device
 
 
 def check_int8_kernels(torch):
@@ -693,11 +799,15 @@ def check_int8_kernels(torch):
             runs = timed_turns(
                 torch, lambda: flash_attention_btd_fusedqkv(qkv, 64),
                 lambda: flash_attention_btd_fusedqkv_reference(qkv, 64))
+            lib = sdpa_call(torch, *(heads_view(x)
+                                     for x in qkv.split(768, dim=-1)))
             report(results, "flash_attention_btd_fusedqkv", err, runs,
                    "(64, 197, 2304) bf16",
                    attention_bound(64, 12, 197, 197, dtype),
-                   sdpa_ms(torch, *(heads_view(x)
-                                    for x in qkv.split(768, dim=-1))))
+                   cuda_ms(torch, lib),
+                   device_ms(torch, lambda: flash_attention_btd_fusedqkv(
+                       qkv, 64)),
+                   device_ms(torch, lib))
         if layer:
             runs = timed_turns(
                 torch, lambda: flash_attention_btd_fusedqkv(qkv, 64, True),
@@ -895,6 +1005,7 @@ def check_bhtd_kernel(torch):
     returns its error and times at the BLIP-384 f32 encoder's shape."""
     from mit_tpu_torch.ops.flash_attention import (
         flash_attention,
+        flash_attention_btd,
         flash_attention_reference,
     )
 
@@ -914,19 +1025,240 @@ def check_bhtd_kernel(torch):
                   f"limit={BHTD_TOL[dname]:.0e} finite={finite}")
             if not (finite and err <= BHTD_TOL[dname]):
                 raise AssertionError(f"flash_attention disagrees: {name} {dname}")
+            old = first_kernel(torch, q, k, v, pad, padded)
+            torch.cuda.synchronize()
+            diff = (out.float() - old.float()).abs().max().item()
+            if not diff <= BHTD_TOL[dname]:
+                raise AssertionError(
+                    f"flash_attention against the first kernel: {name} "
+                    f"{dname} {diff}")
             if name != "blip384":
                 continue
             runs = timed_turns(
                 torch, lambda: flash_attention(q, k, v, pad, padded),
                 lambda: flash_attention_reference(q, k, v, pad, padded))
             what = f"({b}, {h}, {t}, 64) {dname}"
+            dev = device_ms(torch,
+                            lambda: flash_attention(q, k, v, pad, padded))
             report(results,
                    "flash_attention" if dtype == torch.float32 else
                    "flash_attention bf16", err, runs, what,
                    attention_bound(b, h, t, t, dtype),
-                   sdpa_ms(torch, q, k, v))
+                   sdpa_ms(torch, q, k, v), dev,
+                   device_ms(torch, sdpa_call(torch, q, k, v)))
+            # beside it: the kernel it replaced, the card's own time, and
+            # flash_attention_btd on the same numbers in (B, T, D), the
+            # kernel takes_bhtd passes over at this shape
+            was_ms = cuda_ms(
+                torch, lambda: first_kernel(torch, q, k, v, pad, padded))
+            merged = [x.transpose(1, 2).reshape(b, t, h * 64).contiguous()
+                      for x in (q, k, v)]
+            btd = lambda: flash_attention_btd(*merged, pad, padded, 64)
+            btd_err = (btd().view(b, t, h, 64).transpose(1, 2).float()
+                       - ref.float()).abs().max().item()
+            btd_ms, btd_dev = cuda_ms(torch, btd), device_ms(torch, btd)
+            lib_dev = device_ms(torch, sdpa_call(torch, q, k, v))
+            fmt = lambda x: "not measured" if x is None else f"{x:.4f}"
+            print(f"design flash_attention {what}: the first CUDA-core "
+                  f"kernel {was_ms:.4f} ms (max abs difference {diff:.3e}); "
+                  f"now {statistics.mean(runs['kernel']):.4f} ms, device "
+                  f"time {fmt(dev)} ms; flash_attention_btd at ({b}, {t}, "
+                  f"{h * 64}) {btd_ms:.4f} ms, device time {fmt(btd_dev)} "
+                  f"ms, max_abs_err against this reference {btd_err:.3e}; "
+                  f"the library call's device time {fmt(lib_dev)} ms")
     return {"flash_attention": results["flash_attention"]}
 
+
+# the any-shape kernels: (name, B, H, T = S, hd), all causal and padded
+ANY_SHAPES = [("decoder 512 wide in 4 heads", 64, 4, 100, 128),
+              ("heads of 96 columns", 8, 8, 197, 96),
+              ("narrow heads", 3, 2, 33, 32)]
+DROPOUT_ANY_SHAPES = [("160 tokens", 32, 8, 160, 64),
+                      ("decoder 512 wide in 4 heads", 32, 4, 99, 128),
+                      ("narrow heads", 3, 2, 33, 32)]
+
+
+def any_shape_inputs(torch, b, h, t, hd, dtype, seed=SEED):
+    """q, k ~ N(0, 1), v ~ U(-1, 1), do ~ N(0, 1) in (B, H, T, hd); the pad
+    masks about a fifth of the keys, every key of batch row 0 and key 0 of
+    batch row 1 (whose query row 0 then sees a pad only)."""
+    r = np.random.default_rng(seed)
+    to = lambda a: torch.from_numpy(a.astype(np.float32)).to("cuda", dtype)
+    q, k = to(r.normal(size=(b, h, t, hd))), to(r.normal(size=(b, h, t, hd)))
+    v = to(r.uniform(-1, 1, size=(b, h, t, hd)))
+    do = to(r.normal(size=(b, h, t, hd)))
+    pad = np.where(r.random((b, t)) > 0.8, -1e9, 0.0).astype(np.float32)
+    pad[0] = -1e9
+    pad[1, 0] = -1e9
+    return q, k, v, torch.from_numpy(pad).cuda(), do
+
+
+def check_any_shape_kernels(torch):
+    """Phase 3, the kernels of csrc/attention_any_shape.cu: every attention
+    wrapper at head widths other than 64, and the dropout wrappers there and
+    past 128 tokens, against their plain versions at the tiled kernels'
+    limits; the dropout forward's keep-mask recovered bit for bit; then
+    multihead_attention on the card at such shapes, which must launch a
+    kernel at every call. Returns the timed lines."""
+    from mit_tpu_torch.ops import attention as attn
+    from mit_tpu_torch.ops import dropout_attention as da
+    from mit_tpu_torch.ops import flash_attention as fa
+
+    lines = {}
+    for name, b, h, t, hd in ANY_SHAPES:
+        if fa.attention_kernel_for(hd) != "any_shape":
+            raise AssertionError(f"head_dim {hd} does not get the any-shape kernel")
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype)[6:]
+            q, k, v, pad, _ = any_shape_inputs(torch, b, h, t, hd, dtype)
+            merged = [x.transpose(1, 2).reshape(b, t, h * hd).contiguous()
+                      for x in (q, k, v)]
+            qkv = torch.cat(merged, -1).contiguous()
+            cases = {
+                "flash_attention": (
+                    lambda: fa.flash_attention(q, k, v, pad, True),
+                    lambda: fa.flash_attention_reference(q, k, v, pad, True),
+                    BHTD_TOL[dname]),
+                "flash_attention_btd": (
+                    lambda: fa.flash_attention_btd(*merged, pad, True, hd),
+                    lambda: fa.flash_attention_btd_reference(*merged, pad,
+                                                             True, hd),
+                    TOL[dname]),
+                "flash_attention_btd_fusedqkv": (
+                    lambda: fa.flash_attention_btd_fusedqkv(qkv, hd),
+                    lambda: fa.flash_attention_btd_fusedqkv_reference(qkv, hd),
+                    TOL[dname]),
+            }
+            for wrapper, (kern, plain, limit) in cases.items():
+                out, ref = kern(), plain()
+                torch.cuda.synchronize()
+                err = (out.float() - ref.float()).abs().max().item()
+                finite = bool(torch.isfinite(out).all())
+                print(f"any-shape {wrapper} {name} ({b}, {h}, {t}, {hd}) "
+                      f"causal+pad {dname:8s} max_abs_err={err:.3e} "
+                      f"limit={limit:.0e} finite={finite}")
+                if not (finite and err <= limit):
+                    raise AssertionError(
+                        f"any-shape {wrapper} disagrees: {name} {dname}")
+                if (name, wrapper) == (ANY_SHAPES[0][0], "flash_attention"):
+                    size = 2 if dtype == torch.bfloat16 else 4
+                    lib = sdpa_call(torch, q, k, v, True, pad)
+                    report(lines, f"any-shape flash_attention {dname}", err,
+                           timed_turns(torch, kern, plain),
+                           f"({b}, {h}, {t}, {hd}) causal+pad",
+                           bound(4 * b * h * t * hd * size + b * t * 4,
+                                 4 * b * h * t * t * hd,
+                                 "bf16" if size == 2 else "f32"),
+                           cuda_ms(torch, lib), device_ms(torch, kern),
+                           device_ms(torch, lib))
+
+    seed, rate = 20261016, 0.1
+    for name, b, h, t, hd in DROPOUT_ANY_SHAPES:
+        if da.dropout_kernel_for(hd, t, t) != "any_shape":
+            raise AssertionError(f"{name} does not get the any-shape kernels")
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype)[6:]
+            fwd_tol, bwd_tol = DROPOUT_TOL[dname]
+            q, k, v, pad, do = any_shape_inputs(torch, b, h, t, hd, dtype)
+            args = (q, k, v, pad)
+            fwd = lambda: da.flash_attention_dropout_fwd(*args, seed, True, rate)
+            bwd = lambda: da.flash_attention_dropout_bwd(*args, do, seed, True,
+                                                         rate)
+            fwd_plain = lambda: da.flash_attention_dropout_reference(
+                *args, seed, True, rate)
+            bwd_plain = lambda: da.flash_attention_dropout_reference_backward(
+                *args, do, seed, True, rate)
+            out, ref, grads, want = fwd(), fwd_plain(), bwd(), bwd_plain()
+            torch.cuda.synchronize()
+            fwd_err = (out.float() - ref.float()).abs().max().item()
+            bwd_abs = [(g.float() - r.float()).abs().max().item()
+                       for g, r in zip(grads, want)]
+            bwd_rel = [e / r.float().abs().max().item()
+                       for e, r in zip(bwd_abs, want)]
+            finite = all(bool(torch.isfinite(x).all()) for x in (out, *grads))
+            print(f"any-shape flash_attention_dropout {name} ({b}, {h}, {t}, "
+                  f"{t}, {hd}) causal+pad {dname:8s}: forward max_abs_err "
+                  f"{fwd_err:.3e} (limit {fwd_tol:.0e}); dq, dk, dv over their "
+                  f"largest value {[f'{e:.3e}' for e in bwd_rel]} (limit "
+                  f"{bwd_tol:.0e}); finite={finite}")
+            if not (finite and fwd_err <= fwd_tol and max(bwd_rel) <= bwd_tol):
+                raise AssertionError(
+                    f"any-shape dropout attention disagrees: {name} {dname}")
+            if name == DROPOUT_ANY_SHAPES[0][0] and dtype == torch.bfloat16:
+                what = f"({b}, {h}, {t}, {t}, {hd}) bf16 causal+pad"
+                lib = sdpa_call(torch, q, k, v, True, pad, dropout_p=rate)
+                report(lines, "any-shape flash_attention_dropout", fwd_err,
+                       timed_turns(torch, fwd, fwd_plain), what + ", forward",
+                       bound(4 * b * h * t * hd * 2 + b * t * 4,
+                             4 * b * h * t * t * hd, "bf16"),
+                       cuda_ms(torch, lib), device_ms(torch, fwd),
+                       device_ms(torch, lib))
+                report(lines, "any-shape flash_attention_dropout_bwd",
+                       max(bwd_abs), timed_turns(torch, bwd, bwd_plain),
+                       what + ", backward",
+                       bound(7 * b * h * t * hd * 2 + b * t * 4,
+                             5 * 2 * b * h * t * t * hd, "bf16"),
+                       device=device_ms(torch, bwd))
+
+    # the forward's keep-mask, read off its output as for the tiled kernel
+    for b, h, t, hd in ((2, 2, 160, 64), (3, 2, 70, 128)):
+        want = da.keep_mask(t, t, rate, seed, torch.arange(b * h, device="cuda")
+                            ).reshape(b, h, t, t).tril()
+        zeros = lambda: torch.zeros(b, h, t, hd, device="cuda")
+        got = torch.zeros(b, h, t, t, dtype=torch.bool, device="cuda")
+        for c0 in range(0, t, hd):
+            n = min(hd, t - c0)
+            v = zeros()
+            v[:, :, c0 + torch.arange(n), torch.arange(n)] = 1.0
+            out = da.flash_attention_dropout_fwd(
+                zeros(), zeros(), v, torch.zeros(b, t, device="cuda"), seed,
+                True, rate)
+            got[..., c0:c0 + n] = out[..., :n] > 0
+        same = torch.equal(got, want)
+        print(f"any-shape flash_attention_dropout forward, keep-mask "
+              f"recovered from the output, ({b}, {h}, {t}, {t}, {hd}): "
+              f"bitwise equal to keep_mask={same}")
+        if not same:
+            raise AssertionError("the any-shape forward draws another mask")
+
+    # multihead_attention on the card at these shapes: a kernel at every call
+    heads, b, t, d = 4, 8, 160, 512
+    g = torch.Generator().manual_seed(SEED)
+    params = {w: (torch.randn(d, d, generator=g) * 0.05).cuda()
+              for w in ("wq", "wk", "wv", "wo")}
+    params.update({"b" + w[1]: torch.zeros(d, device="cuda")
+                   for w in list(params)})
+    x = torch.randn(b, t, d, generator=g).cuda()
+    pad = torch.zeros(b, t, device="cuda")
+    pad[:, -7:] = -1e9
+    outs = {}
+    for use_kernel in (True, False):
+        reset_counts()
+        xg = x.clone().requires_grad_()
+        gens = attn.DropoutGenerators.for_step(SEED, 1, "cuda")
+        plain = attn.multihead_attention(params, xg, xg, heads, None,
+                                         torch.float32, use_kernel, True, pad)
+        dropped = attn.multihead_attention(
+            params, xg, xg, heads, None, torch.float32, use_kernel, True, pad,
+            rate, gens, False, True)
+        (grad,) = torch.autograd.grad(dropped.square().sum(), xg)
+        outs[use_kernel] = (plain.detach(), dropped.detach(), grad)
+        if use_kernel:
+            counts = {k: n for k, n in read_counts().items() if n}
+            hold_routes(f"multihead_attention 512 wide in {heads} heads, T {t}",
+                        attention=2)
+    errs = [((a - r).abs().max() / r.abs().max()).item()
+            for a, r in zip(outs[True], outs[False])]
+    print(f"any-shape multihead_attention ({b}, {t}, {d}) f32 in {heads} heads "
+          f"of {d // heads}, causal+pad, without and with fused dropout "
+          f"{rate}: launches {counts}; output, dropped output and input "
+          f"gradient against the plain path, over their largest value "
+          f"{[f'{e:.3e}' for e in errs]} (limit 1e-4)")
+    want = {"flash_attention_btd": 1, "flash_attention_dropout": 1,
+            "flash_attention_dropout_bwd": 1}
+    if counts != want or not max(errs) <= 1e-4:
+        raise AssertionError("multihead_attention at an any-shape geometry")
+    return lines
 
 
 def drive(torch, name, cap, px, reps):
@@ -945,6 +1277,12 @@ def drive(torch, name, cap, px, reps):
         seconds.append(t2 - t0)
         enc_s.append(t1 - t0)
     counts = read_counts()
+    # the float arm's attention goes through multihead_attention, the int8
+    # arm's does not; the decode steps were not asked to fuse
+    steps_taken = dispatchers()["decode"].routes["unfused"]
+    hold_routes(f"slice {name}",
+                attention=counts["flash_attention_btd"],
+                decode={"fused": 0, "unfused": steps_taken})
     want = {k: PER_ENCODE[name].get(k, 0) * reps for k in counts}
     b = px.shape[0]
     rate = b / statistics.median(seconds)
@@ -1147,6 +1485,8 @@ def check_decode_routes(torch):
     tok_f = fused.generate_from_memory(mem)
     steps = max(len(t) for t in tok_f) - 1
     launches = read_counts()["fused_decode_layer"]
+    hold_routes("decode f32 greedy fused", attention=0,
+                decode={"fused": steps, "unfused": 0})
     kernel_fn = step_mod.fused_decode_layer
     step_mod.fused_decode_layer = fused_decode_layer_plain
     try:                                  # the same route on the plain version
@@ -1238,6 +1578,9 @@ def check_decode_routes(torch):
                 t[0] == ids.start_id and 2 <= len(t) <= 100
                 and all(0 <= x < dcfg.vocab_size for x in t) for t in tokens)
     counts = read_counts()
+    hold_routes("decode bf16 greedy, fused and unfused in turns", attention=0,
+                decode={"fused": steps * DECODE_REPS,
+                        "unfused": steps * DECODE_REPS})
     want = {k: 0 for k in counts}
     want["fused_decode_layer"] = dcfg.num_layers * steps * DECODE_REPS
     rates = {}
@@ -1299,6 +1642,8 @@ def check_blip(torch):
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
     counts = read_counts()
+    hold_routes("blip384 f32", attention=11,
+                decode={"fused": 0, "unfused": 0})
     mem_p = plain.memory_from_pixels(pixels)
     err = (mem_k - mem_p).abs().max().item()
     ok = mem_k.shape == (8, 1, 512) and bool(torch.isfinite(mem_k).all())
@@ -1325,6 +1670,94 @@ def dropout_inputs(torch, b, h, t, s, dtype, seed=SEED):
     pad = np.where(r.random((b, s)) > 0.8, -1e9, 0.0).astype(np.float32)
     pad[0] = -1e9
     return q, k, v, torch.from_numpy(pad).cuda(), do
+
+
+DROPOUT_FWD_WARPS = (4, 8)      # the tilings of the bf16 dropout forward
+
+
+def dropout_fwd_tiled(torch, da, q, k, v, pad, seed, causal, rate, warps):
+    """The tiled bf16 dropout forward at a tiling of the C entry point: 4 or
+    8 warps a block on the tensor cores (64 query rows a warpgroup of 4), or
+    0 for the CUDA-core kernel it replaced. The wrapper takes da.FWD_WARPS;
+    the others are reached only from here, for the design table."""
+    from mit_tpu_torch import kernels
+
+    b, h, t, _ = q.shape
+    out = torch.empty_like(q)
+    rc = kernels.lib().mit_flash_attention_dropout_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), pad.data_ptr(),
+        out.data_ptr(), b, h, t, k.shape[2], int(causal), 1, warps,
+        seed & 0xFFFFFFFF, da._threshold(rate), 1.0 - rate,
+        torch.cuda.current_stream().cuda_stream)
+    kernels.check(rc, "mit_flash_attention_dropout_fwd")
+    return out
+
+
+def recovered_keep_mask(torch, da, b, h, t, s, seed, rate, causal, warps):
+    """The bf16 forward kernel's keep-mask, read off its output: q = k = 0
+    makes p uniform over the visible keys, and v one-hot over 64 keys at a
+    time makes out[r, c] = pd[r, key c], positive iff the key is kept."""
+    dt = torch.bfloat16
+    q = torch.zeros(b, h, t, 64, device="cuda", dtype=dt)
+    k = torch.zeros(b, h, s, 64, device="cuda", dtype=dt)
+    pad = torch.zeros(b, s, device="cuda")
+    got = torch.zeros(b, h, t, s, dtype=torch.bool, device="cuda")
+    for c0 in range(0, s, 64):
+        n = min(64, s - c0)
+        v = torch.zeros(b, h, s, 64, device="cuda", dtype=dt)
+        v[:, :, c0 + torch.arange(n), torch.arange(n)] = 1.0
+        out = dropout_fwd_tiled(torch, da, q, k, v, pad, seed, causal, rate,
+                                warps)
+        got[..., c0:c0 + n] = out[..., :n] > 0
+    return got
+
+
+def check_dropout_forward_design(torch, da, seed, rate):
+    """The bf16 forward on the tensor cores: its keep-mask recovered bit for
+    bit at every tiling, then the table of its tilings beside the CUDA-core
+    kernel it replaced, at the training shape."""
+    for name, b, h, t, s, causal in DROPOUT_SHAPES + [
+            ("full", 2, 2, 128, 128, True)]:
+        for r_seed, r_rate in ((seed, rate), (2**31 - 2, 0.5)):
+            want = da.keep_mask(t, s, r_rate, r_seed,
+                                torch.arange(b * h, device="cuda")
+                                ).reshape(b, h, t, s)
+            if causal:
+                want = want & torch.ones(t, s, dtype=torch.bool,
+                                         device="cuda").tril()
+            same = {w: torch.equal(recovered_keep_mask(
+                torch, da, b, h, t, s, r_seed, r_rate, causal, w), want)
+                for w in DROPOUT_FWD_WARPS}
+            torch.cuda.synchronize()
+            print(f"flash_attention_dropout forward, keep-mask recovered from "
+                  f"the output, {name} ({b}, {h}, {t}, {s}) causal={causal} "
+                  f"seed {r_seed} rate {r_rate}: bitwise equal to keep_mask "
+                  f"by warps a block {same}")
+            if not all(same.values()):
+                raise AssertionError("the forward kernel draws another mask")
+
+    _, b, h, t, s, causal = DROPOUT_SHAPES[0]
+    q, k, v, pad, _ = dropout_inputs(torch, b, h, t, s, torch.bfloat16)
+    ref = da.flash_attention_dropout_reference(q, k, v, pad, seed, causal, rate)
+    cells = []
+    fmt = lambda x: "not measured" if x is None else f"{x:.4f}"
+    for warps in (0,) + DROPOUT_FWD_WARPS:
+        fn = lambda: dropout_fwd_tiled(torch, da, q, k, v, pad, seed, causal,
+                                       rate, warps)
+        err = (fn().float() - ref.float()).abs().max().item()
+        if not err <= DROPOUT_TOL["bfloat16"][0]:
+            raise AssertionError(f"dropout forward, warps {warps}: {err}")
+        label = ("CUDA-core kernel" if warps == 0 else
+                 f"{warps} warps, {warps * 16} rows a block "
+                 f"({-(-t // (warps * 16))} blocks a cell)")
+        cells.append(f"{label} {cuda_ms(torch, fn):.4f} (device time "
+                     f"{fmt(device_ms(torch, fn))}, max_abs_err {err:.3e})")
+    lib = sdpa_call(torch, q, k, v, True, pad, dropout_p=rate)
+    cells.append(f"the library call with dropout {cuda_ms(torch, lib):.4f} "
+                 f"(device time {fmt(device_ms(torch, lib))})")
+    print(f"design flash_attention_dropout forward ({b}, {h}, {t}, {s}, 64) "
+          f"bf16, ms (the wrapper takes {da.FWD_WARPS} warps): "
+          + "; ".join(cells))
 
 
 def check_dropout_kernels(torch):
@@ -1403,13 +1836,18 @@ def check_dropout_kernels(torch):
                                                            seed, causal, rate),
                     lambda: da.flash_attention_dropout_reference_backward(
                         q, k, v, pad, do, seed, causal, rate))
+    check_dropout_forward_design(torch, da, seed, rate)
     what = "(32, 8, 99, 99, 64) bf16 causal+pad"
     _, b, h, t, s, _ = DROPOUT_SHAPES[0]
     q, k, v, pad, _ = dropout_inputs(torch, b, h, t, s, torch.bfloat16)
     report(results, "flash_attention_dropout", errs["fwd"], fwd_runs,
            what + ", forward",
            attention_bound(b, h, t, s, torch.bfloat16, extra_bytes=b * s * 4),
-           sdpa_ms(torch, q, k, v, True, pad, dropout_p=rate))
+           sdpa_ms(torch, q, k, v, True, pad, dropout_p=rate),
+           device_ms(torch, lambda: da.flash_attention_dropout_fwd(
+               q, k, v, pad, seed, True, rate)),
+           device_ms(torch, sdpa_call(torch, q, k, v, True, pad,
+                                      dropout_p=rate)))
     # q, k, v and do read, dq, dk and dv written; five (T, S, 64) products
     report(results, "flash_attention_dropout_bwd", errs["bwd"], bwd_runs,
            what + ", backward",
@@ -1514,6 +1952,10 @@ def check_training(torch):
         losses.append(loss)
     losses = [x.item() for x in losses]
     counts = read_counts()
+    hold_routes("train cache build + bf16 steps",
+                attention=counts["flash_attention_btd"]
+                + counts["flash_attention_dropout"],
+                decode={"fused": 0, "unfused": 0})
     per_step = {k: counts[k] / BF16_STEPS for k in
                 ("flash_attention_dropout", "flash_attention_dropout_bwd")}
     print(f"train cache: {tuple(cache.features.shape)} {cache.features.dtype} "
@@ -1681,6 +2123,7 @@ def main() -> int:
     dropout = check_dropout_kernels(torch)
     decode_layer = check_decode_layer_kernel(torch)
     bhtd = check_bhtd_kernel(torch)
+    any_shape = check_any_shape_kernels(torch)
 
     print("== 4 slice", flush=True)
     slice_ = check_slice(torch)
@@ -1712,6 +2155,8 @@ def main() -> int:
         "ms": btd["kernel"], "plain_ms": btd["plain"],
         "bound_ms": btd["bound_ms"], "bound_by": btd["bound_by"],
         "library_ms": btd["library_ms"],
+        **{key: btd[key] for key in ("device_ms", "library_device_ms")
+           if btd[key] is not None},
     })
     lines = []
     for name, (source, replaces, path) in KERNELS.items():
@@ -1722,6 +2167,12 @@ def main() -> int:
                       "source": f"mit_tpu_torch/csrc/{source}",
                       "replaces": replaces, "launches": launches,
                       **results[name]})
+    # beside the kernels of the paths: the any-shape kernels, which the
+    # default models' geometries never reach
+    print(json.dumps({"any_shape_kernels": [
+        {"name": name, "route": "cuda",
+         "source": "mit_tpu_torch/csrc/attention_any_shape.cu", **line}
+        for name, line in any_shape.items()]}))
     print(json.dumps({"kernels": lines}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,5 +1,6 @@
-// flash_attention_btd: multi-head attention in the (B, T, D) activation
-// layout, heads as column blocks of HEAD_DIM = 64, for sm_90a.
+// flash_attention_btd and flash_attention: multi-head attention in the
+// (B, T, D) activation layout, heads as column blocks of HEAD_DIM = 64, and
+// in (B, H, T, 64), for sm_90a.
 //
 // Replaces the TPU kernel _attn_kernel_btd in mit_tpu/ops/pallas_attention.py
 // (behind flash_attention_btd / _flash_forward_btd) and computes the same
@@ -12,10 +13,13 @@
 // cast to the dtype of q. -1e9 rather than -inf keeps a fully masked row
 // finite: it comes out as the reference's softmax gives it, not NaN.
 //
-// Two kernels compute it. bf16 inputs of the (B, T, D) and fused-QKV entries
-// take flash_attention_btd_tc_kernel, on the tensor cores; f32 inputs (which
-// must keep full f32 products: TF32 would keep 10 mantissa bits) and the
-// (B, H, T, hd) entry take flash_attention_btd_kernel, on the CUDA cores.
+// Two kernels compute it. bf16 inputs take flash_attention_btd_tc_kernel, on
+// the tensor cores; f32 inputs (which must keep full f32 products: TF32
+// would keep 10 mantissa bits) take flash_attention_f32_kernel, on the CUDA
+// cores. Both serve the (B, T, D), the fused-QKV and the (B, H, T, 64)
+// entries. A third, flash_attention_btd_kernel, is the first CUDA-core
+// kernel of the port, which every entry ran before those two: it is reached
+// only through the entries named *_cudacore and *_v1, for measurements.
 //
 // The bf16 kernel: what bounds it on the H100, and what the design does.
 // At the encoder's shape (B = 64, T = S = 197, 12 heads) the function moves
@@ -44,27 +48,35 @@
 //   is one MUFU instruction, ex2.approx of (x - max) * log2 e.
 // - A block of 4 or 8 warps owns 64 or 128 query rows of one (batch, head),
 //   so a head's K and V are read twice at T = 197, not seven times.
-// - Softmax. Without LAYER, one product for the scores and an online
-//   softmax (a running row max; the sums and the output are rescaled by
-//   exp(m_old - m_new) when it grows). p is rounded to bf16 against the
-//   running max, not the final one, so p before rounding is no longer bit
-//   for bit the reference's number; the error stays that of one bf16
-//   rounding per probability, far inside the bf16 limit of 2e-2. With LAYER
-//   (the int8 whole-layer numerics) that is not good enough: the context is
-//   requantized to int8 right after, and a difference of one bf16 rounding
-//   per probability flips enough codes to push the layer past its bound
-//   against the plain version (relative L2 8e-3 against 5e-3, measured). So
-//   LAYER walks the key tiles twice, first for the exact row max from the
-//   scores alone (K tiles only), then for exp2(s - max), the row sum and
-//   P.V: p is the reference's number, as in the CUDA-core kernel, at a
-//   third more time. Holding a whole score row in registers instead would
-//   take 128 registers a thread at S = 256 and a second code path above it.
+// - Softmax, three modes. ONLINE (the (B, T, D) and fused-QKV entries): one
+//   product for the scores and an online softmax (a running row max; the
+//   sums and the output are rescaled by exp(m_old - m_new) when it grows).
+//   p is rounded to bf16 against the running max, not the final one, so p
+//   before rounding is no longer bit for bit the reference's number; the
+//   error stays that of one bf16 rounding per probability, far inside the
+//   bf16 limit of 2e-2. LAYER (the int8 whole-layer numerics): that is not
+//   good enough, because the context is requantized to int8 right after,
+//   and a difference of one bf16 rounding per probability flips enough
+//   codes to push the layer past its bound against the plain version
+//   (relative L2 8e-3 against 5e-3, measured). So LAYER walks the key tiles
+//   twice, first for the exact row max from the scores alone (K tiles
+//   only), then for exp2(s - max), the row sum and P.V: p is the
+//   reference's number, at a third more time. NORM (the (B, H, T, 64)
+//   entry, whose reference normalizes the probabilities BEFORE it rounds
+//   them to bf16 for P.V): the first walk takes the row max and the row
+//   sum (online over the K tiles: a sum rescaled when the max grows, which
+//   differs from the sum against the final max only in f32 rounding), the
+//   second takes p = exp(s - max) * (1 / sum), rounds it and multiplies;
+//   nothing is divided at the end. Holding a whole score row in registers
+//   instead would take 128 registers a thread at S = 256 and a second code
+//   path above it.
 // - Causal: the walk ends at the block's diagonal, which is exact while
 //   each row has seen a visible key (the skipped terms are exp(-1e9 - m) =
 //   0 in f32). A row whose visible keys are all padded shares its max of
 //   -1e9 with the causally masked keys that are NOT padded, and the
 //   reference spreads it over those too; by a block-wide vote at the
 //   diagonal a block with such a row (running max below -5e8) walks on.
+//   NORM votes at the end of its first walk and lengthens both.
 // - The bf16 output goes through the warp's own query rows in shared memory
 //   and leaves in 16-byte stores, scaled by one reciprocal a row.
 // A first design on mma.sync.m16n8k16 (a warp to 16 or 32 query rows, K
@@ -79,16 +91,35 @@
 // its two products before it goes on. A persistent block that walks heads
 // and keeps loads in flight across them is the next step.
 //
-// The CUDA-core kernel (f32, and both dtypes in (B, H, T, hd)). A block
-// owns one (batch, head, 32-query tile) and streams K and V in 64-row
-// tiles, converted to f32 on the way into shared memory. The arithmetic is
-// f32 FMA fed from shared memory in 4 x 4 register tiles: two shared-memory
-// loads per FMA pair, so shared-memory bandwidth, at about half the f32 FMA
-// peak, is its bound. Its softmax is two passes, not online: pass 1 walks
-// the key tiles for the exact row max; pass 2 walks them again, recomputes
-// the scores, and takes exp(s - max), the row sum and P.V. So p is the
-// number the single-block reference computes before it is rounded to v's
-// dtype, at the price of the q.k^T product computed twice.
+// The f32 kernel: what bounds it, and what the design does. At the BLIP-384
+// shape (8, 12, 577, 64) the function is two products of 8.2 GFLOP together:
+// 0.122 ms at the 67 TFLOP/s of the f32 pipes, against 0.007 ms for its
+// 14 MB. Operations bound it, so the design issues as little beside the
+// FMAs as it can:
+// - One walk over the keys with an online softmax: q.k^T is computed once.
+//   In f32 nothing is rounded between the softmax and P.V, so (sum p v) / l
+//   with p against a running max differs from the reference only in f32
+//   rounding, in both layouts (the (B, H, T, 64) reference normalizes p
+//   first; sum (p / l) v is the same number up to that rounding).
+// - A block of 128 threads owns 128 query rows; a thread owns 8 x 8 of a
+//   128 x 64 score tile and 8 x 8 of the 128 x 64 output. Its operands come
+//   from shared memory 16 bytes a load along head_dim: 16 loads feed 256
+//   FMAs in either product, where 4 x 4 tiles of scalars took 8 for 16.
+//   Rows are padded to 68 floats, so the 8 rows a quarter-warp reads lie in
+//   8 different bank groups.
+// - The probabilities go from the score registers to the P.V operand
+//   through shared memory, but a row of P is written and read by the same 8
+//   lanes of one warp: no block barrier stands between the two products.
+//   Its 8-column groups are XORed by the row group, which makes the scalar
+//   stores conflict-free and leaves the 16-byte loads aligned.
+// - K and V tiles of 64 keys come in by 16-byte cp.async with no
+//   conversion pass, V under the score product and the next K under P.V;
+//   rows past S are zero-filled and the 8-key groups past S are skipped.
+// - A warp whose 32 query rows lie past T takes part in the loads and the
+//   barriers only.
+// - exp is ex2.approx of (x - max) * log2 e, the difference first, as in
+//   the bf16 kernel. A head's K and V are read 5 times at T = 577, where
+//   32-row blocks read them 19 times.
 //
 // Fused QKV. Both kernels also replace _attn_kernel_btd_fusedqkv
 // (pallas_attention.py:196, behind flash_attention_btd_fusedqkv) and the
@@ -97,25 +128,21 @@
 // blocks 0, D and 2D of one (B, T, 3D) tensor, as the fused QKV projection
 // writes it: the loads take a row stride (3D) and a column offset, so no
 // split or copy of that tensor is made. The whole-layer kernel's numerics
-// differ in three places, selected by the LAYER template flag: the scores
+// differ in three places, selected by LAYER: the scores
 // are scaled by log2(e)/sqrt(64) and exponentiated with exp2f (the same p
 // up to rounding), the context is o * (1 / rowsum) rather than o / rowsum,
 // and it is written in f32 from bf16 qkv.
 //
-// (B, H, T, hd) layout. The CUDA-core kernel also replaces
-// _attn_kernel_allheads (pallas_attention.py:86, behind flash_attention), which
-// the JAX package runs where one (T, D) batch cell would not fit its fast
-// memory. The Pallas cell holds every head's whole (T, hd) and (S, hd) tiles
-// and one (T, S) score block; here the grid is the same (batch, head,
-// 32-query tile) and K and V stream in the same 64-row tiles, with a row
-// stride of 64 and head h of batch b at ((b*H + h)*T) rows (the BHTD
-// template flag). Its numerics differ in one place: the probabilities are
-// normalized BEFORE P.V, probs = p / rowsum(p), rounded to v's dtype, and
-// the product is the output. So pass 1 also takes the row sum, online per
-// thread (a running max and a sum rescaled when the max grows, combined
-// across the 16 lanes of a row at the end), and pass 2 divides p by it
-// before rounding. The sum differs from a sum of exp(s - final max) only in
-// f32 rounding order.
+// (B, H, T, hd) layout. Both kernels also replace _attn_kernel_allheads
+// (pallas_attention.py:86, behind flash_attention), which the JAX package
+// runs where one (T, D) batch cell would not fit its fast memory. The
+// Pallas cell holds every head's whole (T, hd) and (S, hd) tiles and one
+// (T, S) score block; here the grid is the same (batch, head, query tile)
+// as in (B, T, D), with a row stride of 64 and head h of batch b at
+// ((b*H + h)*T) rows. Its numerics differ in one place: the probabilities
+// are normalized BEFORE P.V, probs = p / rowsum(p), rounded to v's dtype,
+// and the product is the output (NORM above; in f32 nothing is rounded and
+// the f32 kernel divides after the product).
 //
 // Every entry point returns cudaGetLastError() after its launch; the Python
 // wrapper raises when it is not cudaSuccess.
@@ -126,9 +153,10 @@
 
 #include <type_traits>
 
+#include "wgmma.cuh"
+
 namespace {
 
-constexpr int HD = 64;          // head_dim
 constexpr int BQ = 32;          // query rows per block
 constexpr int BK = 64;          // key rows per tile
 constexpr int THREADS = 128;    // 16 column lanes x 8 row lanes
@@ -138,6 +166,13 @@ constexpr float NEG_INF = -1e9f;
 constexpr float SCALE = 0.125f;                        // 1/sqrt(64), exact
 constexpr float SCALE2 = 0.18033688011112042f;         // log2(e)/sqrt(64)
 constexpr float LOG2E = 1.4426950408889634f;
+
+// ----------------------------------------------------------------------
+// The first CUDA-core kernel (f32 and bf16, both layouts): two walks over
+// the keys with q.k^T in both, 4 x 4 register tiles of scalars, synchronous
+// converting loads. No path of the port runs it; the *_cudacore and *_v1
+// entries keep it so that a run can time the kernels above against it.
+// ----------------------------------------------------------------------
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -335,159 +370,282 @@ flash_attention_btd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ----------------------------------------------------------------------
+// f32 on the CUDA cores (see the head of this file)
+// ----------------------------------------------------------------------
+constexpr int FM = 128;           // query rows a block
+constexpr int FN = 64;            // keys a tile
+constexpr int FTHREADS = 128;     // 16 row groups (ty) x 8 column groups (tx)
+constexpr int FLD = HD + 4;       // q, k, v rows: 16-byte aligned, 4 banks on
+constexpr int F_SMEM =
+    (FM * FLD + 2 * FN * FLD + FM * FN) * (int)sizeof(float);   // 100 KB
+
+// rows [0, nrows) x HD f32 of a matrix with row stride `ld` into dst (row
+// stride FLD), 16 bytes a thread; rows past `valid` (>= 1) are zero
+__device__ __forceinline__ void load_f32_rows_async(float* dst,
+                                                    const float* src,
+                                                    int nrows, int valid,
+                                                    int ld) {
+  for (int i = threadIdx.x; i < nrows * (HD / 4); i += FTHREADS) {
+    const int r = i >> 4, c = (i & 15) * 4;
+    const bool ok = r < valid;
+    cp_async16(dst + r * FLD + c, src + (size_t)(ok ? r : 0) * ld + c, ok);
+  }
+}
+
+// q rows have stride ldq, k and v rows stride ldkv, out rows stride D (the
+// model width); head h is columns h*64 .. h*64+63 of each. With bhtd the
+// tensors are (B, H, T|S, 64): ldq = ldkv = D = 64 and head h of batch b
+// starts (b*H + h) * (Tq or S) rows in.
+//
+// Thread (ty, tx) owns 8 query rows of the block, rbase + 4 i with rbase =
+// 32 (ty / 4) + ty % 4; of a score tile the keys tx + 8 j, and of the output
+// the columns 4 tx .. 4 tx + 3 and 32 + 4 tx .. 32 + 4 tx + 3. The 8 lanes
+// that share ty are neighbours in one warp, a warp owns 32 rows, and the 4
+// row groups of a warp read neighbouring rows, in different banks.
+__global__ void __launch_bounds__(FTHREADS, 2)
+flash_attention_f32_kernel(const float* __restrict__ q,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v,
+                           const float* __restrict__ pad,
+                           float* __restrict__ out, int Tq, int S, int D,
+                           int ldq, int ldkv, bool causal, bool bhtd) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* qs = reinterpret_cast<float*>(smem_raw);   // FM x FLD
+  float* ks = qs + FM * FLD;                        // FN x FLD
+  float* vs = ks + FN * FLD;                        // FN x FLD
+  float* ps = vs + FN * FLD;                        // FM x FN, swizzled
+
+  const int tx = threadIdx.x & 7;
+  const int ty = threadIdx.x >> 3;
+  const int q0 = blockIdx.x * FM;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int nq = min(FM, Tq - q0);
+  // a warp owns 32 rows; one with no row below Tq only loads and waits
+  const bool active = (threadIdx.x >> 5) * 32 < nq;
+  // a row of P is written and read by the 8 lanes that share ty; its
+  // 8-column groups are XORed by ty mod 4 (the row mod 4), so the 4 row
+  // groups of a warp store to 4 different bank groups
+  const int sw = (ty & 3) << 3;
+  // this thread's 8 rows: rbase + 4 i, inside its warp's 32
+  const int rbase = (ty >> 2) * 32 + (ty & 3);
+
+  const size_t cell = bhtd ? (size_t)b * gridDim.y + h : (size_t)b;
+  const int col0 = bhtd ? 0 : h * HD;
+  const float* qb = q + (cell * Tq + q0) * ldq + col0;
+  const float* kb = k + cell * S * ldkv + col0;
+  const float* vb = v + cell * S * ldkv + col0;
+  const float* pad_row = pad != nullptr ? pad + (size_t)b * S : nullptr;
+
+  const int nkt = (S + FN - 1) / FN;
+  // whole 8-key groups: the scores skip the groups past S, P.V the 4-key
+  // steps past S, and what they read beyond S is zero
+  auto tile_rows = [&](int kt) { return (min(FN, S - kt * FN) + 7) & ~7; };
+
+  load_f32_rows_async(qs, qb, FM, nq, ldq);
+  load_f32_rows_async(ks, kb, tile_rows(0), min(FN, S), ldkv);
+  cp_async_commit();
+
+  float o[8][8];                  // unnormalized output
+  float m[8], l[8];               // running row max; this lane's share of the sum
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) o[i][c] = 0.f;
+  }
+
+  for (int kt = 0; kt < nkt; ++kt) {
+    const int k0 = kt * FN;
+    const int valid = min(FN, S - k0);
+    // V comes in under the scores; every warp left the last tile's P.V at
+    // the barrier that ended it
+    load_f32_rows_async(vs, vb + (size_t)k0 * ldkv, tile_rows(kt), valid,
+                        ldkv);
+    cp_async_commit();
+    cp_async_wait<1>();           // this tile's K (and, the first time, Q)
+    __syncthreads();
+
+    // One key tile for this thread. FULL: all 64 keys are below S, and the
+    // code is compiled without the tests for that.
+    auto scores = [&](auto full_tile) {
+      constexpr bool FULL = decltype(full_tile)::value;
+      const int nj = FULL ? 8 : (valid + 7) >> 3;     // 8-key groups in use
+      float s[8][8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
+      const float* qrow = qs + rbase * FLD;
+#pragma unroll 2
+      for (int d = 0; d < HD; d += 4) {
+        float4 qv[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          qv[i] = *reinterpret_cast<const float4*>(qrow + 4 * i * FLD + d);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          if (!FULL && j >= nj) continue;
+          const float4 kv =
+              *reinterpret_cast<const float4*>(ks + (tx + 8 * j) * FLD + d);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            s[i][j] = fmaf(qv[i].x, kv.x, s[i][j]);
+            s[i][j] = fmaf(qv[i].y, kv.y, s[i][j]);
+            s[i][j] = fmaf(qv[i].z, kv.z, s[i][j]);
+            s[i][j] = fmaf(qv[i].w, kv.w, s[i][j]);
+          }
+        }
+      }
+
+      // scale and masks in the reference's order; keys past S at -inf
+      float padv[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = k0 + tx + 8 * j;
+        padv[j] = pad_row != nullptr && (FULL || col < S)
+                      ? __ldg(pad_row + col) : 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int row = q0 + rbase + 4 * i;
+        float mx = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int col = k0 + tx + 8 * j;
+          float x = s[i][j] * SCALE;
+          if (causal) x += col <= row ? 0.f : NEG_INF;
+          if (pad_row != nullptr) x += padv[j];
+          if (!FULL && col >= S) x = -INFINITY;
+          s[i][j] = x;
+          mx = fmaxf(mx, x);
+        }
+        // online softmax: the tile's first key is below S, so the new max
+        // is finite, and exp(-inf) = 0 covers the first tile
+#pragma unroll
+        for (int off = 1; off <= 4; off <<= 1)
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+        const float mn = fmaxf(m[i], mx);
+        const float a = ex2((m[i] - mn) * LOG2E);
+        m[i] = mn;
+        l[i] *= a;
+#pragma unroll
+        for (int c = 0; c < 8; ++c) o[i][c] *= a;
+        // the difference first: at a masked row's -1e9 a fused
+        // x log2 e - max log2 e would leave a rounding, not 0
+        float* prow = ps + (rbase + 4 * i) * FN;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float p = ex2((s[i][j] - mn) * LOG2E);
+          l[i] += p;
+          prow[(tx + 8 * j) ^ sw] = p;
+        }
+      }
+    };
+    if (active) {
+      if (valid == FN) scores(std::true_type{});
+      else scores(std::false_type{});
+    }
+
+    cp_async_wait<0>();           // this tile's V
+    __syncthreads();              // and every warp is done with its K
+    if (kt + 1 < nkt) {           // the next K comes in under P.V
+      load_f32_rows_async(ks, kb + (size_t)(k0 + FN) * ldkv, tile_rows(kt + 1),
+                          min(FN, S - k0 - FN), ldkv);
+    }
+    cp_async_commit();
+
+    if (active) {
+      const int steps = (valid + 3) >> 2;             // 4-key steps in use
+      const float* prow = ps + rbase * FN;
+#pragma unroll 2
+      for (int j4 = 0; j4 < steps; ++j4) {
+        float4 pv[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          pv[i] = *reinterpret_cast<const float4*>(prow + 4 * i * FN +
+                                                   ((4 * j4) ^ sw));
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const float* vr = vs + (4 * j4 + jj) * FLD + 4 * tx;
+          const float4 v0 = *reinterpret_cast<const float4*>(vr);
+          const float4 v1 = *reinterpret_cast<const float4*>(vr + 32);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const float p = jj == 0 ? pv[i].x
+                          : jj == 1 ? pv[i].y
+                          : jj == 2 ? pv[i].z : pv[i].w;
+            o[i][0] = fmaf(p, v0.x, o[i][0]);
+            o[i][1] = fmaf(p, v0.y, o[i][1]);
+            o[i][2] = fmaf(p, v0.z, o[i][2]);
+            o[i][3] = fmaf(p, v0.w, o[i][3]);
+            o[i][4] = fmaf(p, v1.x, o[i][4]);
+            o[i][5] = fmaf(p, v1.y, o[i][5]);
+            o[i][6] = fmaf(p, v1.z, o[i][6]);
+            o[i][7] = fmaf(p, v1.w, o[i][7]);
+          }
+        }
+      }
+    }
+    __syncthreads();              // every warp is done with this V
+  }
+  if (!active) return;
+
+  float* ob = out + (cell * Tq + q0) * D + col0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+#pragma unroll
+    for (int off = 1; off <= 4; off <<= 1)
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], off);
+    const int r = rbase + 4 * i;
+    if (r >= nq) continue;
+    float* orow = ob + (size_t)r * D + 4 * tx;
+    *reinterpret_cast<float4*>(orow) = make_float4(
+        o[i][0] / l[i], o[i][1] / l[i], o[i][2] / l[i], o[i][3] / l[i]);
+    *reinterpret_cast<float4*>(orow + 32) = make_float4(
+        o[i][4] / l[i], o[i][5] / l[i], o[i][6] / l[i], o[i][7] / l[i]);
+  }
+}
+
+// ----------------------------------------------------------------------
 // bf16 on the tensor cores (see the head of this file)
 // ----------------------------------------------------------------------
 constexpr int BN = 64;            // keys per tile
 constexpr int WGR = 64;           // query rows a warpgroup
 constexpr int STAGES = 3;         // K and V tiles in shared memory
-constexpr int TILE = 64 * HD;     // elements of a 64-row tile (8 KB)
 // a row whose running max is below this has seen only masked keys so far
 constexpr float ROW_MASKED = -5e8f;
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-// 16 bytes from global to shared memory; zeros when !valid (src is not read)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-// two f32 rounded to bf16 (nearest even), `lo` in the low half
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&x);
-}
-// 2^x for x <= 0 in one MUFU instruction. exp2f adds only the scaling that
-// keeps results below 2^-126 from flushing to zero, and a probability that
-// small adds nothing to a sum whose largest term is 1.
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// Where element (r, c) of a 64-column bf16 tile lies in shared memory: rows
-// of 128 bytes, the 16-byte chunks of row r XORed by r mod 8. That is the
-// 128-byte swizzle the wgmma descriptors name.
-__device__ __forceinline__ int tile_at(int r, int c) {
-  return r * HD + ((((c >> 3) ^ r) & 7) << 3) + (c & 7);
-}
-
-// rows [0, nrows) x HD columns of a bf16 matrix with row stride `ld` into
-// the tile dst, 16 bytes a thread; rows past `valid` (>= 1) are zero.
-__device__ __forceinline__ void load_rows_async(__nv_bfloat16* dst,
-                                                const __nv_bfloat16* src,
-                                                int nrows, int valid, int ld) {
-  for (int i = threadIdx.x; i < nrows * (HD / 8); i += blockDim.x) {
-    const int r = i >> 3, c = (i & 7) * 8;
-    const bool ok = r < valid;
-    cp_async16(dst + tile_at(r, c), src + (size_t)(ok ? r : 0) * ld + c, ok);
-  }
-}
-
-// wgmma: a warpgroup (4 warps) multiplies 64 rows at a time; B, and A unless
-// it is in registers, are read from shared memory through a descriptor.
-// This one names a tile in the layout of tile_at, 1024 bytes aligned: start
-// address, 8-row groups 1024 bytes apart, 128-byte swizzle. A k-step of 16
-// along the 64 contiguous columns adds 32 bytes to the start (2 in the
-// descriptor's 16-byte units); along the rows, for a transposed operand, 16
-// rows (128 units).
-__device__ __forceinline__ unsigned long long wg_desc(const void* p) {
-  return ((unsigned long long)((smem_u32(p) & 0x3FFFF) >> 4)) |
-         (1ull << 16) | (64ull << 32) | (1ull << 62);
-}
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-// close the group of products started so far and wait for it; d, their
-// accumulator, is not read before
-__device__ __forceinline__ void wg_commit_wait(float (&d)[8][4]) {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+f"(d[i][j])::"memory");
-}
-#define MIT_WG_D(d)                                                          \
-  "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), \
-      "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]),            \
-      "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]),            \
-      "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]),            \
-      "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]),            \
-      "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]),            \
-      "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]),            \
-      "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-#define MIT_WG_REGS                                                        \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
-  "%30, %31}"
-// The accumulator d is 64 x 64 f32 over the warpgroup. Warp w of the group
-// holds rows 16w .. 16w+15, and lane (g, t) = (lane / 4, lane % 4) of it
-// holds, for each 8-column tile nt: d[nt][0], d[nt][1] = row g, columns
-// 8 nt + 2t, + 1; d[nt][2], d[nt][3] = row g + 8, the same columns.
-//
-// d = a . b^T, or += if accumulate: a (64 x 16) and b (64 x 16) both from
-// shared memory, 16 contiguous columns of their tiles
-__device__ __forceinline__ void wgmma_ss(float (&d)[8][4],
-                                         unsigned long long a,
-                                         unsigned long long b,
-                                         int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " MIT_WG_REGS
-      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : MIT_WG_D(d)
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-// d += a . b: a (this warp's 16 rows x 16) from registers, b (16 rows x 64
-// columns of its tile, so transposed) from shared memory. Lane (g, t) gives
-// a[0] = (row g, columns 2t, 2t+1), a[1] = (row g + 8, the same), a[2] =
-// (row g, columns 2t + 8, + 9), a[3] = (row g + 8, the same): two
-// neighbouring 8-column tiles of an accumulator, rounded to bf16.
-__device__ __forceinline__ void wgmma_rs_bt(float (&d)[8][4],
-                                            const unsigned (&a)[4],
-                                            unsigned long long b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " MIT_WG_REGS
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : MIT_WG_D(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
+// the softmax's three forms (see the head of this file)
+constexpr int ONLINE_MODE = 0, LAYER_MODE = 1, NORM_MODE = 2;
 
 // A block of NW warps, NW / 4 warpgroups, owns `rows` query rows of one
 // (batch, head), a multiple of 64 and at most 16 * NW; warpgroup w owns
 // rows 64w onwards and warp i of it rows 16i of those. Strides as in
-// flash_attention_btd_kernel. Dynamic shared memory, from the first 1024
+// flash_attention_f32_kernel. Dynamic shared memory, from the first 1024
 // bytes boundary (the swizzle is a function of the address): the query
 // tiles, then STAGES stages of a K tile and a V tile.
 //
-// LAYER (the whole-layer numerics; never causal or padded) walks the key
-// tiles twice: first for the exact row max, from the scores alone, then
-// for exp2(s - max), the row sum and P.V, so p is the reference's number
-// before it is rounded. Otherwise one walk, with an online softmax.
-template <int NW, bool LAYER>
+// LAYER_MODE (the whole-layer numerics; never causal or padded) and
+// NORM_MODE (the (B, H, T, 64) numerics) walk the key tiles twice, first
+// over the K tiles alone: LAYER for the exact row max of the raw scores,
+// NORM for the row max and the row sum of the masked ones. ONLINE_MODE
+// walks once, with an online softmax.
+
+template <int NW, int MODE>
 __global__ void __launch_bounds__(NW * 32, NW == 4 ? 3 : 2)
 flash_attention_btd_tc_kernel(const __nv_bfloat16* __restrict__ q,
                               const __nv_bfloat16* __restrict__ k,
                               const __nv_bfloat16* __restrict__ v,
                               const float* __restrict__ pad,
-                              typename std::conditional<LAYER, float,
+                              typename std::conditional<MODE == LAYER_MODE,
+                                                        float,
                                                         __nv_bfloat16>::type*
                                   __restrict__ out,
                               int Tq, int S, int D, int ldq, int ldkv,
-                              int rows, bool causal) {
+                              int rows, bool causal, bool bhtd) {
+  constexpr bool LAYER = MODE == LAYER_MODE;
+  constexpr bool NORM = MODE == NORM_MODE;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(
       smem_raw + ((1024 - smem_u32(smem_raw)) & 1023));
@@ -501,9 +659,13 @@ flash_attention_btd_tc_kernel(const __nv_bfloat16* __restrict__ q,
   const int h = blockIdx.y;
   const int b = blockIdx.z;
 
-  const __nv_bfloat16* qb = q + ((size_t)b * Tq + q0) * ldq + h * HD;
-  const __nv_bfloat16* kb = k + (size_t)b * S * ldkv + h * HD;
-  const __nv_bfloat16* vb = v + (size_t)b * S * ldkv + h * HD;
+  // (B, T, D): head h is a column block of batch cell b; (B, H, T, 64):
+  // head h of batch b is cell b*H + h, with rows of 64
+  const size_t cell = bhtd ? (size_t)b * gridDim.y + h : (size_t)b;
+  const int col0 = bhtd ? 0 : h * HD;
+  const __nv_bfloat16* qb = q + (cell * Tq + q0) * ldq + col0;
+  const __nv_bfloat16* kb = k + cell * S * ldkv + col0;
+  const __nv_bfloat16* vb = v + cell * S * ldkv + col0;
   const float* pad_row = pad != nullptr ? pad + (size_t)b * S : nullptr;
   const float scale = LAYER ? SCALE2 : SCALE;
 
@@ -515,7 +677,9 @@ flash_attention_btd_tc_kernel(const __nv_bfloat16* __restrict__ q,
   const int nkt = (S + BN - 1) / BN;
   // causal: the key tiles that reach below the diagonal of this block
   int kt_end = causal ? min(nkt, (min(q0 + rows, Tq) - 1) / BN + 1) : nkt;
-  const int first_pv = LAYER ? nkt : 0;   // the steps before it take the max
+  // the steps before first_pv are the first walk of LAYER (the max) and
+  // NORM (the max and the sum), over the K tiles alone
+  int first_pv = MODE == ONLINE_MODE ? 0 : kt_end;
 
   auto load_kv = [&](int step, int stage) {
     const int k0 = (step >= first_pv ? step - first_pv : step) * BN;
@@ -540,6 +704,7 @@ flash_attention_btd_tc_kernel(const __nv_bfloat16* __restrict__ q,
     for (int e = 0; e < 4; ++e) o[nt][e] = 0.f;
   float m0 = -INFINITY, m1 = -INFINITY;   // row max (rows g, g + 8)
   float l0 = 0.f, l1 = 0.f;               // this thread's share of the row sum
+  float inv0 = 1.f, inv1 = 1.f;           // NORM: 1 / row sum, second walk
   // a row of this thread that exists and has seen only masked keys so far
   auto row_masked = [&]() {
     return active && ((m0 <= ROW_MASKED && row0 < Tq) ||
@@ -570,6 +735,16 @@ flash_attention_btd_tc_kernel(const __nv_bfloat16* __restrict__ q,
       m0 *= scale;
       m1 *= scale;
     }
+    if (NORM && step == first_pv) {
+      // the max and the sum are in hand (the max is the quad's already)
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {
+        l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+        l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+      }
+      inv0 = __fdiv_rn(1.f, l0);
+      inv1 = __fdiv_rn(1.f, l1);
+    }
 
     const bool pv = step >= first_pv;
     const int k0 = (pv ? step - first_pv : step) * BN;
@@ -594,7 +769,7 @@ flash_attention_btd_tc_kernel(const __nv_bfloat16* __restrict__ q,
         wgmma_ss(s, dq + 2 * ks4, dk + 2 * ks4, ks4 > 0);
       wg_commit_wait(s);
 
-      if (!pv) {
+      if (LAYER && !pv) {
         // first walk: the max of the raw scores over the keys below S
 #pragma unroll
         for (int nt = 0; nt < 8; ++nt)
@@ -646,7 +821,7 @@ flash_attention_btd_tc_kernel(const __nv_bfloat16* __restrict__ q,
             }
       }
       float mn0 = m0, mn1 = m1;
-      if (!LAYER) {
+      if (MODE == ONLINE_MODE || (NORM && !pv)) {
         // online softmax: the first key of a tile is below S, so the new
         // max is finite; exp(-inf) = 0 covers the first tile. A row's
         // columns lie in the 4 lanes of a quad.
@@ -663,13 +838,28 @@ flash_attention_btd_tc_kernel(const __nv_bfloat16* __restrict__ q,
         m1 = mn1;
         l0 *= a0;
         l1 *= a1;
+        if (!NORM) {
+#pragma unroll
+          for (int nt = 0; nt < 8; ++nt) {
+            o[nt][0] *= a0;
+            o[nt][1] *= a0;
+            o[nt][2] *= a1;
+            o[nt][3] *= a1;
+          }
+        }
+      }
+      if (NORM && !pv) {
+        // first walk: the row sum against the running max, no product
 #pragma unroll
         for (int nt = 0; nt < 8; ++nt) {
-          o[nt][0] *= a0;
-          o[nt][1] *= a0;
-          o[nt][2] *= a1;
-          o[nt][3] *= a1;
+          if (!FULL && nt >= 2 * steps) continue;
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            l0 += ex2((s[nt][e] - mn0) * LOG2E);
+            l1 += ex2((s[nt][2 + e] - mn1) * LOG2E);
+          }
         }
+        return;
       }
       // p = exp(x - max) as 2^((x - max) log2 e). The difference comes
       // first: at a masked row's -1e9 a fused x log2 e - max log2 e would
@@ -690,8 +880,15 @@ flash_attention_btd_tc_kernel(const __nv_bfloat16* __restrict__ q,
           }
           s[nt][e] = ex2(d0);
           s[nt][2 + e] = ex2(d1);
-          l0 += s[nt][e];
-          l1 += s[nt][2 + e];
+          if (NORM) {
+            // normalized before it is rounded, as the (B, H, T, hd)
+            // reference has it
+            s[nt][e] *= inv0;
+            s[nt][2 + e] *= inv1;
+          } else {
+            l0 += s[nt][e];
+            l1 += s[nt][2 + e];
+          }
         }
         // accumulator tiles 2kk, 2kk+1 are the A fragment of k-step kk
         pf[nt >> 1][(nt & 1) * 2] = pack_bf16(s[nt][0], s[nt][1]);
@@ -721,27 +918,38 @@ flash_attention_btd_tc_kernel(const __nv_bfloat16* __restrict__ q,
     // with the masked keys above the diagonal that are not padded, and the
     // reference spreads it over those too: if the block has such a row it
     // walks on to the last tile. Rare, so those tiles were not prefetched.
-    if (step + 1 == kt_end && kt_end < nkt) {       // causal, so not LAYER
+    // NORM votes at the end of its first walk and lengthens both walks;
+    // the first tiles of the second walk were prefetched, so they land
+    // before their stages are loaded anew.
+    if (step + 1 == (NORM ? first_pv : kt_end) &&
+        kt_end < nkt) {                             // causal, so not LAYER
+      if (NORM) cp_async_wait<0>();
       if (__syncthreads_or(row_masked())) {
         kt_end = nkt;
+        if (NORM) first_pv = nkt;
         load_kv(step + 1, (step + 1) % STAGES);
-        if (step + 2 < nkt) load_kv(step + 2, (step + 2) % STAGES);
+        if (step + 2 < first_pv + kt_end)
+          load_kv(step + 2, (step + 2) % STAGES);
         else cp_async_commit();
       }
     }
   }
   if (!active) return;
 
+  if (!NORM) {
 #pragma unroll
-  for (int off = 1; off <= 2; off <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+    for (int off = 1; off <= 2; off <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+    }
   }
-  const float i0 = __fdiv_rn(1.f, l0), i1 = __fdiv_rn(1.f, l1);
+  // NORM's probabilities were normalized before the product
+  const float i0 = NORM ? 1.f : __fdiv_rn(1.f, l0);
+  const float i1 = NORM ? 1.f : __fdiv_rn(1.f, l1);
   if (LAYER) {
     // f32 out, o * (1 / l) as the layer kernel has it: a quad writes 32
     // contiguous bytes of a row
-    float* ob = reinterpret_cast<float*>(out) + ((size_t)b * Tq) * D + h * HD;
+    float* ob = reinterpret_cast<float*>(out) + cell * Tq * D + col0;
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt) {
       const int col = nt * 8 + 2 * t4;
@@ -769,7 +977,7 @@ flash_attention_btd_tc_kernel(const __nv_bfloat16* __restrict__ q,
     }
     __syncwarp();
     __nv_bfloat16* ob =
-        reinterpret_cast<__nv_bfloat16*>(out) + ((size_t)b * Tq) * D + h * HD;
+        reinterpret_cast<__nv_bfloat16*>(out) + cell * Tq * D + col0;
     const int wrow = q0 + warp * 16;
 #pragma unroll
     for (int it = 0; it < 4; ++it) {
@@ -781,53 +989,76 @@ flash_attention_btd_tc_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int NW, bool LAYER>
+template <int NW, int MODE>
 int launch_tc(const void* q, const void* k, const void* v, const void* pad,
-              void* out, int B, int Tq, int S, int D, int ldq, int ldkv,
-              int rows, int causal, int has_pad, void* stream) {
-  using OutT =
-      typename std::conditional<LAYER, float, __nv_bfloat16>::type;
+              void* out, int B, int heads, int Tq, int S, int D, int ldq,
+              int ldkv, int rows, int causal, int has_pad, int bhtd,
+              void* stream) {
+  using OutT = typename std::conditional<MODE == LAYER_MODE, float,
+                                         __nv_bfloat16>::type;
   if (rows < WGR || rows % WGR || rows > NW * 16)
     return static_cast<int>(cudaErrorInvalidValue);
   // the tiles, and the room to start them at 1024 bytes
   const int smem =
       (NW / 4 + 2 * STAGES) * TILE * (int)sizeof(__nv_bfloat16) + 1024;
   const cudaError_t e = cudaFuncSetAttribute(
-      flash_attention_btd_tc_kernel<NW, LAYER>,
+      flash_attention_btd_tc_kernel<NW, MODE>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((Tq + rows - 1) / rows, D / HD, B);
-  flash_attention_btd_tc_kernel<NW, LAYER>
+  const dim3 grid((Tq + rows - 1) / rows, heads, B);
+  flash_attention_btd_tc_kernel<NW, MODE>
       <<<grid, NW * 32, smem, (cudaStream_t)stream>>>(
           static_cast<const __nv_bfloat16*>(q),
           static_cast<const __nv_bfloat16*>(k),
           static_cast<const __nv_bfloat16*>(v),
           has_pad ? static_cast<const float*>(pad) : nullptr,
-          static_cast<OutT*>(out), Tq, S, D, ldq, ldkv, rows, causal != 0);
+          static_cast<OutT*>(out), Tq, S, D, ldq, ldkv, rows, causal != 0,
+          bhtd != 0);
   return static_cast<int>(cudaGetLastError());
 }
 
 // `warps` warps a block, 4 or 8 (one warpgroup or two), each block `rows`
 // query rows
-template <bool LAYER>
+template <int MODE>
 int launch_tc_tiled(int warps, const void* q, const void* k, const void* v,
-                    const void* pad, void* out, int B, int Tq, int S, int D,
-                    int ldq, int ldkv, int rows, int causal, int has_pad,
-                    void* stream) {
+                    const void* pad, void* out, int B, int heads, int Tq,
+                    int S, int D, int ldq, int ldkv, int rows, int causal,
+                    int has_pad, int bhtd, void* stream) {
+  if (B < 1 || B > 65535 || heads < 1 || heads > 65535 || Tq < 1 || S < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (warps == 4)
-    return launch_tc<4, LAYER>(q, k, v, pad, out, B, Tq, S, D, ldq, ldkv,
-                               rows, causal, has_pad, stream);
+    return launch_tc<4, MODE>(q, k, v, pad, out, B, heads, Tq, S, D, ldq,
+                              ldkv, rows, causal, has_pad, bhtd, stream);
   if (warps == 8)
-    return launch_tc<8, LAYER>(q, k, v, pad, out, B, Tq, S, D, ldq, ldkv,
-                               rows, causal, has_pad, stream);
+    return launch_tc<8, MODE>(q, k, v, pad, out, B, heads, Tq, S, D, ldq,
+                              ldkv, rows, causal, has_pad, bhtd, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+int launch_f32(const void* q, const void* k, const void* v, const void* pad,
+               void* out, int B, int heads, int Tq, int S, int D, int ldq,
+               int ldkv, int causal, int has_pad, int bhtd, void* stream) {
+  if (B < 1 || B > 65535 || heads < 1 || heads > 65535 || Tq < 1 || S < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_attention_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      F_SMEM);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((Tq + FM - 1) / FM, heads, B);
+  flash_attention_f32_kernel<<<grid, FTHREADS, F_SMEM, (cudaStream_t)stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v),
+      has_pad ? static_cast<const float*>(pad) : nullptr,
+      static_cast<float*>(out), Tq, S, D, ldq, ldkv, causal != 0, bhtd != 0);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the first CUDA-core kernel, for the measuring entries
 template <typename T, typename OutT = T, bool LAYER = false,
           bool BHTD = false>
-int launch(const void* q, const void* k, const void* v, const void* pad,
-           void* out, int B, int Tq, int S, int D, int ldq, int ldkv,
-           int causal, int has_pad, void* stream, int heads = 0) {
+int launch_v1(const void* q, const void* k, const void* v, const void* pad,
+              void* out, int B, int Tq, int S, int D, int ldq, int ldkv,
+              int causal, int has_pad, void* stream, int heads = 0) {
   const dim3 grid((Tq + BQ - 1) / BQ, BHTD ? heads : D / HD, B);
   flash_attention_btd_kernel<T, OutT, LAYER, BHTD>
       <<<grid, THREADS, 0, (cudaStream_t)stream>>>(
@@ -840,15 +1071,16 @@ int launch(const void* q, const void* k, const void* v, const void* pad,
 
 }  // namespace
 
-// q, out: (B, Tq, D); k, v: (B, S, D), all contiguous and of one dtype;
-// pad: (B, S) f32, read only when has_pad. D must be a multiple of 64.
+// q, out: (B, Tq, D); k, v: (B, S, D), all contiguous f32 at 16-byte
+// boundaries; pad: (B, S) f32, read only when has_pad. D must be a multiple
+// of 64.
 extern "C" int mit_flash_attention_btd_f32(const void* q, const void* k,
                                            const void* v, const void* pad,
                                            void* out, int B, int Tq, int S,
                                            int D, int causal, int has_pad,
                                            void* stream) {
-  return launch<float>(q, k, v, pad, out, B, Tq, S, D, D, D, causal, has_pad,
-                       stream);
+  return launch_f32(q, k, v, pad, out, B, D / HD, Tq, S, D, D, D, causal,
+                    has_pad, 0, stream);
 }
 
 // bf16: the tensor-core kernel. A block has `warps` warps, 4 or 8 (one
@@ -859,12 +1091,13 @@ extern "C" int mit_flash_attention_btd_bf16(const void* q, const void* k,
                                             int D, int causal, int has_pad,
                                             int warps, int rows,
                                             void* stream) {
-  return launch_tc_tiled<false>(warps, q, k, v, pad, out, B, Tq, S, D, D, D,
-                                rows, causal, has_pad, stream);
+  return launch_tc_tiled<ONLINE_MODE>(warps, q, k, v, pad, out, B, D / HD, Tq,
+                                      S, D, D, D, rows, causal, has_pad, 0,
+                                      stream);
 }
 
 // qkv: (B, T, 3D) contiguous; out: (B, T, D). mode 0: f32 in and out (the
-// CUDA-core kernel); mode 1: bf16 in and out; mode 2: bf16 in, f32 out, the
+// f32 kernel); mode 1: bf16 in and out; mode 2: bf16 in, f32 out, the
 // whole-layer kernel's numerics (exp2, o * (1 / rowsum)). Modes 1 and 2 run
 // the tensor-core kernel with `warps` and `rows` as above. D must be a
 // multiple of 64.
@@ -876,50 +1109,74 @@ extern "C" int mit_flash_attention_fusedqkv(const void* qkv, void* out, int B,
   const float* q32 = static_cast<const float*>(qkv);
   switch (mode) {
     case 0:
-      return launch<float>(q32, q32 + D, q32 + 2 * D, nullptr, out, B, T, T,
-                           D, 3 * D, 3 * D, 0, 0, stream);
+      return launch_f32(q32, q32 + D, q32 + 2 * D, nullptr, out, B, D / HD, T,
+                        T, D, 3 * D, 3 * D, 0, 0, 0, stream);
     case 1:
-      return launch_tc_tiled<false>(warps, q, q + D, q + 2 * D, nullptr, out,
-                                    B, T, T, D, 3 * D, 3 * D, rows, 0, 0,
-                                    stream);
+      return launch_tc_tiled<ONLINE_MODE>(warps, q, q + D, q + 2 * D, nullptr,
+                                          out, B, D / HD, T, T, D, 3 * D,
+                                          3 * D, rows, 0, 0, 0, stream);
     case 2:
-      return launch_tc_tiled<true>(warps, q, q + D, q + 2 * D, nullptr, out,
-                                   B, T, T, D, 3 * D, 3 * D, rows, 0, 0,
-                                   stream);
+      return launch_tc_tiled<LAYER_MODE>(warps, q, q + D, q + 2 * D, nullptr,
+                                         out, B, D / HD, T, T, D, 3 * D, 3 * D,
+                                         rows, 0, 0, 0, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// For measurements only, not for the port's paths: bf16 through the
-// CUDA-core kernel, as every bf16 call ran before the tensor-core kernel.
-// q rows have stride ldq, k and v rows stride ldkv (elements), so the column
-// blocks of a fused (B, T, 3D) tensor can be passed as three pointers.
+// q, out: (B, H, Tq, 64); k, v: (B, H, S, 64), all contiguous and of one
+// dtype (is_bf16 or f32) at 16-byte boundaries; pad: (B, S) f32, read only
+// when has_pad. f32 runs the f32 kernel; bf16 the tensor-core kernel in its
+// NORM mode (probabilities normalized before they are rounded for P.V, see
+// the head of this file), with `warps` and `rows` as above.
+extern "C" int mit_flash_attention_bhtd(const void* q, const void* k,
+                                        const void* v, const void* pad,
+                                        void* out, int B, int H, int Tq, int S,
+                                        int causal, int has_pad, int is_bf16,
+                                        int warps, int rows, void* stream) {
+  if (is_bf16)
+    return launch_tc_tiled<NORM_MODE>(warps, q, k, v, pad, out, B, H, Tq, S,
+                                      HD, HD, HD, rows, causal, has_pad, 1,
+                                      stream);
+  return launch_f32(q, k, v, pad, out, B, H, Tq, S, HD, HD, HD, causal,
+                    has_pad, 1, stream);
+}
+
+// For measurements only, not for the port's paths: bf16 (B, T, D) through
+// the first CUDA-core kernel, as every bf16 call ran before the tensor-core
+// kernel. q rows have stride ldq, k and v rows stride ldkv (elements), so the
+// column blocks of a fused (B, T, 3D) tensor can be passed as three pointers.
 // layer = 0: bf16 out; layer = 1: f32 out with the whole-layer numerics.
 extern "C" int mit_flash_attention_btd_bf16_cudacore(
     const void* q, const void* k, const void* v, const void* pad, void* out,
     int B, int Tq, int S, int D, int ldq, int ldkv, int causal, int has_pad,
     int layer, void* stream) {
   if (layer)
-    return launch<__nv_bfloat16, float, true>(q, k, v, pad, out, B, Tq, S, D,
-                                              ldq, ldkv, causal, has_pad,
-                                              stream);
-  return launch<__nv_bfloat16>(q, k, v, pad, out, B, Tq, S, D, ldq, ldkv,
-                               causal, has_pad, stream);
+    return launch_v1<__nv_bfloat16, float, true>(q, k, v, pad, out, B, Tq, S,
+                                                 D, ldq, ldkv, causal, has_pad,
+                                                 stream);
+  return launch_v1<__nv_bfloat16>(q, k, v, pad, out, B, Tq, S, D, ldq, ldkv,
+                                  causal, has_pad, stream);
 }
 
-// q, out: (B, H, Tq, 64); k, v: (B, H, S, 64), all contiguous and of one
-// dtype (is_bf16 or f32); pad: (B, S) f32, read only when has_pad.
-// Probabilities are normalized before P.V (see the head of this file).
-extern "C" int mit_flash_attention_bhtd(const void* q, const void* k,
-                                        const void* v, const void* pad,
-                                        void* out, int B, int H, int Tq, int S,
-                                        int causal, int has_pad, int is_bf16,
-                                        void* stream) {
+// For measurements only: the first CUDA-core kernel at the shapes the f32
+// kernel and the NORM mode took over. bhtd = 0: f32 (B, T, H*64) tensors;
+// bhtd = 1: (B, H, T, 64) tensors, f32 or bf16.
+extern "C" int mit_flash_attention_v1(const void* q, const void* k,
+                                      const void* v, const void* pad,
+                                      void* out, int B, int H, int Tq, int S,
+                                      int causal, int has_pad, int is_bf16,
+                                      int bhtd, void* stream) {
   if (B < 1 || B > 65535 || H < 1 || H > 65535 || Tq < 1 || S < 1)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (!bhtd) {
+    if (is_bf16) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_v1<float>(q, k, v, pad, out, B, Tq, S, H * HD, H * HD,
+                            H * HD, causal, has_pad, stream);
+  }
   if (is_bf16)
-    return launch<__nv_bfloat16, __nv_bfloat16, false, true>(
+    return launch_v1<__nv_bfloat16, __nv_bfloat16, false, true>(
         q, k, v, pad, out, B, Tq, S, HD, HD, HD, causal, has_pad, stream, H);
-  return launch<float, float, false, true>(q, k, v, pad, out, B, Tq, S, HD, HD,
-                                           HD, causal, has_pad, stream, H);
+  return launch_v1<float, float, false, true>(q, k, v, pad, out, B, Tq, S, HD,
+                                              HD, HD, causal, has_pad, stream,
+                                              H);
 }

@@ -25,17 +25,23 @@
 //
 // What bounds it on the H100. The decoder's self-attention has T = S = 99
 // and hd = 64 (at MAX_SEQ_LEN 100), so a whole (T, S) probability tile and
-// the cell's q, k, v and do fit in one block's shared memory. The forward
-// takes one block per (cell, 32 query rows) and holds the 32 x S scores; the
-// backward one block per cell, holding q, k, v, do (f32, rows padded to 65)
+// the cell's q, k, v and do fit in one block's shared memory. The f32
+// forward (dropout_fwd_kernel, which keeps full f32 products) takes one
+// block per (cell, 32 query rows) and holds the 32 x S scores; the bf16
+// forward runs on the tensor cores (dropout_fwd_tc_kernel, described where
+// it stands below; a cell's bytes bound it at 0.004 ms for the training
+// shape, and what it spends is exp, two divisions and a hash per
+// probability, and the latency of one short block). The
+// backward takes one block per cell, holding q, k, v, do (f32, rows padded to 65)
 // and the T x S probabilities: 199 KB at T = S = 128 of the 227 KB a block
 // may use, 140 KB at 99. So dk and dv reduce over T inside the block, with
-// no atomics and no second pass. The bound is S <= 128 and T <= 128; the
-// wrapper raises beyond it. The products are f32 FMAs on the CUDA cores,
+// no atomics and no second pass. The bound is S <= 128 and T <= 128; beyond
+// it, and at another head_dim, the wrapper launches the kernels of
+// attention_any_shape.cu. These two kernels multiply in f32 FMAs on the CUDA cores,
 // fed from shared memory, about four shared-memory reads per FMA pair:
 // shared-memory bandwidth bounds it. At batch 32 and 8 heads the backward
-// has 256 blocks, about two per SM. Tensor cores, and fewer reads of the
-// tiles, are later work.
+// has 256 blocks, about two per SM. Tensor cores for the backward, and
+// fewer reads of its tiles, are later work.
 //
 // Every entry point returns cudaGetLastError() after its launch (or the
 // error of setting the shared-memory size); the wrapper raises on non-zero.
@@ -45,9 +51,11 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "dropout_hash.cuh"
+#include "wgmma.cuh"
+
 namespace {
 
-constexpr int HD = 64;            // head_dim
 constexpr int LD = HD + 1;        // padded shared-memory row: no bank conflicts
 constexpr int MAX_LEN = 128;      // T and S bound
 constexpr int WORDS = MAX_LEN / 32;
@@ -70,23 +78,6 @@ __device__ __forceinline__ float round_like(float x, const float*) {
 }
 __device__ __forceinline__ float round_like(float x, const __nv_bfloat16*) {
   return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// the part of the hash that depends on the cell and the seed only
-__device__ __forceinline__ uint32_t cell_base(uint32_t seed, uint32_t cell) {
-  return (seed * 2654435761u) ^ (cell * 0x9E3779B9u);
-}
-
-__device__ __forceinline__ bool keep_at(uint32_t row, uint32_t col,
-                                        uint32_t S, uint32_t base,
-                                        uint32_t threshold) {
-  uint32_t x = (row * S + col) ^ base;
-  x ^= x >> 16;
-  x *= 0x85EBCA6Bu;
-  x ^= x >> 13;
-  x *= 0xC2B2AE35u;
-  x ^= x >> 16;
-  return x >= threshold;
 }
 
 __device__ __forceinline__ float warp_max(float x) {
@@ -212,6 +203,241 @@ dropout_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < BQ / GROUPS; ++i) {
     const int r = g + GROUPS * i;
     if (r < nq) store(out + qoff + (size_t)r * HD + j, o[i]);
+  }
+}
+
+// ----------------------------------------------------------------------
+// The bf16 forward on the tensor cores.
+//
+// S <= 128 and hd = 64, so a cell's K and V are 16 KB each in bf16: they
+// come in once a block by 16-byte cp.async (Q and K in one group, V in a
+// second that lands under the scores) into 64-row tiles in the 128-byte
+// swizzle, and wgmma reads them there. A warpgroup owns 64 query rows and
+// holds their whole score rows in registers, 64 rows x 128 keys as two
+// m64n64 accumulators, 64 f32 a thread: the exact row max, expf, the IEEE
+// division by the row sum and by 1 - r are the reference's operations in
+// its order, with no second walk. A bf16 product is exact in f32, so the
+// scores differ from the CUDA-core kernel's only in the order of the sum.
+// pd, rounded to bf16, is the A operand of P.V from registers, 16 keys a
+// step over whole tiles (V's rows past S are zero-filled, pd there is 0).
+// exp, the two divisions and the hash are most of what the kernel executes,
+// so an 8-key tile whose probabilities are all exactly 0 (above the
+// diagonal of the warp's 16 rows, or past S) skips them.
+//
+// The keep bit is drawn per accumulator element: element d[nt][e] of key
+// tile kt stands for row frag_row(...) of the warpgroup and key
+// 64 kt + frag_col(...) (wgmma.cuh), and keep_at takes the query row in the
+// cell and that key. The pieces are laid out for the backward to take:
+// load_cell_async, the fragment map, masked_score and keep_at on it.
+//
+// A block has NW warps, 4 or 8: one warpgroup and 64 query rows (two blocks
+// a cell at T = 99) or two and 128 (one block a cell, K and V loaded once).
+// ----------------------------------------------------------------------
+constexpr int KT = MAX_LEN / 64;      // key tiles a cell
+// a row whose max is below this has seen only masked keys
+constexpr float ROW_MASKED = -5e8f;
+
+// the score of (row, col) from the raw product, in the reference's order
+__device__ __forceinline__ float masked_score(float acc, int row, int col,
+                                              int S, float pad_col,
+                                              bool causal) {
+  float x = __fmul_rn(acc, SCALE);
+  if (causal) x = __fadd_rn(x, col <= row ? 0.f : NEG_INF);
+  x = __fadd_rn(x, pad_col);
+  return col < S ? x : -INFINITY;
+}
+
+// a cell's rows [0, valid) of a contiguous (rows, 64) bf16 matrix into
+// 64-row tiles, rows up to the next multiple of 16 zero-filled
+__device__ __forceinline__ void load_cell_async(__nv_bfloat16* dst,
+                                                const __nv_bfloat16* src,
+                                                int valid) {
+  load_rows_async(dst, src, ((valid + 15) >> 4) << 4, valid, HD);
+}
+
+template <int NW>
+__global__ void __launch_bounds__(NW * 32, NW == 4 ? 4 : 2)
+dropout_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                      const __nv_bfloat16* __restrict__ k,
+                      const __nv_bfloat16* __restrict__ v,
+                      const float* __restrict__ pad,
+                      __nv_bfloat16* __restrict__ out, int H, int Tq, int S,
+                      bool causal, uint32_t seed, uint32_t threshold,
+                      float one_minus_r) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(
+      smem_raw + ((1024 - smem_u32(smem_raw)) & 1023));
+  __nv_bfloat16* ks = qs + (NW / 4) * TILE;
+  __nv_bfloat16* vs = ks + KT * TILE;
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int cell = blockIdx.x;
+  const int q0 = blockIdx.y * (NW * 16);
+  const int grow = q0 + (warp >> 2) * 64;       // the warpgroup's first row
+  const bool active = grow < Tq;
+  const __nv_bfloat16* qb = q + ((size_t)cell * Tq + q0) * HD;
+  const size_t kvoff = (size_t)cell * S * HD;
+  const float* pad_row = pad + (size_t)(cell / H) * S;
+  const uint32_t base = cell_base(seed, (uint32_t)cell);
+
+  // whole tiles, zero past the last row: a product over a tile then needs
+  // no test for where the rows end
+  const int nkt = S > 64 ? 2 : 1;               // key tiles in use
+  load_rows_async(qs, qb, NW * 16, min(NW * 16, Tq - q0), HD);
+  load_cell_async(ks, k + kvoff, S);
+  cp_async_commit();
+  load_rows_async(vs, v + kvoff, nkt * 64, S, HD);
+  cp_async_commit();
+  cp_async_wait<1>();                           // Q and K
+  // cp.async wrote the tiles; wgmma reads them through the async proxy
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+
+  unsigned pf[KT][4][4];          // pd in bf16, as the A operand of P.V
+  if (active) {
+    // the first product of a tile overwrites its accumulator; with one key
+    // tile the second accumulator is never read below -inf's select
+    float s[KT][8][4];
+    const unsigned long long dq = wg_desc(qs + (warp >> 2) * TILE);
+    wg_fence();
+#pragma unroll
+    for (int ks4 = 0; ks4 < 4; ++ks4)
+      wgmma_ss(s[0], dq + 2 * ks4, wg_desc(ks) + 2 * ks4, ks4 > 0);
+    // (K's second tile holds zeros or stale bytes past S; their scores are
+    // replaced by -inf whatever they are)
+#pragma unroll
+    for (int ks4 = 0; ks4 < 4; ++ks4)
+      wgmma_ss(s[1], dq + 2 * ks4, wg_desc(ks + TILE) + 2 * ks4, ks4 > 0);
+    wg_commit_wait(s[0]);
+    wg_touch(s[1]);
+
+    // masked scores and the exact row max: this thread holds, of rows
+    // r0 = frag_row(.., 0) and r0 + 8, two keys of every 8
+    const int r0 = grow + frag_row(warp & 3, lane, 0);
+    float m0 = -INFINITY, m1 = -INFINITY;
+#pragma unroll
+    for (int kt = 0; kt < KT; ++kt)
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = kt * 64 + frag_col(lane, nt, e);
+          const float pc = col < S ? __ldg(pad_row + col) : 0.f;
+          const float x0 = masked_score(s[kt][nt][e], r0, col, S, pc, causal);
+          const float x1 =
+              masked_score(s[kt][nt][2 + e], r0 + 8, col, S, pc, causal);
+          s[kt][nt][e] = x0;
+          s[kt][nt][2 + e] = x1;
+          m0 = fmaxf(m0, x0);
+          m1 = fmaxf(m1, x1);
+        }
+    // a row's keys lie in the 4 lanes of a quad
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, off));
+      m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, off));
+    }
+    // An 8-key tile of this warp's 16 rows is dead, every p in it exactly
+    // 0, where its keys lie past S, or above the diagonal of all 16 rows
+    // while each of those rows has seen an unmasked key (its max is not a
+    // masked score's -1e9, so exp(-1e9 - max) = 0 in f32; a row whose
+    // visible keys are all padded shares its max with those keys, and then
+    // no tile of the warp is skipped). A warp with no row below Tq has
+    // nothing to store: all of its tiles are dead.
+    const int wrow = grow + (warp & 3) * 16;    // the warp's first row
+    const bool seen = __all_sync(
+        0xffffffffu, (m0 > ROW_MASKED || r0 >= Tq) &&
+                         (m1 > ROW_MASKED || r0 + 8 >= Tq));
+    auto dead = [&](int kt, int nt) {
+      const int col = kt * 64 + nt * 8;
+      return col >= S || wrow >= Tq || (causal && seen && col > wrow + 15);
+    };
+    float l0 = 0.f, l1 = 0.f;
+#pragma unroll
+    for (int kt = 0; kt < KT; ++kt)
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        if (dead(kt, nt)) continue;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          s[kt][nt][e] = expf(s[kt][nt][e] - m0);          // exp(-inf) = 0
+          s[kt][nt][2 + e] = expf(s[kt][nt][2 + e] - m1);
+          l0 += s[kt][nt][e];
+          l1 += s[kt][nt][2 + e];
+        }
+      }
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+    }
+    // p = e / l; pd = keep ? p / (1 - r) : 0, rounded to bf16
+#pragma unroll
+    for (int kt = 0; kt < KT; ++kt)
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        float pd[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (dead(kt, nt)) continue;
+          const int row = grow + frag_row(warp & 3, lane, e);
+          const int col = kt * 64 + frag_col(lane, nt, e);
+          const float p = __fdiv_rn(s[kt][nt][e], e < 2 ? l0 : l1);
+          pd[e] = keep_at(row, col, S, base, threshold)
+                      ? __fdiv_rn(p, one_minus_r) : 0.f;
+        }
+        // accumulator tiles 2kk, 2kk+1 are the A fragment of k-step kk
+        pf[kt][nt >> 1][(nt & 1) * 2] = pack_bf16(pd[0], pd[1]);
+        pf[kt][nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(pd[2], pd[3]);
+      }
+  }
+
+  cp_async_wait<0>();                           // V
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+  if (!active) return;
+
+  // out = pd . v: 16 keys (rows of the V tiles) a step over the whole tiles
+  // in use; pd and V's rows are zero past S
+  float o[8][4];
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[nt][e] = 0.f;
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_rs_bt(o, pf[0][kk], wg_desc(vs) + 128 * kk);
+  if (nkt > 1) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs_bt(o, pf[1][kk], wg_desc(vs + TILE) + 128 * kk);
+  }
+  wg_commit_wait(o);
+
+  // through the warp's own (spent) query rows in shared memory, then 16
+  // bytes a lane, four rows a store
+  const int g = lane >> 2, t4 = lane & 3;
+  __nv_bfloat16* mine = qs + warp * 16 * HD;
+  __syncwarp();
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+    const int col = nt * 8 + 2 * t4;
+    *reinterpret_cast<unsigned*>(mine + tile_at(g, col)) =
+        pack_bf16(o[nt][0], o[nt][1]);
+    *reinterpret_cast<unsigned*>(mine + tile_at(g + 8, col)) =
+        pack_bf16(o[nt][2], o[nt][3]);
+  }
+  __syncwarp();
+  __nv_bfloat16* ob = out + (size_t)cell * Tq * HD;
+  const int wrow = q0 + warp * 16;
+#pragma unroll
+  for (int it = 0; it < 4; ++it) {
+    const int r = it * 4 + (lane >> 3), c = (lane & 7) * 8;
+    if (wrow + r < Tq)
+      *reinterpret_cast<uint4*>(ob + (size_t)(wrow + r) * HD + c) =
+          *reinterpret_cast<const uint4*>(mine + tile_at(r, c));
   }
 }
 
@@ -364,6 +590,29 @@ int launch_fwd(const void* q, const void* k, const void* v, const void* pad,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int NW>
+int launch_fwd_tc(const void* q, const void* k, const void* v, const void* pad,
+                  void* out, int B, int H, int Tq, int S, int causal,
+                  unsigned seed, unsigned threshold, float one_minus_r,
+                  void* stream) {
+  if (bad_shape(B * H, Tq, S)) return static_cast<int>(cudaErrorInvalidValue);
+  // the tiles, and the room to start them at 1024 bytes
+  const int smem =
+      (NW / 4 + 2 * KT) * TILE * (int)sizeof(__nv_bfloat16) + 1024;
+  cudaError_t err = cudaFuncSetAttribute(
+      dropout_fwd_tc_kernel<NW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(B * H, (Tq + NW * 16 - 1) / (NW * 16));
+  dropout_fwd_tc_kernel<NW><<<grid, NW * 32, smem, (cudaStream_t)stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(pad),
+      static_cast<__nv_bfloat16*>(out), H, Tq, S, causal != 0, seed, threshold,
+      one_minus_r);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int launch_bwd(const void* q, const void* k, const void* v, const void* pad,
                const void* dout, void* dq, void* dk, void* dv, int B, int H,
@@ -386,11 +635,24 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* pad,
 }  // namespace
 
 // q, out: (B, H, T, 64); k, v: (B, H, S, 64), contiguous, all f32 (bf16 = 0)
-// or all bf16 (bf16 = 1); pad: (B, S) f32. T, S <= 128.
+// or all bf16 (bf16 = 1); pad: (B, S) f32. T, S <= 128. warps = 4 or 8: the
+// tensor-core kernel with that many warps a block (bf16 only, tensors at
+// 16-byte boundaries); warps = 0: the CUDA-core kernel, the route of f32
+// and, for bf16, a yardstick for measurements.
 extern "C" int mit_flash_attention_dropout_fwd(
     const void* q, const void* k, const void* v, const void* pad, void* out,
-    int B, int H, int T, int S, int causal, int bf16, unsigned seed,
-    unsigned threshold, float one_minus_r, void* stream) {
+    int B, int H, int T, int S, int causal, int bf16, int warps,
+    unsigned seed, unsigned threshold, float one_minus_r, void* stream) {
+  if (warps != 0) {
+    if (!bf16) return static_cast<int>(cudaErrorInvalidValue);
+    if (warps == 4)
+      return launch_fwd_tc<4>(q, k, v, pad, out, B, H, T, S, causal, seed,
+                              threshold, one_minus_r, stream);
+    if (warps == 8)
+      return launch_fwd_tc<8>(q, k, v, pad, out, B, H, T, S, causal, seed,
+                              threshold, one_minus_r, stream);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   return bf16 ? launch_fwd<__nv_bfloat16>(q, k, v, pad, out, B, H, T, S,
                                           causal, seed, threshold,
                                           one_minus_r, stream)

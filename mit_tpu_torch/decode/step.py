@@ -17,6 +17,13 @@ also writes the fresh K/V rows into the caches. Its bf16 numerics are the
 kernel's, not the unfused step's (f32 fresh rows at ``t == pos``,
 unrounded probabilities, an f32 residual stream). The switch is an
 argument, never the environment: only the CLI reads ``MIT_FUSED_DECODE``.
+On a CUDA device, at a geometry the kernel does not take (:func:`~mit_tpu_torch.
+ops.decode_layer.decode_layer_supported`), the step runs unfused, as the JAX
+package's does on a TPU where its kernel does not fit; on the CPU the fused
+layers' plain version runs at any geometry, as the JAX package's kernel does
+in interpret mode. :func:`step_route` makes the choice, from the device type
+and the geometry alone and before anything is launched, and
+``decoder_step.routes`` counts the steps each route took.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ from mit_tpu_torch.models.convert import layer_params
 from mit_tpu_torch.models.decoder import DecoderConfig
 from mit_tpu_torch.ops.attention import layer_norm
 from mit_tpu_torch.ops.decode_layer import (
+    decode_layer_supported,
     fused_decode_layer,
     pack_decode_layers,
     positions,
@@ -114,6 +122,23 @@ def prepare_decode_params(params: dict, compute_dtype=torch.float32,
     return out
 
 
+def step_route(fused: bool, device_type: str, cfg: DecoderConfig) -> str:
+    """``"fused"`` or ``"unfused"``: the layers a step runs when the caller
+    asks for ``fused``, on tensors of ``device_type``, with decoder ``cfg``.
+
+    The JAX package's rule (``_fused_supported``): off the accelerator the
+    fused layer always runs (here its plain version, on CPU tensors); on it,
+    only at a geometry the kernel takes, and the unfused layers elsewhere.
+    A kernel that fails to build or launch raises; it never changes the
+    route."""
+    if not fused:
+        return "unfused"
+    if device_type == "cuda" and not decode_layer_supported(
+            cfg.embed_dim, cfg.num_heads, cfg.ff_dim):
+        return "unfused"
+    return "fused"
+
+
 def decoder_step(
     params: dict,
     cfg: DecoderConfig,
@@ -130,16 +155,24 @@ def decoder_step(
     ``key_pad`` marks generated-PAD positions, which stay masked as keys, as
     the reference's per-step ``tgt_key_padding_mask`` masks them. ``fused``
     runs every layer in the fused decode-layer kernel (see the module
-    docstring); there ``pos`` may be a (B,) int32 tensor of per-row
-    positions, and no position is read back from the device.
+    docstring) where :func:`step_route` allows it, and the unfused layers
+    elsewhere. On the fused route ``pos`` may be a (B,) int32 tensor of
+    per-row positions, and no position is read back from the device; the
+    unfused route has no per-row positions yet and raises on them, also
+    where ``fused`` was asked for and the geometry sent the step there.
     """
+    h, d = cfg.num_heads, cfg.embed_dim
+    fused = step_route(fused, tokens.device.type, cfg) == "fused"
     per_row = isinstance(pos, torch.Tensor) and pos.dim() > 0
     if per_row and not fused:
-        raise TypeError("per-row positions need the fused route (fused=True)")
+        raise TypeError(
+            "per-row positions need the fused route: fused=True at a "
+            "geometry the fused kernel takes"
+        )
+    decoder_step.routes["fused" if fused else "unfused"] += 1
     if "emb" not in params:
         params = prepare_decode_params(params, compute_dtype, fused)
     cd = compute_dtype
-    h, d = cfg.num_heads, cfg.embed_dim
     hd = d // h
     b = tokens.shape[0]
     t_max = cache.k[0].shape[1]
@@ -196,6 +229,10 @@ def decoder_step(
 
     logits = x.float() @ params["fc_w"].float() + params["fc_b"]
     return logits, cache
+
+
+# steps taken on each route, decided from the geometry alone
+decoder_step.routes = {"fused": 0, "unfused": 0}
 
 
 def grow_cache(cache: DecodeCache, bucket: int) -> DecodeCache:

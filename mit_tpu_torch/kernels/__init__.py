@@ -42,14 +42,22 @@ ENTRY_POINTS = {
     "mit_flash_attention_fusedqkv": [_P] * 2 + [_I] * 6 + [_P],
     # for measurements only: bf16 through the CUDA-core kernel
     "mit_flash_attention_btd_bf16_cudacore": [_P] * 5 + [_I] * 9 + [_P],
-    "mit_flash_attention_bhtd": [_P] * 5 + [_I] * 7 + [_P],
+    "mit_flash_attention_bhtd": [_P] * 5 + [_I] * 9 + [_P],
+    # for measurements only: the first CUDA-core kernel, f32 and (B, H, T, hd)
+    "mit_flash_attention_v1": [_P] * 5 + [_I] * 8 + [_P],
     "mit_fused_decode_layer": [_P] * 23 + [_I] * 6 + [_F, _P],
     "mit_quantize_rows_f32": [_P] * 5 + [_I, _I, _F, _P],
     "mit_quantize_rows_bf16": [_P] * 5 + [_I, _I, _F, _P],
     "mit_int8_gemm": [_P] * 7 + [_I] * 6 + [_P],
-    "mit_flash_attention_dropout_fwd": [_P] * 5 + [_I] * 6 + [_U, _U, _F, _P],
+    "mit_flash_attention_dropout_fwd": [_P] * 5 + [_I] * 7 + [_U, _U, _F, _P],
     "mit_flash_attention_dropout_bwd": [_P] * 8 + [_I] * 6 + [_U, _U, _F, _P],
     "mit_dump_dropout_mask": [_P] + [_I] * 3 + [_U, _U, _P],
+    # the shapes the tiled attention kernels do not take
+    "mit_attention_any_shape": [_P] * 5 + [_I] * 13 + [_P],
+    "mit_dropout_attention_any_shape_fwd":
+        [_P] * 5 + [_I] * 7 + [_U, _U, _F, _P],
+    "mit_dropout_attention_any_shape_bwd":
+        [_P] * 9 + [_I] * 7 + [_U, _U, _F, _P],
 }
 
 _lib = None
@@ -69,7 +77,7 @@ def _nvcc() -> str:
 def library_path() -> Path:
     """Where the library for the current sources and flags lives."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC.glob("*.cu")):
+    for src in sorted(CSRC.glob("*.cu*")):        # sources and their headers
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     return BUILD_DIR / f"libmit_kernels_{digest.hexdigest()[:16]}.so"

@@ -121,6 +121,13 @@ def multihead_attention(
     - otherwise the plain path, which also takes a materialized additive
       ``mask`` broadcastable to (B, H, T, S) and drops out the probabilities
       with a Bernoulli mask drawn from ``generator.device``.
+
+    The route depends on the arguments alone, never on the shapes or the
+    device: a kernel wrapper runs its plain version for CPU tensors and, for
+    CUDA tensors, launches a kernel at every shape it has one for (the tiled
+    kernels at head width 64, the any-shape kernels elsewhere) or raises.
+    ``multihead_attention.routes`` counts every call by the route it took:
+    ``"kernel"`` for the first two above, ``"plain"`` for the third.
     """
     cd = compute_dtype
     b, t, d = q_in.shape
@@ -141,6 +148,7 @@ def multihead_attention(
         seed = int(torch.randint(0, 2**31 - 1, (), generator=generator.host))
         attend = flash_attention_dropout if use_kernel else \
             flash_attention_dropout_plain
+        multihead_attention.routes["kernel" if use_kernel else "plain"] += 1
         ctx = attend(*(_split_heads(x, num_heads).contiguous()
                        for x in (q, k, v)),
                      pad_add.float().contiguous(), seed, causal,
@@ -152,6 +160,7 @@ def multihead_attention(
             raise ValueError(
                 "the kernel path takes causal/pad_add, not a dense mask"
             )
+        multihead_attention.routes["kernel"] += 1
         if takes_bhtd(t, s, d, q.element_size()):
             out = _merge_heads(flash_attention(
                 *(_split_heads(x, num_heads).contiguous() for x in (q, k, v)),
@@ -160,6 +169,7 @@ def multihead_attention(
             out = flash_attention_btd(q, k, v, pad_add, causal, hd)
         return out @ params["wo"].to(cd) + params["bo"].to(cd)
 
+    multihead_attention.routes["plain"] += 1
     if mask is None and (causal or pad_add is not None):
         mask = torch.zeros((1, 1, t, s), dtype=torch.float32, device=q.device)
         if causal:
@@ -181,6 +191,10 @@ def multihead_attention(
         _split_heads(v, num_heads).float(),
     ).to(cd)
     return _merge_heads(ctx) @ params["wo"].to(cd) + params["bo"].to(cd)
+
+
+# every call, by the route its arguments gave it
+multihead_attention.routes = {"kernel": 0, "plain": 0}
 
 
 def single_key_cross_attention(

@@ -40,6 +40,17 @@ import torch
 KERNEL_EMBED_DIM = 512
 KERNEL_NUM_HEADS = 8
 
+
+def decode_layer_supported(d: int, num_heads: int, f: int) -> bool:
+    """True where the CUDA kernel takes a decoder of width ``d`` with
+    ``num_heads`` heads and an MLP of ``f``: its tiles are laid out for 512
+    columns in 8 heads of 64, and it reads the MLP's rows 16 bytes at a
+    time. The wrapper's check and ``decoder_step``'s choice of route both
+    ask this one function."""
+    return d == KERNEL_EMBED_DIM and num_heads == KERNEL_NUM_HEADS and \
+        f > 0 and f % 8 == 0
+
+
 # the order of the kernel's 14 weight operands
 _OPERANDS = ("wqkv", "bqkv", "wo", "bo", "ln1s", "ln1b", "ln2s", "ln2b",
              "ln3s", "ln3b", "w1", "b1", "w2", "b2")
@@ -187,8 +198,8 @@ def _check_cuda_inputs(x, posv, madd, k_cache, v_cache, cross, lay,
             f"and {tuple(v_cache.shape)}"
         )
     b, t, d = k_cache.shape
-    if (d != KERNEL_EMBED_DIM or lay.embed_dim != d
-            or num_heads != KERNEL_NUM_HEADS or lay.ff_dim % 8):
+    if lay.embed_dim != d or not decode_layer_supported(d, num_heads,
+                                                        lay.ff_dim):
         raise ValueError(
             f"the CUDA kernel takes width {KERNEL_EMBED_DIM}, "
             f"{KERNEL_NUM_HEADS} heads and F a multiple of 8; got cache "

@@ -18,8 +18,10 @@ probabilities and mask never exist in device memory in either pass:
   murmur3 finalizer over ``idx = row·S + col``, the seed and the cell
   ``b·H + h``, computed in int64 with every product reduced mod 2³².
 - :func:`flash_attention_dropout` is an autograd Function. For CUDA tensors
-  it launches the forward kernel of ``csrc/flash_attention_dropout.cu`` and,
-  in its backward, the backward kernel; for CPU tensors it runs the plain
+  it launches the forward kernel of ``csrc/flash_attention_dropout.cu`` (bf16
+  on the tensor cores, a cell's whole score rows in registers and a keep bit
+  drawn per accumulator element; f32 on the CUDA cores) and, in its
+  backward, the backward kernel; for CPU tensors it runs the plain
   versions. It gives no gradient for ``pad_add`` and ``seed``.
   :func:`flash_attention_dropout_plain` runs the plain versions on any
   device, for comparison with the kernels on the card.
@@ -29,8 +31,14 @@ probabilities and mask never exist in device memory in either pass:
 ``flash_attention_dropout_fwd.launches``, ``flash_attention_dropout_bwd.
 launches`` and ``dump_dropout_mask.launches`` count kernel launches.
 
-The kernels take head_dim 64, T ≤ 128 and S ≤ 128 (the decoder's
-self-attention at any ``MAX_SEQ_LEN`` ≤ 129) and raise on anything else.
+Those kernels take head_dim 64, T ≤ 128 and S ≤ 128 (the decoder's
+self-attention at any ``MAX_SEQ_LEN`` ≤ 129): a cell's whole (T, S) tile
+stays on chip. At any other head width up to 256 and at any length the
+wrappers launch the any-shape kernels of ``csrc/attention_any_shape.cu``
+instead (a warp to a query row or a key; simple and slower; the same hash
+mask), so that a CUDA tensor never runs the plain versions:
+:func:`dropout_kernel_for` names the kernels a shape gets, and the wrappers
+raise where it has none.
 """
 
 from __future__ import annotations
@@ -41,9 +49,37 @@ import torch
 
 from mit_tpu_torch.ops.masks import causal_mask
 
-KERNEL_HEAD_DIM = 64
-MAX_LEN = 128
+TILED_HEAD_DIM = 64         # the head width the tiled kernels are laid out for
+TILED_MAX_LEN = 128         # and the most queries and keys they hold on chip
+MAX_HEAD_DIM = 256          # the any-shape kernels: 8 columns a lane
+# warps a block of the bf16 forward (tensor-core) kernel: one warpgroup of
+# 64 query rows, two blocks a cell at the decoder's T = 99
+FWD_WARPS = 4
 _M32 = 0xFFFFFFFF
+
+
+def dropout_kernel_supported(head_dim: int, t: int, s: int) -> bool:
+    """True where CUDA dropout-attention kernels take heads of ``head_dim``
+    columns, ``t`` queries and ``s`` keys."""
+    return 1 <= head_dim <= MAX_HEAD_DIM and t > 0 and s > 0
+
+
+def dropout_kernel_for(head_dim: int, t: int, s: int) -> str:
+    """The kernels that run dropout attention at this shape on the card:
+    ``"tiled"`` (``csrc/flash_attention_dropout.cu``: head_dim 64 and a
+    cell's whole (t, s) probability tile on chip, which bounds both lengths
+    at 128) or ``"any_shape"`` (``csrc/attention_any_shape.cu``). Raises
+    where there is none; the wrappers' check and their choice of entry
+    point ask this one function."""
+    if not dropout_kernel_supported(head_dim, t, s):
+        raise ValueError(
+            f"no CUDA dropout-attention kernel for head_dim {head_dim}, "
+            f"T={t}, S={s}: they take head_dim 1 to {MAX_HEAD_DIM} and "
+            f"T, S >= 1"
+        )
+    if head_dim == TILED_HEAD_DIM and max(t, s) <= TILED_MAX_LEN:
+        return "tiled"
+    return "any_shape"
 
 
 def _threshold(rate: float) -> int:
@@ -152,15 +188,9 @@ def _check_cuda_inputs(q, k, v, pad_add, do=None) -> None:
     s = k.shape[2]
     if k.shape[:2] != (b, h) or k.shape[3] != hd:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} disagree")
-    if hd != KERNEL_HEAD_DIM:
-        raise ValueError(
-            f"the CUDA kernels take head_dim {KERNEL_HEAD_DIM}, got {hd}"
-        )
-    if not (0 < t <= MAX_LEN and 0 < s <= MAX_LEN and 0 < b * h <= 2**31 - 1):
-        raise ValueError(
-            f"the CUDA kernels take 1 <= T, S <= {MAX_LEN}; got T={t}, S={s}, "
-            f"B*H={b * h}"
-        )
+    dropout_kernel_for(hd, t, s)
+    if not (0 < b <= 65535 and 0 < h <= 65535 and b * h <= 2**31 - 1):
+        raise ValueError(f"unsupported batch and heads ({b}, {h})")
     if do is not None and do.shape != q.shape:
         raise ValueError(f"do {tuple(do.shape)} differs from q {tuple(q.shape)}")
     if pad_add.dtype != torch.float32 or tuple(pad_add.shape) != (b, s):
@@ -190,7 +220,13 @@ def _bf16(x) -> int:
 
 def flash_attention_dropout_fwd(q, k, v, pad_add, seed: int, causal: bool,
                                 rate: float) -> torch.Tensor:
-    """Forward: the plain version for CPU tensors, the kernel for CUDA."""
+    """Forward: the plain version for CPU tensors, a kernel for CUDA.
+
+    At the tiled kernels' shapes bf16 tensors run the tensor-core kernel
+    with ``FWD_WARPS`` warps a block (64 query rows a warpgroup of 4) and
+    f32 tensors the CUDA-core kernel, which keeps full f32 products; every
+    other shape runs the any-shape kernel.
+    """
     _check_rate(rate)
     if q.device.type == "cpu":
         return flash_attention_dropout_reference(q, k, v, pad_add, seed,
@@ -201,15 +237,29 @@ def flash_attention_dropout_fwd(q, k, v, pad_add, seed: int, causal: bool,
 
     from mit_tpu_torch import kernels
 
-    b, h, t, _ = q.shape
+    b, h, t, hd = q.shape
+    s = k.shape[2]
     out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        rc = kernels.lib().mit_flash_attention_dropout_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), pad_add.data_ptr(),
-            out.data_ptr(), b, h, t, k.shape[2], int(causal), _bf16(q),
-            seed & _M32, _threshold(rate), 1.0 - rate, _stream(q),
-        )
-    kernels.check(rc, "mit_flash_attention_dropout_fwd")
+    if dropout_kernel_for(hd, t, s) == "any_shape":
+        name = "mit_dropout_attention_any_shape_fwd"
+        with torch.cuda.device(q.device):
+            rc = kernels.lib().mit_dropout_attention_any_shape_fwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), pad_add.data_ptr(),
+                out.data_ptr(), b, h, t, s, hd, int(causal), _bf16(q),
+                seed & _M32, _threshold(rate), 1.0 - rate, _stream(q),
+            )
+    else:
+        name = "mit_flash_attention_dropout_fwd"
+        warps = FWD_WARPS if q.dtype == torch.bfloat16 else 0
+        if warps and any(x.data_ptr() % 16 for x in (q, k, v)):
+            raise ValueError("q, k and v must start at 16-byte boundaries")
+        with torch.cuda.device(q.device):
+            rc = kernels.lib().mit_flash_attention_dropout_fwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), pad_add.data_ptr(),
+                out.data_ptr(), b, h, t, s, int(causal), _bf16(q), warps,
+                seed & _M32, _threshold(rate), 1.0 - rate, _stream(q),
+            )
+    kernels.check(rc, name)
     flash_attention_dropout_fwd.launches += 1
     return out
 
@@ -231,16 +281,31 @@ def flash_attention_dropout_bwd(q, k, v, pad_add, do, seed: int,
 
     from mit_tpu_torch import kernels
 
-    b, h, t, _ = q.shape
+    b, h, t, hd = q.shape
+    s = k.shape[2]
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    with torch.cuda.device(q.device):
-        rc = kernels.lib().mit_flash_attention_dropout_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), pad_add.data_ptr(),
-            do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b, h, t, k.shape[2], int(causal), _bf16(q), seed & _M32,
-            _threshold(rate), 1.0 / (1.0 - rate), _stream(q),
-        )
-    kernels.check(rc, "mit_flash_attention_dropout_bwd")
+    if dropout_kernel_for(hd, t, s) == "any_shape":
+        name = "mit_dropout_attention_any_shape_bwd"
+        # each row's max, sum and delta, from the first kernel to the second
+        stats = torch.empty((b * h, t, 3), dtype=torch.float32,
+                            device=q.device)
+        with torch.cuda.device(q.device):
+            rc = kernels.lib().mit_dropout_attention_any_shape_bwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), pad_add.data_ptr(),
+                do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                stats.data_ptr(), b, h, t, s, hd, int(causal), _bf16(q),
+                seed & _M32, _threshold(rate), 1.0 / (1.0 - rate), _stream(q),
+            )
+    else:
+        name = "mit_flash_attention_dropout_bwd"
+        with torch.cuda.device(q.device):
+            rc = kernels.lib().mit_flash_attention_dropout_bwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), pad_add.data_ptr(),
+                do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                b, h, t, s, int(causal), _bf16(q), seed & _M32,
+                _threshold(rate), 1.0 / (1.0 - rate), _stream(q),
+            )
+    kernels.check(rc, name)
     flash_attention_dropout_bwd.launches += 1
     return dq, dk, dv
 

@@ -10,6 +10,7 @@ and its output feeds the out-projection with no head split or merge.
   CUDA tensors it launches a hand-written kernel of
   ``csrc/flash_attention_btd.cu`` or raises: bf16 on the tensor cores
   (wgmma), at the tiling :func:`bf16_tiling` gives, f32 on the CUDA cores
+  in full f32 products, one walk over the keys with 8 × 8 register tiles
   (:func:`btd_entry`). It adds one to
   ``flash_attention_btd.launches`` at each kernel launch. The kernel is
   forward-only: the backward recomputes the attention through
@@ -43,9 +44,20 @@ an input that requires grad.
 takes q (B, H, T, hd) and k, v (B, H, S, hd). It is a second entry of the
 same CUDA source, and its numerics are not ``flash_attention_btd``'s: the
 probabilities are normalized before P·V and rounded to v's dtype, where the
-(B, T, D) kernel divides by the row sum after P·V. :func:`takes_bhtd` is the
-shape rule by which ``multihead_attention`` picks between the two, the JAX
-package's rule, so both packages run the same numerics at the same shapes.
+(B, T, D) kernel divides by the row sum after P·V. In bf16 the tensor-core
+kernel therefore walks the key tiles twice (the row max and sum, then
+``exp(s − max)/sum`` rounded to bf16 and multiplied); in f32 nothing is
+rounded in between, and the f32 kernel's one walk serves both layouts.
+:func:`takes_bhtd` is the shape rule by which ``multihead_attention`` picks
+between the two, the JAX package's rule, so both packages run the same
+numerics at the same shapes.
+
+Those kernels are laid out for heads of 64 columns. At any other head width
+up to 256 every entry but the fused layer's numerics launches the any-shape
+kernel of ``csrc/attention_any_shape.cu`` instead (a warp to a query row;
+simple and slower), so that a CUDA tensor never runs the plain version:
+:func:`attention_kernel_for` names the kernel a head width gets, and the
+wrappers raise where it has none.
 """
 
 from __future__ import annotations
@@ -57,12 +69,62 @@ import torch
 
 from mit_tpu_torch.ops.masks import causal_mask
 
-KERNEL_HEAD_DIM = 64
+TILED_HEAD_DIM = 64         # the head width the tiled kernels are laid out for
+MAX_HEAD_DIM = 256          # the any-shape kernel: 8 columns a lane
 LOG2E = 1.4426950408889634
 # warps a block of the bf16 (tensor-core) kernel: one warpgroup or two, and a
 # warpgroup owns 64 query rows
 BF16_WARPS = (4, 8)
 BF16_GROUP_ROWS = 64
+
+
+def attention_kernel_supported(head_dim: int) -> bool:
+    """True where a CUDA attention kernel takes heads of ``head_dim``
+    columns. Lengths and batch are free."""
+    return 1 <= head_dim <= MAX_HEAD_DIM
+
+
+def attention_kernel_for(head_dim: int, layer_numerics: bool = False) -> str:
+    """The kernel that runs attention over heads of ``head_dim`` columns on
+    the card: ``"tiled"`` (``csrc/flash_attention_btd.cu``, whose tiles,
+    fragments and descriptors are laid out for 64) or ``"any_shape"``
+    (``csrc/attention_any_shape.cu``). The fused layer's numerics exist in
+    the tiled kernel only. Raises where there is no kernel; every wrapper's
+    check and its choice of entry point ask this one function."""
+    if head_dim == TILED_HEAD_DIM:
+        return "tiled"
+    if layer_numerics or not attention_kernel_supported(head_dim):
+        raise ValueError(
+            f"no CUDA attention kernel for head_dim {head_dim}: the tiled "
+            f"kernels take {TILED_HEAD_DIM}, the any-shape kernel 1 to "
+            f"{MAX_HEAD_DIM} (not the fused layer's numerics)"
+        )
+    return "any_shape"
+
+
+def _check_aligned(*tensors: torch.Tensor) -> None:
+    """The kernels load 16 bytes at a time."""
+    if any(x.data_ptr() % 16 for x in tensors):
+        raise ValueError("q, k, v and qkv must start at 16-byte boundaries")
+
+
+def _any_shape(q, k, v, pad_add, out, b, h, t, s, hd, ldq, ldkv, ldo, bhtd,
+               causal, norm_first) -> None:
+    """Launch the any-shape kernel: q, k and v are tensors or, for the column
+    blocks of a fused qkv tensor, data pointers; all of ``out``'s dtype."""
+    from mit_tpu_torch import kernels
+
+    ptr = lambda x: x if isinstance(x, int) else x.data_ptr()
+    with torch.cuda.device(out.device):
+        rc = kernels.lib().mit_attention_any_shape(
+            ptr(q), ptr(k), ptr(v),
+            None if pad_add is None else pad_add.data_ptr(), out.data_ptr(),
+            b, h, t, s, hd, ldq, ldkv, ldo, int(bhtd), int(causal),
+            int(pad_add is not None), int(norm_first),
+            int(out.dtype == torch.bfloat16),
+            torch.cuda.current_stream(out.device).cuda_stream,
+        )
+    kernels.check(rc, "mit_attention_any_shape")
 
 
 def bf16_tiling(t: int, warps: Optional[int] = None) -> tuple[int, int]:
@@ -126,10 +188,7 @@ def flash_attention_btd_reference(
 
 
 def _check_cuda_inputs(q, k, v, pad_add, head_dim) -> None:
-    if head_dim != KERNEL_HEAD_DIM:
-        raise ValueError(
-            f"the CUDA kernel takes head_dim {KERNEL_HEAD_DIM}, got {head_dim}"
-        )
+    tiled = attention_kernel_for(head_dim) == "tiled"
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
     for name, x in (("k", k), ("v", v)):
@@ -151,6 +210,8 @@ def _check_cuda_inputs(q, k, v, pad_add, head_dim) -> None:
         raise ValueError("q, k, v and pad_add must be on one device")
     if not all(x.is_contiguous() for x in tensors):
         raise ValueError("q, k, v and pad_add must be contiguous")
+    if tiled:
+        _check_aligned(q, k, v)
     if pad_add is not None and (
         pad_add.dtype != torch.float32 or tuple(pad_add.shape) != (b, s)
     ):
@@ -172,6 +233,11 @@ def _flash_forward_btd(q, k, v, pad_add, causal, head_dim):
 
     b, t, d = q.shape
     out = torch.empty_like(q)
+    if attention_kernel_for(head_dim) == "any_shape":
+        _any_shape(q, k, v, pad_add, out, b, d // head_dim, t, k.shape[1],
+                   head_dim, d, d, d, False, causal, False)
+        flash_attention_btd.launches += 1
+        return out
     name = btd_entry(q.dtype)
     fn = getattr(kernels.lib(), name)
     tiling = bf16_tiling(t) if q.dtype == torch.bfloat16 else ()
@@ -256,10 +322,7 @@ def flash_attention_btd_fusedqkv_reference(
 
 def _check_fusedqkv(qkv: torch.Tensor, head_dim: int,
                     layer_numerics: bool) -> None:
-    if head_dim != KERNEL_HEAD_DIM:
-        raise ValueError(
-            f"the CUDA kernel takes head_dim {KERNEL_HEAD_DIM}, got {head_dim}"
-        )
+    tiled = attention_kernel_for(head_dim, layer_numerics) == "tiled"
     allowed = ((torch.bfloat16,) if layer_numerics
                else (torch.float32, torch.bfloat16))
     if qkv.dtype not in allowed:
@@ -274,6 +337,8 @@ def _check_fusedqkv(qkv: torch.Tensor, head_dim: int,
         raise ValueError(f"unsupported shape qkv {tuple(qkv.shape)}")
     if not qkv.is_contiguous():
         raise ValueError("qkv must be contiguous")
+    if tiled:
+        _check_aligned(qkv)
 
 
 def flash_attention_btd_fusedqkv(
@@ -300,6 +365,13 @@ def flash_attention_btd_fusedqkv(
     b, t, d3 = qkv.shape
     out_dtype = torch.float32 if layer_numerics else qkv.dtype
     out = torch.empty((b, t, d3 // 3), dtype=out_dtype, device=qkv.device)
+    if attention_kernel_for(head_dim, layer_numerics) == "any_shape":
+        d = d3 // 3
+        at = lambda i: qkv.data_ptr() + i * d * qkv.element_size()
+        _any_shape(at(0), at(1), at(2), None, out, b, d // head_dim, t, t,
+                   head_dim, d3, d3, d, False, False, False)
+        flash_attention_btd_fusedqkv.launches += 1
+        return out
     mode = 2 if layer_numerics else int(qkv.dtype == torch.bfloat16)
     with torch.cuda.device(qkv.device):
         rc = kernels.lib().mit_flash_attention_fusedqkv(
@@ -328,8 +400,10 @@ def takes_bhtd(t: int, s: int, d: int, itemsize: int) -> bool:
     The JAX package's rule (``_btd_fits_vmem``): one batch cell's q, k, v
     and output tiles plus an f32 score block above 8 MiB. Its reason, the
     TPU's fast memory, does not hold on this card; the rule is kept so that
-    a model runs the same numerics in both packages, until both kernels are
-    measured against each other on the card.
+    a model runs the same numerics in both packages. ``PERF.md`` has both
+    kernels' times at the BLIP-384 shape, the one supported shape the rule
+    sends to :func:`flash_attention`: equal in f32, the (B, T, D) kernel
+    ahead in bf16 (one walk against two).
     """
     return (2 * t * d + 2 * s * d) * itemsize + t * s * 4 > BTD_CELL_BYTES
 
@@ -367,10 +441,7 @@ def _check_bhtd(q, k, v, pad_add) -> None:
         )
     b, h, t, hd = q.shape
     s = k.shape[2]
-    if hd != KERNEL_HEAD_DIM:
-        raise ValueError(
-            f"the CUDA kernel takes head_dim {KERNEL_HEAD_DIM}, got {hd}"
-        )
+    tiled = attention_kernel_for(hd) == "tiled"
     if tuple(k.shape) != (b, h, s, hd):
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} disagree")
     if min(b, h, t, s) == 0 or b > 65535 or h > 65535:
@@ -380,6 +451,8 @@ def _check_bhtd(q, k, v, pad_add) -> None:
         raise ValueError("q, k, v and pad_add must be on one device")
     if not all(x.is_contiguous() for x in tensors):
         raise ValueError("q, k, v and pad_add must be contiguous")
+    if tiled:
+        _check_aligned(q, k, v)
     if pad_add is not None and (
         pad_add.dtype != torch.float32 or tuple(pad_add.shape) != (b, s)
     ):
@@ -399,14 +472,20 @@ def _flash_forward(q, k, v, pad_add, causal):
 
     from mit_tpu_torch import kernels
 
-    b, h, t, _ = q.shape
+    b, h, t, hd = q.shape
     out = torch.empty_like(q)
+    if attention_kernel_for(hd) == "any_shape":
+        _any_shape(q, k, v, pad_add, out, b, h, t, k.shape[2], hd, hd, hd, hd,
+                   True, causal, True)
+        flash_attention.launches += 1
+        return out
     with torch.cuda.device(q.device):
         rc = kernels.lib().mit_flash_attention_bhtd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if pad_add is None else pad_add.data_ptr(), out.data_ptr(),
             b, h, t, k.shape[2], int(causal), int(pad_add is not None),
             int(q.dtype == torch.bfloat16),
+            *bf16_tiling(t),         # read by the bf16 kernel only
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     kernels.check(rc, "mit_flash_attention_bhtd")

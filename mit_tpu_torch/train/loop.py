@@ -284,6 +284,20 @@ def train(
                 ckpt.save_safetensors(st_path, {**state.params, **frozen}, mcfg)
                 print(f"Checkpoint saved: {st_path} (val loss {val_loss:.4f})")
                 summary["best_checkpoint"] = st_path
+                if wandb_run:                   # the model artifact
+                    try:
+                        import wandb
+
+                        art = wandb.Artifact(
+                            f"{cfg.WANDB_RUN_NAME or 'model'}-epoch{epoch + 1}",
+                            type="model",
+                            description=(f"Checkpoint at epoch {epoch + 1}, "
+                                         f"val loss {val_loss:.4f}"),
+                        )
+                        art.add_file(st_path)
+                        wandb_run.log_artifact(art)
+                    except Exception as e:      # tracking is optional
+                        print(f"wandb artifact logging failed: {e}")
                 if hf_upload and cfg.HF_UPLOAD_BEST_CHECKPOINTS:
                     try:
                         hf_upload(st_path, os.path.basename(st_path))
@@ -300,7 +314,7 @@ def train(
             try:
                 ckpt.save_train_state(os.path.join(cfg.OUTPUT_DIR, "latest"),
                                       state, epoch, best_val_loss, cfg)
-            except OSError as e:
+            except Exception as e:          # a failed autosave loses no epoch
                 print(f"Warning: periodic train-state save failed: {e}")
         summary["epochs"].append(epoch_summary)
 

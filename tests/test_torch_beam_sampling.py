@@ -52,6 +52,25 @@ def memory():
     return np.random.default_rng(7).normal(size=(4, 1, D)).astype(np.float32)
 
 
+class _Routes:
+    """Holds a block's decode steps to the route its ``fused`` flag asks
+    for: with it every step runs the fused layers (their plain version on
+    these CPU tensors), without it none does."""
+
+    def __init__(self, fused):
+        self.fused = fused
+
+    def __enter__(self):
+        self.before = dict(tstep.decoder_step.routes)
+
+    def __exit__(self, *exc):
+        after = tstep.decoder_step.routes
+        ran, idle = ("fused", "unfused") if self.fused else ("unfused", "fused")
+        if exc[0] is None:
+            assert after[ran] > self.before[ran]
+            assert after[idle] == self.before[idle]
+
+
 def _rigged(params, token, bias):
     p = dict(params)
     b = np.zeros((V,), np.float32)
@@ -74,9 +93,10 @@ def test_beam_matches_jax(params, memory, case, k, fused):
          "forced_pad": _rigged(params, PAD, 4.0)}[case]
     ref, ref_scores = jbeam.beam_generate(
         p, JCFG, jnp.asarray(memory), START, END, PAD, MAXLEN, beam_size=k)
-    out, scores = tbeam.beam_generate(
-        params_from_jax(p), TCFG, torch.from_numpy(memory), START, END, PAD,
-        MAXLEN, beam_size=k, fused=fused)
+    with _Routes(fused):
+        out, scores = tbeam.beam_generate(
+            params_from_jax(p), TCFG, torch.from_numpy(memory), START, END,
+            PAD, MAXLEN, beam_size=k, fused=fused)
     np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
     np.testing.assert_allclose(scores.numpy(), np.asarray(ref_scores),
                                rtol=1e-5, atol=1e-5)
@@ -92,10 +112,11 @@ def test_beam_matches_jax(params, memory, case, k, fused):
 @pytest.mark.parametrize("fused", [False, True], ids=["unfused", "fused"])
 def test_beam_size_one_is_greedy(params, memory, fused):
     tp, mem = params_from_jax(params), torch.from_numpy(memory)
-    greedy, _ = tgreedy.greedy_generate(tp, TCFG, mem, START, END, PAD, MAXLEN,
-                                        fused=fused)
-    beam, _ = tbeam.beam_generate(tp, TCFG, mem, START, END, PAD, MAXLEN,
-                                  beam_size=1, fused=fused)
+    with _Routes(fused):
+        greedy, _ = tgreedy.greedy_generate(tp, TCFG, mem, START, END, PAD,
+                                            MAXLEN, fused=fused)
+        beam, _ = tbeam.beam_generate(tp, TCFG, mem, START, END, PAD, MAXLEN,
+                                      beam_size=1, fused=fused)
     torch.testing.assert_close(beam, greedy)
 
 
@@ -212,9 +233,10 @@ def test_temperature_zero_is_greedy(params, memory, fused):
     tp, mem = params_from_jax(params), torch.from_numpy(memory)
     greedy, lengths = tgreedy.greedy_generate(tp, TCFG, mem, START, END, PAD,
                                               MAXLEN, fused=fused)
-    cold, cold_len = tsampling.sample_generate(
-        tp, TCFG, mem, torch.Generator().manual_seed(0), START, END, PAD,
-        MAXLEN, temperature=0.0, fused=fused)
+    with _Routes(fused):
+        cold, cold_len = tsampling.sample_generate(
+            tp, TCFG, mem, torch.Generator().manual_seed(0), START, END, PAD,
+            MAXLEN, temperature=0.0, fused=fused)
     torch.testing.assert_close(cold, greedy)
     torch.testing.assert_close(cold_len, lengths)
 
@@ -284,7 +306,10 @@ def test_captioner_methods(params, memory, fused):
     mem = torch.from_numpy(memory)
     tp = params_from_jax(params)
     rows = lambda toks: [t[t != PAD].tolist() for t in toks]
-    greedy = cap.generate_from_memory(mem, max_len=MAXLEN)
+    with _Routes(fused):
+        greedy = cap.generate_from_memory(mem, max_len=MAXLEN)
+        cap.generate_from_memory(mem, max_len=MAXLEN, method="beam")
+        cap.generate_from_memory(mem, max_len=MAXLEN, method="sample", top_k=10)
     assert greedy == rows(tgreedy.greedy_generate(
         tp, TCFG, mem, START, END, PAD, MAXLEN, fused=fused)[0])
     for k in (None, 3):

@@ -6,7 +6,11 @@ tests/test_pallas_decode.py does (``interpret=True``, or the step under
 ``MIT_FUSED_DECODE=1`` set and cleared around the call); the port's wrapper
 runs its plain PyTorch version for CPU tensors. Inputs come from a numpy
 seed and go through both frameworks as numpy arrays. Head width 64 as on
-the card, everything else small.
+the card, everything else small: on CPU tensors ``decoder_step(fused=True)``
+runs the fused layers' plain version at any geometry (``step_route``), and
+every test of the fused step reads ``decoder_step.routes``, so none can pass
+on the unfused route. What the card does at a geometry its kernel does not
+take is held in tests/test_torch_dispatch.py.
 """
 
 import os
@@ -187,9 +191,12 @@ def test_fused_step_matches_jax_fused_step(params, memory, dtype):
         tcache._replace(k=[a.clone() for a in tcache.k],
                         v=[a.clone() for a in tcache.v]),
         TDT[dtype], key_pad=torch.from_numpy(key_pad))
+    before = dict(tstep.decoder_step.routes)
     out, tcache = tstep.decoder_step(
         tp, TCFG, torch.from_numpy(tokens), steps, tcache, TDT[dtype],
         key_pad=torch.from_numpy(key_pad), fused=True)
+    assert tstep.decoder_step.routes == {"fused": before["fused"] + 1,
+                                         "unfused": before["unfused"]}
     tol = 1e-5 if dtype == "float32" else 0.05
     assert out.dtype == torch.float32 and out.shape == (B, V)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=tol, atol=tol)
@@ -210,11 +217,14 @@ def test_fused_step_takes_per_row_positions(params, memory):
     tokens = torch.from_numpy((np.arange(B) % 7 + 4).astype(np.int64))
     copy = lambda c: c._replace(k=[a.clone() for a in c.k],
                                 v=[a.clone() for a in c.v])
+    before = dict(tstep.decoder_step.routes)
     scalar, c1 = tstep.decoder_step(tp, TCFG, tokens, 3, copy(tcache),
                                     fused=True)
     rows, c2 = tstep.decoder_step(
         tp, TCFG, tokens, torch.full((B,), 3, dtype=torch.int32),
         copy(tcache), fused=True)
+    assert tstep.decoder_step.routes == {"fused": before["fused"] + 2,
+                                         "unfused": before["unfused"]}
     torch.testing.assert_close(rows, scalar, rtol=0, atol=0)
     for a, b in zip(c1.k + c1.v, c2.k + c2.v):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
@@ -240,8 +250,12 @@ def test_fused_greedy_tokens_identical(params, memory, case):
                                            END, PAD, MAXLEN)
     tp, mem = params_from_jax(p), torch.from_numpy(memory)
     unfused, _ = tgreedy.greedy_generate(tp, TCFG, mem, START, END, PAD, MAXLEN)
+    before = dict(tstep.decoder_step.routes)
     fused, fused_len = tgreedy.greedy_generate(tp, TCFG, mem, START, END, PAD,
                                                MAXLEN, fused=True)
+    after = tstep.decoder_step.routes
+    assert after["fused"] > before["fused"]
+    assert after["unfused"] == before["unfused"]
     np.testing.assert_array_equal(fused.numpy(), unfused.numpy())
     np.testing.assert_array_equal(fused.numpy(), np.asarray(ref))
     np.testing.assert_array_equal(fused_len.numpy(), np.asarray(ref_len))

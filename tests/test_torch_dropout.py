@@ -132,9 +132,9 @@ def test_plain_and_wrapper_agree_and_count_no_launch():
 
 
 @pytest.mark.parametrize("change,error", [
-    (dict(hd=32), ValueError),
-    (dict(s=129), ValueError),
-    (dict(t=129), ValueError),
+    (dict(hd=257), ValueError),     # past the any-shape kernels' 256
+    (dict(s=0), ValueError),
+    (dict(t=0), ValueError),
     (dict(dtype=torch.float16), TypeError),
     (dict(pad_len=5), ValueError),
     (dict(contiguous=False), ValueError),

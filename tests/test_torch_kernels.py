@@ -178,8 +178,9 @@ def test_bf16_causal_tile_skipping_is_exact_on_card(cuda, t, s, extra):
 @pytest.mark.cuda
 def test_kernel_rejects_what_it_does_not_take(cuda):
     q, k, v, pad = _inputs(2, 8, 8, 128, True, torch.float32, cuda)
+    wide = torch.zeros(2, 8, 257, device=cuda)     # one head of 257 columns
     with pytest.raises(ValueError, match="head_dim"):
-        flash_attention_btd(q, k, v, pad, False, 32)
+        flash_attention_btd(wide, wide, wide, None, False, 257)
     with pytest.raises(TypeError):
         flash_attention_btd(q.half(), k.half(), v.half(), pad, False, 64)
     with pytest.raises(ValueError, match="contiguous"):
@@ -207,7 +208,7 @@ def test_cpu_tensors_take_the_plain_version():
 
 
 @pytest.mark.parametrize("change,error", [
-    (dict(head_dim=32), ValueError),
+    (dict(head_dim=257, d=257), ValueError),
     (dict(dtype=torch.float16), TypeError),
     (dict(k_len=7), ValueError),
     (dict(pad_len=5), ValueError),
@@ -424,7 +425,8 @@ def test_int8_wrappers_reject_what_they_do_not_take(cuda):
         int8_mlp.fused_int8_mlp(x.half(), q, q)
     with pytest.raises(ValueError, match="head_dim"):
         flash_attention_btd_fusedqkv(
-            torch.zeros(2, 5, 96, device=cuda), 32)
+            torch.zeros(2, 5, 96, device=cuda, dtype=torch.bfloat16), 32,
+            layer_numerics=True)
     with pytest.raises(TypeError):
         flash_attention_btd_fusedqkv(
             torch.zeros(2, 5, 192, device=cuda), 64, layer_numerics=True)
@@ -473,7 +475,7 @@ def test_quantize_rows_input_checks(change, error):
 
 
 @pytest.mark.parametrize("change,error", [
-    (dict(head_dim=32), ValueError),
+    (dict(head_dim=32, layer=True), ValueError),
     (dict(dtype=torch.float16), TypeError),
     (dict(layer=True, dtype=torch.float32), TypeError),
     (dict(width=3 * 96), ValueError),
@@ -611,9 +613,9 @@ def test_dropout_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         fwd(q.transpose(2, 3).contiguous().transpose(2, 3), k, v, pad, 0,
             True, 0.1)
-    big = torch.zeros(1, 1, 129, 64, device=cuda)
-    with pytest.raises(ValueError, match="128"):
-        fwd(big, big, big, torch.zeros(1, 129, device=cuda), 0, True, 0.1)
+    wide = torch.zeros(1, 1, 9, 257, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        fwd(wide, wide, wide, torch.zeros(1, 9, device=cuda), 0, True, 0.1)
 
 
 # ----------------------------------------------------------------------
@@ -783,9 +785,9 @@ def test_flash_attention_bhtd_autograd_and_rejections_on_card(cuda):
         flash_attention_reference(*leaves, pad, True).sum(), leaves)
     for g, w in zip(grads, want):
         assert (g - w).abs().max().item() <= 1e-5
+    wide = torch.zeros(2, 2, 9, 257, device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
-        flash_attention(q[..., :32].contiguous(), k[..., :32].contiguous(),
-                        v[..., :32].contiguous(), None, False)
+        flash_attention(wide, wide, wide, None, False)
     with pytest.raises(TypeError, match="k is"):
         flash_attention(q, k.bfloat16(), v, None, False)
     with pytest.raises(ValueError, match="contiguous"):
@@ -804,3 +806,326 @@ def test_flash_attention_bhtd_cpu_takes_the_plain_version():
     out = flash_attention(q, k, v, pad, False)
     assert flash_attention.launches == before
     assert torch.equal(out, flash_attention_reference(q, k, v, pad, False))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,h,t,s,causal", [
+    (3, 2, 100, 100, True),              # one query block, two key tiles
+    (3, 2, 197, 197, True),              # the walk ends at a diagonal
+    (3, 1, 300, 577, True),              # T < S, many tiles
+    (3, 2, 577, 577, False),             # BLIP-384's length, padded
+    (3, 2, 70, 130, True),
+])
+def test_flash_attention_bhtd_masked_rows_on_card(cuda, dtype, b, h, t, s,
+                                                  causal):
+    """Causal + pad with every key of batch row 0 padded (its rows come out
+    uniform over the keys that share their maximum) and, in batch row 1, key
+    0 padded: query row 0 then sees a pad only and shares its maximum with
+    the causally masked keys that are not padded, beyond any diagonal."""
+    from mit_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_reference,
+    )
+
+    q, k, v, pad = _bhtd_inputs(b, h, t, s, True, dtype, cuda, seed=3)
+    pad[1, 0] = -1e9
+    out = flash_attention(q, k, v, pad, causal)
+    ref = flash_attention_reference(q, k, v, pad, causal)
+    torch.cuda.synchronize()
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    assert torch.isfinite(out).all()
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+    want = torch.stack([v[0, :, :min(i + 1, s) if causal else s].float().mean(1)
+                        for i in range(t)], 1)
+    assert (out[0].float() - want).abs().max().item() <= tol
+    if causal:        # row 0 of batch row 1: uniform over the unpadded keys
+        free = pad[1] == 0
+        free[0] = True           # key 0 is visible, and at the same -1e9
+        want0 = v[1][:, free].float().mean(1)
+        assert (out[1, :, 0].float() - want0).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("warps", BF16_WARPS)
+def test_flash_attention_bhtd_bf16_tilings_on_card(cuda, warps):
+    """Both tilings of the tensor-core kernel in the (B, H, T, hd) entry's
+    two-walk mode, not only the one the wrapper's rule picks."""
+    from mit_tpu_torch.ops.flash_attention import flash_attention_reference
+
+    b, h, t, s = 2, 3, 300, 333
+    q, k, v, pad = _bhtd_inputs(b, h, t, s, True, torch.bfloat16, cuda)
+    pad[1, 0] = -1e9
+    for causal in (False, True):
+        out = torch.empty_like(q)
+        rc = kernels.lib().mit_flash_attention_bhtd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), pad.data_ptr(),
+            out.data_ptr(), b, h, t, s, int(causal), 1, 1,
+            *bf16_tiling(t, warps), torch.cuda.current_stream().cuda_stream)
+        kernels.check(rc, "mit_flash_attention_bhtd")
+        ref = flash_attention_reference(q, k, v, pad, causal)
+        torch.cuda.synchronize()
+        assert torch.isfinite(out).all()
+        assert (out.float() - ref.float()).abs().max().item() <= 2e-2
+
+
+def _dropout_fwd_tiled(q, k, v, pad, seed, causal, rate, warps):
+    """The tiled bf16 dropout forward at a tiling of the C entry point: 4 or
+    8 warps a block on the tensor cores, 0 for the CUDA-core kernel (the
+    wrapper takes ``FWD_WARPS``)."""
+    b, h, t, _ = q.shape
+    out = torch.empty_like(q)
+    rc = kernels.lib().mit_flash_attention_dropout_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), pad.data_ptr(),
+        out.data_ptr(), b, h, t, k.shape[2], int(causal), 1, warps,
+        seed & 0xFFFFFFFF, dropout_attention._threshold(rate), 1.0 - rate,
+        torch.cuda.current_stream().cuda_stream)
+    kernels.check(rc, "mit_flash_attention_dropout_fwd")
+    return out
+
+
+def _recovered_keep_mask(b, h, t, s, seed, rate, causal, device, warps):
+    """The forward kernel's keep-mask, read off its output: q = k = 0 makes p
+    uniform over the visible keys, and v one-hot over 64 keys at a time makes
+    out[r, c] = pd[r, key c], which is positive iff the key is kept."""
+    dtype = torch.bfloat16
+    q = torch.zeros(b, h, t, 64, device=device, dtype=dtype)
+    k = torch.zeros(b, h, s, 64, device=device, dtype=dtype)
+    pad = torch.zeros(b, s, device=device)
+    got = torch.zeros(b, h, t, s, dtype=torch.bool, device=device)
+    for c0 in range(0, s, 64):
+        n = min(64, s - c0)
+        v = torch.zeros(b, h, s, 64, device=device, dtype=dtype)
+        v[:, :, c0 + torch.arange(n), torch.arange(n)] = 1.0
+        out = _dropout_fwd_tiled(q, k, v, pad, seed, causal, rate, warps)
+        got[..., c0:c0 + n] = out[..., :n] > 0
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("warps", [4, 8, 0], ids=["tc4", "tc8", "cudacore"])
+@pytest.mark.parametrize("seed,rate", [(20261016, 0.1), (2**31 - 2, 0.5)])
+@pytest.mark.parametrize("b,h,t,s", [(32, 8, 99, 99), (3, 2, 7, 9),
+                                     (2, 2, 128, 128), (2, 3, 100, 37)])
+def test_dropout_forward_keep_mask_is_bitwise_plain_on_card(cuda, b, h, t, s,
+                                                            seed, rate, warps):
+    """The keep bit each accumulator element of the bf16 forward draws is
+    ``keep_mask``'s for the (row, key) it stands for: an output tolerance
+    would not see a wrong bit on a small probability."""
+    want = dropout_attention.keep_mask(
+        t, s, rate, seed, torch.arange(b * h, device=cuda)).reshape(b, h, t, s)
+    for causal in (False, True):
+        got = _recovered_keep_mask(b, h, t, s, seed, rate, causal, cuda, warps)
+        torch.cuda.synchronize()
+        visible = torch.ones(t, s, dtype=torch.bool, device=cuda)
+        if causal:
+            visible = visible.tril()
+        assert torch.equal(got, want & visible)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("warps", [4, 8])
+@pytest.mark.parametrize("b,h,t,s,causal", DROPOUT_SHAPES + [(2, 2, 65, 64, True),
+                                                             (2, 2, 64, 65, False)])
+def test_dropout_forward_tilings_match_plain_on_card(cuda, warps, b, h, t, s,
+                                                     causal):
+    """Both tilings of the bf16 tensor-core forward, and the CUDA-core kernel
+    it replaced, against the plain version."""
+    q, k, v, pad = _heads(b, h, t, s, torch.bfloat16, cuda)
+    ref = dropout_attention.flash_attention_dropout_reference(
+        q, k, v, pad, 1234, causal, 0.1)
+    for w in (warps, 0):
+        out = _dropout_fwd_tiled(q, k, v, pad, 1234, causal, 0.1, w)
+        torch.cuda.synchronize()
+        assert torch.isfinite(out).all()
+        assert (out.float() - ref.float()).abs().max().item() <= \
+            TOL[torch.bfloat16]
+
+
+# ----------------------------------------------------------------------
+# the any-shape kernels: head widths other than 64, dropout past 128
+# ----------------------------------------------------------------------
+def _wide_heads(b, h, t, s, hd, dtype, device, seed=11):
+    """q, k ~ N(0, 1), v ~ U(-1, 1), do ~ N(0, 1) in (B, H, T|S, hd); (B, S)
+    pads with every key of batch row 0 masked and key 0 of batch row 1."""
+    r = np.random.default_rng(seed)
+    to = lambda a: torch.from_numpy(a.astype(np.float32)).to(device, dtype)
+    q, do = to(r.normal(size=(b, h, t, hd))), to(r.normal(size=(b, h, t, hd)))
+    k = to(r.normal(size=(b, h, s, hd)))
+    v = to(r.uniform(-1, 1, size=(b, h, s, hd)))
+    pad = np.where(r.random((b, s)) > 0.8, -1e9, 0.0).astype(np.float32)
+    pad[0] = -1e9
+    pad[1, 0] = -1e9
+    return q, k, v, torch.from_numpy(pad).to(device), do
+
+
+ANY_SHAPES = [(3, 4, 40, 70, 128), (3, 2, 33, 31, 32), (2, 3, 5, 5, 16),
+              (2, 2, 64, 64, 80), (2, 1, 9, 130, 256), (2, 2, 1, 1, 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,h,t,s,hd", ANY_SHAPES)
+def test_attention_any_head_width_matches_plain_on_card(cuda, b, h, t, s, hd,
+                                                        dtype, causal):
+    """Every attention entry at head widths the tiled kernels do not take:
+    the any-shape kernel against the plain versions, at the tiled kernels'
+    limits, with a fully padded batch row and a row whose only visible key
+    is padded."""
+    from mit_tpu_torch.ops.flash_attention import (
+        attention_kernel_for,
+        flash_attention,
+        flash_attention_btd_fusedqkv_reference,
+        flash_attention_reference,
+    )
+
+    assert attention_kernel_for(hd) == "any_shape"
+    q, k, v, pad, _ = _wide_heads(b, h, t, s, hd, dtype, cuda)
+    tol = TOL[dtype]
+    before = (flash_attention.launches, flash_attention_btd.launches,
+              flash_attention_btd_fusedqkv.launches)
+    out = flash_attention(q, k, v, pad, causal)
+    ref = flash_attention_reference(q, k, v, pad, causal)
+    assert torch.isfinite(out).all()
+    assert (out.float() - ref.float()).abs().max().item() <= \
+        (1e-5 if dtype == torch.float32 else tol)
+
+    merge = lambda x: x.transpose(1, 2).reshape(b, x.shape[2], h * hd).contiguous()
+    qm, km, vm = merge(q), merge(k), merge(v)
+    for p in (pad, None):
+        out = flash_attention_btd(qm, km, vm, p, causal, hd)
+        ref = flash_attention_btd_reference(qm, km, vm, p, causal, hd)
+        assert torch.isfinite(out).all()
+        assert (out.float() - ref.float()).abs().max().item() <= tol
+
+    qkv = torch.cat([km, km.flip(1), vm], -1).contiguous()   # T = S = s
+    out = flash_attention_btd_fusedqkv(qkv, hd)
+    ref = flash_attention_btd_fusedqkv_reference(qkv, hd)
+    torch.cuda.synchronize()
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+    assert (flash_attention.launches, flash_attention_btd.launches,
+            flash_attention_btd_fusedqkv.launches) == \
+        (before[0] + 1, before[1] + 2, before[2] + 1)
+
+
+DROPOUT_ANY_SHAPES = [(2, 2, 160, 160, 64), (2, 2, 129, 40, 64),
+                      (2, 2, 40, 129, 64), (3, 4, 40, 70, 128),
+                      (3, 2, 33, 31, 32), (2, 1, 7, 9, 256), (2, 2, 1, 1, 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,h,t,s,hd", DROPOUT_ANY_SHAPES)
+def test_dropout_attention_any_shape_matches_plain_on_card(cuda, b, h, t, s,
+                                                           hd, dtype, causal):
+    """The any-shape dropout kernels, forward and backward, at the tiled
+    kernels' bounds (forward 1e-5 in f32, TOL in bf16; dq, dk, dv within
+    1e-5 and 1e-2 of their largest value), and through autograd."""
+    assert dropout_attention.dropout_kernel_for(hd, t, s) == "any_shape"
+    q, k, v, pad, do = _wide_heads(b, h, t, s, hd, dtype, cuda)
+    seed, rate = 4321, 0.2
+    out = dropout_attention.flash_attention_dropout_fwd(q, k, v, pad, seed,
+                                                        causal, rate)
+    ref = dropout_attention.flash_attention_dropout_reference(
+        q, k, v, pad, seed, causal, rate)
+    grads = dropout_attention.flash_attention_dropout_bwd(
+        q, k, v, pad, do, seed, causal, rate)
+    want = dropout_attention.flash_attention_dropout_reference_backward(
+        q, k, v, pad, do, seed, causal, rate)
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(x).all() for x in (out, *grads))
+    assert (out.float() - ref.float()).abs().max().item() <= \
+        (1e-5 if dtype == torch.float32 else TOL[dtype])
+    for g, w in zip(grads, want):
+        assert _norm_err(g, w) <= (1e-5 if dtype == torch.float32 else 1e-2)
+
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    before = (dropout_attention.flash_attention_dropout_fwd.launches,
+              dropout_attention.flash_attention_dropout_bwd.launches)
+    o = dropout_attention.flash_attention_dropout(*leaves, pad, seed, causal,
+                                                  rate)
+    auto = torch.autograd.grad(o, leaves, do)
+    assert (dropout_attention.flash_attention_dropout_fwd.launches,
+            dropout_attention.flash_attention_dropout_bwd.launches) == \
+        (before[0] + 1, before[1] + 1)
+    for g, w in zip(auto, grads):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,rate", [(20261016, 0.1), (2**31 - 2, 0.5)])
+@pytest.mark.parametrize("b,h,t,s,hd", [(2, 2, 160, 160, 64),
+                                        (3, 2, 33, 70, 128)])
+def test_dropout_any_shape_keep_mask_is_bitwise_plain_on_card(cuda, b, h, t, s,
+                                                              hd, seed, rate):
+    """The any-shape forward's keep-mask, recovered from its output (q = k =
+    0, v one-hot over hd keys at a time), is ``keep_mask`` bit for bit."""
+    want = dropout_attention.keep_mask(
+        t, s, rate, seed, torch.arange(b * h, device=cuda)).reshape(b, h, t, s)
+    q = torch.zeros(b, h, t, hd, device=cuda)
+    k = torch.zeros(b, h, s, hd, device=cuda)
+    pad = torch.zeros(b, s, device=cuda)
+    for causal in (False, True):
+        got = torch.zeros(b, h, t, s, dtype=torch.bool, device=cuda)
+        for c0 in range(0, s, hd):
+            n = min(hd, s - c0)
+            v = torch.zeros(b, h, s, hd, device=cuda)
+            v[:, :, c0 + torch.arange(n), torch.arange(n)] = 1.0
+            out = dropout_attention.flash_attention_dropout_fwd(
+                q, k, v, pad, seed, causal, rate)
+            got[..., c0:c0 + n] = out[..., :n] > 0
+        visible = torch.ones(t, s, dtype=torch.bool, device=cuda)
+        if causal:
+            visible = visible.tril()
+        assert torch.equal(got, want & visible)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("hd,t", [(128, 40), (32, 160), (64, 160)])
+def test_multihead_attention_runs_a_kernel_at_any_shape_on_card(cuda, hd, t,
+                                                                dtype):
+    """``multihead_attention`` with ``use_kernel`` on the card launches a
+    kernel at head widths other than 64 and, with fused dropout, past 128
+    tokens: it never gives way to the plain path there, forward or backward."""
+    from mit_tpu_torch.ops import attention as attn
+
+    heads, b, rate = 2, 2, 0.25
+    d = heads * hd
+    r = np.random.default_rng(5)
+    p = {w: torch.from_numpy(r.normal(size=(d, d)).astype(np.float32) * 0.1
+                             ).to(cuda) for w in ("wq", "wk", "wv", "wo")}
+    p.update({"b" + w[1]: torch.zeros(d, device=cuda) for w in list(p)})
+    x = torch.from_numpy(r.normal(size=(b, t, d)).astype(np.float32)).to(cuda)
+    pad = torch.from_numpy(np.where(r.random((b, t)) > 0.8, -1e9, 0.0)
+                           .astype(np.float32)).to(cuda)
+    counters = (flash_attention_btd,
+                dropout_attention.flash_attention_dropout_fwd,
+                dropout_attention.flash_attention_dropout_bwd)
+    before = [c.launches for c in counters]
+    routes = dict(attn.multihead_attention.routes)
+    outs = {}
+    for use_kernel in (True, False):
+        xg = x.clone().requires_grad_()
+        gens = attn.DropoutGenerators.for_step(3, 1, cuda)
+        plain = attn.multihead_attention(p, xg, xg, heads, None, dtype,
+                                         use_kernel, True, pad)
+        dropped = attn.multihead_attention(
+            p, xg, xg, heads, None, dtype, use_kernel, True, pad, rate, gens,
+            False, True)
+        (g,) = torch.autograd.grad(dropped.float().square().sum(), xg)
+        outs[use_kernel] = (plain, dropped, g)
+    torch.cuda.synchronize()
+    assert [c.launches - n for c, n in zip(counters, before)] == [1, 1, 1]
+    after = attn.multihead_attention.routes
+    assert (after["kernel"] - routes["kernel"],
+            after["plain"] - routes["plain"]) == (2, 2)
+    tol = 1e-4 if dtype == torch.float32 else 5e-2
+    for a, b_ in zip(outs[True], outs[False]):
+        assert _norm_err(a, b_) <= tol

@@ -406,3 +406,84 @@ def test_cli_refuses_to_train_without_cuda(monkeypatch):
         cli.main(["--no_prepare", "--no_wandb"])
     with pytest.raises(SystemExit):
         cli.main(["--device", "cpu"])
+
+
+class _FakeWandbRun:
+    def __init__(self):
+        self.logged, self.artifacts, self.finished = [], [], False
+
+    def log(self, d):
+        self.logged.append(d)
+
+    def log_artifact(self, art):
+        self.artifacts.append(art)
+
+    def finish(self):
+        self.finished = True
+
+
+class _FakeArtifact:
+    def __init__(self, name, type, description=""):
+        self.name, self.type, self.description = name, type, description
+        self.files = []
+
+    def add_file(self, path):
+        self.files.append(path)
+
+
+def test_train_loop_logs_a_model_artifact_per_best_checkpoint(tiny_corpus,
+                                                              monkeypatch):
+    """A wandb run receives one model artifact for every new best
+    checkpoint, as the JAX loop logs them; a failing log_artifact does not
+    stop training."""
+    import sys
+    import types
+
+    from mit_tpu_torch.train import loop
+
+    run = _FakeWandbRun()
+    monkeypatch.setitem(sys.modules, "wandb",
+                        types.SimpleNamespace(Artifact=_FakeArtifact))
+    monkeypatch.setattr(loop, "setup_wandb", lambda cfg: run)
+    monkeypatch.setitem(tvis.PRESETS, "tiny/test-vit", tvis.VisionConfig(
+        **dict(VIS, image_size=224, patch_size=56)))
+    saved = []
+    real_save = loop.ckpt.save_safetensors
+    monkeypatch.setattr(loop.ckpt, "save_safetensors",
+                        lambda path, *a, **k: (saved.append(path),
+                                               real_save(path, *a, **k))[1])
+    summary = loop.train(tiny_corpus, auto_prepare=False, wandb_enabled=True,
+                         device="cpu")
+    assert saved and len(run.artifacts) == len(saved)
+    assert [a.files for a in run.artifacts] == [[p] for p in saved]
+    assert all(a.type == "model" and "val loss" in a.description
+               for a in run.artifacts)
+    assert run.artifacts[-1].files == [summary["best_checkpoint"]]
+    assert run.finished and any("epoch_val_loss" in d for d in run.logged)
+
+    def refuse(art):
+        raise RuntimeError("no tracking today")
+
+    run2 = _FakeWandbRun()
+    run2.log_artifact = refuse
+    monkeypatch.setattr(loop, "setup_wandb", lambda cfg: run2)
+    again = loop.train(tiny_corpus.replace(NUM_EPOCHS=1), auto_prepare=False,
+                       wandb_enabled=True, device="cpu")
+    assert again["best_checkpoint"] and run2.finished
+
+
+@pytest.mark.parametrize("error", [OSError("disk full"),
+                                   RuntimeError("serialization failed")],
+                         ids=["oserror", "runtimeerror"])
+def test_train_loop_survives_a_failed_train_state_save(tiny_corpus,
+                                                       monkeypatch, error):
+    """The periodic train-state save is an autosave: whatever it raises is
+    reported and training goes on, as in the JAX loop."""
+    from mit_tpu_torch.train import loop
+
+    def refuse(*a, **k):
+        raise error
+
+    monkeypatch.setattr(loop.ckpt, "save_train_state", refuse)
+    summary = _tiny_train(tiny_corpus, monkeypatch)
+    assert len(summary["epochs"]) == 2 and summary["best_checkpoint"]
