@@ -37,7 +37,12 @@ the script exits non-zero without printing the result line.
               3072 x 768, M = 12608 and 197: int32 accumulators bitwise
               equal, and each shape's epilogue of the fused layer (plus
               gelu, quick_gelu and the bf16 residual) within rtol 2e-6 (f32
-              out) or one bf16 rounding;
+              out) or one bf16 rounding; the four summed beside
+              torch._int_mm on the same shapes; then the path's other
+              shapes (GEMM_SHAPES: the patch embedding, the last layer's 64
+              CLS rows, CLIP ViT-L/14's K = 592, ViT-L's four), each with
+              raw accumulators bitwise equal to int8_accumulate, its
+              epilogue, its time, bound and torch._int_mm;
             - flash_attention_btd_fusedqkv at (64, 197, 3 x 768), f32 (1e-4),
               bf16 (2e-2) and the fused layer's numerics (bf16 in, f32 out,
               2e-2);
@@ -46,7 +51,9 @@ the script exits non-zero without printing the result line.
             - fused_int8_vit_layer at ViT-B (64, 197, 768), F 3072, 12 heads,
               and fused_int8_vit_layer_split at ViT-L (8, 257, 1024), F 4096,
               16 heads, bf16: relative L2 <= 5e-3 (the JAX package's bound
-              between its layer kernel and its composition).
+              between its layer kernel and its composition); the ViT-B
+              layer also at head widths 128 and 32 (6 and 24 heads), whose
+              attention runs the any-shape kernel.
 4. slice    The default captioning path at full width: ViT-B/16 encoder in
             CLS-memory mode, projection 768 -> 512, 6-layer 512-wide
             decoder, vocab 10000, max_len 100, random weights from a seeded
@@ -105,9 +112,10 @@ the script exits non-zero without printing the result line.
             D 512, F 2048, with a scalar and with per-row positions, a madd
             that masks PAD keys and one fully masked row, with and without
             the in-kernel cache write: f32 within 1e-5 on x' and on the
-            fresh rows, bf16 within 0.05 (then a table of its times at 1, 2
-            and 4 batch rows per block, with and without the staggered walk
-            over the weights); and flash_attention (the
+            fresh rows, bf16 within 0.05, each timed with its device time
+            (then a table of its grids and slices of K against the plan,
+            and one launch captured in a CUDA graph and replayed: the same
+            outputs); and flash_attention (the
             (B, H, T, hd) kernel) at (8, 12, 577, 64), f32 (1e-5) and bf16
             (2e-2), and at the causal padded decoder shape (64, 8, 100, 64),
             each also against the first CUDA-core kernel; at the 577-token
@@ -130,7 +138,8 @@ the script exits non-zero without printing the result line.
             batch 8: greedy tokens of the fused route (fused_decode_layer
             in every layer of every step) equal the unfused route's, and
             the kernel's equal its plain version's run through the same
-            step; beam K = 3 tokens equal between the routes, scores within
+            step; beam K = 3 tokens equal between the routes and between
+            the kernel and its plain version, scores within
             rtol = atol = 1e-5; beam_size 1 and temperature 0 equal greedy; a sampled
             batch (temperature 1, top-k 50, top-p 0.9) repeats under the
             same seed. bf16 batch 64: one fused step under torch.profiler
@@ -184,6 +193,22 @@ GEMMS = [("qkv", 768, 2304, "none", None, "bfloat16"),
          ("out_proj", 768, 768, "none", "bfloat16", "float32"),
          ("fc1", 768, 3072, "gelu", None, "float32"),
          ("fc2", 3072, 768, "none", "float32", "bfloat16")]
+# the path's other int8 GEMM shapes, (name, M, K, N, epilogue as in GEMMS):
+# the patch embedding, the last layer on the CLS rows, CLIP ViT-L/14's patch
+# embedding (K 588 padded to 592) and ViT-L's layer at batch 8
+GEMM_SHAPES = [
+    ("patch", 64 * 196, 768, 768, "none", None, "bfloat16"),
+    ("cls qkv", 64, 768, 2304, "none", None, "bfloat16"),
+    ("cls fc2", 64, 3072, 768, "none", "float32", "bfloat16"),
+    ("clip patch", 8 * 256, 592, 1024, "none", None, "float32"),
+    ("vit-l qkv", 8 * 257, 1024, 3072, "none", None, "bfloat16"),
+    ("vit-l out", 8 * 257, 1024, 1024, "none", "bfloat16", "bfloat16"),
+    ("vit-l fc1", 8 * 257, 1024, 4096, "gelu", None, "float32"),
+    ("vit-l fc2", 8 * 257, 4096, 1024, "none", "bfloat16", "bfloat16"),
+]
+# head widths other than 64 of the int8 layer at ViT-B's width (the
+# any-shape kernel runs its attention)
+INT8_HEADS = [("hd128", 6), ("hd32", 24)]
 # launches per encode call of each path (bf16, batch 64)
 PER_ENCODE = {
     "float": {"flash_attention_btd": 11},
@@ -697,7 +722,7 @@ def check_int8_kernels(torch):
     # int8_gemm: exact accumulators, then each epilogue of the path
     gemm_ms = {"kernel": [0.0, 0.0], "plain": [0.0, 0.0]}
     gemm_err = 0.0
-    gemm_bound = {"bytes": 0.0, "operations": 0.0}
+    gemm_bounds = {"bytes": 0.0, "operations": 0.0}
     gemm_lib = 0.0
     for i, (name, k, n, act, res, out) in enumerate(GEMMS):
         q = random_qlinear(torch, k, n, seed=10 + i)
@@ -736,34 +761,42 @@ def check_int8_kernels(torch):
             if m == M_FULL:
                 residual = None if res is None else random_rows(
                     torch, m, n, getattr(torch, res), seed=30 + i)
+                kern = lambda: int8_mlp.int8_gemm(a8, sx, q, act, residual,
+                                                  out_dtype)
                 runs = timed_turns(
-                    torch,
-                    lambda: int8_mlp.int8_gemm(a8, sx, q, act, residual,
-                                               out_dtype),
+                    torch, kern,
                     lambda: int8_mlp.int8_gemm_reference(a8, sx, q, act,
                                                          residual, out_dtype))
-                tops = 2 * m * k * n / (statistics.mean(runs["kernel"]) * 1e9)
+                # the kernel against torch._int_mm in turns (kernel, library,
+                # library, kernel): the comparison the redesign is held to
+                vs_lib = timed_turns(torch, kern,
+                                     lambda: torch._int_mm(a8, q.w8))
+                ms = statistics.mean(vs_lib["kernel"])
+                lib = statistics.mean(vs_lib["plain"])
                 print(f"time int8_gemm {name:8s} M={m} K={k} N={n}: kernel "
-                      f"{runs['kernel']} ms ({tops:.1f} TOP/s), plain "
+                      f"{runs['kernel']} ms, then {vs_lib['kernel']} ms in "
+                      f"turns with torch._int_mm {vs_lib['plain']} ms "
+                      f"({2 * m * k * n / (ms * 1e9):.1f} TOP/s); plain "
                       f"{runs['plain']} ms")
-                for w in ("kernel", "plain"):
-                    for j in range(2):
-                        gemm_ms[w][j] += runs[w][j]
-                size = lambda name: 0 if name is None else (
-                    2 if name == "bfloat16" else 4)
-                one = bound(m * k + k * n + 4 * m + 8 * n
-                            + m * n * (size(res) + size(out)),
-                            2 * m * k * n, "int8")
-                gemm_bound[one["bound_by"]] += one["bound_ms"]
-                lib = cuda_ms(torch, lambda: torch._int_mm(a8, q.w8))
+                gemm_ms["kernel"][0] += ms
+                gemm_ms["kernel"][1] += ms
+                for j in range(2):
+                    gemm_ms["plain"][j] += runs["plain"][j]
+                one = gemm_bound(m, k, n, res, out)
+                gemm_bounds[one["bound_by"]] += one["bound_ms"]
                 gemm_lib += lib
                 print(f"     int8_gemm {name:8s} bound {one['bound_ms']:.5f} "
                       f"ms by {one['bound_by']}; torch._int_mm (no scales, "
                       f"bias or epilogue) {lib:.4f} ms")
     report(results, "int8_gemm", gemm_err, gemm_ms,
            "the four GEMMs of one layer, summed",
-           {"bound_ms": sum(gemm_bound.values()),
-            "bound_by": max(gemm_bound, key=gemm_bound.get)}, gemm_lib)
+           {"bound_ms": sum(gemm_bounds.values()),
+            "bound_by": max(gemm_bounds, key=gemm_bounds.get)}, gemm_lib)
+    print(f"int8_gemm ViT-B layer (M={M_FULL}): four GEMMs "
+          f"{statistics.mean(gemm_ms['kernel']):.4f} ms against torch._int_mm "
+          f"{gemm_lib:.4f} ms on the same four shapes (each in turns with "
+          f"the kernel), bound {sum(gemm_bounds.values()):.4f} ms")
+    check_int8_gemm_shapes(torch)
 
     # fused-QKV attention, both output modes
     qkv32 = random_rows(torch, M_FULL, 3 * 768, torch.float32, seed=40,
@@ -879,7 +912,75 @@ def check_int8_kernels(torch):
                            lambda: plain_fn(x, *args)), what,
                {"bound_ms": max(by_bytes, by_ops) * 1e3,
                 "bound_by": "bytes" if by_bytes >= by_ops else "operations"})
+        if name == "fused_int8_vit_layer":
+            for label, h in INT8_HEADS:
+                before = flash_attention_btd_fusedqkv.launches
+                out, ref = kern_fn(x, *args[:-2], h, 1e-12), plain_fn(
+                    x, *args[:-2], h, 1e-12)
+                torch.cuda.synchronize()
+                rel = rel_l2(out, ref)
+                ms = cuda_ms(torch, lambda: kern_fn(x, *args[:-2], h, 1e-12))
+                print(f"{name} {label} ({b}, {t}, {d}) {h} heads bf16: "
+                      f"relative L2 {rel:.3e} (limit 5e-3), attention "
+                      f"launches {flash_attention_btd_fusedqkv.launches - before}"
+                      f" (any-shape kernel); kernel {ms:.4f} ms")
+                if not (rel <= 5e-3 and bool(torch.isfinite(out).all())):
+                    raise AssertionError(f"{name} disagrees at {label}")
     return results
+
+
+def gemm_bound(m, k, n, res, out):
+    """a8, w8 and the scales read, the residual read and the output written
+    once; 2 M K N int8 operations."""
+    size = lambda name: 0 if name is None else (2 if name == "bfloat16" else 4)
+    return bound(m * k + k * n + 4 * m + 8 * n + m * n * (size(res) + size(out)),
+                 2 * m * k * n, "int8")
+
+
+def check_int8_gemm_shapes(torch):
+    """int8_gemm at the path's other shapes: raw accumulators bitwise equal
+    to int8_accumulate, the path's epilogue against the plain version, the
+    time beside the bound and torch._int_mm. Returns _int_mm's summed time
+    over ViT-L's four shapes (the library yardstick of the split layer)."""
+    from mit_tpu_torch.ops import int8_mlp
+    from mit_tpu_torch.ops.quant import int8_accumulate
+
+    vit_l_lib = 0.0
+    for i, (name, m, k, n, act, res, out) in enumerate(GEMM_SHAPES):
+        q = random_qlinear(torch, k, n, seed=70 + i)
+        a8, sx = int8_mlp.quantize_rows(
+            random_rows(torch, m, k, torch.float32, seed=80 + i))
+        a8[0] = 127
+        acc = int8_mlp.int8_gemm(a8, sx, q, out_dtype=torch.int32)
+        exact = torch.equal(acc, int8_accumulate(a8, q.w8))
+        out_dtype = getattr(torch, out)
+        residual = None if res is None else random_rows(
+            torch, m, n, getattr(torch, res), seed=90 + i)
+        run = lambda: int8_mlp.int8_gemm(a8, sx, q, act, residual, out_dtype)
+        y, ref = run(), int8_mlp.int8_gemm_reference(a8, sx, q, act, residual,
+                                                     out_dtype)
+        torch.cuda.synchronize()
+        tol = ({"rtol": 2e-6, "atol": 1e-6} if out_dtype == torch.float32
+               else {"rtol": 8e-3, "atol": 1e-5})
+        close = torch.allclose(y.float(), ref.float(), **tol)
+        turns = timed_turns(torch, run, lambda: torch._int_mm(a8, q.w8))
+        ms, lib = (statistics.mean(turns[w]) for w in ("kernel", "plain"))
+        dev = device_ms(torch, run)
+        one = gemm_bound(m, k, n, res, out)
+        if name.startswith("vit-l"):
+            vit_l_lib += lib
+        print(f"int8_gemm {name:10s} M={m:5d} K={k} N={n} act={act} "
+              f"residual={res} out={out}: int32 exact={exact}, epilogue "
+              f"close={close}; kernel {ms:.4f} ms (device time "
+              f"{'not measured' if dev is None else f'{dev:.4f} ms'}; "
+              f"{2 * m * k * n / (ms * 1e9):.1f} TOP/s), bound "
+              f"{one['bound_ms']:.5f} ms by {one['bound_by']}, torch._int_mm "
+              f"{lib:.4f} ms")
+        if not (exact and close):
+            raise AssertionError(f"int8_gemm disagrees: {name}")
+    print(f"int8_gemm ViT-L layer (M={8 * 257}): torch._int_mm on its four "
+          f"shapes {vit_l_lib:.4f} ms")
+    return vit_l_lib
 
 
 def decode_layer_inputs(torch, b, t, dtype, per_row, seed=SEED):
@@ -977,20 +1078,41 @@ def check_decode_layer_kernel(torch):
                    "fused_decode_layer" if main else
                    f"fused_decode_layer {shape}", errs[0], runs,
                    f"{shape}, D 512, F 2048" if main else "D 512, F 2048",
-                   decode_layer_bound(b, t, dtype))
-    # the kernel's two design choices against their alternatives
+                   decode_layer_bound(b, t, dtype),
+                   device=device_ms(torch, lambda: fused_decode_layer(*args)))
+    # the kernel's plan (grid, slices of K) against its alternatives, and one
+    # launch captured in a CUDA graph
+    from mit_tpu_torch.ops import decode_layer as dl
+
+    sms = dl._sms(torch.device("cuda", torch.cuda.current_device()))
     for b, t, dtype in ((64, 100, torch.bfloat16), (192, 100, torch.bfloat16),
                         (64, 100, torch.float32)):
-        args = (*decode_layer_inputs(torch, b, t, dtype, True), 0, 8)
+        x, pos, madd, kc, vc, cross, lay = decode_layer_inputs(
+            torch, b, t, dtype, True)
+        plan = dl.decode_layer_plan(dtype, sms)
         cells = []
-        for rows in (None, 1, 2, 4):
-            for stagger in (True, False):
-                ms = cuda_ms(torch, lambda: fused_decode_layer(
-                    *args, rows_per_block=rows, stagger=stagger))
-                cells.append(f"rows {rows or 'by B'} stagger "
-                             f"{'on' if stagger else 'off'} {ms:.4f}")
+        for grid in (sms, dl.GRID_PER_SM * sms):
+            for ks in (1, 2, 4):
+                ms = cuda_ms(torch, lambda: dl._launch(
+                    x, pos, madd, kc, vc, cross, lay, 0, 1e-5, False, grid,
+                    ks))
+                mark = " (the plan)" if (grid, ks) == plan else ""
+                cells.append(f"grid {grid} ks {ks}{mark} {ms:.4f}")
+        args = (x, pos, madd, kc, vc, cross, lay, 0, 8)
+        want = fused_decode_layer(*args)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            got = fused_decode_layer(*args)
+        graph.replay()
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, c) for a, c in zip(want, got))
+        replay_ms = cuda_ms(torch, graph.replay)
         print(f"design fused_decode_layer ({b}, {t}) {str(dtype)[6:]}, ms: "
-              + "; ".join(cells))
+              + "; ".join(cells) + f"; one launch captured in a CUDA graph: "
+              f"replay equal={same}, {replay_ms:.4f} ms a replay")
+        if not same:
+            raise AssertionError("fused_decode_layer: the graph replay differs")
     return {"fused_decode_layer": results["fused_decode_layer"]}
 
 
@@ -1444,13 +1566,20 @@ def trace_decode(torch, cap, mem, label, max_len=33):
         print(f"trace {label}: the profiler recorded no device time")
         return None
     top = sorted(dev, key=busy_us, reverse=True)[:6]
+    layer = [e for e in dev if "decode_layer" in e.key]
+    on_path = ""
+    if layer:
+        n = sum(e.count for e in layer)
+        on_path = (f"; fused_decode_layer on the path {n / steps:.1f} launches "
+                   f"a step, {sum(busy_us(e) for e in layer) / n / 1e3:.4f} "
+                   f"ms of device time a launch")
     print(f"trace {label} bf16 B={mem.shape[0]}, {steps} steps: "
           f"{sum(e.count for e in dev) / steps:.1f} device kernels and copies "
           f"per step, device busy {total / steps / 1e3:.3f} ms per step, "
           f"traced wall {wall_ms / steps:.3f} ms per step (busy share "
           f"{total / 1e3 / wall_ms:.3f}); most device time: "
           + "; ".join(f"{e.key[:48]} {busy_us(e) / steps / 1e3:.3f} ms x "
-                      f"{e.count / steps:.1f}" for e in top))
+                      f"{e.count / steps:.1f}" for e in top) + on_path)
     return {"kernels_per_step": sum(e.count for e in dev) / steps,
             "busy_ms_per_step": total / steps / 1e3}
 
@@ -1502,11 +1631,18 @@ def check_decode_routes(torch):
         raise AssertionError("f32 greedy: the fused route disagrees")
 
     beams = {}
-    for route in (False, True):
-        beams[route] = beam_generate(
-            params["decoder"], dcfg, mem, ids.start_id, ids.end_id, ids.pad_id,
-            dcfg.max_seq_len, 3, compute_dtype=torch.float32, fused=route)
+    for route in (False, True, "plain"):
+        if route == "plain":              # the fused route on the plain version
+            step_mod.fused_decode_layer = fused_decode_layer_plain
+        try:
+            beams[route] = beam_generate(
+                params["decoder"], dcfg, mem, ids.start_id, ids.end_id,
+                ids.pad_id, dcfg.max_seq_len, 3, compute_dtype=torch.float32,
+                fused=route is not False)
+        finally:
+            step_mod.fused_decode_layer = kernel_fn
     same = torch.equal(beams[True][0], beams[False][0])
+    same_plain = torch.equal(beams[True][0], beams["plain"][0])
     score_err = (beams[True][1] - beams[False][1]).abs().max().item()
     # the JAX package's bound between its two routes; a sum of 99
     # log-probabilities near -800 has an f32 spacing of 6e-5
@@ -1519,13 +1655,14 @@ def check_decode_routes(torch):
     draw = dict(method="sample", temperature=1.0, top_k=50, top_p=0.9)
     s1 = fused.generate_from_memory(mem, generator=gen(), **draw)
     s2 = fused.generate_from_memory(mem, generator=gen(), **draw)
-    print(f"decode f32 B=8 beam K=3: fused == unfused tokens {same}, scores "
+    print(f"decode f32 B=8 beam K=3: fused == unfused tokens {same}, kernel "
+          f"== plain version tokens {same_plain}, scores "
           f"max_abs_diff {score_err:.3e} (rtol = atol = 1e-5: {close}), best scores "
           f"{[round(x, 3) for x in beams[True][1].tolist()]}; beam_size 1 == "
           f"greedy {one == tok_f}; temperature 0 == greedy {cold == tok_f}; "
           f"sampled batch repeats under one seed {s1 == s2}, differs from "
           f"greedy {s1 != tok_f}")
-    if not (same and finite and close and one == tok_f
+    if not (same and same_plain and finite and close and one == tok_f
             and cold == tok_f and s1 == s2 and s1 != tok_f):
         raise AssertionError("f32 beam or sampling: the fused route disagrees")
     del unfused, fused

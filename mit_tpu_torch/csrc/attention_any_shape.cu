@@ -33,6 +33,11 @@
 // Numerics, by entry:
 // - divide-after (flash_attention_btd, fused qkv): p rounded to v's dtype,
 //   out = (sum p v) / rowsum(p);
+// - layer (fused qkv with the int8 whole-layer numerics of
+//   mit_tpu/ops/pallas_int8_layer.py:96-118, bf16 in, f32 out): scores
+//   multiplied by log2(e)/sqrt(hd), a first walk for the exact row max m
+//   alone, p = exp2f(s - m) summed in f32 unrounded and rounded to bf16 for
+//   P.V, out = (sum p v) * (1 / rowsum(p)) in f32;
 // - normalize-first (flash_attention in (B, H, T, hd)): p / rowsum rounded
 //   to v's dtype, out = sum p v;
 // - dropout: p / rowsum, then keep ? p / (1 - r) : 0 rounded to v's dtype,
@@ -52,6 +57,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "dropout_hash.cuh"
 
@@ -177,9 +184,10 @@ __device__ __forceinline__ void axpy(float acc[NI], float w, const float* row,
 }
 
 // The first walk of a block's BR query rows over the keys: each warp's R
-// row maxima and sums. qs: the block's rows of q (stride hd); ks: room for a
-// key tile (stride hd + 1). Ends with every warp past its last tile read.
-template <typename T>
+// row maxima and sums (the maxima alone when !SUM). qs: the block's rows of
+// q (stride hd); ks: room for a key tile (stride hd + 1). Ends with every
+// warp past its last tile read.
+template <typename T, bool SUM = true>
 __device__ __forceinline__ void walk_max_sum(
     const float* qs, float* ks, const T* kb, int ldk, int S, int hd,
     float scale, int row0, const float* pad_row, bool causal, float M[R],
@@ -200,23 +208,34 @@ __device__ __forceinline__ void walk_max_sum(
       float acc[R];
       dots(acc, ks + lane * (hd + 1), qs + warp * R * hd, hd, hd);
 #pragma unroll
-      for (int r = 0; r < R; ++r)
-        online(m[r], l[r], masked_score(acc[r], scale, row0 + warp * R + r,
-                                        col, pad_row, causal));
+      for (int r = 0; r < R; ++r) {
+        const float x = masked_score(acc[r], scale, row0 + warp * R + r, col,
+                                     pad_row, causal);
+        if (SUM) online(m[r], l[r], x);
+        else m[r] = fmaxf(m[r], x);
+      }
     }
   }
 #pragma unroll
-  for (int r = 0; r < R; ++r) merge(m[r], l[r], M[r], L[r]);
+  for (int r = 0; r < R; ++r) {
+    if (SUM) merge(m[r], l[r], M[r], L[r]);
+    else M[r] = warp_max(m[r]);
+  }
 }
 
 // ----------------------------------------------------------------------
 // forward: attention, and attention with dropout
 // ----------------------------------------------------------------------
-template <typename T, bool DROPOUT>
+// LAYER: the int8 layer's numerics (bf16 in, f32 out); never with DROPOUT
+template <typename T, bool LAYER>
+using OutOf = typename std::conditional<LAYER, float, T>::type;
+
+template <typename T, bool DROPOUT, bool LAYER>
 __global__ void __launch_bounds__(WARPS * 32)
 attention_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const float* __restrict__ pad,
-                      T* __restrict__ out, Cells cq, Cells ck, Cells co,
+                      OutOf<T, LAYER>* __restrict__ out, Cells cq, Cells ck,
+                      Cells co,
                       int Tq, int S, int hd, float scale, bool causal,
                       bool norm_first, uint32_t seed, uint32_t threshold,
                       float one_minus_r) {
@@ -234,7 +253,11 @@ attention_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   stage_rows(qs, hd, q + cq.at(b, h), cq.ld, row0, BR, Tq, hd);
   float M[R], L[R];
-  walk_max_sum(qs, ks, kb, ck.ld, S, hd, scale, row0, pad_row, causal, M, L);
+  walk_max_sum<T, !LAYER>(qs, ks, kb, ck.ld, S, hd, scale, row0, pad_row,
+                          causal, M, L);
+  float lsum[R];                        // LAYER: this lane's part of rowsum(p)
+#pragma unroll
+  for (int r = 0; r < R; ++r) lsum[r] = 0.f;
 
   // Causal: past the block's diagonal every p is exp(-1e9 - max) = 0 unless
   // a row's max is itself a masked score's; then the block walks on
@@ -265,9 +288,11 @@ attention_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         const int row = row0 + warp * R + r;
-        float x = expf(masked_score(acc[r], scale, row, col, pad_row, causal) -
-                       M[r]);
-        if (DROPOUT) {
+        const float sc = masked_score(acc[r], scale, row, col, pad_row, causal);
+        float x = LAYER ? exp2f(sc - M[r]) : expf(sc - M[r]);
+        if (LAYER) {
+          lsum[r] += x;
+        } else if (DROPOUT) {
           x = __fdiv_rn(x, L[r]);
           x = keep_at(row, col, S, base, threshold)
                   ? __fdiv_rn(x, one_minus_r) : 0.f;
@@ -290,15 +315,17 @@ attention_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 #pragma unroll
   for (int r = 0; r < R; ++r) {
+    const float inv = LAYER ? __fdiv_rn(1.f, warp_sum(lsum[r])) : 0.f;
     const int row = row0 + warp * R + r;
     if (row >= Tq) continue;
-    T* orow = out + co.at(b, h) + (size_t)row * co.ld;
+    OutOf<T, LAYER>* orow = out + co.at(b, h) + (size_t)row * co.ld;
 #pragma unroll
     for (int i = 0; i < NI; ++i) {
       const int d = lane + 32 * i;
       if (d < hd)
-        store(orow + d,
-              DROPOUT || norm_first ? o[r][i] : __fdiv_rn(o[r][i], L[r]));
+        store(orow + d, LAYER ? __fmul_rn(o[r][i], inv)
+                        : DROPOUT || norm_first ? o[r][i]
+                                                : __fdiv_rn(o[r][i], L[r]));
     }
   }
 }
@@ -524,23 +551,25 @@ bool bad_shape(int B, int H, int Tq, int S, int hd) {
          hd < 1 || hd > MAX_HD;
 }
 
-template <typename T, bool DROPOUT>
+template <typename T, bool DROPOUT, bool LAYER = false>
 int launch_rows(const void* q, const void* k, const void* v, const void* pad,
                 void* out, Cells cq, Cells ck, Cells co, int B, int H, int Tq,
                 int S, int hd, int causal, int norm_first, unsigned seed,
                 unsigned threshold, float one_minus_r, void* stream) {
   if (bad_shape(B, H, Tq, S, hd)) return static_cast<int>(cudaErrorInvalidValue);
-  const float scale = (float)(1.0 / sqrt((double)hd));
+  const double log2e = LAYER ? 1.4426950408889634 : 1.0;
+  const float scale = (float)(log2e / sqrt((double)hd));
   const int smem = smem_bytes(1, 2, hd);
-  const cudaError_t e = allow_smem(attention_rows_kernel<T, DROPOUT>, smem);
+  const cudaError_t e =
+      allow_smem(attention_rows_kernel<T, DROPOUT, LAYER>, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((Tq + BR - 1) / BR, H, B);
-  attention_rows_kernel<T, DROPOUT>
+  attention_rows_kernel<T, DROPOUT, LAYER>
       <<<grid, WARPS * 32, smem, (cudaStream_t)stream>>>(
           static_cast<const T*>(q), static_cast<const T*>(k),
           static_cast<const T*>(v), static_cast<const float*>(pad),
-          static_cast<T*>(out), cq, ck, co, Tq, S, hd, scale, causal != 0,
-          norm_first != 0, seed, threshold, one_minus_r);
+          static_cast<OutOf<T, LAYER>*>(out), cq, ck, co, Tq, S, hd, scale,
+          causal != 0, norm_first != 0, seed, threshold, one_minus_r);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -584,19 +613,27 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* pad,
 // blocks of a fused (B, T, 3D) tensor can be passed as three pointers);
 // bhtd = 1: q, out (B, H, Tq, hd), k, v (B, H, S, hd), contiguous, the
 // strides not read. All of one dtype (bf16 or f32); pad: (B, S) f32, read
-// only when has_pad. norm_first = 0: out = (sum p v) / rowsum(p);
-// norm_first = 1: p / rowsum(p) rounded to v's dtype before the product.
+// only when has_pad. mode 0: out = (sum p v) / rowsum(p); mode 1: p /
+// rowsum(p) rounded to v's dtype before the product; mode 2: the int8
+// layer's numerics (bf16 in, out f32; no causal mask or pad).
 extern "C" int mit_attention_any_shape(const void* q, const void* k,
                                        const void* v, const void* pad,
                                        void* out, int B, int H, int Tq, int S,
                                        int hd, int ldq, int ldkv, int ldo,
                                        int bhtd, int causal, int has_pad,
-                                       int norm_first, int bf16,
-                                       void* stream) {
+                                       int mode, int bf16, void* stream) {
   const Cells cq = cells_of(bhtd != 0, H, Tq, hd, ldq);
   const Cells ck = cells_of(bhtd != 0, H, S, hd, ldkv);
   const Cells co = cells_of(bhtd != 0, H, Tq, hd, ldo);
   const void* p = has_pad ? pad : nullptr;
+  if (mode == 2) {
+    if (!bf16 || causal || has_pad)
+      return static_cast<int>(cudaErrorInvalidValue);
+    return launch_rows<__nv_bfloat16, false, true>(
+        q, k, v, nullptr, out, cq, ck, co, B, H, Tq, S, hd, 0, 0, 0, 0, 1.f,
+        stream);
+  }
+  const int norm_first = mode;
   return bf16 ? launch_rows<__nv_bfloat16, false>(q, k, v, p, out, cq, ck, co,
                                                   B, H, Tq, S, hd, causal,
                                                   norm_first, 0, 0, 1.f, stream)

@@ -24,41 +24,47 @@
 //
 // What bounds it on the H100, and the design. The Pallas kernel keeps a
 // layer's weights (6.3 MB in bf16) resident in VMEM across a grid of batch
-// blocks. An SM has 227 KB of shared memory, so here the weights stay in
-// the 50 MB L2 and every block streams them. The three LayerNorms need a
-// whole row in one place, so a block owns ROWS batch rows and walks the
-// whole layer for them. The work is far below the card's ridge (3.1 M
-// multiply-adds a row against 6.3 MB of weights), so bytes bound it: each
-// block's stream of the weights from L2 and of its rows' caches from device
-// memory. One SM draws a layer's weights no faster than in about 70 us, so
-// the launch must fill the card with blocks rather than rows per block:
-// ROWS is 1 up to B = 96 (greedy decoding at batch 64: 64 blocks), 2 up to
-// B = 256 (beam search at 192 rows: 96 blocks), else 4, where the L2's own
-// rate (every block reads all the weights) becomes the limit.
-//   - The four products are matrix-vector products on the CUDA cores: a
-//     thread owns 16 bytes of output columns (8 bf16 or 4 f32), reads W in
-//     16-byte loads that a warp coalesces into whole rows, eight in flight,
-//     and keeps ROWS x VEC f32 sums. Where a product has fewer column
-//     groups than the block has threads (N = 512: 64 groups), the K range
-//     is cut into slices whose partial sums meet in shared memory and are
-//     added in slice order, so the result does not change from run to run.
-//     Every block reads the same weights, so a block starts its walk over
-//     k at an offset of its own and wraps around (the stagger): the blocks
-//     then do not ask the same L2 lines at the same moment.
-//   - Attention: each batch row has 16 / ROWS warps over interleaved t. A warp
-//     reads a cache row (1 KB in bf16) once for all 8 heads, 16 columns a
-//     lane, and reduces each head's 4 lanes with shuffles. The t == pos
-//     column is then replaced from the f32 k_new. Softmax is a warp per
-//     (row, head). P.V has the same mapping as the scores; the warps'
-//     partial contexts are summed through shared memory in warp order.
-//   - The kernel can write the fresh rows into the caches itself
-//     (write_cache): a block touches only its own batch rows, and the
-//     t == pos terms never read the cache.
-// Tensor cores (wgmma needs 64 rows), TMA and a split of one layer's
-// columns over several SMs are later work.
+// blocks. Here they stay in the 50 MB L2, and the work is far below the
+// card's ridge (3.1 M multiply-adds a row against 6.3 MB of weights), so
+// bytes bound it: the weights from L2, the caches from device memory. The
+// launch is one cooperative persistent grid (GRID_PER_SM blocks on every SM,
+// cudaLaunchCooperativeKernel, so all are resident) that walks the layer in
+// seven phases with a grid barrier between phases that need whole rows, and
+// each phase spreads its work over every block:
+//   1. qkv = x . wqkv + bqkv (f32, into the workspace);
+//   2. attention, four warps to a (row, head): the scores from the cache
+//      (the t == pos term from the f32 fresh row), softmax, P.V; it also
+//      emits the fresh rows rounded and writes them into the caches
+//      (write_cache), and leaves round(ctx);
+//   3. round(ctx) . wo into KS partial sums;
+//   4. a block to a row: x1 = LN1(x + (sum of the partials + bo)),
+//      x2 = LN2(x1 + cross), kept in f32 and rounded;
+//   5. mid = round(relu(round(x2) . w1 + b1));
+//   6. round(mid) . w2 into KS partial sums;
+//   7. a block to a row: x3 = LN3(x2 + (sum + b2)), rounded out.
+// A product is cut into items of V output columns (16 bytes of the compute
+// dtype: 8 bf16 or 4 f32) by one of KS slices of K, spread over the blocks,
+// so each weight element is read by one block (once per 64 batch rows),
+// where the first design read all of them in every block. An item copies
+// 64 input rows by 128 k, and the 128 rows of its 16 bytes of W, into
+// shared memory with cp.async, two tiles in flight (the next while this one
+// is multiplied); lane l of warp w owns rows l and l + 32 and k 16 w ..
+// 16 w + 15 of each tile, and keeps 2 x V f32 sums on the CUDA cores
+// (tensor cores would need bf16 inputs or TF32, which would change the f32
+// numerics). The eight warps' sums meet in shared memory and are added in
+// warp order; the KS partials are added in slice order by the phase that
+// reads them. The attention phase gives each (row, head) four warps: a
+// thread to a key for the scores, a thread to 8 columns and every 16th key
+// for P.V, so a cache row's loads are all in flight together. Every f32 sum
+// has a fixed order, and a launch repeats bit for bit.
+// Scratch (qkv, round(ctx) and round(x2), x2, the partials, mid) is a
+// workspace the wrapper allocates; the grid barrier is eight arrival
+// counters and a generation word in device memory, which every barrier
+// leaves ready for the next, so two launches of this kernel must not run at
+// the same time. A LayerNorm phase gives each row a block.
 //
-// The entry point returns cudaGetLastError() after its launch; the Python
-// wrapper raises when it is not cudaSuccess.
+// The entry point returns cudaGetLastError() after its launch (or the
+// launch's error); the Python wrapper raises when it is not cudaSuccess.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -70,14 +76,16 @@ namespace {
 constexpr int D = 512;              // model width
 constexpr int HD = 64;              // head_dim
 constexpr int H = D / HD;           // 8 heads
-constexpr int THREADS = 512;
-constexpr int NW = THREADS / 32;    // warps per block
-constexpr int LANE_COLS = D / 32;   // 16 columns of a row per lane
-constexpr int MAX_SMEM = 232448;    // 227 KB
+constexpr int THREADS = 256;
+constexpr int NW = THREADS / 32;    // warps a block
+constexpr int RC = 64;              // batch rows an item stages at a time
+constexpr int KTILE = 128;          // k an item stages at a time
+constexpr int KW = KTILE / NW;      // k of a staged tile a warp owns
+constexpr int MAX_T = 2048;         // cache length (shared memory of phase 2)
+constexpr int MAX_KS = 4;           // slices of K of the D-column products
+constexpr int MAX_DEVICES = 64;
 constexpr float SCALE = 0.125f;     // 1/sqrt(64), exact
-static_assert(LANE_COLS * 4 == HD, "a head is 4 lanes of 16 columns");
-// ROWS, the batch rows a block owns, is a template parameter (1, 2 or 4):
-// NW / ROWS warps share a row in the attention phases.
+static_assert(KW % 4 == 0, "a warp reads its k four at a time");
 
 template <typename T> struct Vec;
 template <> struct Vec<float> { static constexpr int N = 4; };
@@ -120,97 +128,6 @@ __device__ __forceinline__ void unpack(const uint4& u, float* f,
   f[7] = __uint_as_float(u.w & 0xffff0000u);
 }
 
-// a lane's LANE_COLS contiguous elements of a cache row (plain loads: the
-// kernel may write other rows of the same tensor)
-template <typename T>
-__device__ __forceinline__ void load_lane(const T* p, float* f) {
-  constexpr int V = Vec<T>::N;
-  const uint4* p4 = reinterpret_cast<const uint4*>(p);
-#pragma unroll
-  for (int i = 0; i < LANE_COLS / V; ++i) {
-    const uint4 u = p4[i];
-    unpack(u, f + i * V, static_cast<const T*>(nullptr));
-  }
-}
-
-// K slices of a product with N output columns
-template <typename T>
-__device__ __forceinline__ int slices(int N) {
-  const int ng = N / Vec<T>::N;
-  return ng >= THREADS ? 1 : THREADS / ng;
-}
-
-// acc[r][v] += in[r * ldin + k] * W[k * N + n0 + v] for k in [ka, kb)
-template <typename T, int ROWS>
-__device__ __forceinline__ void gemv_span(float (&acc)[ROWS][Vec<T>::N],
-                                          const float* __restrict__ in,
-                                          int ldin, const T* __restrict__ wp,
-                                          int N, int ka, int kb) {
-  constexpr int V = Vec<T>::N;
-  wp += (size_t)ka * N;
-#pragma unroll 8
-  for (int k = ka; k < kb; ++k) {
-    const uint4 u = __ldg(reinterpret_cast<const uint4*>(wp));
-    wp += N;
-    float w[V];
-    unpack(u, w, static_cast<const T*>(nullptr));
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      const float a = in[r * ldin + k];
-#pragma unroll
-      for (int v = 0; v < V; ++v) acc[r][v] = fmaf(a, w[v], acc[r][v]);
-    }
-  }
-}
-
-// part[(slice * ROWS + r) * N + n] = sum over the slice's k of
-// in[r * ldin + k] * W[k * N + n]; W is (K, N) row-major in device memory,
-// `in` holds ROWS rows in shared memory. N must be a multiple of Vec<T>::N.
-// With `stagger`, a block starts its walk over k at an offset of its own
-// and wraps around, so that the blocks, which all read the same W, do not
-// ask the same L2 lines at the same moment; the sum's order then differs
-// from block to block, by f32 rounding only.
-template <typename T, int ROWS>
-__device__ __forceinline__ void gemv(const float* __restrict__ in, int ldin,
-                                     const T* __restrict__ W, int K, int N,
-                                     float* __restrict__ part, bool stagger) {
-  constexpr int V = Vec<T>::N;
-  const int ng = N / V;
-  const int ks = slices<T>(N);
-  const int slice = threadIdx.x / ng;
-  if (slice >= ks) return;
-  const int kchunk = (K + ks - 1) / ks;
-  const int k0 = slice * kchunk;
-  const int k1 = min(K, k0 + kchunk);
-  // a multiple of 8 rows, so the unrolled loop keeps whole groups
-  const int km = !stagger || k1 <= k0
-                     ? k0
-                     : k0 + (int)((blockIdx.x * 40u) % (unsigned)(k1 - k0));
-  for (int g = threadIdx.x - slice * ng; g < ng; g += THREADS) {
-    float acc[ROWS][V];
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r)
-#pragma unroll
-      for (int v = 0; v < V; ++v) acc[r][v] = 0.f;
-    const T* wp = W + (size_t)g * V;
-    gemv_span<T, ROWS>(acc, in, ldin, wp, N, km, k1);
-    gemv_span<T, ROWS>(acc, in, ldin, wp, N, k0, km);
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r)
-#pragma unroll
-      for (int v = 0; v < V; ++v)
-        part[(size_t)(slice * ROWS + r) * N + g * V + v] = acc[r][v];
-  }
-}
-
-template <int ROWS>
-__device__ __forceinline__ float slice_sum(const float* part, int ks, int N,
-                                           int r, int n) {
-  float s = 0.f;
-  for (int sl = 0; sl < ks; ++sl) s += part[(size_t)(sl * ROWS + r) * N + n];
-  return s;
-}
-
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
@@ -225,26 +142,42 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
-// LayerNorm of one row held by one warp: lane holds columns j * 32 + lane
-__device__ __forceinline__ void layer_norm(float* v, const float* scale,
-                                           const float* bias, float eps,
-                                           int lane) {
-  float sum = 0.f;
+// The grid barrier's words: BAR_LANES arrival counters, 128 bytes apart (a
+// block counts itself on counter blockIdx.x % BAR_LANES, so no counter takes
+// every block's atomic), and the generation.
+constexpr int BAR_LANES = 8;
+constexpr int BAR_STRIDE = 32;
+constexpr int BAR_GEN = BAR_LANES * BAR_STRIDE;
+
+// Every block of the grid arrives, and none goes on before all have; the
+// writes before it are seen by the reads after it. Block 0 waits until the
+// counters add up to the grid, sets them back to 0 and then advances the
+// generation, which every other block waits for.
+__device__ __forceinline__ void grid_sync(unsigned* bar) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    volatile unsigned* vbar = bar;
+    const unsigned g = vbar[BAR_GEN];
+    __threadfence();
+    atomicAdd(bar + blockIdx.x % BAR_LANES * BAR_STRIDE, 1u);
+    if (blockIdx.x == 0) {
+      unsigned n;
+      do {
+        n = 0;
 #pragma unroll
-  for (int j = 0; j < LANE_COLS; ++j) sum += v[j];
-  const float mean = warp_sum(sum) / D;
-  float sq = 0.f;
+        for (int i = 0; i < BAR_LANES; ++i) n += vbar[i * BAR_STRIDE];
+      } while (n < gridDim.x);
 #pragma unroll
-  for (int j = 0; j < LANE_COLS; ++j) {
-    const float c = v[j] - mean;
-    sq = fmaf(c, c, sq);
+      for (int i = 0; i < BAR_LANES; ++i) atomicExch(bar + i * BAR_STRIDE, 0u);
+      __threadfence();
+      atomicAdd(bar + BAR_GEN, 1u);
+    } else {
+      while (vbar[BAR_GEN] == g) {
+      }
+    }
+    __threadfence();
   }
-  const float rstd = rsqrtf(warp_sum(sq) / D + eps);
-#pragma unroll
-  for (int j = 0; j < LANE_COLS; ++j) {
-    const int col = j * 32 + lane;
-    v[j] = (v[j] - mean) * rstd * scale[col] + bias[col];
-  }
+  __syncthreads();
 }
 
 struct Params {
@@ -264,301 +197,465 @@ struct Params {
   const void* w2;       // (F, D)
   const float* b2;
   void *xo, *knew, *vnew;   // (B, D) compute dtype
-  int B, T, F, write_cache, stagger;
+  // the workspace: f32 qkv (B, 3D), x2 (B, D) and the partial sums
+  // (KS, B, D); in the compute dtype round(ctx), then round(x2) (B, D), and
+  // mid (B, F)
+  float *qkv, *x2, *part;
+  void *act, *mid;
+  unsigned* bar;
+  int B, T, F, KS, write_cache;
   float eps;
 };
 
-__host__ __device__ inline int act_ld(int F) { return F > D ? F : D; }
-__host__ __device__ inline int part_floats(int F, int rows) {
-  int n = THREADS * 8;                 // slices * N never exceeds this
-  if (3 * D > n) n = 3 * D;
-  if (F > n) n = F;
-  n *= rows;
-  return n > NW * D ? n : NW * D;      // and the P.V partial contexts
+// what an item does with its column sums
+enum { EPI_QKV = 0, EPI_PART = 1, EPI_RELU = 2 };
+
+// 16 bytes from global to shared memory; zeros when !valid (src not read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
 }
-__host__ __device__ inline int score_floats(int T, int rows) {
-  return (rows * H * (T | 1) + 3) & ~3;
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_1() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
-template <typename T, int ROWS>
-__global__ void __launch_bounds__(THREADS) decode_layer_kernel(Params p) {
-  constexpr int WPR = NW / ROWS;             // warps per batch row
-  static_assert(NW % ROWS == 0, "warps divide among the rows");
-  extern __shared__ __align__(16) float smem[];
-  const int T_ = p.T, F = p.F, B = p.B;
-  const int ldact = act_ld(F);
-  const int LT = T_ | 1;                     // odd score rows: no bank clash
-  float* xs = smem;                          // ROWS x D, the f32 residual
-  float* qkv = xs + ROWS * D;                // ROWS x 3D, f32 q, k_new, v_new
-  float* act = qkv + ROWS * 3 * D;           // ROWS x ldact, a product's input
-  float* sc = act + ROWS * ldact;            // ROWS x H x LT scores, then p
-  float* part = sc + score_floats(T_, ROWS); // partial sums
-  float* den = part + part_floats(F, ROWS);  // ROWS x H
-  float* ppos = den + ROWS * H;              // ROWS x H, p at t == pos
-  int* spos = reinterpret_cast<int*>(ppos + ROWS * H);   // ROWS
+// 4 consecutive values of T from shared memory as floats
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(u.x << 16),
+                     __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16),
+                     __uint_as_float(u.y & 0xffff0000u));
+}
 
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int b0 = blockIdx.x * ROWS;
+// shared memory of a product: two stages of RC input rows by KTILE k (in
+// T, rows padded by 16 bytes) and KTILE rows of 16 bytes of W, then the
+// warps' sums
+template <typename T>
+struct ProductSmem {
+  static constexpr int ROW = KTILE * (int)sizeof(T) + 16;
+  static constexpr int X = RC * ROW;
+  static constexpr int STAGE = X + KTILE * 16;
+  static constexpr int BYTES =
+      2 * STAGE + NW * RC * Vec<T>::N * (int)sizeof(float);
+};
+
+// out[b, n] = sum_k in[b, k] * W[k, n] for every row b < B and every
+// column n < N: W (K, N) and `in` (B, K) in the compute dtype T, row-major.
+// Items of V columns by one of `ks` slices of K, spread over the grid. The
+// next tile of the input rows and of the item's W columns is copied in by
+// cp.async while this one is multiplied. EPI_QKV: qkv = sum + bias;
+// EPI_PART: part[slice] = sum; EPI_RELU: mid = round(relu(sum + bias)).
+template <typename T, int EPI>
+__device__ void product(const T* __restrict__ in, const T* __restrict__ W,
+                        int K, int N, int ks, const float* __restrict__ bias,
+                        const Params& p, char* smem) {
+  using S = ProductSmem<T>;
+  constexpr int V = Vec<T>::N;
+  constexpr int CHR = KTILE * (int)sizeof(T) / 16;   // 16-byte chunks a row
+  float* red = reinterpret_cast<float*>(smem + 2 * S::STAGE);  // NW x RC x V
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int groups = N / V;
+  const int kchunk = ((K + ks - 1) / ks + 15) / 16 * 16;
+  for (int item = blockIdx.x; item < groups * ks; item += gridDim.x) {
+    const int g = item % groups, slice = item / groups;
+    const int ka = slice * kchunk, kb = min(K, ka + kchunk);
+    const int tiles = kb > ka ? (kb - ka + KTILE - 1) / KTILE : 0;
+    const T* wcol = W + (size_t)g * V;
+    for (int r0 = 0; r0 < p.B; r0 += RC) {
+      // tile tt (k from ka + tt KTILE) of the rows and of W into stage st;
+      // a multiple of 8 k, so a 16-byte chunk is all in or all out
+      auto stage = [&](int tt, int st) {
+        const int kt = ka + tt * KTILE, kn = min(KTILE, kb - kt);
+        char* xs = smem + st * S::STAGE;
+        for (int i = threadIdx.x; i < RC * CHR; i += THREADS) {
+          const int r = i / CHR, c = i % CHR;
+          const bool ok = r0 + r < p.B && c * 16 < kn * (int)sizeof(T);
+          const T* src = ok ? in + (size_t)(r0 + r) * K + kt + c * 16 / sizeof(T)
+                            : in;
+          cp_async16(xs + r * S::ROW + c * 16, src, ok);
+        }
+        for (int i = threadIdx.x; i < KTILE; i += THREADS)
+          cp_async16(xs + S::X + i * 16,
+                     i < kn ? wcol + (size_t)(kt + i) * N : wcol, i < kn);
+        cp_async_commit();
+      };
+      float acc[2][V];
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr)
+#pragma unroll
+        for (int v = 0; v < V; ++v) acc[rr][v] = 0.f;
+      if (tiles > 0) stage(0, 0);
+      for (int tt = 0; tt < tiles; ++tt) {
+        if (tt + 1 < tiles) stage(tt + 1, (tt + 1) & 1);
+        else cp_async_commit();         // one group a tile
+        cp_async_wait_1();              // this thread's part of tile tt
+        __syncthreads();
+        const char* xs = smem + (tt & 1) * S::STAGE;
+        const T* rows = reinterpret_cast<const T*>(xs);
+        const uint4* wt = reinterpret_cast<const uint4*>(xs + S::X);
+        const int kn = min(KTILE, kb - ka - tt * KTILE);
+#pragma unroll
+        for (int q = 0; q < KW; q += 4) {
+          const int kk = warp * KW + q;  // kn is a multiple of 8
+          if (kk >= kn) break;
+          float w[4][V];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) unpack(wt[kk + u], w[u], rows);
+#pragma unroll
+          for (int rr = 0; rr < 2; ++rr) {
+            const float4 a = load4(rows + (lane + 32 * rr) * (S::ROW /
+                                          (int)sizeof(T)) + kk);
+#pragma unroll
+            for (int v = 0; v < V; ++v) {
+              acc[rr][v] = fmaf(a.x, w[0][v], acc[rr][v]);
+              acc[rr][v] = fmaf(a.y, w[1][v], acc[rr][v]);
+              acc[rr][v] = fmaf(a.z, w[2][v], acc[rr][v]);
+              acc[rr][v] = fmaf(a.w, w[3][v], acc[rr][v]);
+            }
+          }
+        }
+        __syncthreads();                // stage tt & 1 is refilled next
+      }
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr)
+#pragma unroll
+        for (int v = 0; v < V; ++v)
+          red[(warp * RC + lane + 32 * rr) * V + v] = acc[rr][v];
+      __syncthreads();
+      for (int o = threadIdx.x; o < RC * V; o += THREADS) {
+        const int r = o / V, v = o % V, b = r0 + r, n = g * V + v;
+        if (b >= p.B) continue;
+        float sum = red[o];
+#pragma unroll
+        for (int w = 1; w < NW; ++w) sum += red[w * RC * V + o];
+        if (EPI == EPI_QKV) {
+          p.qkv[(size_t)b * 3 * D + n] = sum + bias[n];
+        } else if (EPI == EPI_PART) {
+          p.part[((size_t)slice * p.B + b) * D + n] = sum;
+        } else {
+          store(static_cast<T*>(p.mid) + (size_t)b * p.F + n,
+                fmaxf(sum + bias[n], 0.f));
+        }
+      }
+      __syncthreads();                  // red is spent
+    }
+  }
+}
+
+// floats of shared memory a quad of warps uses in the attention phase
+__host__ __device__ inline int quad_floats(int T) {
+  return (3 * HD + T + 16 * HD + 12 + 3) & ~3;
+}
+
+// Four warps (a quad, 128 threads; two quads a block) to each (row, head):
+// a thread to a key for the scores and the softmax, then P.V with a thread
+// to 8 columns of the head and every 16th key, the 16 partial sums added
+// in order. The fresh rows go out rounded (and into the caches), round(ctx)
+// into p.act.
+template <typename T>
+__device__ void attention(const Params& p, float* smem) {
+  constexpr int V = Vec<T>::N;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int quad = warp >> 2, qw = warp & 3, qt = threadIdx.x & 127;
+  const int T_ = p.T;
   const T* tnull = nullptr;
-
-  const T* x = static_cast<const T*>(p.x);
+  float* qs = smem + quad * quad_floats(T_);
+  float* kn = qs + HD;
+  float* vn = kn + HD;
+  float* pv = vn + HD;                  // 16 x HD partial contexts
+  float* red = pv + 16 * HD;            // the warps' max, sum, p at pos
+  float* sc = red + 12;                 // T scores, then probabilities
   T* kc = static_cast<T*>(p.kc);
   T* vc = static_cast<T*>(p.vc);
-
-  // x into the residual and the first product's input; rows past B are 0
-  for (int i = tid; i < ROWS * D; i += THREADS) {
-    const int r = i / D, d = i % D;
-    const float v = b0 + r < B ? to_f32(x[(size_t)(b0 + r) * D + d]) : 0.f;
-    xs[i] = v;
-    act[r * ldact + d] = v;
-  }
-  if (tid < ROWS) {
-    const int ps = b0 + tid < B ? p.pos[b0 + tid] : -1;
-    spos[tid] = ps >= 0 && ps < T_ ? ps : -1;
-  }
-  __syncthreads();
-
-  // qkv = x . wqkv + bqkv; the fresh rows go out rounded
-  gemv<T, ROWS>(act, ldact, static_cast<const T*>(p.wqkv), D, 3 * D, part,
-                p.stagger);
-  __syncthreads();
-  {
-    const int ks = slices<T>(3 * D);
-    T* knew = static_cast<T*>(p.knew);
-    T* vnew = static_cast<T*>(p.vnew);
-    for (int i = tid; i < ROWS * 3 * D; i += THREADS) {
-      const int r = i / (3 * D), n = i % (3 * D);
-      const float v = slice_sum<ROWS>(part, ks, 3 * D, r, n) + p.bqkv[n];
-      qkv[i] = v;
-      const int b = b0 + r;
-      if (n >= D && b < B) {
-        const bool is_k = n < 2 * D;
-        const int d = is_k ? n - D : n - 2 * D;
-        store((is_k ? knew : vnew) + (size_t)b * D + d, v);
-        if (p.write_cache && spos[r] >= 0)
-          store((is_k ? kc : vc) + ((size_t)b * T_ + spos[r]) * D + d, v);
+  for (int base = blockIdx.x * 2; base < p.B * H; base += gridDim.x * 2) {
+    const int it = base + quad;
+    const bool on = it < p.B * H;       // both quads meet every barrier
+    const int b = on ? it / H : 0, h = it % H;
+    const int ps0 = on ? p.pos[b] : -1;
+    const int ps = ps0 >= 0 && ps0 < T_ ? ps0 : -1;
+    if (on && qt < HD) {
+      const float* qrow = p.qkv + (size_t)b * 3 * D + h * HD;
+      const float kv = __ldcg(qrow + D + qt), vv = __ldcg(qrow + 2 * D + qt);
+      qs[qt] = __ldcg(qrow + qt);
+      kn[qt] = kv;
+      vn[qt] = vv;
+      const size_t at = (size_t)b * D + h * HD + qt;
+      store(static_cast<T*>(p.knew) + at, kv);
+      store(static_cast<T*>(p.vnew) + at, vv);
+      if (p.write_cache && ps >= 0) {
+        const size_t c = ((size_t)b * T_ + ps) * D + h * HD + qt;
+        store(kc + c, kv);
+        store(vc + c, vv);
       }
     }
-  }
-  __syncthreads();
-
-  // scores over the cache: WPR warps per row over interleaved t, a cache
-  // row read once for all heads (a head is 4 lanes of 16 columns)
-  {
-    const int r = warp / WPR, ts = warp % WPR;
-    const int b = b0 + r;
-    if (b < B) {
-      float q[LANE_COLS];
-#pragma unroll
-      for (int j = 0; j < LANE_COLS; ++j)
-        q[j] = qkv[r * 3 * D + lane * LANE_COLS + j];
-      float* srow = sc + (r * H + (lane >> 2)) * LT;
-      const float* mrow = p.madd + (size_t)b * T_;
-#pragma unroll 2
-      for (int t = ts; t < T_; t += WPR) {
-        float kv[LANE_COLS];
-        load_lane(kc + ((size_t)b * T_ + t) * D + lane * LANE_COLS, kv);
-        float s = 0.f;
-#pragma unroll
-        for (int j = 0; j < LANE_COLS; ++j) s = fmaf(q[j], kv[j], s);
-        s += __shfl_xor_sync(0xffffffffu, s, 1);
-        s += __shfl_xor_sync(0xffffffffu, s, 2);
-        if ((lane & 3) == 0) srow[t] = s * SCALE + mrow[t];
-      }
-    }
-  }
-  __syncthreads();
-  // the t == pos column from the f32 k_new
-  if (tid < ROWS * H) {
-    const int r = tid / H, h = tid % H;
-    const int ps = spos[r];
-    if (b0 + r < B && ps >= 0) {
-      const float* q = qkv + r * 3 * D + h * HD;
-      const float* kn = q + D;
-      float s = 0.f;
-      for (int e = 0; e < HD; ++e) s = fmaf(q[e], kn[e], s);
-      sc[(r * H + h) * LT + ps] =
-          s * SCALE + p.madd[(size_t)(b0 + r) * T_ + ps];
-    }
-  }
-  __syncthreads();
-
-  // softmax numerators, a warp per (row, head); p at t == pos is set aside
-  for (int i = warp; i < ROWS * H; i += NW) {
-    const int r = i / H;
-    if (b0 + r >= B) continue;
-    float* row = sc + i * LT;
-    const int ps = spos[r];
+    __syncthreads();
+    // scores, a thread to a key; the t == pos term from the f32 fresh row
     float m = -INFINITY;
-    for (int t = lane; t < T_; t += 32) m = fmaxf(m, row[t]);
+    const float* mrow = p.madd + (size_t)b * T_;
+    for (int t = qt; on && t < T_; t += 128) {
+      float s = 0.f;
+      if (t == ps) {
+        for (int e = 0; e < HD; ++e) s = fmaf(qs[e], kn[e], s);
+      } else {
+        // the row in halves of 32 columns, each half's loads together
+        const uint4* row = reinterpret_cast<const uint4*>(
+            kc + ((size_t)b * T_ + t) * D + h * HD);
+        constexpr int NU = 32 / V;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          uint4 u[NU];
+#pragma unroll
+          for (int i = 0; i < NU; ++i) u[i] = row[half * NU + i];
+#pragma unroll
+          for (int i = 0; i < NU; ++i) {
+            float f[V];
+            unpack(u[i], f, tnull);
+#pragma unroll
+            for (int v = 0; v < V; ++v)
+              s = fmaf(qs[half * 32 + i * V + v], f[v], s);
+          }
+        }
+      }
+      s = s * SCALE + mrow[t];
+      sc[t] = s;
+      m = fmaxf(m, s);
+    }
     m = warp_max(m);
+    if (lane == 0) red[qw] = m;
+    __syncthreads();
+    m = fmaxf(fmaxf(red[0], red[1]), fmaxf(red[2], red[3]));
     float sum = 0.f, at = 0.f;
-    for (int t = lane; t < T_; t += 32) {
-      const float e = expf(row[t] - m);
+    for (int t = qt; on && t < T_; t += 128) {
+      const float e = expf(sc[t] - m);
       sum += e;
       if (t == ps) at = e;
-      row[t] = t == ps ? 0.f : e;
+      sc[t] = t == ps ? 0.f : e;
     }
     sum = warp_sum(sum);
     at = warp_sum(at);
     if (lane == 0) {
-      den[i] = sum;
-      ppos[i] = at;
+      red[4 + qw] = sum;
+      red[8 + qw] = at;
     }
-  }
-  __syncthreads();
-
-  // P.V over the cache: WPR warps per row over interleaved t
-  {
-    const int r = warp / WPR, ts = warp % WPR;
-    const int b = b0 + r;
-    float acc[LANE_COLS];
+    __syncthreads();
+    const float den = ((red[4] + red[5]) + red[6]) + red[7];
+    const float ppos = ((red[8] + red[9]) + red[10]) + red[11];
+    // P.V: thread (tg, dg) sums p[t] v[t, 8 dg .. 8 dg + 7] over t = tg,
+    // tg + 16, ...; a probability of exactly 0 (a masked key, the t == pos
+    // slot) adds nothing and its row is not read
+    const int dg = qt & 7, tg = qt >> 3;
+    float acc[8];
 #pragma unroll
-    for (int j = 0; j < LANE_COLS; ++j) acc[j] = 0.f;
-    if (b < B) {
-      const float* prow = sc + (r * H + (lane >> 2)) * LT;
-#pragma unroll 2
-      for (int t = ts; t < T_; t += WPR) {
-        float vv[LANE_COLS];
-        load_lane(vc + ((size_t)b * T_ + t) * D + lane * LANE_COLS, vv);
-        const float pt = prow[t];
+    for (int v = 0; v < 8; ++v) acc[v] = 0.f;
+    const T* vcol = vc + (size_t)b * T_ * D + h * HD + dg * 8;
+    for (int t0 = tg; on && t0 < T_; t0 += 64) {
+      float pt[4], f[4][8];
 #pragma unroll
-        for (int j = 0; j < LANE_COLS; ++j) acc[j] = fmaf(pt, vv[j], acc[j]);
+      for (int u = 0; u < 4; ++u) {
+        const int t = t0 + 16 * u;
+        pt[u] = t < T_ ? sc[t] : 0.f;
+        if (pt[u] != 0.f) {
+          const uint4* src = reinterpret_cast<const uint4*>(vcol + (size_t)t * D);
+#pragma unroll
+          for (int i = 0; i < 8 / V; ++i) unpack(src[i], f[u] + i * V, tnull);
+        }
       }
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (pt[u] != 0.f) {
+#pragma unroll
+          for (int v = 0; v < 8; ++v) acc[v] = fmaf(pt[u], f[u][v], acc[v]);
+        }
     }
 #pragma unroll
-    for (int j = 0; j < LANE_COLS; ++j)
-      part[warp * D + lane * LANE_COLS + j] = acc[j];
-  }
-  __syncthreads();
-  for (int i = tid; i < ROWS * D; i += THREADS) {
-    const int r = i / D, d = i % D, h = d / HD;
-    float c = 0.f;
-    if (b0 + r < B) {
+    for (int v = 0; v < 8; ++v) pv[tg * HD + dg * 8 + v] = acc[v];
+    __syncthreads();
+    if (on && qt < HD) {
+      float c = pv[qt];
 #pragma unroll
-      for (int w = 0; w < WPR; ++w) c += part[(r * WPR + w) * D + d];
-      c = fmaf(ppos[r * H + h], qkv[r * 3 * D + 2 * D + d], c);
-      c = c / den[r * H + h];
+      for (int g = 1; g < 16; ++g) c += pv[g * HD + qt];
+      store(static_cast<T*>(p.act) + (size_t)b * D + h * HD + qt,
+            fmaf(ppos, vn[qt], c) / den);
     }
-    act[r * ldact + d] = round_like(c, tnull);
-  }
-  __syncthreads();
-
-  // x1 = LN1(x + ctx . wo + bo); x2 = LN2(x1 + cross)
-  gemv<T, ROWS>(act, ldact, static_cast<const T*>(p.wo), D, D, part,
-                p.stagger);
-  __syncthreads();
-  {
-    const int ks = slices<T>(D);
-    for (int i = tid; i < ROWS * D; i += THREADS) {
-      const int r = i / D, n = i % D;
-      xs[i] += slice_sum<ROWS>(part, ks, D, r, n) + p.bo[n];
-    }
-  }
-  __syncthreads();
-  if (warp < ROWS) {
-    const int r = warp, b = b0 + r;
-    float v[LANE_COLS];
-#pragma unroll
-    for (int j = 0; j < LANE_COLS; ++j) v[j] = xs[r * D + j * 32 + lane];
-    layer_norm(v, p.ln1s, p.ln1b, p.eps, lane);
-    if (b < B) {
-#pragma unroll
-      for (int j = 0; j < LANE_COLS; ++j)
-        v[j] += p.cross[(size_t)b * D + j * 32 + lane];
-    }
-    layer_norm(v, p.ln2s, p.ln2b, p.eps, lane);
-#pragma unroll
-    for (int j = 0; j < LANE_COLS; ++j) {
-      xs[r * D + j * 32 + lane] = v[j];
-      act[r * ldact + j * 32 + lane] = round_like(v[j], tnull);
-    }
-  }
-  __syncthreads();
-
-  // mid = relu(x2 . w1 + b1), rounded
-  gemv<T, ROWS>(act, ldact, static_cast<const T*>(p.w1), D, F, part,
-                p.stagger);
-  __syncthreads();
-  {
-    const int ks = slices<T>(F);
-    for (int i = tid; i < ROWS * F; i += THREADS) {
-      const int r = i / F, n = i % F;
-      const float m = slice_sum<ROWS>(part, ks, F, r, n) + p.b1[n];
-      act[r * ldact + n] = round_like(fmaxf(m, 0.f), tnull);
-    }
-  }
-  __syncthreads();
-
-  // x3 = LN3(x2 + mid . w2 + b2)
-  gemv<T, ROWS>(act, ldact, static_cast<const T*>(p.w2), F, D, part,
-                p.stagger);
-  __syncthreads();
-  {
-    const int ks = slices<T>(D);
-    for (int i = tid; i < ROWS * D; i += THREADS) {
-      const int r = i / D, n = i % D;
-      xs[i] += slice_sum<ROWS>(part, ks, D, r, n) + p.b2[n];
-    }
-  }
-  __syncthreads();
-  if (warp < ROWS && b0 + warp < B) {
-    const int r = warp;
-    float v[LANE_COLS];
-#pragma unroll
-    for (int j = 0; j < LANE_COLS; ++j) v[j] = xs[r * D + j * 32 + lane];
-    layer_norm(v, p.ln3s, p.ln3b, p.eps, lane);
-    T* xo = static_cast<T*>(p.xo) + (size_t)(b0 + r) * D;
-#pragma unroll
-    for (int j = 0; j < LANE_COLS; ++j) store(xo + j * 32 + lane, v[j]);
+    __syncthreads();                    // this item's shared memory is spent
   }
 }
 
-template <typename T, int ROWS>
-int launch(const Params& p, void* stream) {
-  const size_t floats = (size_t)ROWS * D + ROWS * 3 * D +
-                        (size_t)ROWS * act_ld(p.F) + score_floats(p.T, ROWS) +
-                        part_floats(p.F, ROWS) + 2 * ROWS * H + ROWS;
-  const size_t bytes = floats * sizeof(float);
-  if (bytes > MAX_SMEM) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t e = cudaFuncSetAttribute(
-      decode_layer_kernel<T, ROWS>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  decode_layer_kernel<T, ROWS>
-      <<<(p.B + ROWS - 1) / ROWS, THREADS, bytes, (cudaStream_t)stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
+// the sum of x over the block, every thread's in warp order, then the
+// warps' in order; red: NW floats of shared memory
+__device__ __forceinline__ float block_sum(float x, float* red) {
+  x = warp_sum(x);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = x;
+  __syncthreads();
+  float t = red[0];
+#pragma unroll
+  for (int w = 1; w < NW; ++w) t += red[w];
+  __syncthreads();                      // red is spent
+  return t;
+}
+
+// LayerNorm of one row held by the block: thread i holds columns i and
+// i + THREADS
+__device__ __forceinline__ void block_layer_norm(float (&v)[2],
+                                                 const float* scale,
+                                                 const float* bias, float eps,
+                                                 float* red) {
+  const float mean = block_sum(v[0] + v[1], red) / D;
+  float sq = 0.f;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const float c = v[j] - mean;
+    sq = fmaf(c, c, sq);
+  }
+  const float rstd = rsqrtf(block_sum(sq, red) / D + eps);
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int col = threadIdx.x + j * THREADS;
+    v[j] = (v[j] - mean) * rstd * scale[col] + bias[col];
+  }
+}
+
+// a block to each row: v = base + (sum of the KS partials + bias), then
+// LN1, + cross and LN2 (FIRST; base x, out x2 in f32 and rounded), or LN3
+// (base x2, out rounded). Every load of a row is issued before the first
+// sum.
+template <typename T, bool FIRST>
+__device__ void norms(const Params& p, float* smem) {
+  static_assert(D == 2 * THREADS, "a thread holds two columns");
+  for (int b = blockIdx.x; b < p.B; b += gridDim.x) {
+    float v[2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int col = threadIdx.x + j * THREADS;
+      const size_t at = (size_t)b * D + col;
+      float part[MAX_KS];
+#pragma unroll
+      for (int sl = 0; sl < MAX_KS; ++sl)
+        part[sl] = sl < p.KS ? __ldcg(p.part + (size_t)sl * p.B * D + at) : 0.f;
+      float s = part[0];
+#pragma unroll
+      for (int sl = 1; sl < MAX_KS; ++sl)
+        if (sl < p.KS) s += part[sl];
+      const float base = FIRST ? to_f32(static_cast<const T*>(p.x)[at])
+                               : __ldcg(p.x2 + at);
+      v[j] = base + (s + (FIRST ? p.bo : p.b2)[col]);
+    }
+    if (FIRST) {
+      block_layer_norm(v, p.ln1s, p.ln1b, p.eps, smem);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        v[j] += p.cross[(size_t)b * D + threadIdx.x + j * THREADS];
+      block_layer_norm(v, p.ln2s, p.ln2b, p.eps, smem);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const size_t at = (size_t)b * D + threadIdx.x + j * THREADS;
+        p.x2[at] = v[j];
+        store(static_cast<T*>(p.act) + at, v[j]);
+      }
+    } else {
+      block_layer_norm(v, p.ln3s, p.ln3b, p.eps, smem);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        store(static_cast<T*>(p.xo) + (size_t)b * D + threadIdx.x + j * THREADS,
+              v[j]);
+    }
+  }
 }
 
 template <typename T>
-int launch_rows(const Params& p, int rows, void* stream) {
-  switch (rows) {
-    case 1: return launch<T, 1>(p, stream);
-    case 2: return launch<T, 2>(p, stream);
-    case 4: return launch<T, 4>(p, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+__global__ void __launch_bounds__(THREADS, 2) decode_layer_kernel(Params p) {
+  extern __shared__ __align__(16) char smem[];
+  float* fsmem = reinterpret_cast<float*>(smem);
+  const T* act = static_cast<const T*>(p.act);
+  product<T, EPI_QKV>(static_cast<const T*>(p.x),
+                      static_cast<const T*>(p.wqkv), D, 3 * D, 1, p.bqkv, p,
+                      smem);
+  grid_sync(p.bar);
+  attention<T>(p, fsmem);
+  grid_sync(p.bar);
+  product<T, EPI_PART>(act, static_cast<const T*>(p.wo), D, D, p.KS,
+                       nullptr, p, smem);
+  grid_sync(p.bar);
+  norms<T, true>(p, fsmem);
+  grid_sync(p.bar);
+  product<T, EPI_RELU>(act, static_cast<const T*>(p.w1), D, p.F, 1, p.b1, p,
+                       smem);
+  grid_sync(p.bar);
+  product<T, EPI_PART>(static_cast<const T*>(p.mid),
+                       static_cast<const T*>(p.w2), p.F, D, p.KS, nullptr, p,
+                       smem);
+  grid_sync(p.bar);
+  norms<T, false>(p, fsmem);
+}
+
+template <typename T>
+size_t smem_bytes(int t) {
+  const size_t attn = (size_t)2 * quad_floats(t) * sizeof(float);
+  const size_t prod = ProductSmem<T>::BYTES;
+  return prod > attn ? prod : attn;
+}
+
+template <typename T>
+int launch(Params p, int grid, void* stream) {
+  const size_t smem = smem_bytes<T>(p.T);
+  // the largest shared memory a launch has asked for, set once a card
+  static size_t allowed[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (dev >= MAX_DEVICES) return static_cast<int>(cudaErrorInvalidDevice);
+  if (smem > allowed[dev]) {
+    e = cudaFuncSetAttribute(decode_layer_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    allowed[dev] = smem;
   }
+  void* args[] = {&p};
+  e = cudaLaunchCooperativeKernel((const void*)decode_layer_kernel<T>,
+                                  dim3(grid), dim3(THREADS), args, smem,
+                                  (cudaStream_t)stream);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Shapes as in the head of this file; every tensor contiguous and 16-byte
-// aligned. d and heads must be 512 and 8, f a multiple of 8. flags: bit 0,
-// the compute dtype is bf16 (else f32); bit 1, also write the fresh rows
-// into kc and vc at pos; bit 2, no stagger; bits 4-6, the batch rows per
-// block (1, 2 or 4; 0 picks by b), both for measurement. A pos outside
-// [0, T) matches no column.
+// aligned. d and heads must be 512 and 8, f a multiple of 8, 1 <= t <= 2048.
+// flags: bit 0, the compute dtype is bf16 (else f32); bit 1, also write the
+// fresh rows into kc and vc at pos. A pos outside [0, T) matches no column.
+// grid: blocks, all resident at once; ks: the slices of K of the two
+// products with D columns. workspace: `workspace_bytes` bytes, at least
+// 4 (3D + D + ks D) B + size (D + f) B with size the compute dtype's bytes.
+// barrier: BAR_GEN + 1 unsigned words, 0 before the first launch; each
+// launch leaves the counters at 0 and advances the generation word.
 extern "C" int mit_fused_decode_layer(
     const void* x, const void* pos, const void* madd, void* kc, void* vc,
     const void* cross, const void* wqkv, const void* bqkv, const void* wo,
     const void* bo, const void* ln1s, const void* ln1b, const void* ln2s,
     const void* ln2b, const void* ln3s, const void* ln3b, const void* w1,
     const void* b1, const void* w2, const void* b2, void* xo, void* knew,
-    void* vnew, int b, int t, int d, int heads, int f, int flags, float eps,
-    void* stream) {
-  if (d != D || heads != H || b < 1 || t < 1 || f < 8 || f % 8 != 0)
+    void* vnew, void* workspace, void* barrier, int b, int t, int d,
+    int heads, int f, int flags, int grid, int ks, long long workspace_bytes,
+    float eps, void* stream) {
+  const bool bf16 = flags & 1;
+  const long long size = bf16 ? 2 : 4;
+  const long long need =
+      4LL * (3 * D + D + (long long)ks * D) * b + size * (D + f) * b;
+  if (d != D || heads != H || b < 1 || t < 1 || t > MAX_T || f < 8 ||
+      f % 8 != 0 || grid < 1 || ks < 1 || ks > MAX_KS ||
+      workspace_bytes < need)
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.x = x;
@@ -584,14 +681,19 @@ extern "C" int mit_fused_decode_layer(
   p.xo = xo;
   p.knew = knew;
   p.vnew = vnew;
+  float* ws = static_cast<float*>(workspace);
+  p.qkv = ws;
+  p.x2 = p.qkv + (size_t)b * 3 * D;
+  p.part = p.x2 + (size_t)b * D;
+  p.act = p.part + (size_t)ks * b * D;
+  p.mid = static_cast<char*>(p.act) + (size_t)size * b * D;
+  p.bar = static_cast<unsigned*>(barrier);
   p.B = b;
   p.T = t;
   p.F = f;
+  p.KS = ks;
   p.write_cache = (flags >> 1) & 1;
-  p.stagger = !((flags >> 2) & 1);
   p.eps = eps;
-  int rows = (flags >> 4) & 7;
-  if (rows == 0) rows = b <= 96 ? 1 : b <= 256 ? 2 : 4;
-  return (flags & 1) ? launch_rows<__nv_bfloat16>(p, rows, stream)
-                     : launch_rows<float>(p, rows, stream);
+  return bf16 ? launch<__nv_bfloat16>(p, grid, stream)
+              : launch<float>(p, grid, stream);
 }

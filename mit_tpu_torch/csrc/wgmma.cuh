@@ -1,9 +1,10 @@
-// Shared pieces of the bf16 tensor-core kernels (sm_90a): 16-byte cp.async
+// Shared pieces of the tensor-core kernels (sm_90a): 16-byte cp.async
 // loads into 64-column tiles in the 128-byte swizzle, the wgmma descriptors
-// that name such tiles, the two wgmma products the attention kernels use,
-// and how an accumulator's elements map to rows and columns. Included by
-// flash_attention_btd.cu and flash_attention_dropout.cu; everything has
-// internal linkage.
+// that name such tiles (a row of 64 bf16 or of 128 int8), the two wgmma
+// products the attention kernels use, and how an accumulator's elements map
+// to rows and columns (f32 and s32 alike). Included by
+// flash_attention_btd.cu, flash_attention_dropout.cu and int8_gemm.cu;
+// everything has internal linkage.
 
 #pragma once
 

@@ -36,6 +36,7 @@ NVCC_FLAGS = (
 
 # name -> argtypes of every C entry point the library exports
 _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
+_LL = ctypes.c_longlong
 ENTRY_POINTS = {
     "mit_flash_attention_btd_f32": [_P] * 5 + [_I] * 6 + [_P],
     "mit_flash_attention_btd_bf16": [_P] * 5 + [_I] * 8 + [_P],
@@ -45,7 +46,7 @@ ENTRY_POINTS = {
     "mit_flash_attention_bhtd": [_P] * 5 + [_I] * 9 + [_P],
     # for measurements only: the first CUDA-core kernel, f32 and (B, H, T, hd)
     "mit_flash_attention_v1": [_P] * 5 + [_I] * 8 + [_P],
-    "mit_fused_decode_layer": [_P] * 23 + [_I] * 6 + [_F, _P],
+    "mit_fused_decode_layer": [_P] * 25 + [_I] * 8 + [_LL, _F, _P],
     "mit_quantize_rows_f32": [_P] * 5 + [_I, _I, _F, _P],
     "mit_quantize_rows_bf16": [_P] * 5 + [_I, _I, _F, _P],
     "mit_int8_gemm": [_P] * 7 + [_I] * 6 + [_P],

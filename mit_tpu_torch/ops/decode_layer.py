@@ -13,7 +13,11 @@ bounds the step. The kernel does the whole layer in one launch:
 - :func:`fused_decode_layer` is the wrapper. For CPU tensors it runs
   :func:`fused_decode_layer_plain`; for CUDA tensors it launches the
   hand-written kernel ``csrc/decode_layer.cu`` or raises. It adds one to
-  ``fused_decode_layer.launches`` at each kernel launch.
+  ``fused_decode_layer.launches`` at each kernel launch. The kernel is one
+  cooperative grid over every SM that walks the layer in seven phases
+  (:func:`decode_layer_plan` picks its grid and how it cuts the products);
+  it needs a workspace, which the wrapper allocates, and a grid barrier's
+  words per device, kept in ``_BARRIERS``.
 - :func:`fused_decode_layer_plain` is the plain PyTorch version. It follows
   the kernel's rounding points, which are the Pallas kernel's and not those
   of ``decode.step.decoder_step``: the fresh K/V rows serve this step's
@@ -32,13 +36,52 @@ additive (B, T) f32 input (0 or ``NEG_INF``) prepared by the caller.
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import NamedTuple, Optional, Tuple, Union
+from typing import NamedTuple, Tuple, Union
 
 import torch
 
 KERNEL_EMBED_DIM = 512
 KERNEL_NUM_HEADS = 8
+KERNEL_MAX_T = 2048         # cache length: phase 2's scores in shared memory
+GRID_PER_SM = 2             # the kernel's blocks on each SM, all resident
+MAX_K_SLICES = 4
+# the grid barrier's words (csrc/decode_layer.cu: eight arrival counters 128
+# bytes apart and a generation word), one set a device
+BARRIER_WORDS = 8 * 32 + 1
+_BARRIERS = {}
+_SMS = {}                   # device -> its number of SMs
+# (device, bytes) -> the kernel's workspace, kept between launches: a launch
+# reads only what it wrote itself, and launches are stream-ordered (one
+# barrier a card already rules out two at once)
+_WORKSPACES = {}
+
+
+@functools.lru_cache(maxsize=None)
+def decode_layer_plan(dtype: torch.dtype, sms: int) -> Tuple[int, int]:
+    """``(grid, ks)`` of the kernel on a card with ``sms`` SMs: its blocks
+    (``GRID_PER_SM`` on every SM), and the slices of K of the two products
+    with D output columns (the out-projection and ``w2``). A product is cut
+    into items of 16 bytes of output columns by a slice of K; D = 512 gives
+    only 64 (bf16) or 128 (f32) column groups, so K is cut into the most
+    slices, up to ``MAX_K_SLICES``, whose items still fit the grid at once.
+    The slices' partial sums are added in slice order."""
+    grid = GRID_PER_SM * sms
+    groups = KERNEL_EMBED_DIM * torch.finfo(dtype).bits // 128
+    ks = 1
+    while ks < MAX_K_SLICES and groups * ks * 2 <= grid:
+        ks *= 2
+    return grid, ks
+
+
+def workspace_bytes(b: int, f: int, dtype: torch.dtype, ks: int) -> int:
+    """The kernel's scratch: f32 qkv (B, 3D), x2 (B, D) and ks partial sums
+    (B, D); in the compute dtype round(ctx) / round(x2) (B, D) and mid
+    (B, F)."""
+    d = KERNEL_EMBED_DIM
+    size = torch.finfo(dtype).bits // 8
+    return 4 * (3 * d + d + ks * d) * b + size * (d + f) * b
 
 
 def decode_layer_supported(d: int, num_heads: int, f: int) -> bool:
@@ -206,8 +249,9 @@ def _check_cuda_inputs(x, posv, madd, k_cache, v_cache, cross, lay,
             f"width {d}, weights {lay.embed_dim} x {lay.ff_dim}, "
             f"{num_heads} heads"
         )
-    if b == 0 or t == 0:
-        raise ValueError(f"empty cache {tuple(k_cache.shape)}")
+    if b == 0 or t == 0 or t > KERNEL_MAX_T:
+        raise ValueError(f"the CUDA kernel takes 1 to {KERNEL_MAX_T} cache "
+                         f"rows and B > 0, got {tuple(k_cache.shape)}")
     for name, a in (("x", x), ("k_cache", k_cache), ("v_cache", v_cache)):
         if a.dtype != lay.dtype:
             raise TypeError(f"{name} is {a.dtype}, the weights {lay.dtype}")
@@ -236,9 +280,6 @@ def fused_decode_layer(
     num_heads: int,
     eps: float = 1e-5,
     write_cache: bool = False,
-    *,
-    rows_per_block: Optional[int] = None,
-    stagger: bool = True,
 ):
     """→ (x', k_new (B, D), v_new (B, D)).
 
@@ -247,14 +288,7 @@ def fused_decode_layer(
     position outside the cache matches no column and writes nothing).
     ``lay`` is ``prepare_decode_params(...)["layers"]`` or, to keep the
     casts and slicing out of the step, :func:`pack_decode_layers` of it.
-
-    ``rows_per_block`` (1, 2 or 4; None lets the kernel pick by B) and
-    ``stagger`` are the kernel's two design choices, exposed so that a
-    measurement can hold the defaults against the alternatives; they change
-    f32 summation order only. CPU tensors ignore them.
     """
-    if rows_per_block not in (None, 1, 2, 4):
-        raise ValueError(f"rows_per_block must be 1, 2 or 4, got {rows_per_block}")
     if x.device.type == "cpu":
         return fused_decode_layer_plain(x, pos, madd, k_cache, v_cache,
                                         cross_const, lay, l, num_heads, eps,
@@ -268,23 +302,49 @@ def fused_decode_layer(
     madd = madd.float()
     cross = cross_const.float()
     _check_cuda_inputs(x, posv, madd, k_cache, v_cache, cross, lay, num_heads)
+    out = _launch(x, posv, madd, k_cache, v_cache, cross, lay, l, eps,
+                  write_cache, *decode_layer_plan(lay.dtype, _sms(x.device)))
+    fused_decode_layer.launches += 1
+    return out
 
+
+def _sms(dev: torch.device) -> int:
+    """The card's SMs; makes the card's barrier words at first use."""
+    if dev not in _SMS:
+        _SMS[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+        _BARRIERS[dev] = torch.zeros(BARRIER_WORDS, dtype=torch.int32,
+                                     device=dev)
+    return _SMS[dev]
+
+
+def _launch(x, posv, madd, k_cache, v_cache, cross, lay, l, eps, write_cache,
+            grid, ks):
+    """One launch of the kernel on checked operands, on ``grid`` blocks with
+    the D-column products cut into ``ks`` slices of K (the wrapper takes
+    :func:`decode_layer_plan`'s; a measurement may take others)."""
     from mit_tpu_torch import kernels
 
+    b, t, d = k_cache.shape
+    dev = x.device
+    _sms(dev)
+    nbytes = workspace_bytes(b, lay.ff_dim, lay.dtype, ks)
+    work = _WORKSPACES.get((dev, nbytes))
+    if work is None:
+        work = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+        _WORKSPACES[(dev, nbytes)] = work
     xo, k_new, v_new = (torch.empty_like(x) for _ in range(3))
     flags = int(lay.dtype == torch.bfloat16) | (int(write_cache) << 1)
-    flags |= (int(not stagger) << 2) | ((rows_per_block or 0) << 4)
-    with torch.cuda.device(x.device):
+    with torch.cuda.device(dev):
         rc = kernels.lib().mit_fused_decode_layer(
             x.data_ptr(), posv.data_ptr(), madd.data_ptr(),
             k_cache.data_ptr(), v_cache.data_ptr(), cross.data_ptr(),
             *lay.ptrs[l],
             xo.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
-            b, t, d, num_heads, lay.ff_dim, flags, float(eps),
-            torch.cuda.current_stream(x.device).cuda_stream,
+            work.data_ptr(), _BARRIERS[dev].data_ptr(),
+            b, t, d, KERNEL_NUM_HEADS, lay.ff_dim, flags, grid, ks, nbytes,
+            float(eps), torch.cuda.current_stream(dev).cuda_stream,
         )
     kernels.check(rc, "mit_fused_decode_layer")
-    fused_decode_layer.launches += 1
     return xo, k_new, v_new
 
 

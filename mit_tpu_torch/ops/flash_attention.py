@@ -53,11 +53,11 @@ between the two, the JAX package's rule, so both packages run the same
 numerics at the same shapes.
 
 Those kernels are laid out for heads of 64 columns. At any other head width
-up to 256 every entry but the fused layer's numerics launches the any-shape
-kernel of ``csrc/attention_any_shape.cu`` instead (a warp to a query row;
-simple and slower), so that a CUDA tensor never runs the plain version:
-:func:`attention_kernel_for` names the kernel a head width gets, and the
-wrappers raise where it has none.
+up to 256 every entry, the fused layer's numerics included, launches the
+any-shape kernel of ``csrc/attention_any_shape.cu`` instead (a warp to a
+query row; simple and slower), so that a CUDA tensor never runs the plain
+version: :func:`attention_kernel_for` names the kernel a head width gets,
+and the wrappers raise where it has none.
 """
 
 from __future__ import annotations
@@ -88,16 +88,18 @@ def attention_kernel_for(head_dim: int, layer_numerics: bool = False) -> str:
     """The kernel that runs attention over heads of ``head_dim`` columns on
     the card: ``"tiled"`` (``csrc/flash_attention_btd.cu``, whose tiles,
     fragments and descriptors are laid out for 64) or ``"any_shape"``
-    (``csrc/attention_any_shape.cu``). The fused layer's numerics exist in
-    the tiled kernel only. Raises where there is no kernel; every wrapper's
-    check and its choice of entry point ask this one function."""
+    (``csrc/attention_any_shape.cu``), in every numerics mode, the fused
+    int8 layer's (``layer_numerics``) included. Raises where there is no
+    kernel; every wrapper's check and its choice of entry point ask this one
+    function."""
+    del layer_numerics          # both kernels have every mode
     if head_dim == TILED_HEAD_DIM:
         return "tiled"
-    if layer_numerics or not attention_kernel_supported(head_dim):
+    if not attention_kernel_supported(head_dim):
         raise ValueError(
             f"no CUDA attention kernel for head_dim {head_dim}: the tiled "
             f"kernels take {TILED_HEAD_DIM}, the any-shape kernel 1 to "
-            f"{MAX_HEAD_DIM} (not the fused layer's numerics)"
+            f"{MAX_HEAD_DIM}"
         )
     return "any_shape"
 
@@ -108,10 +110,16 @@ def _check_aligned(*tensors: torch.Tensor) -> None:
         raise ValueError("q, k, v and qkv must start at 16-byte boundaries")
 
 
+# the any-shape kernel's numerics: divide by the row sum after P.V, normalize
+# before it, or the fused int8 layer's (bf16 in, f32 out)
+ANY_DIVIDE_AFTER, ANY_NORM_FIRST, ANY_LAYER = 0, 1, 2
+
+
 def _any_shape(q, k, v, pad_add, out, b, h, t, s, hd, ldq, ldkv, ldo, bhtd,
-               causal, norm_first) -> None:
+               causal, mode, bf16) -> None:
     """Launch the any-shape kernel: q, k and v are tensors or, for the column
-    blocks of a fused qkv tensor, data pointers; all of ``out``'s dtype."""
+    blocks of a fused qkv tensor, data pointers; bf16 or f32 (``bf16``), the
+    output of their dtype except in ``ANY_LAYER`` (f32)."""
     from mit_tpu_torch import kernels
 
     ptr = lambda x: x if isinstance(x, int) else x.data_ptr()
@@ -120,8 +128,7 @@ def _any_shape(q, k, v, pad_add, out, b, h, t, s, hd, ldq, ldkv, ldo, bhtd,
             ptr(q), ptr(k), ptr(v),
             None if pad_add is None else pad_add.data_ptr(), out.data_ptr(),
             b, h, t, s, hd, ldq, ldkv, ldo, int(bhtd), int(causal),
-            int(pad_add is not None), int(norm_first),
-            int(out.dtype == torch.bfloat16),
+            int(pad_add is not None), mode, int(bf16),
             torch.cuda.current_stream(out.device).cuda_stream,
         )
     kernels.check(rc, "mit_attention_any_shape")
@@ -235,7 +242,8 @@ def _flash_forward_btd(q, k, v, pad_add, causal, head_dim):
     out = torch.empty_like(q)
     if attention_kernel_for(head_dim) == "any_shape":
         _any_shape(q, k, v, pad_add, out, b, d // head_dim, t, k.shape[1],
-                   head_dim, d, d, d, False, causal, False)
+                   head_dim, d, d, d, False, causal, ANY_DIVIDE_AFTER,
+                   q.dtype == torch.bfloat16)
         flash_attention_btd.launches += 1
         return out
     name = btd_entry(q.dtype)
@@ -369,7 +377,9 @@ def flash_attention_btd_fusedqkv(
         d = d3 // 3
         at = lambda i: qkv.data_ptr() + i * d * qkv.element_size()
         _any_shape(at(0), at(1), at(2), None, out, b, d // head_dim, t, t,
-                   head_dim, d3, d3, d, False, False, False)
+                   head_dim, d3, d3, d, False, False,
+                   ANY_LAYER if layer_numerics else ANY_DIVIDE_AFTER,
+                   qkv.dtype == torch.bfloat16)
         flash_attention_btd_fusedqkv.launches += 1
         return out
     mode = 2 if layer_numerics else int(qkv.dtype == torch.bfloat16)
@@ -476,7 +486,7 @@ def _flash_forward(q, k, v, pad_add, causal):
     out = torch.empty_like(q)
     if attention_kernel_for(hd) == "any_shape":
         _any_shape(q, k, v, pad_add, out, b, h, t, k.shape[2], hd, hd, hd, hd,
-                   True, causal, True)
+                   True, causal, ANY_NORM_FIRST, q.dtype == torch.bfloat16)
         flash_attention.launches += 1
         return out
     with torch.cuda.device(q.device):

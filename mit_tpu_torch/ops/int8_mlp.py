@@ -209,18 +209,20 @@ def _check_gemm(a8, sx, q: QuantizedLinear, act, residual, out_dtype) -> None:
         )
     m, k = a8.shape
     n = w8.shape[1]
-    if m == 0 or m > 65535 * 128 or k == 0 or k % 16 or n == 0 or n % 8:
+    if m == 0 or k == 0 or k % 16 or n == 0 or n % 8:
         raise ValueError(
-            f"the int8 GEMM takes 0 < M <= {65535 * 128}, K a multiple of 16 "
-            f"and N a multiple of 8; got M={m}, K={k}, N={n}"
+            f"the int8 GEMM takes M > 0, K a multiple of 16 and N a multiple "
+            f"of 8; got M={m}, K={k}, N={n}"
         )
     if not a8.is_contiguous() or not w8.t().is_contiguous():
         raise ValueError(
             "a8 must be contiguous and w8 stored K-contiguous per column "
             "(ops.quant.kernel_layout)"
         )
-    if a8.data_ptr() % 16 or w8.data_ptr() % 16:
-        raise ValueError("a8 and w8 must start on a 16-byte boundary")
+    aligned = [a8, w8, q.scale, q.bias, residual]
+    if any(t is not None and t.data_ptr() % 16 for t in aligned):
+        raise ValueError("a8, w8, the scale, the bias and the residual must "
+                         "start on a 16-byte boundary")
     vectors = [("sx", sx, m), ("scale", q.scale, n)]
     if q.bias is not None:
         vectors.append(("bias", q.bias, n))

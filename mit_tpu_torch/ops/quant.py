@@ -10,8 +10,8 @@ Scheme, as in the JAX package:
 
 Layout. ``QuantizedLinear.w8`` has the JAX package's logical shape
 (..., K, N), but the port stores it column-major: K is contiguous for each
-output channel, which is what the int8 GEMM kernel's ``mma.sync`` B operand
-reads. :func:`quantize_weight` and ``models.convert.params_from_jax`` make
+output channel, which is what the int8 GEMM kernel's ``wgmma`` B operand
+reads (8-bit operands of ``wgmma`` are K-major only). :func:`quantize_weight` and ``models.convert.params_from_jax`` make
 that layout once; :func:`kernel_layout` does it for any int8 tensor.
 
 :func:`int8_matmul` is the plain composition, exact in its accumulators: it

@@ -232,3 +232,99 @@ def test_any_shape_dropout_walk_bf16_matches_plain():
     for g, w in zip(grads, want):
         err = (g.float() - w.float()).abs().max().item()
         assert err / w.float().abs().max().item() <= 1e-2
+
+
+# ----------------------------------------------------------------------
+# the fused int8 layer's numerics (fused qkv, bf16 in, f32 out)
+# ----------------------------------------------------------------------
+def replay_layer(qkv, hd):
+    """attention_rows_kernel in the layer mode over a fused (B, T, 3D) bf16
+    qkv: scores scaled by log2(e)/sqrt(hd), a first walk for the exact max
+    alone, then p = exp2(s - max) a tile of 32 keys at a time, each lane's
+    sum of p in f32 (merged over the warp at the end), p rounded to bf16 for
+    P.V, and out = o * (1 / rowsum)."""
+    b, t, d3 = qkv.shape
+    d = d3 // 3
+    h = d // hd
+    split = lambda x: x.reshape(b, t, h, hd).transpose(1, 2).float()
+    q, k, v = (split(x) for x in qkv.split(d, dim=-1))
+    scale = torch.tensor(tflash.LOG2E / math.sqrt(hd), dtype=torch.float32)
+    s = torch.einsum("bhtd,bhsd->bhts", q, k) * scale
+    big = s.amax(-1, keepdim=True)
+    lanes = torch.zeros(b, h, t, LANES)
+    o = torch.zeros(b, h, t, hd)
+    for c0 in range(0, t, LANES):
+        cols = slice(c0, min(c0 + LANES, t))
+        p = torch.exp2(s[..., cols] - big)
+        lanes[..., :p.shape[-1]] += p
+        o = o + torch.einsum("bhts,bhsd->bhtd",
+                             p.to(torch.bfloat16).float(), v[:, :, cols])
+    o = o * (1.0 / lanes.sum(-1, keepdim=True))
+    return o.transpose(1, 2).reshape(b, t, d)
+
+
+@pytest.mark.parametrize("b,t,hd", [(2, 40, 32), (3, 33, 128), (2, 70, 96),
+                                    (1, 5, 256)])
+def test_any_shape_layer_walk_matches_plain(b, t, hd):
+    """The layer mode runs on the any-shape kernel at every head width but
+    64: the walk against the port's plain version, f32 out."""
+    assert tflash.attention_kernel_for(hd, layer_numerics=True) == "any_shape"
+    qkv = torch.from_numpy(np.random.default_rng(hd).normal(
+        size=(b, t, 3 * 2 * hd)).astype(np.float32)).to(torch.bfloat16)
+    out = replay_layer(qkv, hd)
+    ref = tflash.flash_attention_btd_fusedqkv_reference(qkv, hd, True)
+    assert out.dtype == torch.float32 and out.shape == ref.shape
+    assert (out - ref).abs().max().item() <= 1e-5
+
+
+@pytest.fixture(scope="module")
+def int8_layer128():
+    """One quantized ViT layer at d = 128, F = 256, in both packages (the
+    weights do not depend on the number of heads)."""
+    from mit_tpu.models import vision as jvis
+    from mit_tpu_torch.models.convert import layer_params, params_from_jax
+
+    jcfg = jvis.VisionConfig(
+        family="vit", image_size=32, patch_size=8, hidden_size=128,
+        num_layers=1, num_heads=2, intermediate_size=256, hidden_act="gelu",
+        layer_norm_eps=1e-12, patch_bias=True, ln_pre=False, ln_post=True)
+    params = jax.tree.map(
+        np.asarray, jvis.init_vision_params(jax.random.PRNGKey(0), jcfg))
+    r = np.random.default_rng(1)
+    params = jax.tree.map(
+        lambda a: a + r.normal(size=a.shape).astype(np.float32) * 0.05, params)
+    q8 = jax.tree.map(np.asarray, jvis.quantize_vision_params(params, jcfg))
+    jl = jax.tree.map(lambda a: a[0], q8["layers"])
+    tl = layer_params(params_from_jax(q8)["layers"], 0)
+    pick = lambda lay: (lay["ln1"], lay["attn"]["qkv"], lay["attn"]["o"],
+                        lay["ln2"], lay["fc1"], lay["fc2"])
+    return pick(jl), pick(tl)
+
+
+@pytest.mark.parametrize("heads", [4, 1], ids=["hd32", "hd128"])
+def test_fused_int8_vit_layer_any_head_width_matches_jax(int8_layer128, heads):
+    """The fused int8 layer at head widths 32 and 128, whose attention runs
+    the any-shape kernel on the card: the port's layer, and the same layer
+    with the kernel's walk replayed for its attention, against the JAX
+    layer kernel (interpret mode), within the JAX package's own bound
+    between its layer kernel and its composition."""
+    from mit_tpu.ops import pallas_int8_layer as jlayer
+    from mit_tpu_torch.ops import int8_layer as tlayer
+    from mit_tpu_torch.ops import int8_mlp as tmlp
+
+    jargs, targs = int8_layer128
+    x = np.random.default_rng(heads).normal(size=(2, 17, 128)).astype(
+        np.float32)
+    xt = torch.from_numpy(x).to(torch.bfloat16)
+    ref = np.asarray(jlayer.fused_int8_vit_layer(
+        jnp.asarray(x, jnp.bfloat16), *jargs, num_heads=heads, eps=1e-12,
+        act="gelu"), np.float32)
+    out = tlayer.fused_int8_vit_layer(xt, *targs, heads, 1e-12)
+    walk = tlayer._layer(
+        xt, *targs, heads, 1e-12, "gelu", False, tmlp.quantize_rows_reference,
+        tmlp.int8_gemm_reference,
+        lambda qkv, hd, layer_numerics: replay_layer(qkv, hd))
+    rel = lambda a: float(np.linalg.norm(a.float().numpy() - ref)
+                          / np.linalg.norm(ref))
+    assert out.shape == x.shape and out.dtype == torch.bfloat16
+    assert rel(out) < 5e-3 and rel(walk) < 5e-3

@@ -64,20 +64,23 @@ def test_attention_kernel_choice_is_the_wrappers_check(hd):
     """Head width 64 gets the tiled kernels, every other width up to 256 the
     any-shape kernel, and every entry refuses exactly the widths that get
     none (CPU tensors: the checks read shapes only). The fused layer's
-    numerics exist at 64 alone."""
+    numerics follow the same rule: the any-shape kernel has them too."""
     takes = tflash.attention_kernel_supported(hd)
     assert takes == (1 <= hd <= 256)
     if takes:
         assert tflash.attention_kernel_for(hd) == (
             "tiled" if hd == 64 else "any_shape")
     assert _raises(tflash.attention_kernel_for, hd) != takes
-    assert _raises(tflash.attention_kernel_for, hd, True) != (hd == 64)
+    assert _raises(tflash.attention_kernel_for, hd, True) != takes
+    if takes:
+        assert tflash.attention_kernel_for(hd, True) == \
+            tflash.attention_kernel_for(hd)
     w = max(hd, 1)
     q = torch.zeros(2, 5, 2 * w)
     assert _raises(tflash._check_cuda_inputs, q, q, q, None, hd) != takes
     qkv = torch.zeros(2, 5, 6 * w, dtype=torch.bfloat16)
     assert _raises(tflash._check_fusedqkv, qkv, hd, False) != takes
-    assert _raises(tflash._check_fusedqkv, qkv, hd, True) != (hd == 64)
+    assert _raises(tflash._check_fusedqkv, qkv, hd, True) != takes
     if hd:
         q4 = torch.zeros(2, 2, 5, hd)
         assert _raises(tflash._check_bhtd, q4, q4, q4, None) != takes

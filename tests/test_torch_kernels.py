@@ -289,9 +289,15 @@ def test_quantize_rows_matches_plain_on_card(cuda, dtype, with_ln, m, k):
 GEMM_SHAPES = [(768, 2304), (768, 768), (768, 3072), (3072, 768)]
 
 
+# ViT-L's four, CLIP ViT-L/14's patch embedding (K 588 padded to 592), and
+# edges of the 128 x 192 and 128 x 128 tiles and the 128-byte k-steps
+GEMM_EDGE_SHAPES = [(1024, 3072), (1024, 1024), (1024, 4096), (4096, 1024),
+                    (592, 1024), (48, 40), (144, 200), (784, 776)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("m", [197, 1000, 7])
-@pytest.mark.parametrize("k,n", GEMM_SHAPES + [(48, 40)])
+@pytest.mark.parametrize("m", [197, 1000, 7, 64, 129])
+@pytest.mark.parametrize("k,n", GEMM_SHAPES + GEMM_EDGE_SHAPES)
 def test_int8_gemm_accumulators_are_exact_on_card(cuda, m, k, n):
     q = _qlinear(k, n, cuda)
     a8 = torch.randint(-127, 128, (m, k), dtype=torch.int8,
@@ -388,8 +394,10 @@ def _layer_weights(d, f, device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("split", [False, True], ids=["mega", "split"])
 @pytest.mark.parametrize("b,t,d,f,heads", [(2, 197, 768, 3072, 12),
-                                           (2, 257, 1024, 4096, 16)],
-                         ids=["vit-b", "vit-l"])
+                                           (2, 257, 1024, 4096, 16),
+                                           (2, 197, 768, 3072, 24),
+                                           (2, 197, 768, 3072, 6)],
+                         ids=["vit-b", "vit-l", "hd32", "hd128"])
 def test_fused_int8_vit_layer_matches_plain_on_card(cuda, b, t, d, f, heads,
                                                     split):
     x = _rows(b * t, d, torch.bfloat16, cuda).reshape(b, t, d)
@@ -425,8 +433,8 @@ def test_int8_wrappers_reject_what_they_do_not_take(cuda):
         int8_mlp.fused_int8_mlp(x.half(), q, q)
     with pytest.raises(ValueError, match="head_dim"):
         flash_attention_btd_fusedqkv(
-            torch.zeros(2, 5, 96, device=cuda, dtype=torch.bfloat16), 32,
-            layer_numerics=True)
+            torch.zeros(2, 5, 3 * 257, device=cuda, dtype=torch.bfloat16),
+            257, layer_numerics=True)
     with pytest.raises(TypeError):
         flash_attention_btd_fusedqkv(
             torch.zeros(2, 5, 192, device=cuda), 64, layer_numerics=True)
@@ -475,7 +483,7 @@ def test_quantize_rows_input_checks(change, error):
 
 
 @pytest.mark.parametrize("change,error", [
-    (dict(head_dim=32, layer=True), ValueError),
+    (dict(head_dim=257, layer=True, width=3 * 257), ValueError),
     (dict(dtype=torch.float16), TypeError),
     (dict(layer=True, dtype=torch.float32), TypeError),
     (dict(width=3 * 96), ValueError),
@@ -704,37 +712,82 @@ def test_fused_decode_layer_rejects_what_it_does_not_take(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("stagger", [True, False], ids=["stagger", "lockstep"])
-@pytest.mark.parametrize("rows", [1, 2, 4])
-@pytest.mark.parametrize("b", [7, 64])
-def test_fused_decode_layer_design_choices_agree_on_card(cuda, b, rows, stagger):
-    """Rows per block and the staggered walk change f32 summation order
-    only: every choice stays within the kernel's bound of the plain version."""
+@pytest.mark.parametrize("ks", [1, 2, 4])
+@pytest.mark.parametrize("grid", [1, 7, None], ids=["grid1", "grid7", "plan"])
+@pytest.mark.parametrize("b", [7, 64, 130])
+def test_fused_decode_layer_design_choices_agree_on_card(cuda, b, grid, ks):
+    """The grid (how many blocks share the items) and the slices of K of
+    the D-column products change f32 summation order only: every choice
+    stays within the kernel's bound of the plain version, and a launch
+    repeats bit for bit."""
+    from mit_tpu_torch.ops import decode_layer as dl
+
+    args = _decode_layer_case(b, 33, torch.float32, cuda, True)
+    x, pos, madd, kc, vc, cross, lay = args[:7]
+    grid = grid or dl.decode_layer_plan(lay.dtype, dl._sms(x.device))[0]
+    run = lambda: dl._launch(x, pos, madd, kc, vc, cross, lay, 0, 1e-5,
+                             False, grid, ks)
+    out = run()
+    for o, r in zip(out, dl.fused_decode_layer_plain(*args)):
+        assert (o - r).abs().max().item() <= 1e-5
+    assert all(torch.equal(a, c) for a, c in zip(out, run()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_fused_decode_layer_replays_in_a_cuda_graph_on_card(cuda, dtype):
+    """One launch, cooperative grid and barrier included, captured in a CUDA
+    graph and replayed: the same outputs as the launch itself."""
+    from mit_tpu_torch.ops.decode_layer import fused_decode_layer
+
+    args = _decode_layer_case(64, 100, dtype, cuda, True)
+    want = fused_decode_layer(*args)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = fused_decode_layer(*args)
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, c) for a, c in zip(want, got))
+
+
+@pytest.mark.cuda
+def test_fused_decode_layer_at_its_longest_cache_on_card(cuda):
     from mit_tpu_torch.ops.decode_layer import (
+        KERNEL_MAX_T,
         fused_decode_layer,
         fused_decode_layer_plain,
     )
 
-    args = _decode_layer_case(b, 33, torch.float32, cuda, True)
-    out = fused_decode_layer(*args, rows_per_block=rows, stagger=stagger)
-    for o, r in zip(out, fused_decode_layer_plain(*args)):
+    args = _decode_layer_case(4, KERNEL_MAX_T, torch.float32, cuda, True)
+    for o, r in zip(fused_decode_layer(*args), fused_decode_layer_plain(*args)):
         assert (o - r).abs().max().item() <= 1e-5
+    longer = _decode_layer_case(2, KERNEL_MAX_T + 1, torch.float32, cuda, True)
+    with pytest.raises(ValueError, match="cache"):
+        fused_decode_layer(*longer)
 
 
 def test_fused_decode_layer_cpu_takes_the_plain_version():
     from mit_tpu_torch.ops.decode_layer import (
+        KERNEL_MAX_T,
         fused_decode_layer,
         fused_decode_layer_plain,
     )
 
     args = _decode_layer_case(3, 7, torch.float32, "cpu", True, f=64)
     before = fused_decode_layer.launches
-    out = fused_decode_layer(*args, rows_per_block=2, stagger=False)
+    out = fused_decode_layer(*args)
     assert fused_decode_layer.launches == before
     for o, r in zip(out, fused_decode_layer_plain(*args)):
         assert torch.equal(o, r)
-    with pytest.raises(ValueError, match="rows_per_block"):
-        fused_decode_layer(*args, rows_per_block=3)
+    # the kernel's limits do not bind the plain version
+    longer = _decode_layer_case(2, KERNEL_MAX_T + 1, torch.float32, "cpu",
+                                True, f=64)
+    out = fused_decode_layer(*longer)
+    assert fused_decode_layer.launches == before
+    assert all(bool(torch.isfinite(o).all()) for o in out)
 
 
 def _bhtd_inputs(b, h, t, s, padded, dtype, device, seed=0):
