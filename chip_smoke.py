@@ -82,8 +82,10 @@ the script exits non-zero without printing the result line.
             keep-mask bitwise equal to keep_mask; the forward within 1e-5
             (f32) or 2e-2 (bf16) absolute; dq, dk and dv within 1e-5 (f32)
             or 1e-2 (bf16) of their largest value. It times forward and
-            backward, kernel against plain, at the bf16 training shape,
-            and the dump kernel against keep_mask at (32, 8, 99, 99). The
+            backward, kernel against plain, at the bf16 training shape
+            (the backward also beside the backward of the library call with
+            dropout, and both device times), and the dump kernel against
+            keep_mask at (32, 8, 99, 99). The
             bf16 forward (tensor cores) also has its keep-mask recovered
             from its output (q = k = 0, v one-hot) and compared bit for bit
             with keep_mask at those shapes and (2, 2, 128, 128), at both of
@@ -105,8 +107,13 @@ the script exits non-zero without printing the result line.
             state saved, restored, and one step from the restore equal to
             one step without it. (e) steps/s and images/s at bf16 batch 32,
             fused dropout on and off (the plain dropout path), median and
-            quartiles of RUNS runs in alternating turns. Every counter is
-            set to 0 before the cache build and (c), and read after them.
+            quartiles of RUNS runs in alternating turns. (f) TRACE_STEPS
+            fused-dropout steps under torch.profiler: device kernels and
+            device-busy ms per step, busy share, the dropout kernels' ms per
+            step. Every counter is set to 0 before the cache build and (c),
+            and read after them; every bf16 backward of (c) ran the
+            tensor-core kernel. `python3 chip_smoke.py --trace-train` runs
+            phases 1, 2 and (f) alone, on seeded tokens and features.
             Phase 3 also holds fused_decode_layer to its plain version at
             (B, T) = (64, 16), (64, 100), (192, 100) and a ragged (3, 7),
             D 512, F 2048, with a scalar and with per-row positions, a madd
@@ -242,6 +249,7 @@ TRAIN_SEED = 1234
 BF16_STEPS = 30
 RUNS = 5                 # throughput runs per configuration
 RUN_STEPS = 10           # steps per throughput run
+TRACE_STEPS = 8          # traced bf16 train steps (fused dropout)
 DROPOUT_SHAPES = [("decoder", 32, 8, 99, 99, True), ("ragged", 3, 2, 7, 9, False)]
 DROPOUT_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2e-2, 1e-2)}
 
@@ -542,6 +550,8 @@ def dispatchers():
 def reset_counts():
     for fn in wrappers().values():
         fn.launches = 0
+        if hasattr(fn, "kernels"):
+            fn.kernels = {k: 0 for k in fn.kernels}
     for fn in dispatchers().values():
         fn.routes = {k: 0 for k in fn.routes}
 
@@ -636,6 +646,18 @@ def sdpa_call(torch, q, k, v, causal=False, pad=None, dropout_p=0.0):
             mask = mask + pad[:, None, None, :].to(q.dtype)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     return lambda: sdpa(q, k, v, attn_mask=mask, dropout_p=dropout_p)
+
+
+def sdpa_backward_call(torch, q, k, v, do, causal=False, pad=None,
+                       dropout_p=0.0):
+    """The backward of one F.scaled_dot_product_attention call over the
+    same inputs, as a function of no arguments: torch.autograd.grad of one
+    forward kept with retain_graph, so that only the backward is timed. With
+    dropout it draws another mask than the kernels: the same function, a
+    yardstick only."""
+    qkv = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    out = sdpa_call(torch, *qkv, causal, pad, dropout_p)()
+    return lambda: torch.autograd.grad(out, qkv, do, retain_graph=True)
 
 
 def sdpa_ms(torch, q, k, v, causal=False, pad=None, dropout_p=0.0):
@@ -1976,7 +1998,7 @@ def check_dropout_kernels(torch):
     check_dropout_forward_design(torch, da, seed, rate)
     what = "(32, 8, 99, 99, 64) bf16 causal+pad"
     _, b, h, t, s, _ = DROPOUT_SHAPES[0]
-    q, k, v, pad, _ = dropout_inputs(torch, b, h, t, s, torch.bfloat16)
+    q, k, v, pad, do = dropout_inputs(torch, b, h, t, s, torch.bfloat16)
     report(results, "flash_attention_dropout", errs["fwd"], fwd_runs,
            what + ", forward",
            attention_bound(b, h, t, s, torch.bfloat16, extra_bytes=b * s * 4),
@@ -1986,10 +2008,16 @@ def check_dropout_kernels(torch):
            device_ms(torch, sdpa_call(torch, q, k, v, True, pad,
                                       dropout_p=rate)))
     # q, k, v and do read, dq, dk and dv written; five (T, S, 64) products
+    lib_bwd = sdpa_backward_call(torch, q, k, v, do, True, pad,
+                                 dropout_p=rate)
     report(results, "flash_attention_dropout_bwd", errs["bwd"], bwd_runs,
            what + ", backward",
            bound((3 * t + 4 * s) * b * h * 64 * 2 + b * s * 4,
-                 5 * 2 * b * h * t * s * 64, "bf16"))
+                 5 * 2 * b * h * t * s * 64, "bf16"),
+           cuda_ms(torch, lib_bwd),
+           device_ms(torch, lambda: da.flash_attention_dropout_bwd(
+               q, k, v, pad, do, seed, True, rate)),
+           device_ms(torch, lib_bwd))
     return results
 
 
@@ -2017,12 +2045,10 @@ def token_batch(rng, b, t, vocab, ids):
     return toks
 
 
-def check_training(torch):
-    """Phase 5: the training path at full width (see the module docstring).
-    Returns the counts of the counted run and the throughput."""
-    import tempfile
-
-    from mit_tpu_torch.data.dataset import to_device
+def train_setup(torch):
+    """The training phase's model (ViT-B/16 encoder, decoder 6 x 512, vocab
+    10000, the config's dropout) with weights from TRAIN_SEED, its trainable
+    and frozen parts, and the optimizer."""
     from mit_tpu_torch.models.decoder import DecoderConfig
     from mit_tpu_torch.models.model import (
         ModelConfig,
@@ -2030,19 +2056,9 @@ def check_training(torch):
         split_trainable,
     )
     from mit_tpu_torch.models.vision import PRESETS
-    from mit_tpu_torch.train import checkpoint as ckpt
-    from mit_tpu_torch.train.features import FeatureCache, attach_features
-    from mit_tpu_torch.train.steps import (
-        init_train_state,
-        make_eval_step,
-        make_optimizer,
-        make_train_step,
-        tree_leaves,
-        tree_map,
-    )
+    from mit_tpu_torch.train.steps import make_optimizer
 
     tcfg = TrainConfig()
-    ids = SpecialIds()
     name = "google/vit-base-patch16-224-in21k"
     mcfg = ModelConfig(name, PRESETS[name],
                        DecoderConfig(vocab_size=10000,
@@ -2050,6 +2066,98 @@ def check_training(torch):
     params = init_model_params(torch.Generator().manual_seed(TRAIN_SEED), mcfg,
                                "cuda")
     trainable, frozen = split_trainable(params)
+    return tcfg, mcfg, trainable, frozen, make_optimizer(tcfg)[0]
+
+
+def trace_train(torch, mcfg, trainable, optimizer, batch, steps=TRACE_STEPS):
+    """`steps` bf16 train steps with fused dropout under torch.profiler,
+    after one warm-up: device-busy ms per step, its share of the traced wall
+    time (the profiler's own host cost included), and the dropout-attention
+    kernels' device ms per step. The step is host-bound, so this, not
+    steps/s, shows a kernel's gain."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mit_tpu_torch.train.steps import init_train_state, make_train_step
+
+    step = make_train_step(mcfg, optimizer, SpecialIds().pad_id,
+                           torch.bfloat16, from_features=True,
+                           fused_dropout=True)
+    state, _ = step(init_train_state(trainable, optimizer), {}, batch,
+                    TRAIN_SEED)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            state, _ = step(state, {}, batch, TRAIN_SEED)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_us = lambda e: getattr(e, "self_device_time_total", 0)
+    total = sum(busy_us(e) for e in dev)
+    if not dev or total <= 0:
+        print("trace train: the profiler recorded no device time (not "
+              "measured)")
+        return None
+    per = lambda part: {
+        "ms": sum(busy_us(e) for e in dev if part in e.key) / steps / 1e3,
+        "launches": sum(e.count for e in dev if part in e.key) / steps}
+    out = {"busy_ms_per_step": total / steps / 1e3,
+           "wall_ms_per_step": wall_ms / steps,
+           "busy_share": total / 1e3 / wall_ms,
+           "kernels_per_step": sum(e.count for e in dev) / steps,
+           "dropout_bwd": per("dropout_bwd"), "dropout_fwd": per("dropout_fwd")}
+    print(f"trace train bf16 B={TRAIN_BATCH} fused dropout, {steps} steps: "
+          f"{out['kernels_per_step']:.1f} device kernels and copies per step, "
+          f"device busy {out['busy_ms_per_step']:.3f} ms per step, traced wall "
+          f"{out['wall_ms_per_step']:.3f} ms per step (busy share "
+          f"{out['busy_share']:.3f}); dropout backward "
+          f"{out['dropout_bwd']['ms']:.4f} ms per step in "
+          f"{out['dropout_bwd']['launches']:.1f} launches, forward "
+          f"{out['dropout_fwd']['ms']:.4f} ms in "
+          f"{out['dropout_fwd']['launches']:.1f}")
+    return out
+
+
+def trace_only(torch):
+    """`chip_smoke.py --trace-train`: the train step's trace alone, on a
+    batch of seeded tokens and CLS features, for comparing trees in one
+    call."""
+    from mit_tpu_torch.data.dataset import to_device
+
+    _, mcfg, trainable, _, optimizer = train_setup(torch)
+    ids = SpecialIds()
+    rng = np.random.default_rng(TRAIN_SEED)
+    toks = token_batch(rng, TRAIN_BATCH, mcfg.decoder.max_seq_len - 1,
+                       mcfg.decoder.vocab_size, ids)
+    feats = rng.normal(size=(TRAIN_BATCH, 1, mcfg.vision.hidden_size))
+    batch = to_device({"decoder_input_tokens": toks[:, :-1],
+                       "target_tokens": toks[:, 1:],
+                       "features": feats.astype(np.float32)}, "cuda")
+    if trace_train(torch, mcfg, trainable, optimizer, batch) is None:
+        raise AssertionError("the train trace recorded no device time")
+
+
+def check_training(torch):
+    """Phase 5: the training path at full width (see the module docstring).
+    Returns the counts of the counted run and the throughput."""
+    import tempfile
+
+    from mit_tpu_torch.data.dataset import to_device
+    from mit_tpu_torch.ops.dropout_attention import flash_attention_dropout_bwd
+    from mit_tpu_torch.train import checkpoint as ckpt
+    from mit_tpu_torch.train.features import FeatureCache, attach_features
+    from mit_tpu_torch.train.steps import (
+        init_train_state,
+        make_eval_step,
+        make_train_step,
+        tree_leaves,
+        tree_map,
+    )
+
+    tcfg, mcfg, trainable, frozen, optimizer = train_setup(torch)
+    ids = SpecialIds()
     rng = np.random.default_rng(TRAIN_SEED)
     t = mcfg.decoder.max_seq_len - 1
     pixels = PixelSet(TRAIN_IMAGES, mcfg.vision.image_size, TRAIN_SEED)
@@ -2063,8 +2171,6 @@ def check_training(torch):
             "target_tokens": toks[rows, 1:]}, cache)
         del b["image_paths"]
         return to_device(b, "cuda")
-
-    optimizer, _ = make_optimizer(tcfg)
 
     def steps(dtype, fused, use_kernel=True, cfg=mcfg):
         return make_train_step(cfg, optimizer, ids.pad_id, dtype,
@@ -2089,6 +2195,7 @@ def check_training(torch):
         losses.append(loss)
     losses = [x.item() for x in losses]
     counts = read_counts()
+    bwd_kernels = dict(flash_attention_dropout_bwd.kernels)
     hold_routes("train cache build + bf16 steps",
                 attention=counts["flash_attention_btd"]
                 + counts["flash_attention_dropout"],
@@ -2102,13 +2209,18 @@ def check_training(torch):
     print(f"train (c) bf16 B={TRAIN_BATCH} T={t}, {BF16_STEPS} steps on one "
           f"batch: loss first {losses[0]:.6f}, last {losses[-1]:.6f}, min "
           f"{min(losses):.6f}; (b) launches per step {per_step}, every "
-          f"other counter 0: {counts}")
+          f"other counter 0: {counts}; backward launches by kernel "
+          f"{bwd_kernels}")
     want = {k: 0 for k in counts}
     want.update(flash_attention_btd=11 * TRAIN_IMAGES // TRAIN_BATCH,
                 flash_attention_dropout=6 * BF16_STEPS,
                 flash_attention_dropout_bwd=6 * BF16_STEPS)
     if counts != want:
         raise AssertionError(f"training launches {counts}, want {want}")
+    if bwd_kernels != {"tensor_cores": 6 * BF16_STEPS, "cuda_cores": 0,
+                       "any_shape": 0}:
+        raise AssertionError(f"the bf16 backward ran {bwd_kernels}, want the "
+                             f"tensor-core kernel only")
     if not (all(np.isfinite(losses)) and losses[-1] < 0.9 * losses[0]):
         raise AssertionError(f"bf16 loss did not fall: {losses}")
 
@@ -2190,6 +2302,7 @@ def check_training(torch):
               f"{q2:.3f} steps/s median (quartiles {q1:.3f}-{q3:.3f}, "
               f"{RUNS} runs of {RUN_STEPS} steps), {q2 * TRAIN_BATCH:.1f} "
               f"images/s; runs {[round(x, 3) for x in sps]}")
+    trace_train(torch, mcfg, trainable, optimizer, fixed)
     return {"counts": counts, "rates": rates}
 
 
@@ -2252,6 +2365,9 @@ def main() -> int:
     log = kernels.library_path().with_name(kernels.library_path().name + ".log")
     if log.exists():
         print(log.read_text().strip())
+    if sys.argv[1:] == ["--trace-train"]:
+        trace_only(torch)
+        return 0
 
     print("== 3 kernels", flush=True)
     errors, times = check_kernels(torch)

@@ -24,24 +24,21 @@
 // and add are contracted into an FMA the plain version does not make.
 //
 // What bounds it on the H100. The decoder's self-attention has T = S = 99
-// and hd = 64 (at MAX_SEQ_LEN 100), so a whole (T, S) probability tile and
-// the cell's q, k, v and do fit in one block's shared memory. The f32
-// forward (dropout_fwd_kernel, which keeps full f32 products) takes one
-// block per (cell, 32 query rows) and holds the 32 x S scores; the bf16
-// forward runs on the tensor cores (dropout_fwd_tc_kernel, described where
-// it stands below; a cell's bytes bound it at 0.004 ms for the training
-// shape, and what it spends is exp, two divisions and a hash per
-// probability, and the latency of one short block). The
-// backward takes one block per cell, holding q, k, v, do (f32, rows padded to 65)
-// and the T x S probabilities: 199 KB at T = S = 128 of the 227 KB a block
-// may use, 140 KB at 99. So dk and dv reduce over T inside the block, with
-// no atomics and no second pass. The bound is S <= 128 and T <= 128; beyond
-// it, and at another head_dim, the wrapper launches the kernels of
-// attention_any_shape.cu. These two kernels multiply in f32 FMAs on the CUDA cores,
-// fed from shared memory, about four shared-memory reads per FMA pair:
-// shared-memory bandwidth bounds it. At batch 32 and 8 heads the backward
-// has 256 blocks, about two per SM. Tensor cores for the backward, and
-// fewer reads of its tiles, are later work.
+// and hd = 64 (at MAX_SEQ_LEN 100), so a cell's q, k, v and do and its
+// whole (T, S) probability tile fit in one block's shared memory. The f32
+// kernels (dropout_fwd_kernel, dropout_bwd_kernel) keep full f32 products
+// on the CUDA cores: the forward takes one block per (cell, 32 query rows)
+// and holds the 32 x S scores; the backward one block per cell, holding q,
+// k, v, do (rows padded to 65) and the T x S probabilities (199 KB at
+// T = S = 128, 140 KB at 99), so dk and dv reduce over T inside the block,
+// with no atomics and no second pass; shared-memory reads bound both, about
+// four per FMA pair. bf16 runs on the tensor cores: the forward
+// (dropout_fwd_tc_kernel) and the backward (dropout_bwd_tc_kernel), each
+// described where it stands below. A cell's bytes bound them at 0.004 and
+// 0.007 ms for the training shape; what they spend is exp, a division and a
+// hash per probability and the latency of short blocks. The bound is
+// S <= 128 and T <= 128; beyond it, and at another head_dim, the wrapper
+// launches the kernels of attention_any_shape.cu.
 //
 // Every entry point returns cudaGetLastError() after its launch (or the
 // error of setting the shared-memory size); the wrapper raises on non-zero.
@@ -441,6 +438,340 @@ dropout_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+// ----------------------------------------------------------------------
+// The bf16 backward on the tensor cores.
+//
+// One block a cell, two warpgroups. Q, dO, K and V come in once by 16-byte
+// cp.async as 128-row tiles in the 128-byte swizzle, zero past T or S (a
+// product over a tile then needs no test for where rows end, and no stale
+// byte meets a zero). The block walks the cell twice:
+//
+// Phase A, warpgroup w owns query rows 64w .. 64w + 63. S = Q.K^T and
+// dP = dO.V^T by wgmma into registers (64 rows x 128 keys each, as the
+// forward holds its scores); then the forward's operations in its order
+// (masked_score, the exact row max, expf, the IEEE division by the row sum)
+// and the keep bit per accumulator element; pd = keep ? p*inv : 0,
+// dp = keep ? acc*inv : 0, the row's delta = sum(dp*p) over the thread's
+// elements then the quad, ds = p*(dp - delta). The JAX kernel keeps pd and
+// ds in f32 inside its products, so each goes into them as a pair of bf16
+// values, hi = bf16(x) and lo = bf16(x - hi), two wgmmas into one f32
+// accumulator: q, k, v and do are bf16, a bf16 product is exact in f32, so
+// only the order of the sums moves (|x - hi - lo| <= 2^-16 |x|). The pairs
+// go to shared memory as [key tile][128 query rows][64 keys]; then
+// dQ = dS.K, dS read K-major from there and K transposed.
+//
+// Phase B, warpgroup w owns keys 64w .. 64w + 63: dV = PD^T.dO and
+// dK = dS^T.Q, both operands read transposed from shared memory (16 query
+// rows a k-step). dq, dk and dv go out through spent tiles, 16 bytes a lane.
+//
+// What costs is what the forward spends: expf, a division and a hash per
+// probability, now with ds and the pairs; the 32 k-steps of the products
+// are a small part. So an 8-key tile of a warp's 16 rows whose pd and ds are
+// all exactly 0 skips that work and stores zeros (the forward's rule: past
+// S, rows past T, or above the diagonal of all 16 rows while each of them
+// has seen an unmasked key), while the products take every k-step.
+// Register pressure bounds the latency the warps can hide: 255 registers a
+// thread, 8 warps an SM. Shared memory: 64 KB of inputs and 128 KB of
+// pairs, one block an SM; 256 cells run in two waves over 132 SMs.
+// ----------------------------------------------------------------------
+constexpr int RG = MAX_LEN / 16;      // k-steps of 16 over 128 rows or keys
+
+// x0, x1 as bf16 pairs: hi = bf16(x), lo = bf16(x - hi) (x - hi is exact)
+__device__ __forceinline__ void split_pair(float x0, float x1, unsigned& hi,
+                                           unsigned& lo) {
+  hi = pack_bf16(x0, x1);
+  lo = pack_bf16(__fsub_rn(x0, __uint_as_float(hi << 16)),
+                 __fsub_rn(x1, __uint_as_float(hi & 0xFFFF0000u)));
+}
+
+__device__ __forceinline__ void store_u32(__nv_bfloat16* p, unsigned x) {
+  *reinterpret_cast<unsigned*>(p) = x;
+}
+
+// a warp's 16 accumulator rows, rows row0 .. row0 + 15 of a (rows, 64) bf16
+// matrix, those below `valid` to global memory, through the 16 x 64 staging
+// tile `mine`: 4-byte stores in, then 16 bytes a lane, four rows a store
+__device__ __forceinline__ void store_rows(const float (&o)[8][4],
+                                           __nv_bfloat16* mine,
+                                           __nv_bfloat16* out, int row0,
+                                           int valid) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+    const int col = nt * 8 + 2 * t4;
+    store_u32(mine + tile_at(g, col), pack_bf16(o[nt][0], o[nt][1]));
+    store_u32(mine + tile_at(g + 8, col), pack_bf16(o[nt][2], o[nt][3]));
+  }
+  __syncwarp();
+#pragma unroll
+  for (int it = 0; it < 4; ++it) {
+    const int r = it * 4 + (lane >> 3), c = (lane & 7) * 8;
+    if (row0 + r < valid)
+      *reinterpret_cast<uint4*>(out + (size_t)(row0 + r) * HD + c) =
+          *reinterpret_cast<const uint4*>(mine + tile_at(r, c));
+  }
+}
+
+__global__ void __launch_bounds__(256, 1)
+dropout_bwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                      const __nv_bfloat16* __restrict__ k,
+                      const __nv_bfloat16* __restrict__ v,
+                      const float* __restrict__ pad,
+                      const __nv_bfloat16* __restrict__ dout,
+                      __nv_bfloat16* __restrict__ dq,
+                      __nv_bfloat16* __restrict__ dk,
+                      __nv_bfloat16* __restrict__ dv, int H, int Tq, int S,
+                      bool causal, uint32_t seed, uint32_t threshold,
+                      float inv) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // Q, dO, K, V: 128 rows each (two tiles); then the pairs, 128 query rows
+  // by 64 keys for each kind and key tile
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(
+      smem_raw + ((1024 - smem_u32(smem_raw)) & 1023));
+  __nv_bfloat16* dos = qs + KT * TILE;
+  __nv_bfloat16* ks = dos + KT * TILE;
+  __nv_bfloat16* vs = ks + KT * TILE;
+  __nv_bfloat16* pairs = vs + KT * TILE;
+  enum { PD_HI, PD_LO, DS_HI, DS_LO };
+  auto pair_at = [&](int kind, int kt) {
+    return pairs + (kind * KT + kt) * KT * TILE;
+  };
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int wg = warp >> 2, wq = warp & 3;
+  const int cell = blockIdx.x;
+  const size_t qoff = (size_t)cell * Tq * HD;
+  const size_t kvoff = (size_t)cell * S * HD;
+  const float* pad_row = pad + (size_t)(cell / H) * S;
+  const uint32_t base = cell_base(seed, (uint32_t)cell);
+
+  // every tile, zero past T or S: every product reads all 128 rows
+  load_rows_async(qs, q + qoff, MAX_LEN, Tq, HD);
+  load_rows_async(ks, k + kvoff, MAX_LEN, S, HD);
+  load_rows_async(dos, dout + qoff, MAX_LEN, Tq, HD);
+  load_rows_async(vs, v + kvoff, MAX_LEN, S, HD);
+  cp_async_commit();
+  cp_async_wait<0>();
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+
+  // ---- phase A: the warpgroup's 64 query rows against every key ----
+  const int grow = wg * 64;                     // the warpgroup's first row
+  const int wrow = grow + wq * 16;              // the warp's first row
+  const int r0 = grow + frag_row(wq, lane, 0);  // this thread's rows r0, r0+8
+  const int t4 = lane & 3;
+  const bool rows_on = grow < Tq;
+  if (rows_on) {
+    float s[KT][8][4], dp[KT][8][4];
+    const unsigned long long dq_a = wg_desc(qs + wg * TILE);
+    const unsigned long long do_a = wg_desc(dos + wg * TILE);
+    wg_fence();
+#pragma unroll
+    for (int kt = 0; kt < KT; ++kt)
+#pragma unroll
+      for (int ks4 = 0; ks4 < 4; ++ks4)
+        wgmma_ss(s[kt], dq_a + 2 * ks4, wg_desc(ks + kt * TILE) + 2 * ks4,
+                 ks4 > 0);
+#pragma unroll
+    for (int kt = 0; kt < KT; ++kt)
+#pragma unroll
+      for (int ks4 = 0; ks4 < 4; ++ks4)
+        wgmma_ss(dp[kt], do_a + 2 * ks4, wg_desc(vs + kt * TILE) + 2 * ks4,
+                 ks4 > 0);
+    wg_commit_wait(s[0]);
+    wg_touch(s[1]);
+    wg_touch(dp[0]);
+    wg_touch(dp[1]);
+
+    // masked scores and the exact row max, as the forward
+    float m0 = -INFINITY, m1 = -INFINITY;
+#pragma unroll
+    for (int kt = 0; kt < KT; ++kt)
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = kt * 64 + frag_col(lane, nt, e);
+          const float pc = col < S ? __ldg(pad_row + col) : 0.f;
+          const float x0 = masked_score(s[kt][nt][e], r0, col, S, pc, causal);
+          const float x1 =
+              masked_score(s[kt][nt][2 + e], r0 + 8, col, S, pc, causal);
+          s[kt][nt][e] = x0;
+          s[kt][nt][2 + e] = x1;
+          m0 = fmaxf(m0, x0);
+          m1 = fmaxf(m1, x1);
+        }
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, off));
+      m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, off));
+    }
+    // the forward's dead 8-key tiles (see dropout_fwd_tc_kernel): there p,
+    // and so pd and ds, are exactly 0
+    const bool seen = __all_sync(
+        0xffffffffu, (m0 > ROW_MASKED || r0 >= Tq) &&
+                         (m1 > ROW_MASKED || r0 + 8 >= Tq));
+    auto dead = [&](int kt, int nt) {
+      const int col = kt * 64 + nt * 8;
+      return col >= S || wrow >= Tq || (causal && seen && col > wrow + 15);
+    };
+    float l0 = 0.f, l1 = 0.f;
+#pragma unroll
+    for (int kt = 0; kt < KT; ++kt)
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        if (dead(kt, nt)) continue;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          s[kt][nt][e] = expf(s[kt][nt][e] - m0);          // exp(-inf) = 0
+          s[kt][nt][2 + e] = expf(s[kt][nt][2 + e] - m1);
+          l0 += s[kt][nt][e];
+          l1 += s[kt][nt][2 + e];
+        }
+      }
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+    }
+
+    // p = e / l, the keep bit, pd (to shared memory as pairs), dp; delta.
+    // Rows past T keep nothing: their pd is 0 and, with dO's zero rows,
+    // so are dp, delta and ds.
+    float d0 = 0.f, d1 = 0.f;
+#pragma unroll
+    for (int kt = 0; kt < KT; ++kt)
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        float pd[4] = {0.f, 0.f, 0.f, 0.f};
+        if (!dead(kt, nt)) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = grow + frag_row(wq, lane, e);
+            const int col = kt * 64 + frag_col(lane, nt, e);
+            const float p = __fdiv_rn(s[kt][nt][e], e < 2 ? l0 : l1);
+            const bool kp =
+                row < Tq && keep_at(row, col, S, base, threshold);
+            const float gp = kp ? __fmul_rn(dp[kt][nt][e], inv) : 0.f;
+            pd[e] = kp ? __fmul_rn(p, inv) : 0.f;
+            s[kt][nt][e] = p;
+            dp[kt][nt][e] = gp;
+            if (e < 2)
+              d0 += __fmul_rn(gp, p);
+            else
+              d1 += __fmul_rn(gp, p);
+          }
+        }
+        const int col = nt * 8 + 2 * t4;
+        unsigned hi, lo;
+        split_pair(pd[0], pd[1], hi, lo);
+        store_u32(pair_at(PD_HI, kt) + tile_at(r0, col), hi);
+        store_u32(pair_at(PD_LO, kt) + tile_at(r0, col), lo);
+        split_pair(pd[2], pd[3], hi, lo);
+        store_u32(pair_at(PD_HI, kt) + tile_at(r0 + 8, col), hi);
+        store_u32(pair_at(PD_LO, kt) + tile_at(r0 + 8, col), lo);
+      }
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      d0 += __shfl_xor_sync(0xffffffffu, d0, off);
+      d1 += __shfl_xor_sync(0xffffffffu, d1, off);
+    }
+
+    // ds = p (dp - delta), as pairs to shared memory
+#pragma unroll
+    for (int kt = 0; kt < KT; ++kt)
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        float x[4] = {0.f, 0.f, 0.f, 0.f};
+        if (!dead(kt, nt)) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            x[e] = __fmul_rn(s[kt][nt][e],
+                             __fsub_rn(dp[kt][nt][e], e < 2 ? d0 : d1));
+        }
+        const int col = nt * 8 + 2 * t4;
+        unsigned hi, lo;
+        split_pair(x[0], x[1], hi, lo);
+        store_u32(pair_at(DS_HI, kt) + tile_at(r0, col), hi);
+        store_u32(pair_at(DS_LO, kt) + tile_at(r0, col), lo);
+        split_pair(x[2], x[3], hi, lo);
+        store_u32(pair_at(DS_HI, kt) + tile_at(r0 + 8, col), hi);
+        store_u32(pair_at(DS_LO, kt) + tile_at(r0 + 8, col), lo);
+      }
+  } else {
+    // rows past T (T <= 64): zero pairs, which the products read
+#pragma unroll
+    for (int kind = 0; kind < 4; ++kind)
+#pragma unroll
+      for (int kt = 0; kt < KT; ++kt)
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+          const int col = nt * 8 + 2 * t4;
+          store_u32(pair_at(kind, kt) + tile_at(r0, col), 0u);
+          store_u32(pair_at(kind, kt) + tile_at(r0 + 8, col), 0u);
+        }
+  }
+  // the pairs were written by the generic proxy; wgmma reads them through
+  // the async proxy
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+
+  // ---- dQ (phase A's rows), then phase B: the warpgroup's 64 keys ----
+  // Both warpgroups run every k-step, zeros and all: a wgmma in
+  // a branch makes ptxas serialize every wgmma of the kernel (C7520), and
+  // the tensor cores' time is small beside the rest.
+  float dqa[8][4], dva[8][4], dka[8][4];
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dqa[nt][e] = dva[nt][e] = dka[nt][e] = 0.f;
+  const unsigned long long kb = wg_desc(ks);
+  const unsigned long long dob = wg_desc(dos), qb = wg_desc(qs);
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < RG; ++kk) {
+    // dS (K-major: the warpgroup's rows of key tile kk / 4, 16 keys a
+    // step) against K read transposed
+    const int kt = kk >> 2, k4 = kk & 3;
+    wgmma_ss_bt(dqa, wg_desc(pair_at(DS_HI, kt) + wg * TILE) + 2 * k4,
+                kb + 128 * kk);
+    wgmma_ss_bt(dqa, wg_desc(pair_at(DS_LO, kt) + wg * TILE) + 2 * k4,
+                kb + 128 * kk);
+  }
+#pragma unroll
+  for (int kk = 0; kk < RG; ++kk) {
+    // PD^T.dO and dS^T.Q over the warpgroup's keys, 16 query rows a step
+    wgmma_ss_tt(dva, wg_desc(pair_at(PD_HI, wg)) + 128 * kk, dob + 128 * kk);
+    wgmma_ss_tt(dva, wg_desc(pair_at(PD_LO, wg)) + 128 * kk, dob + 128 * kk);
+    wgmma_ss_tt(dka, wg_desc(pair_at(DS_HI, wg)) + 128 * kk, qb + 128 * kk);
+    wgmma_ss_tt(dka, wg_desc(pair_at(DS_LO, wg)) + 128 * kk, qb + 128 * kk);
+  }
+  wg_commit_wait(dqa);
+  wg_touch(dva);
+  wg_touch(dka);
+
+  if (rows_on) {
+    // through V's tile of these rows (no product reads V after phase A)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dqa[nt][e] = __fmul_rn(dqa[nt][e], SCALE);
+    store_rows(dqa, vs + wg * TILE + wq * 16 * HD, dq + qoff, wrow, Tq);
+  }
+  if (grow < S) {
+    // through this warpgroup's pd pairs, which only its own products read:
+    // every warp of the group is past them first
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dka[nt][e] = __fmul_rn(dka[nt][e], SCALE);
+    store_rows(dva, pair_at(PD_HI, wg) + wq * 16 * HD, dv + kvoff, wrow, S);
+    store_rows(dka, pair_at(PD_LO, wg) + wq * 16 * HD, dk + kvoff, wrow, S);
+  }
+}
+
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 dropout_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -613,7 +944,6 @@ int launch_fwd_tc(const void* q, const void* k, const void* v, const void* pad,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
 int launch_bwd(const void* q, const void* k, const void* v, const void* pad,
                const void* dout, void* dq, void* dk, void* dv, int B, int H,
                int Tq, int S, int causal, unsigned seed, unsigned threshold,
@@ -621,14 +951,38 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* pad,
   if (bad_shape(B * H, Tq, S)) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = bwd_smem(Tq, S);
   cudaError_t err = cudaFuncSetAttribute(
-      dropout_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      dropout_bwd_kernel<float>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dropout_bwd_kernel<T><<<B * H, THREADS, smem, (cudaStream_t)stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const float*>(pad),
-      static_cast<const T*>(dout), static_cast<T*>(dq), static_cast<T*>(dk),
-      static_cast<T*>(dv), H, Tq, S, causal != 0, seed, threshold, inv);
+  dropout_bwd_kernel<float><<<B * H, THREADS, smem, (cudaStream_t)stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(pad),
+      static_cast<const float*>(dout), static_cast<float*>(dq),
+      static_cast<float*>(dk), static_cast<float*>(dv), H, Tq, S, causal != 0,
+      seed, threshold, inv);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_bwd_tc(const void* q, const void* k, const void* v,
+                  const void* pad, const void* dout, void* dq, void* dk,
+                  void* dv, int B, int H, int Tq, int S, int causal,
+                  unsigned seed, unsigned threshold, float inv, void* stream) {
+  if (bad_shape(B * H, Tq, S)) return static_cast<int>(cudaErrorInvalidValue);
+  // Q, dO, K, V and the four pair arrays, and the room to start at 1024
+  const int smem = (4 * KT + 4 * KT * KT) * TILE *
+                       (int)sizeof(__nv_bfloat16) + 1024;
+  cudaError_t err = cudaFuncSetAttribute(
+      dropout_bwd_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dropout_bwd_tc_kernel<<<B * H, 256, smem, (cudaStream_t)stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(pad),
+      static_cast<const __nv_bfloat16*>(dout),
+      static_cast<__nv_bfloat16*>(dq), static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), H, Tq, S, causal != 0, seed, threshold,
+      inv);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -660,17 +1014,18 @@ extern "C" int mit_flash_attention_dropout_fwd(
                                   threshold, one_minus_r, stream);
 }
 
-// the same q, k, v and pad, dout like q; dq like q, dk and dv like k
+// the same q, k, v and pad, dout like q; dq like q, dk and dv like k. bf16
+// runs on the tensor cores (q, k, v and dout at 16-byte boundaries), f32 on
+// the CUDA cores.
 extern "C" int mit_flash_attention_dropout_bwd(
     const void* q, const void* k, const void* v, const void* pad,
     const void* dout, void* dq, void* dk, void* dv, int B, int H, int T,
     int S, int causal, int bf16, unsigned seed, unsigned threshold, float inv,
     void* stream) {
-  return bf16 ? launch_bwd<__nv_bfloat16>(q, k, v, pad, dout, dq, dk, dv, B,
-                                          H, T, S, causal, seed, threshold,
-                                          inv, stream)
-              : launch_bwd<float>(q, k, v, pad, dout, dq, dk, dv, B, H, T, S,
-                                  causal, seed, threshold, inv, stream);
+  return bf16 ? launch_bwd_tc(q, k, v, pad, dout, dq, dk, dv, B, H, T, S,
+                              causal, seed, threshold, inv, stream)
+              : launch_bwd(q, k, v, pad, dout, dq, dk, dv, B, H, T, S, causal,
+                           seed, threshold, inv, stream);
 }
 
 // out: (cells, T, S) bytes, 1 where kept

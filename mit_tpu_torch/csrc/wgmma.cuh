@@ -1,6 +1,6 @@
 // Shared pieces of the tensor-core kernels (sm_90a): 16-byte cp.async
 // loads into 64-column tiles in the 128-byte swizzle, the wgmma descriptors
-// that name such tiles (a row of 64 bf16 or of 128 int8), the two wgmma
+// that name such tiles (a row of 64 bf16 or of 128 int8), the wgmma
 // products the attention kernels use, and how an accumulator's elements map
 // to rows and columns (f32 and s32 alike). Included by
 // flash_attention_btd.cu, flash_attention_dropout.cu and int8_gemm.cu;
@@ -144,6 +144,32 @@ __device__ __forceinline__ void wgmma_rs_bt(float (&d)[8][4],
       ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
       : MIT_WG_D(d)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+// d += a . b: a (64 x 16) from shared memory as in wgmma_ss, b (16 rows x
+// 64 columns of its tile, so transposed) as in wgmma_rs_bt
+__device__ __forceinline__ void wgmma_ss_bt(float (&d)[8][4],
+                                            unsigned long long a,
+                                            unsigned long long b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " MIT_WG_REGS
+      ", %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : MIT_WG_D(d)
+      : "l"(a), "l"(b), "r"(1));
+}
+// d += a^T . b with both operands transposed in shared memory: a names 16
+// rows x 64 columns of a tile (the 16 rows are the sum's k, the 64 columns
+// d's rows) and b 16 rows x 64 columns (the same k; d's columns). Both
+// advance a k-step of 16 rows by 128 descriptor units, as b of wgmma_rs_bt.
+__device__ __forceinline__ void wgmma_ss_tt(float (&d)[8][4],
+                                            unsigned long long a,
+                                            unsigned long long b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " MIT_WG_REGS
+      ", %32, %33, p, 1, 1, 1, 1;\n}\n"
+      : MIT_WG_D(d)
+      : "l"(a), "l"(b), "r"(1));
 }
 
 // The (row, column) of accumulator element d[nt][e] within the warpgroup's

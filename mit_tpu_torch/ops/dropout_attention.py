@@ -21,15 +21,19 @@ probabilities and mask never exist in device memory in either pass:
   it launches the forward kernel of ``csrc/flash_attention_dropout.cu`` (bf16
   on the tensor cores, a cell's whole score rows in registers and a keep bit
   drawn per accumulator element; f32 on the CUDA cores) and, in its
-  backward, the backward kernel; for CPU tensors it runs the plain
-  versions. It gives no gradient for ``pad_add`` and ``seed``.
+  backward, the backward kernel (bf16 on the tensor cores: pd and ds enter
+  the products as f32-exact pairs of bf16 values; f32 on the CUDA cores);
+  for CPU tensors it runs the plain versions. It gives no gradient for
+  ``pad_add`` and ``seed``.
   :func:`flash_attention_dropout_plain` runs the plain versions on any
   device, for comparison with the kernels on the card.
 - :func:`dump_dropout_mask` is the (B, H, T, S) keep-mask as the kernels
   draw it: the dump kernel on a CUDA device, :func:`keep_mask` on the CPU.
 
 ``flash_attention_dropout_fwd.launches``, ``flash_attention_dropout_bwd.
-launches`` and ``dump_dropout_mask.launches`` count kernel launches.
+launches`` and ``dump_dropout_mask.launches`` count kernel launches;
+``flash_attention_dropout_bwd.kernels`` counts them by the kernel that
+:func:`dropout_bwd_kernel_for` names.
 
 Those kernels take head_dim 64, T ≤ 128 and S ≤ 128 (the decoder's
 self-attention at any ``MAX_SEQ_LEN`` ≤ 129): a cell's whole (T, S) tile
@@ -80,6 +84,16 @@ def dropout_kernel_for(head_dim: int, t: int, s: int) -> str:
     if head_dim == TILED_HEAD_DIM and max(t, s) <= TILED_MAX_LEN:
         return "tiled"
     return "any_shape"
+
+
+def dropout_bwd_kernel_for(dtype, head_dim: int, t: int, s: int) -> str:
+    """The backward kernel a CUDA call launches at this shape and dtype:
+    ``"tensor_cores"`` (bf16 at the tiled shapes, ``dropout_bwd_tc_kernel``),
+    ``"cuda_cores"`` (f32 there, ``dropout_bwd_kernel``) or
+    ``"any_shape"``. Raises where :func:`dropout_kernel_for` does."""
+    if dropout_kernel_for(head_dim, t, s) == "any_shape":
+        return "any_shape"
+    return "tensor_cores" if dtype == torch.bfloat16 else "cuda_cores"
 
 
 def _threshold(rate: float) -> int:
@@ -269,8 +283,8 @@ flash_attention_dropout_fwd.launches = 0
 
 def flash_attention_dropout_bwd(q, k, v, pad_add, do, seed: int,
                                 causal: bool, rate: float):
-    """Backward → (dq, dk, dv): the plain formulas for CPU tensors, the
-    kernel for CUDA."""
+    """Backward → (dq, dk, dv): the plain formulas for CPU tensors, for
+    CUDA the kernel :func:`dropout_bwd_kernel_for` names."""
     _check_rate(rate)
     if q.device.type == "cpu":
         return flash_attention_dropout_reference_backward(
@@ -284,7 +298,8 @@ def flash_attention_dropout_bwd(q, k, v, pad_add, do, seed: int,
     b, h, t, hd = q.shape
     s = k.shape[2]
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    if dropout_kernel_for(hd, t, s) == "any_shape":
+    kernel = dropout_bwd_kernel_for(q.dtype, hd, t, s)
+    if kernel == "any_shape":
         name = "mit_dropout_attention_any_shape_bwd"
         # each row's max, sum and delta, from the first kernel to the second
         stats = torch.empty((b * h, t, 3), dtype=torch.float32,
@@ -298,6 +313,9 @@ def flash_attention_dropout_bwd(q, k, v, pad_add, do, seed: int,
             )
     else:
         name = "mit_flash_attention_dropout_bwd"
+        if kernel == "tensor_cores" and any(x.data_ptr() % 16
+                                            for x in (q, k, v, do)):
+            raise ValueError("q, k, v and do must start at 16-byte boundaries")
         with torch.cuda.device(q.device):
             rc = kernels.lib().mit_flash_attention_dropout_bwd(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), pad_add.data_ptr(),
@@ -307,10 +325,13 @@ def flash_attention_dropout_bwd(q, k, v, pad_add, do, seed: int,
             )
     kernels.check(rc, name)
     flash_attention_dropout_bwd.launches += 1
+    flash_attention_dropout_bwd.kernels[kernel] += 1
     return dq, dk, dv
 
 
 flash_attention_dropout_bwd.launches = 0
+flash_attention_dropout_bwd.kernels = {"tensor_cores": 0, "cuda_cores": 0,
+                                       "any_shape": 0}
 
 
 class _DropoutAttention(torch.autograd.Function):

@@ -105,6 +105,21 @@ def test_dropout_kernel_choice_is_the_wrappers_check(hd, t, s):
     assert _raises(tdrop._check_cuda_inputs, q, k, k, pad, q) != takes
 
 
+@pytest.mark.parametrize("t,s", [(1, 1), (99, 99), (128, 128), (129, 64)])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_dropout_backward_kernel_follows_the_shape_and_dtype(dtype, hd, t, s):
+    """At the tiled shapes a bf16 backward runs the tensor-core kernel and
+    an f32 one the CUDA-core kernel; elsewhere both run the any-shape
+    kernels."""
+    want = ("any_shape" if tdrop.dropout_kernel_for(hd, t, s) == "any_shape"
+            else "tensor_cores" if dtype == torch.bfloat16 else "cuda_cores")
+    assert tdrop.dropout_bwd_kernel_for(dtype, hd, t, s) == want
+    assert set(tdrop.flash_attention_dropout_bwd.kernels) == {
+        "tensor_cores", "cuda_cores", "any_shape"}
+
+
 @pytest.mark.parametrize("d,heads,f", [(512, 8, 2048), (512, 8, 256),
                                        (512, 8, 100), (512, 4, 2048),
                                        (256, 4, 1024), (128, 2, 256),

@@ -1,7 +1,8 @@
-"""The walks of two CUDA kernels, replayed on the CPU.
+"""The walks of three CUDA kernels, replayed on the CPU.
 
-``csrc/int8_gemm.cu`` and ``csrc/decode_layer.cu`` cannot run here, but how
-they cut their work can be mirrored step by step in PyTorch:
+``csrc/int8_gemm.cu``, ``csrc/decode_layer.cu`` and the bf16 backward of
+``csrc/flash_attention_dropout.cu`` cannot run here, but how they cut their
+work can be mirrored step by step in PyTorch:
 
 - ``int8_gemm``: a persistent grid of blocks walks 128 x 128 output tiles
   (tile ``blockIdx + i * grid``) as one flat sequence of 128-byte k-steps
@@ -20,6 +21,18 @@ they cut their work can be mirrored step by step in PyTorch:
   attention's P.V sums 16 interleaved groups of keys, then the groups. The
   replay checks that the items cover every output once and holds its result
   to ``fused_decode_layer_plain`` and to the JAX kernel (interpret mode).
+- ``dropout_bwd_tc_kernel``: one block a (batch, head) cell, two
+  warpgroups. In phase A warpgroup w owns query rows 64w .. 64w + 63 and
+  computes p, pd, dp, the row's delta and ds for every key; a warp of 16 rows
+  skips an 8-key tile that is exactly 0 (past S, rows past T, or above the
+  diagonal of all its rows while each has seen an unmasked key) and stores
+  zeros there; pd and ds enter the products as bf16 pairs hi + lo. dQ sums
+  16 keys a step; in phase B warpgroup w owns keys 64w .. 64w + 63 and sums
+  dV and dK 16 query rows a step. The replay checks that every skipped tile
+  is 0 in the exact computation, that the pairs hold each value to 2^-16 of
+  itself, that the row and key ownership covers the cell once, and holds
+  the gradients to ``flash_attention_dropout_reference_backward`` and to
+  the JAX kernel's VJP (interpret mode).
 """
 
 from collections import Counter
@@ -35,9 +48,13 @@ from mit_tpu.decode import step as jstep
 from mit_tpu.models.decoder import DecoderConfig as JDecoderConfig
 from mit_tpu.models.decoder import init_decoder_params
 from mit_tpu.ops.pallas_decode_layer import fused_decode_layer as jax_fused_layer
+from mit_tpu.ops.pallas_dropout_attention import (
+    flash_attention_dropout as jax_flash_dropout,
+)
 from mit_tpu_torch.decode import step as tstep
 from mit_tpu_torch.models.convert import params_from_jax
 from mit_tpu_torch.ops import decode_layer as tlayer
+from mit_tpu_torch.ops import dropout_attention as tdrop
 from mit_tpu_torch.ops import int8_mlp
 from mit_tpu_torch.ops.masks import NEG_INF
 from mit_tpu_torch.ops.quant import int8_accumulate, kernel_layout
@@ -383,3 +400,179 @@ def test_decode_layer_walk_matches_plain_and_jax(decoder512, b, sms, dtype):
         np.testing.assert_allclose(o.float().numpy(),
                                    np.asarray(j.astype(jnp.float32)),
                                    rtol=tol, atol=tol)
+
+
+
+# ----------------------------------------------------------------------
+# the bf16 dropout-attention backward on the tensor cores
+# ----------------------------------------------------------------------
+ROWS = 128                   # a cell's query rows and keys, whole tiles
+ROW_MASKED = -5e8            # a row whose max is below has seen no unmasked key
+
+
+def _quad_sum(x):
+    """Row sums (.., 128) as the kernel takes them: lane t of a quad sums
+    its columns 8n + 2t, + 1 in order over n, then the quad adds lanes one
+    apart, then two apart."""
+    cols = torch.arange(ROWS).reshape(-1, 4, 2)            # (n, t, e)
+    part = torch.zeros(x.shape[:-1] + (4,))
+    for n in range(cols.shape[0]):
+        for e in range(2):
+            part = part + x[..., cols[n, :, e]]
+    pair = part[..., [0, 0, 2, 2]] + part[..., [1, 1, 3, 3]]
+    return (pair[..., 0] + pair[..., 2])[..., None]
+
+
+def split_pairs(x):
+    """hi = bf16(x), lo = bf16(x - hi), as f32 values."""
+    hi = x.to(torch.bfloat16).float()
+    return hi, (x - hi).to(torch.bfloat16).float()
+
+
+def replay_dropout_backward(q, k, v, pad, do, seed, causal, rate):
+    """dropout_bwd_tc_kernel over (B, H, T|S, 64) bf16 tensors → (dq, dk,
+    dv) in bf16, and the count of 8-key tiles that warps with a row below T
+    skipped."""
+    b, h, t, hd = q.shape
+    s = k.shape[2]
+    assert hd == 64 and tdrop.dropout_bwd_kernel_for(q.dtype, hd, t, s) == \
+        "tensor_cores"
+    n = b * h
+    inv = torch.tensor(1.0 / (1.0 - rate), dtype=torch.float32)
+
+    def tiles(x, valid):               # whole 128-row tiles, zero past valid
+        out = torch.zeros(n, ROWS, hd)
+        out[:, :valid] = x.reshape(n, valid, hd).float()
+        return out
+
+    qs, dos, ks, vs = tiles(q, t), tiles(do, t), tiles(k, s), tiles(v, s)
+    padc = torch.full((n, ROWS), 0.0)
+    padc[:, :s] = pad.repeat_interleave(h, 0)
+    row = torch.arange(ROWS)[:, None]
+    col = torch.arange(ROWS)[None, :]
+    keep = torch.zeros(n, ROWS, ROWS, dtype=torch.bool)
+    keep[:, :t, :s] = tdrop.keep_mask(t, s, rate, seed, torch.arange(n))
+
+    # phase A: warpgroup w's rows; every (row, key) of the cell
+    x = torch.einsum("nrd,ncd->nrc", qs, ks) * torch.tensor(0.125)
+    if causal:
+        x = x + torch.where(col <= row, 0.0, NEG_INF)
+    x = torch.where(col < s, x + padc[:, None, :], -torch.inf)
+    m = x.amax(-1, keepdim=True)
+    seen = ((m > ROW_MASKED) | (row >= t)).reshape(n, ROWS // 16, 16).all(-1)
+    # dead 8-key tiles of each warp's 16 rows: (n, 8 warps, 16 tiles)
+    wrow = torch.arange(0, ROWS, 16)[None, :, None]
+    tcol = torch.arange(0, ROWS, 8)[None, None, :]
+    dead8 = (tcol >= s) | (wrow >= t) | (causal & seen[..., None]
+                                         & (tcol > wrow + 15))
+    dead = dead8.repeat_interleave(16, 1).repeat_interleave(8, 2)
+    e = torch.where(dead, 0.0, torch.exp(x - m))
+    p = e / _quad_sum(e)
+    kp = keep & (row < t)
+    pd = torch.where(kp & ~dead, p * inv, 0.0)
+    dp = torch.where(kp & ~dead, torch.einsum("nrd,ncd->nrc", dos, vs) * inv,
+                     0.0)
+    delta = _quad_sum(dp * p)
+    ds = torch.where(dead, 0.0, p * (dp - delta))
+
+    # the skipped tiles are 0 in the exact computation, the plain formulas
+    # on the same f32 inputs
+    x_ref = torch.where(col < s, x, -torch.inf)
+    p_ref = torch.softmax(x_ref, -1)
+    dp_ref = torch.where(kp, torch.einsum("nrd,ncd->nrc", dos, vs) * inv, 0.0)
+    ds_ref = p_ref * (dp_ref - (dp_ref * p_ref).sum(-1, keepdim=True))
+    assert not (torch.where(kp, p_ref, 0.0)[dead]).any()
+    assert not ds_ref[dead].any()
+
+    pd_hi, pd_lo = split_pairs(pd)
+    ds_hi, ds_lo = split_pairs(ds)
+    for x_, hi, lo in ((pd, pd_hi, pd_lo), (ds, ds_hi, ds_lo)):
+        assert ((x_ - (hi + lo)).abs() <= 2.0 ** -16 * x_.abs()).all()
+
+    # dQ by the rows' owner, 16 keys a step; dV and dK by the keys' owner,
+    # 16 query rows a step: each row and each key owned once
+    owners = [slice(64 * w, 64 * w + 64) for w in range(ROWS // 64)]
+    assert torch.cat([torch.arange(ROWS)[o] for o in owners]).tolist() == \
+        list(range(ROWS))
+    dq = torch.zeros(n, ROWS, hd)
+    dk = torch.zeros(n, ROWS, hd)
+    dv = torch.zeros(n, ROWS, hd)
+    for own in owners:
+        for kk in range(ROWS // 16):
+            step = slice(16 * kk, 16 * kk + 16)
+            for part in (ds_hi, ds_lo):
+                dq[:, own] += part[:, own, step] @ ks[:, step]
+            for part in (pd_hi, pd_lo):
+                dv[:, own] += part[:, step, own].transpose(1, 2) @ dos[:, step]
+            for part in (ds_hi, ds_lo):
+                dk[:, own] += part[:, step, own].transpose(1, 2) @ qs[:, step]
+    out = lambda a, m_: (a[:, :m_] * (0.125 if a is not dv else 1.0)).to(
+        torch.bfloat16).reshape(b, h, m_, hd)
+    # the 8-key tiles skipped below T (past T every tile is)
+    skipped = int(dead8[:, :-(-t // 16)].sum())
+    return (out(dq, t), out(dk, s), out(dv, s)), skipped
+
+
+def _dropout_inputs(b, h, t, s, seed):
+    """bf16 q, k ~ N(0, 1), v ~ U(-1, 1), do ~ N(0, 1); a fifth of the keys
+    padded, every key of batch row 0."""
+    r = np.random.default_rng(seed)
+    to = lambda a: torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    q, do = to(r.normal(size=(b, h, t, 64))), to(r.normal(size=(b, h, t, 64)))
+    k = to(r.normal(size=(b, h, s, 64)))
+    v = to(r.uniform(-1, 1, size=(b, h, s, 64)))
+    pad = np.where(r.random((b, s)) > 0.8, NEG_INF, 0.0).astype(np.float32)
+    pad[0] = NEG_INF
+    return q, k, v, pad, do
+
+
+def _norm_err(a, b):
+    """Max abs difference over b's largest value (1 where b is all 0)."""
+    a, b = a.float(), b.float()
+    return ((a - b).abs().max() / (b.abs().max() if b.any() else 1.0)).item()
+
+
+def _check_dropout_backward(q, k, v, pad, do, seed, causal, rate):
+    (dq, dk, dv), skipped = replay_dropout_backward(
+        q, k, v, torch.from_numpy(pad), do, seed, causal, rate)
+    plain = tdrop.flash_attention_dropout_reference_backward(
+        q, k, v, torch.from_numpy(pad), do, seed, causal, rate)
+    jx = lambda a: jnp.asarray(a.float().numpy(), jnp.bfloat16)
+    _, vjp = jax.vjp(
+        lambda a, b_, c: jax_flash_dropout(a, b_, c, jnp.asarray(pad),
+                                           jnp.int32(seed), causal, rate),
+        jx(q), jx(k), jx(v))
+    theirs = vjp(jx(do))
+    for g, pl, j in zip((dq, dk, dv), plain, theirs):
+        assert g.dtype == torch.bfloat16 and bool(torch.isfinite(g).all())
+        assert _norm_err(g, pl) <= 1e-2
+        assert _norm_err(g, torch.from_numpy(
+            np.array(j.astype(jnp.float32)))) <= 1e-2
+    return skipped
+
+
+@pytest.mark.parametrize("b,h,t,s,causal", [
+    (2, 2, 1, 1, False), (3, 2, 7, 9, False), (2, 2, 99, 99, True),
+    (2, 2, 128, 128, True), (2, 1, 128, 128, False)])
+def test_dropout_backward_walk_matches_plain_and_jax(b, h, t, s, causal):
+    """bf16 gradients within 1e-2 of each one's largest value (the card
+    test's bound); batch row 0 has every key padded."""
+    q, k, v, pad, do = _dropout_inputs(b, h, t, s, seed=t + s)
+    skipped = _check_dropout_backward(q, k, v, pad, do, 97, causal, 0.1)
+    # past S, and above the diagonal
+    assert (skipped > 0) == (s % 128 != 0 or (causal and t > 16))
+
+
+def test_dropout_backward_walk_skips_nothing_a_row_without_a_key_sees():
+    """Causal, batch row 1's first ten keys padded: its rows 0-9 see only
+    padded keys, so their softmax spreads over every key that is not padded,
+    above the diagonal too. Their warp skips no tile there, while the other
+    warps still skip theirs."""
+    b, h, t = 2, 2, 48
+    q, k, v, pad, do = _dropout_inputs(b, h, t, t, seed=3)
+    pad[1] = 0.0
+    pad[1, :10] = NEG_INF
+    p = tdrop._probs(q, k, torch.from_numpy(pad), True)
+    assert (p[1, :, :10, 16:] > 0).all()   # above the diagonal of rows 0-15
+    skipped = _check_dropout_backward(q, k, v, pad, do, 5, True, 0.25)
+    assert skipped > 0

@@ -589,10 +589,18 @@ def test_dropout_attention_matches_plain_on_card(cuda, dtype, b, h, t, s,
 
 
 @pytest.mark.cuda
-def test_dropout_attention_autograd_on_card(cuda):
+@pytest.mark.parametrize("dtype,b,limit", [(torch.float32, 4, 1e-5),
+                                           (torch.bfloat16, 32, 1e-2)],
+                         ids=["f32", "bf16"])
+def test_dropout_attention_autograd_on_card(cuda, dtype, b, limit):
     """The autograd Function launches the forward and backward kernels and
-    gives the plain autograd version's gradients."""
-    q, k, v, pad = _heads(4, 8, 99, 99, torch.float32, cuda)
+    gives the plain autograd version's gradients: f32 within 1e-5, bf16 (at
+    the training shape, the backward on the tensor cores) within 1e-2 of
+    their largest value. Both take the same cotangent, so a forward that
+    rounds differently in bf16 does not move the backward's input."""
+    q, k, v, pad = _heads(b, 8, 99, 99, dtype, cuda)
+    cot = torch.randn(q.shape, generator=torch.Generator().manual_seed(2)
+                      ).to(cuda, dtype)
     grads = []
     counts = []
     for fn in (dropout_attention.flash_attention_dropout,
@@ -601,15 +609,37 @@ def test_dropout_attention_autograd_on_card(cuda):
         before = (dropout_attention.flash_attention_dropout_fwd.launches,
                   dropout_attention.flash_attention_dropout_bwd.launches)
         out = fn(*qkv, pad, 99, True, 0.1)
-        grads.append(torch.autograd.grad(out.square().sum(), qkv))
+        grads.append(torch.autograd.grad(out, qkv, cot))
         counts.append((dropout_attention.flash_attention_dropout_fwd.launches
                        - before[0],
                        dropout_attention.flash_attention_dropout_bwd.launches
                        - before[1]))
     torch.cuda.synchronize()
     assert counts == [(1, 1), (0, 0)]
-    for a, b in zip(*grads):
-        assert _norm_err(a, b) <= 1e-5
+    for got, want in zip(*grads):
+        assert got.dtype == dtype
+        assert _norm_err(got, want) <= limit
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,t,s,causal", DROPOUT_SHAPES)
+def test_dropout_bf16_backward_runs_on_the_tensor_cores_on_card(cuda, b, h,
+                                                                t, s, causal):
+    """A bf16 backward at every tiled shape launches the tensor-core kernel
+    once, and nothing else; f32 keeps the CUDA-core kernel."""
+    bwd = dropout_attention.flash_attention_dropout_bwd
+    for dtype, kernel in ((torch.bfloat16, "tensor_cores"),
+                          (torch.float32, "cuda_cores")):
+        assert dropout_attention.dropout_bwd_kernel_for(dtype, 64, t, s) == \
+            kernel
+        q, k, v, pad = _heads(b, h, t, s, dtype, cuda)
+        before = dict(bwd.kernels)
+        launches = bwd.launches
+        bwd(q, k, v, pad, torch.ones_like(q), 3, causal, 0.1)
+        torch.cuda.synchronize()
+        assert bwd.launches == launches + 1
+        assert {name: n - before[name] for name, n in bwd.kernels.items()} \
+            == {name: int(name == kernel) for name in before}
 
 
 @pytest.mark.cuda
