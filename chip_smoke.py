@@ -155,7 +155,28 @@ the script exits non-zero without printing the result line.
             kernels a step; captions/s and ms per step of greedy fused
             against unfused in alternating turns, and of beam K = 3; a
             32-step trace of each greedy route (device kernels and
-            device-busy time per step). Then
+            device-busy time per step).
+            Then the continuously batched CaptionService on the same model
+            with the END logit's bias raised by END_MARGIN, so that captions
+            end at several lengths; every request goes through run_stream
+            (chunks of seeded pixels through memory_from_pixels) or
+            submit_memory_batch. f32, 6 slots, 24 requests: the fused CLS
+            service's tokens on the kernel equal them with
+            fused_decode_layer_plain swapped in and greedy_generate(fused=
+            True)'s; the unfused CLS service equals unfused batch greedy;
+            the full-memory service (unfused, per-row positions) equals
+            full-memory batch greedy; beam K = 3 equals beam_generate(fused=
+            True); a cache_len 16 run with overflow equals the unbucketed
+            run; slots were reused while others decoded. bf16, 64 slots, 256
+            requests in 4 chunks: captions/s (encoder included), window ms
+            and caption lengths of greedy fused (windows of 8 and 1 tokens),
+            greedy unfused, beam K = 3 fused, sampling and greedy over full
+            memory (S_mem 197), each with its launches and routes held (every
+            CLS step fused, every full-memory step unfused, 11 or 12
+            flash_attention_btd launches a chunk); the share of tokens equal
+            to batch greedy (reported: the service's CLS constant is f32);
+            a 32-window trace of the greedy service, fused, unfused and over
+            full memory. Then
             the BLIP-384 encoder (577 tokens) at full depth, f32 batch 8:
             11 flash_attention launches per encode call and no
             flash_attention_btd, memory within 1e-4 of the plain path's.
@@ -252,6 +273,17 @@ RUN_STEPS = 10           # steps per throughput run
 TRACE_STEPS = 8          # traced bf16 train steps (fused dropout)
 DROPOUT_SHAPES = [("decoder", 32, 8, 99, 99, True), ("ragged", 3, 2, 7, 9, False)]
 DROPOUT_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2e-2, 1e-2)}
+# the service phase: the END logit's bias raised by END_MARGIN (chosen on a
+# CPU rehearsal of the phase so that captions end at many lengths; the phase
+# prints them), f32 identity checks on F32_SLOTS slots, rates at bf16 on
+# SERVICE_SLOTS slots with SERVICE_REQUESTS requests in chunks of
+# SERVICE_CHUNK images, windows of SERVICE_WINDOW tokens
+END_MARGIN = 1.1
+F32_SLOTS, F32_REQUESTS, F32_CHUNK = 6, 24, 8
+SERVICE_SLOTS, SERVICE_REQUESTS, SERVICE_CHUNK = 64, 256, 64
+SERVICE_WINDOW = 8
+SERVICE_TRACE_STEPS = 32
+DEVICE_LINE = []         # nvidia-smi's name and power limit, set by main()
 
 
 class TrainConfig(NamedTuple):
@@ -1774,6 +1806,299 @@ def check_decode_routes(torch):
     return {"counts": counts, "rates": rates}
 
 
+def service_setup(torch, device="cuda"):
+    """The service's model: the slice's ViT-B/16 float encoder and 6 x 512
+    decoder (8 heads, FF 2048, vocab 10000, max_len 100) from SEED, the END
+    logit's bias raised by END_MARGIN, and SERVICE_REQUESTS seeded pixel
+    images on ``device`` (the card; a rehearsal takes the CPU)."""
+    from mit_tpu_torch.models.decoder import DecoderConfig
+    from mit_tpu_torch.models.model import ModelConfig, init_model_params
+    from mit_tpu_torch.models.vision import PRESETS
+
+    name = "google/vit-base-patch16-224-in21k"
+    mcfg = ModelConfig(name, PRESETS[name], DecoderConfig(vocab_size=10000),
+                       "cls")
+    params = init_model_params(torch.Generator().manual_seed(SEED), mcfg, device)
+    params["decoder"]["fc_out_b"][SpecialIds().end_id] += END_MARGIN
+    size = mcfg.vision.image_size
+    pixels = torch.from_numpy(
+        np.random.default_rng(SEED + 7).uniform(
+            -1, 1, (SERVICE_REQUESTS, 3, size, size)).astype(np.float32)
+    ).to(device)
+    return mcfg, params, pixels
+
+
+def chunked(cap, pixels, size):
+    """The encoder chunks of ``pixels`` as run_stream takes them: (memory
+    of up to ``size`` images, its rows), each encoded when pulled."""
+    for i in range(0, pixels.shape[0], size):
+        px = pixels[i:i + size]
+        yield cap.memory_from_pixels(px), px.shape[0]
+
+
+def encoded(torch, cap, pixels, size):
+    """The memories run_stream sees, chunk by chunk, concatenated."""
+    return torch.cat([m for m, _ in chunked(cap, pixels, size)])
+
+
+def padded_rows(results, max_len=100, pad=0):
+    """Service results → whole rows, PAD after the caption (a greedy row of
+    the batch loops)."""
+    return [list(r) + [pad] * (max_len - len(r)) for r in results]
+
+
+def batch_rows(tokens, method):
+    """Batch-loop tokens → rows comparable with the service's: whole rows
+    for greedy, beam rows cut at their count of tokens that are not PAD (as
+    both packages' beam results are)."""
+    rows = tokens.tolist()
+    if method == "beam":
+        return [r[:sum(t != SpecialIds().pad_id for t in r)] for r in rows]
+    return rows
+
+
+def caption_lengths(results, end_id=3):
+    """Tokens a caption, START and END included."""
+    return [r.index(end_id) + 1 if end_id in r else len(r) for r in results]
+
+
+def serve(torch, cap, requests, chunk=None, **kw):
+    """One CaptionService run over ``requests`` (pixels through run_stream in
+    chunks of ``chunk``, or a memory tensor through submit_memory_batch) →
+    (results in request order, the service, wall seconds, window ms)."""
+    from mit_tpu_torch.decode.service import CaptionService
+
+    svc = CaptionService(cap, **kw)
+    windows = []
+    for name in ("_step_flat", "_step_beam"):
+        fn = getattr(svc, name)
+
+        def timed(fn=fn):
+            t0 = time.perf_counter()
+            fn()                              # ends in the window's read-back
+            windows.append((time.perf_counter() - t0) * 1e3)
+        setattr(svc, name, timed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if chunk is None:
+        ids = svc.submit_memory_batch(requests)
+        res = svc.run_to_completion()
+        out = [res[i] for i in ids]
+    else:
+        ids = svc.run_stream(chunked(cap, requests, chunk))
+        out = [svc.result(i) for i in ids]
+    torch.cuda.synchronize()
+    return out, svc, time.perf_counter() - t0, windows
+
+
+def trace_service(torch, cap, mem, label, steps=SERVICE_TRACE_STEPS):
+    """``steps`` windows of one token of a greedy service under
+    torch.profiler, its slots full: device kernels and copies a step,
+    device-busy ms a step and its share of the traced wall time, and the
+    copies to the host a step (the window's one read-back)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mit_tpu_torch.decode.service import CaptionService
+
+    svc = CaptionService(cap, num_slots=SERVICE_SLOTS)
+    svc.submit_memory_batch(mem)
+    for _ in range(4):                                        # warm-up
+        svc.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            svc.step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_us = lambda e: getattr(e, "self_device_time_total", 0)
+    total = sum(busy_us(e) for e in dev)
+    if not dev or total <= 0:
+        print(f"trace service {label}: the profiler recorded no device time")
+        return None
+    d2h = sum(e.count for e in dev if "DtoH" in e.key or "Device -> Pinned"
+              in e.key or "Device -> Pageable" in e.key)
+    layer = [e for e in dev if "decode_layer" in e.key]
+    top = sorted(dev, key=busy_us, reverse=True)[:5]
+    out = {"kernels_per_step": sum(e.count for e in dev) / steps,
+           "busy_ms_per_step": total / steps / 1e3,
+           "wall_ms_per_step": wall_ms / steps,
+           "busy_share": total / 1e3 / wall_ms,
+           "d2h_per_step": d2h / steps}
+    print(f"trace service {label} bf16 {SERVICE_SLOTS} slots, {steps} "
+          f"windows of 1 token: {out['kernels_per_step']:.1f} device kernels "
+          f"and copies a step, device busy {out['busy_ms_per_step']:.3f} ms a "
+          f"step, traced wall {out['wall_ms_per_step']:.3f} ms a step (busy "
+          f"share {out['busy_share']:.3f}); copies to the host "
+          f"{out['d2h_per_step']:.2f} a step; fused_decode_layer "
+          f"{sum(e.count for e in layer) / steps:.1f} launches a step; most "
+          "device time: " + "; ".join(
+              f"{e.key[:40]} {busy_us(e) / steps / 1e3:.3f} ms x "
+              f"{e.count / steps:.1f}" for e in top) + f"; {DEVICE_LINE[0]}")
+    return out
+
+
+def check_service(torch, device="cuda"):
+    """Phase 4, the continuously batched CaptionService on the ViT-B model
+    (see the module docstring). Returns the bf16 fused greedy run's counts
+    and the rates."""
+    from mit_tpu_torch.decode import step as step_mod
+    from mit_tpu_torch.decode.api import Captioner
+    from mit_tpu_torch.decode.beam import beam_generate
+    from mit_tpu_torch.decode.greedy import greedy_generate
+    from mit_tpu_torch.ops.decode_layer import fused_decode_layer_plain
+
+    t_phase = time.perf_counter()
+    mcfg, params, pixels = service_setup(torch, device)
+    dcfg, ids, dec = mcfg.decoder, SpecialIds(), params["decoder"]
+    full_mcfg = mcfg._replace(memory_mode="full")
+    greedy = lambda mem, fused, dtype=torch.float32: batch_rows(greedy_generate(
+        dec, dcfg, mem, ids.start_id, ids.end_id, ids.pad_id, 100,
+        compute_dtype=dtype, fused=fused)[0], "greedy")
+    spread = lambda res: (f"caption length mean "
+                          f"{statistics.mean(caption_lengths(res)):.1f}, min "
+                          f"{min(caption_lengths(res))}, max "
+                          f"{max(caption_lengths(res))}")
+
+    # f32, F32_SLOTS slots, F32_REQUESTS requests: token identity
+    px = pixels[:F32_REQUESTS]
+    caps = {route: Captioner(params, mcfg, ids, torch.float32,
+                             fused_decode=route) for route in (True, False)}
+    full = Captioner(params, full_mcfg, ids, torch.float32, fused_decode=True)
+    mem = encoded(torch, caps[True], px, F32_CHUNK)
+    reset_counts()
+    res, svc, _, _ = serve(torch, caps[True], px, F32_CHUNK,
+                           num_slots=F32_SLOTS)
+    steps = svc.windows
+    counts = read_counts()
+    chunks = -(-F32_REQUESTS // F32_CHUNK)
+    hold_routes("service f32 greedy fused", attention=11 * chunks,
+                decode={"fused": steps, "unfused": 0})
+    if (counts["fused_decode_layer"] != dcfg.num_layers * steps
+            or counts["flash_attention_btd"] != 11 * chunks):
+        raise AssertionError(f"service f32 greedy fused: launches {counts}")
+    kernel_fn = step_mod.fused_decode_layer
+    step_mod.fused_decode_layer = fused_decode_layer_plain
+    try:                                # the same route on the plain version
+        plain, _, _, _ = serve(torch, caps[True], mem, num_slots=F32_SLOTS)
+    finally:
+        step_mod.fused_decode_layer = kernel_fn
+    rows = padded_rows(res)
+    checks = {
+        "fused kernel == plain fused layer": rows == padded_rows(plain),
+        "fused == batch greedy fused": rows == greedy(mem, True),
+        "slots reused while others decode": svc.reused > 0,
+    }
+    reset_counts()
+    unfused, usvc, _, _ = serve(torch, caps[False], mem, num_slots=F32_SLOTS)
+    hold_routes("service f32 greedy unfused", attention=0,
+                decode={"fused": 0, "unfused": usvc.windows})
+    checks["unfused == batch greedy unfused"] = \
+        padded_rows(unfused) == greedy(mem, False)
+    fmem = encoded(torch, full, px, F32_CHUNK)
+    reset_counts()
+    fres, fsvc, _, _ = serve(torch, full, px, F32_CHUNK, num_slots=F32_SLOTS)
+    # full memory: the last layer attends over every token, not the CLS row
+    hold_routes("service f32 greedy full memory", attention=12 * chunks,
+                decode={"fused": 0, "unfused": fsvc.windows})
+    checks["full memory == batch full memory"] = \
+        padded_rows(fres) == greedy(fmem, True)
+    beam, _, _, _ = serve(torch, caps[True], mem, num_slots=F32_SLOTS,
+                          method="beam", beam_size=3)
+    checks["beam K=3 fused == beam_generate fused"] = beam == batch_rows(
+        beam_generate(dec, dcfg, mem, ids.start_id, ids.end_id, ids.pad_id,
+                      100, 3, compute_dtype=torch.float32, fused=True)[0],
+        "beam")
+    bucketed, bsvc, _, _ = serve(torch, caps[True], mem, num_slots=F32_SLOTS,
+                                 cache_len=16)
+    checks["cache_len 16 == unbucketed"] = \
+        padded_rows(bucketed) == rows and bsvc.overflowed > 0
+    print(f"service f32 {F32_SLOTS} slots, {F32_REQUESTS} requests: "
+          + ", ".join(f"{k} {v}" for k, v in checks.items())
+          + f"; greedy {spread(res)}; {svc.reused} admissions into a reused "
+          f"slot while others decoded; full memory {spread(fres)}; "
+          f"{bsvc.overflowed} overflowed at cache_len 16")
+    if not all(checks.values()):
+        raise AssertionError(f"service f32: {checks}")
+    del caps, full, svc, usvc, fsvc, bsvc
+
+    # bf16, SERVICE_SLOTS slots, SERVICE_REQUESTS requests in chunks
+    caps = {"fused": Captioner(params, mcfg, ids, torch.bfloat16,
+                               fused_decode=True),
+            "unfused": Captioner(params, mcfg, ids, torch.bfloat16),
+            "full": Captioner(params, full_mcfg, ids, torch.bfloat16,
+                              fused_decode=True)}
+    serve(torch, caps["fused"], pixels[:SERVICE_CHUNK], SERVICE_CHUNK,
+          num_slots=SERVICE_SLOTS, steps_per_sync=SERVICE_WINDOW)  # warm-up
+    chunks = SERVICE_REQUESTS // SERVICE_CHUNK
+    runs = [("greedy fused", "fused", {}, SERVICE_WINDOW),
+            ("greedy fused", "fused", {}, 1),
+            ("greedy unfused", "unfused", {}, SERVICE_WINDOW),
+            ("beam K=3 fused", "fused", dict(method="beam", beam_size=3),
+             SERVICE_WINDOW),
+            ("sample fused", "fused", dict(method="sample", top_k=50,
+                                           top_p=0.9, seed=SEED),
+             SERVICE_WINDOW),
+            ("greedy full memory", "full", {}, SERVICE_WINDOW)]
+    rates, main_counts, greedy_res = {}, None, None
+    for label, which, kw, window in runs:
+        reset_counts()
+        res, svc, secs, win = serve(
+            torch, caps[which], pixels, SERVICE_CHUNK, num_slots=SERVICE_SLOTS,
+            steps_per_sync=window, **kw)
+        counts = read_counts()
+        steps = svc.windows * window
+        fused = which == "fused"
+        per_encode = 12 if which == "full" else 11
+        hold_routes(f"service bf16 {label}, window {window}",
+                    attention=per_encode * chunks,
+                    decode={"fused": steps if fused else 0,
+                            "unfused": 0 if fused else steps})
+        want_layer = dcfg.num_layers * steps if fused else 0
+        if (counts["fused_decode_layer"] != want_layer
+                or counts["flash_attention_btd"] != per_encode * chunks
+                or len(res) != SERVICE_REQUESTS or svc.reused == 0):
+            raise AssertionError(f"service bf16 {label}: launches {counts}, "
+                                 f"{len(res)} results, {svc.reused} reuses")
+        for r in res:
+            assert r[0] == ids.start_id and 2 <= len(r) <= 100
+            assert all(0 <= x < dcfg.vocab_size for x in r)
+        key = f"{label}, window {window}"
+        rates[key] = SERVICE_REQUESTS / secs
+        print(f"service bf16 {SERVICE_SLOTS} slots, {key}: "
+              f"{rates[key]:.1f} captions/s ({SERVICE_REQUESTS} requests in "
+              f"{chunks} chunks, encoder included, {secs:.4f} s), window "
+              f"median {statistics.median(win):.3f} ms (quartiles "
+              f"{' - '.join(f'{q:.3f}' for q in statistics.quantiles(win, n=4)[::2])}"
+              f", {len(win)} windows, {svc.steps_run} steps), "
+              f"{spread(res)}; {svc.reused} admissions into a reused slot; "
+              f"{counts['fused_decode_layer']} fused_decode_layer launches; "
+              f"{DEVICE_LINE[0]}")
+        if (label, window) == ("greedy fused", SERVICE_WINDOW):
+            main_counts, greedy_res = counts, res
+    # bf16 tokens against batch greedy: the service's CLS constant is f32,
+    # the batch init_cache's bf16 (both packages), so a share, not a check
+    mem = encoded(torch, caps["fused"], pixels, SERVICE_CHUNK)
+    batch = greedy(mem, True, torch.bfloat16)
+    rows = padded_rows(greedy_res)
+    same_tok = np.mean([a == b for ra, rb in zip(rows, batch)
+                        for a, b in zip(ra, rb)])
+    same_cap = np.mean([ra == rb for ra, rb in zip(rows, batch)])
+    print(f"service bf16 greedy fused against batch greedy fused: "
+          f"{same_tok:.4f} of tokens equal, {same_cap:.4f} of captions "
+          f"(reported, not checked: the CLS constant is f32 in the service, "
+          f"bf16 in the batch)")
+    fmem = encoded(torch, caps["full"], pixels, SERVICE_CHUNK)
+    for label, which, m in (("greedy fused", "fused", mem),
+                            ("greedy unfused", "unfused", mem),
+                            ("greedy full memory", "full", fmem)):
+        trace_service(torch, caps[which], m, label)
+    print(f"service phase {time.perf_counter() - t_phase:.1f} s")
+    return {"counts": main_counts, "rates": rates}
+
+
 def check_blip(torch):
     """Phase 4, the BLIP-384 encoder (577 tokens, D 768) at full depth, f32
     batch 8: its self-attention takes flash_attention, the (B, H, T, hd)
@@ -2332,7 +2657,7 @@ KERNELS = {
                                     "train"),
     "fused_decode_layer": ("decode_layer.cu",
                            "mit_tpu/ops/pallas_decode_layer.py:60",
-                           "decode_fused"),
+                           "service"),
     "flash_attention": ("flash_attention_btd.cu",
                         "mit_tpu/ops/pallas_attention.py:86", "blip384"),
 }
@@ -2351,6 +2676,7 @@ def main() -> int:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip()
     print(smi)
+    DEVICE_LINE.append(smi)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2388,6 +2714,12 @@ def main() -> int:
     slice_["counts"]["decode_fused"] = routes["counts"]
     print("decode captions/s bf16 B=64 (decoding only): " + ", ".join(
         f"{k} {v:.2f}" for k, v in routes["rates"].items()))
+    service = check_service(torch)
+    slice_["counts"]["service"] = service["counts"]
+    print(f"service captions/s bf16 {SERVICE_SLOTS} slots (encoder "
+          "included): " + ", ".join(f"{k} {v:.2f}"
+                                    for k, v in service["rates"].items())
+          + f"; {smi}")
     slice_["counts"]["blip384"] = check_blip(torch)
 
     print("== 5 train", flush=True)

@@ -31,8 +31,10 @@ Package layout:
     data      host preprocessing, dataset, batching, dataset preparation
     train     train and eval steps, optimizer, feature cache, loop, CLI,
               checkpoints
-    decode    KV-cached decode step (unfused and fused), greedy, beam search,
-              sampling, captioning API and CLI
+    decode    KV-cached decode step (unfused and fused; CLS and full
+              memory), greedy, beam search, sampling, the continuously
+              batched CaptionService, captioning API and CLI
+    eval      corpus BLEU-4 and CIDEr-D (copies of the JAX package's)
     kernels   nvcc build + ctypes binding of csrc/*.cu
 """
 

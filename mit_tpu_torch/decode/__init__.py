@@ -1,1 +1,3 @@
-"""Decoding: KV-cached greedy decode, captioning API and CLI."""
+"""Decoding: KV-cached decode step (CLS and full memory), greedy, beam
+search, sampling, the continuously batched service, captioning API and
+CLI."""

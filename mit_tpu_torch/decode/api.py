@@ -1,6 +1,7 @@
 """High-level captioning API (port of ``mit_tpu/decode/api.py``).
 
-``Captioner`` encodes a batch of images to decoder memory and decodes
+``Captioner`` encodes a batch of images to decoder memory (the CLS token
+or, in ``memory_mode="full"``, the whole sequence) and decodes
 captions with the KV-cached loops: ``method`` "greedy", "beam" (real beam
 search, ``beam_size`` beams) or "sample" (temperature, top-k, top-p, drawn
 from a ``torch.Generator``). ``postprocess`` is the reference's text
@@ -130,7 +131,8 @@ class Captioner:
         top_p: float = 1.0,
         generator: Optional[torch.Generator] = None,
     ) -> List[List[int]]:
-        """Decoder memory (B, 1, D) → token id lists. ``generator`` (on the
+        """Decoder memory (B, S, D) → token id lists: (B, 1, D) CLS memory,
+        or the full sequence in ``memory_mode="full"``. ``generator`` (on the
         memory's device) feeds ``method="sample"``; None seeds one with 0, as
         the JAX package's ``rng=None`` is ``PRNGKey(0)``."""
         tok = self.tokenizer

@@ -52,7 +52,7 @@ def top_k_lowest_first(x: torch.Tensor, k: int):
 def beam_generate(
     params: dict,
     cfg: DecoderConfig,
-    memory: torch.Tensor,              # (B, 1, D) projected decoder memory
+    memory: torch.Tensor,              # (B, S, D) projected decoder memory
     start_id: int,
     end_id: int,
     pad_id: int,

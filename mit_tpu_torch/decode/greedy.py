@@ -114,7 +114,7 @@ def select_argmax(logits: torch.Tensor, generator=None) -> torch.Tensor:
 def greedy_generate(
     params: dict,
     cfg: DecoderConfig,
-    memory: torch.Tensor,              # (B, 1, D) projected decoder memory
+    memory: torch.Tensor,              # (B, S, D) projected decoder memory
     start_id: int,
     end_id: int,
     pad_id: int,

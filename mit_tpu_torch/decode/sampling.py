@@ -60,7 +60,7 @@ def filter_logits(
 def sample_generate(
     params: dict,
     cfg: DecoderConfig,
-    memory: torch.Tensor,              # (B, 1, D)
+    memory: torch.Tensor,              # (B, S, D)
     generator: Optional[torch.Generator],   # on memory's device; None: global
     start_id: int,
     end_id: int,

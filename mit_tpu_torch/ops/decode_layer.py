@@ -217,11 +217,11 @@ def fused_decode_layer_plain(
     x3 = _ln(x2 + product(mid, "w2", "b2"), w["ln3s"], w["ln3b"], eps)
     k_new, v_new = k_new.to(cd), v_new.to(cd)
     if write_cache:
-        _write_rows(k_cache, v_cache, posv, k_new, v_new)
+        write_rows(k_cache, v_cache, posv, k_new, v_new)
     return x3.to(cd), k_new, v_new
 
 
-def _write_rows(k_cache, v_cache, posv, k_new, v_new) -> None:
+def write_rows(k_cache, v_cache, posv, k_new, v_new) -> None:
     """cache[b, pos[b]] = fresh row, for every pos inside the cache."""
     t = k_cache.shape[1]
     inside = (posv >= 0) & (posv < t)

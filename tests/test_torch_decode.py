@@ -135,9 +135,12 @@ def test_grow_cache_keeps_rows(params, memory):
         tgreedy.greedy_generate(params_from_jax(params), TCFG,
                                 torch.from_numpy(memory), START, END, PAD,
                                 MAXLEN + 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tstep.init_cache(params_from_jax(params), TCFG,
-                         torch.zeros(4, 3, D), max_len=8)
+    # full memory: the memory keys and values are not grown
+    full = tstep.init_cache(params_from_jax(params), TCFG,
+                            torch.zeros(4, 3, D), max_len=4)
+    grown = tstep.grow_cache(full, 16)
+    assert grown.k[0].shape == (4, 16, D) and grown.cross_const is None
+    assert grown.cross_k is full.cross_k and grown.cross_v is full.cross_v
 
 
 # ----------------------------------------------------------------------

@@ -211,8 +211,8 @@ def test_fused_step_matches_jax_fused_step(params, memory, dtype):
 
 
 def test_fused_step_takes_per_row_positions(params, memory):
-    """A (B,) position tensor equal to a scalar gives the scalar's logits;
-    the unfused route refuses per-row positions."""
+    """A (B,) position tensor equal to a scalar gives the scalar's logits,
+    on the fused route and on the unfused one."""
     _, tp, _, tcache = _prefilled(params, memory, "float32")
     tokens = torch.from_numpy((np.arange(B) % 7 + 4).astype(np.int64))
     copy = lambda c: c._replace(k=[a.clone() for a in c.k],
@@ -228,9 +228,10 @@ def test_fused_step_takes_per_row_positions(params, memory):
     torch.testing.assert_close(rows, scalar, rtol=0, atol=0)
     for a, b in zip(c1.k + c1.v, c2.k + c2.v):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
-    with pytest.raises(TypeError, match="fused"):
-        tstep.decoder_step(tp, TCFG, tokens,
-                           torch.full((B,), 3, dtype=torch.int32), tcache)
+    unfused, _ = tstep.decoder_step(tp, TCFG, tokens, 3, copy(tcache))
+    unfused_rows, _ = tstep.decoder_step(
+        tp, TCFG, tokens, torch.full((B,), 3, dtype=torch.int32), copy(tcache))
+    torch.testing.assert_close(unfused_rows, unfused, rtol=0, atol=0)
 
 
 def _rigged(params, token, bias):

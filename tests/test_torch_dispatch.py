@@ -162,8 +162,10 @@ def _routes():
 def card_rule(monkeypatch):
     """``decoder_step`` picks its route as it does for CUDA tensors."""
     rule = tstep.step_route
-    monkeypatch.setattr(tstep, "step_route",
-                        lambda fused, device_type, cfg: rule(fused, "cuda", cfg))
+    monkeypatch.setattr(
+        tstep, "step_route",
+        lambda fused, device_type, cfg, cls_memory=True:
+            rule(fused, "cuda", cfg, cls_memory))
 
 
 @pytest.mark.parametrize("d,heads,f", [(512, 8, 2048), (512, 8, 100),
@@ -226,12 +228,12 @@ def test_fused_step_takes_the_route_its_geometry_allows(card_rule, d, heads,
     np.testing.assert_allclose(out.numpy(), unfused.numpy(), rtol=1e-5,
                                atol=1e-5)
     if route == "unfused":
-        # the very same computation, and no per-row positions there
+        # the very same computation, with per-row positions too
         torch.testing.assert_close(out, unfused, rtol=0, atol=0)
-        with pytest.raises(TypeError, match="fused"):
-            tstep.decoder_step(tp, tcfg, torch.from_numpy(tok),
-                               torch.full((3,), 3, dtype=torch.int32),
-                               copy(tcache), fused=True)
+        rows, _ = tstep.decoder_step(tp, tcfg, torch.from_numpy(tok),
+                                     torch.full((3,), 3, dtype=torch.int32),
+                                     copy(tcache), fused=True)
+        torch.testing.assert_close(rows, unfused, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("d,heads,route", [(256, 4, "unfused"),

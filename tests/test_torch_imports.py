@@ -52,6 +52,8 @@ def test_no_port_source_imports_jax_or_the_jax_package():
     "mit_tpu_torch.decode.sampling, mit_tpu_torch.train.loop, "
     "mit_tpu_torch.config, mit_tpu_torch.data.prepare",
     "mit_tpu_torch.text",
+    "mit_tpu_torch.decode.service, mit_tpu_torch.eval.bleu, "
+    "mit_tpu_torch.eval.cider",
 ])
 def test_port_modules_load_neither_jax_nor_the_jax_package(modules):
     """Importing the port's entry points leaves neither in sys.modules; the

@@ -1212,3 +1212,103 @@ def test_multihead_attention_runs_a_kernel_at_any_shape_on_card(cuda, hd, t,
     tol = 1e-4 if dtype == torch.float32 else 5e-2
     for a, b_ in zip(outs[True], outs[False]):
         assert _norm_err(a, b_) <= tol
+
+
+# ----------------------------------------------------------------------
+# the continuously batched service on the card
+# ----------------------------------------------------------------------
+SVC_MAXLEN, SVC_VOCAB, SVC_END = 24, 500, 3
+
+
+def _service_captioner(device, mode, fused, end_bias=3.0):
+    """A 2-layer decoder at the fused kernel's geometry (512 wide, 8 heads),
+    seeded weights with the END logit's bias raised so that captions end at
+    several lengths, over the tiny encoder preset (17 rows of full memory)."""
+    from mit_tpu_torch.decode.api import Captioner
+    from mit_tpu_torch.models.decoder import DecoderConfig, init_decoder_params
+    from mit_tpu_torch.models.model import ModelConfig
+    from mit_tpu_torch.models.vision import PRESETS
+
+    class Ids:
+        pad_id, start_id, end_id, unk_id = 0, 2, SVC_END, 1
+
+    cfg = DecoderConfig(vocab_size=SVC_VOCAB, embed_dim=512, num_heads=8,
+                        num_layers=2, ff_dim=512, max_seq_len=SVC_MAXLEN)
+    dec = init_decoder_params(torch.Generator().manual_seed(0), cfg, device)
+    dec["fc_out_b"][SVC_END] = end_bias
+    name = "mit/tiny-vit-debug"
+    return Captioner({"decoder": dec, "encoder": {}},
+                     ModelConfig(name, PRESETS[name], cfg, mode), Ids(),
+                     torch.float32, fused_decode=fused)
+
+
+def _service_rows(cap, mems, **kw):
+    """Every request through a 3-slot service → whole rows, PAD after END."""
+    from mit_tpu_torch.decode.service import CaptionService
+
+    svc = CaptionService(cap, num_slots=3, **kw)
+    rids = svc.submit_memory_batch(mems)
+    res = svc.run_to_completion()
+    return [res[r] + [0] * (SVC_MAXLEN - len(res[r])) for r in rids], svc
+
+
+def _service_memories(device, s, n=10):
+    m = np.random.default_rng(3).normal(size=(n, s, 512)).astype(np.float32)
+    return torch.from_numpy(m).to(device)
+
+
+@pytest.mark.cuda
+def test_fused_service_kernel_equals_plain_layer_and_batch_on_card(cuda):
+    """CLS memory, f32, the fused route at per-row positions: the service's
+    tokens on the kernel, with the plain fused layer swapped in, and the
+    batch loop's ``fused=True`` tokens are identical; every layer of every
+    step launched the kernel."""
+    from mit_tpu_torch.decode import step
+    from mit_tpu_torch.decode.greedy import greedy_generate
+    from mit_tpu_torch.ops.decode_layer import (
+        fused_decode_layer,
+        fused_decode_layer_plain,
+    )
+
+    cap = _service_captioner(cuda, "cls", fused=True)
+    mems = _service_memories(cuda, 1)
+    before, routes = fused_decode_layer.launches, dict(step.decoder_step.routes)
+    kernel, svc = _service_rows(cap, mems, steps_per_sync=4)
+    launched = fused_decode_layer.launches - before
+    fused_steps = step.decoder_step.routes["fused"] - routes["fused"]
+    assert step.decoder_step.routes["unfused"] == routes["unfused"]
+    assert fused_steps > 0 and launched == 2 * fused_steps
+    kernel_fn = step.fused_decode_layer
+    step.fused_decode_layer = fused_decode_layer_plain
+    try:
+        plain, _ = _service_rows(cap, mems, steps_per_sync=4)
+    finally:
+        step.fused_decode_layer = kernel_fn
+    tokens, _ = greedy_generate(cap.params["decoder"], cap.mcfg.decoder, mems,
+                                2, SVC_END, 0, SVC_MAXLEN, fused=True)
+    assert kernel == plain == tokens.tolist()
+    lengths = {r.index(SVC_END) + 1 if SVC_END in r else SVC_MAXLEN
+               for r in kernel}
+    assert len(lengths) > 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["cls", "full"])
+def test_unfused_service_equals_batch_greedy_on_card(cuda, mode):
+    """The unfused service (CLS memory; full memory, which has no fused
+    route) against batch greedy on the card, f32: identical tokens, and no
+    fused step and no kernel launch of the decode layer."""
+    from mit_tpu_torch.decode import step
+    from mit_tpu_torch.decode.greedy import greedy_generate
+    from mit_tpu_torch.ops.decode_layer import fused_decode_layer
+
+    cap = _service_captioner(cuda, mode, fused=(mode == "full"))
+    s = cap.mcfg.vision.seq_len if mode == "full" else 1
+    mems = _service_memories(cuda, s)
+    before, routes = fused_decode_layer.launches, dict(step.decoder_step.routes)
+    rows, svc = _service_rows(cap, mems, steps_per_sync=3, cache_len=12)
+    assert fused_decode_layer.launches == before
+    assert step.decoder_step.routes["fused"] == routes["fused"]
+    tokens, _ = greedy_generate(cap.params["decoder"], cap.mcfg.decoder, mems,
+                                2, SVC_END, 0, SVC_MAXLEN)
+    assert rows == tokens.tolist()
