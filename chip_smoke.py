@@ -180,13 +180,44 @@ the script exits non-zero without printing the result line.
             the BLIP-384 encoder (577 tokens) at full depth, f32 batch 8:
             11 flash_attention launches per encode call and no
             flash_attention_btd, memory within 1e-4 of the plain path's.
-            Every path of phases 4 and 5 also reads the route counters of
-            multihead_attention and decoder_step (set to 0 with the launch
-            counters): every attention call went to a kernel wrapper, none
-            to the plain path, and every step asked to fuse ran the fused
-            layers.
-6. result   One JSON line describing each kernel (its error, its time, its
-            plain version's time, its bound and, where one PyTorch call
+            Every path of phases 4, 4b and 5 also reads the route counters
+            of multihead_attention and decoder_step (set to 0 with the
+            launch counters): every attention call went to a kernel wrapper,
+            none to the plain path, and every step asked to fuse ran the
+            fused layers.
+4b. pretrained
+            Pretrained encoders booted from local HF files written in the
+            run from seeded weights, and the uint8 image path. A composite
+            CLIP ViT-L/14 checkpoint (model.safetensors through the port's
+            codec, the tower under vision_model. beside one text tensor,
+            config.json with a nested vision_config; its bytes and seconds
+            printed) goes through init_model_params_pretrained onto the card
+            with the 6 x 512 decoder: the VisionConfig equals the written
+            one and every tensor the seeded one, bit for bit. Seeded uint8
+            images, 64 x 480 x 640, through device_preprocess on the card:
+            within PREPROCESS_TOL of the same call on the CPU, its ms
+            printed. f32 batch 8: the kernel encoder's memory within 1e-4 of
+            the plain path's, greedy tokens identical from the kernel path,
+            the plain path and the fused decode step, 23 flash_attention_btd
+            launches an encode and no plain route; the int8 arm within 3
+            times its own noise floor and at cosine > 0.999 to the float
+            arm. bf16 batch 64, both arms: launches per encode held to
+            per_encode(23); each arm's memory against its plain version on
+            the same pixels, within FLOOR_FACTOR times what one bf16 ulp of
+            the pixels moves that plain version, and the int8 arm at cosine
+            > 0.999 to the float arm; encode ms (median of ENC_REPS in alternating
+            turns) and captions/s from uint8 on the host through upload,
+            device_preprocess, encode and fused greedy (StepTimer and fence
+            of the port), with the fused steps' launches held. Then a
+            BLIP-base checkpoint (self_attn.qkv under vision_model.), f32
+            batch 8, 11 flash_attention launches, memory within 1e-4 of
+            plain; and a bare ViT-B/16 pytorch_model.bin without config.json
+            (geometry inferred): f32 batch 8 within 1e-4 of plain, bf16
+            batch 64 with 11 flash_attention_btd launches. The smoke prints
+            its wall time before the result.
+6. result   The smoke's wall time, then one JSON line describing each
+            kernel (its error, its time, its plain version's time, its
+            bound and, where one PyTorch call
             computes the same function, that call's time; for the kernels
             near the host's issue floor also the profiler's device time of
             the kernel and of the library call), before it the same for the
@@ -237,16 +268,29 @@ GEMM_SHAPES = [
 # head widths other than 64 of the int8 layer at ViT-B's width (the
 # any-shape kernel runs its attention)
 INT8_HEADS = [("hd128", 6), ("hd32", 24)]
+
+
+def per_encode(full_layers):
+    """Launches of one CLS-memory encode call with `full_layers` full
+    layers (the last layer runs on the CLS rows): the float arm's attention
+    in each full layer; the int8 arm's fused layer of four quantize_rows and
+    four int8_gemm launches and its attention, plus the patch embedding and
+    the last layer's QKV and out-projection (int8_linear) and MLP
+    (fused_int8_mlp, two of each)."""
+    per_op = 4 * full_layers + 3 + 2
+    return {
+        "float": {"flash_attention_btd": full_layers},
+        "int8": {"fused_int8_vit_layer": full_layers, "int8_linear": 3,
+                 "fused_int8_mlp": 1,
+                 "flash_attention_btd_fusedqkv": full_layers,
+                 "quantize_rows": per_op, "int8_gemm": per_op},
+    }
+
+
 # launches per encode call of each path (bf16, batch 64)
-PER_ENCODE = {
-    "float": {"flash_attention_btd": 11},
-    "int8": {"fused_int8_vit_layer": 11, "int8_linear": 3,
-             "fused_int8_mlp": 1, "flash_attention_btd_fusedqkv": 11,
-             "quantize_rows": 49, "int8_gemm": 49},
-    "int8_per_op": {"int8_linear": 25, "fused_int8_mlp": 12,
-                    "flash_attention_btd_fusedqkv": 11, "quantize_rows": 49,
-                    "int8_gemm": 49},
-}
+PER_ENCODE = dict(per_encode(11), int8_per_op={
+    "int8_linear": 25, "fused_int8_mlp": 12,
+    "flash_attention_btd_fusedqkv": 11, "quantize_rows": 49, "int8_gemm": 49})
 
 
 # peak rates of one H100 SXM (NVIDIA's data sheet, dense) for the bounds
@@ -261,6 +305,14 @@ DECODE_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (0.05, 0.05)}
 BHTD_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 DECODE_REPS = 4          # timed greedy runs per route, in alternating turns
 BLIP = "Salesforce/blip-image-captioning-base"
+# the pretrained phase: checkpoints written in the run, seeded uint8 images
+CLIP_L = "openai/clip-vit-large-patch14"
+VIT_B = "google/vit-base-patch16-224-in21k"
+PRETRAINED_BATCH = 64
+F32_BATCH = 8
+UINT8_HW = (480, 640)
+# card against CPU on the normalized output: about 7e-3 on the 0..255 scale
+PREPROCESS_TOL = 1e-4
 
 
 # training phase
@@ -619,6 +671,14 @@ def timed_turns(torch, kern, plain):
 
 def rel_l2(a, b):
     return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+def bf16_ulp_up(torch, x):
+    """x rounded to bf16 and moved one bf16 ulp away from zero, as f32: the
+    smallest change of the pixels that a bf16 encoder, which casts them to
+    bf16 first, still sees (x * (1 + 1e-7) rounds back to the same value)."""
+    bits = x.to(torch.bfloat16).view(torch.int16) + 1
+    return bits.view(torch.bfloat16).float()
 
 
 def random_qlinear(torch, k, n, seed):
@@ -1437,6 +1497,16 @@ def check_any_shape_kernels(torch):
     return lines
 
 
+def hold_launches(label, counts, want, calls=1):
+    """The launch counters since reset_counts equal `want` per call, every
+    other counter 0."""
+    want = {k: want.get(k, 0) * calls for k in counts}
+    shown = {k: v / calls for k, v in counts.items() if v}
+    print(f"launches {label}: per call {shown}, every other counter 0")
+    if counts != want:
+        raise AssertionError(f"{label}: launches {counts}, want {want}")
+
+
 def drive(torch, name, cap, px, reps):
     """The main path of one arm: every counter set to 0, `reps` encode and
     decode calls, the counters read and held to PER_ENCODE. Returns
@@ -1459,18 +1529,14 @@ def drive(torch, name, cap, px, reps):
     hold_routes(f"slice {name}",
                 attention=counts["flash_attention_btd"],
                 decode={"fused": 0, "unfused": steps_taken})
-    want = {k: PER_ENCODE[name].get(k, 0) * reps for k in counts}
     b = px.shape[0]
     rate = b / statistics.median(seconds)
     steps = max(len(t) for t in tokens) - 1
-    per_encode = {k: v / reps for k, v in counts.items() if v}
     print(f"slice bf16 B={b} {name}: {rate:.1f} captions/s (median of {reps} "
           f"runs {[round(s, 4) for s in seconds]} s; encode "
-          f"{[round(s, 4) for s in enc_s]} s; {steps} decode steps); "
-          f"launches per encode call {per_encode}, every other counter 0")
-    if counts != want:
-        raise AssertionError(f"{name}: launches {counts}, want {want} "
-                             f"({reps} encode calls)")
+          f"{[round(s, 4) for s in enc_s]} s; {steps} decode steps)")
+    hold_launches(f"slice bf16 B={b} {name} encode", counts, PER_ENCODE[name],
+                  reps)
     if not (bool(torch.isfinite(mem).all()) and mem.shape == (b, 1, 512)):
         raise AssertionError(f"{name}: bad memory {tuple(mem.shape)}")
     return rate, counts, tokens
@@ -1506,20 +1572,20 @@ def check_slice(torch):
     before = flash_attention_btd.launches
     mem_k = kern.memory_from_pixels(pixels[:8])
     torch.cuda.synchronize()
-    per_encode = flash_attention_btd.launches - before
+    launched = flash_attention_btd.launches - before
     mem_p = plain.memory_from_pixels(pixels[:8])
-    assert flash_attention_btd.launches - before == per_encode
+    assert flash_attention_btd.launches - before == launched
     err = (mem_k - mem_p).abs().max().item()
     assert mem_k.shape == (8, 1, 512) and bool(torch.isfinite(mem_k).all())
     tok_k = kern.generate_from_memory(mem_k)
     tok_p = plain.generate_from_memory(mem_p)
     check_tokens(tok_k, 8)
     same = tok_k == tok_p
-    print(f"slice f32 B=8: kernel launches per encode call {per_encode} "
+    print(f"slice f32 B=8: kernel launches per encode call {launched} "
           f"(want 11); memory kernel vs plain max_abs_err={err:.3e} "
           f"(limit 1e-4); greedy tokens identical={same}; "
           f"caption lengths {[len(t) for t in tok_k]}")
-    if per_encode != 11 or not err <= 1e-4 or not same:
+    if launched != 11 or not err <= 1e-4 or not same:
         raise AssertionError("f32 slice: kernel path disagrees with plain path")
 
     # int8 arm, f32, batch 8: kernel path against the plain int8 path and
@@ -2051,14 +2117,14 @@ def check_service(torch, device="cuda"):
         counts = read_counts()
         steps = svc.windows * window
         fused = which == "fused"
-        per_encode = 12 if which == "full" else 11
+        attn_calls = 12 if which == "full" else 11
         hold_routes(f"service bf16 {label}, window {window}",
-                    attention=per_encode * chunks,
+                    attention=attn_calls * chunks,
                     decode={"fused": steps if fused else 0,
                             "unfused": 0 if fused else steps})
         want_layer = dcfg.num_layers * steps if fused else 0
         if (counts["fused_decode_layer"] != want_layer
-                or counts["flash_attention_btd"] != per_encode * chunks
+                or counts["flash_attention_btd"] != attn_calls * chunks
                 or len(res) != SERVICE_REQUESTS or svc.reused == 0):
             raise AssertionError(f"service bf16 {label}: launches {counts}, "
                                  f"{len(res)} results, {svc.reused} reuses")
@@ -2141,6 +2207,345 @@ def check_blip(torch):
     if counts != want or not ok or not err <= 1e-4:
         raise AssertionError("BLIP-384 f32: the kernel path disagrees")
     return counts
+
+
+def write_tower(torch, root, name, preset, prefix, weights, config,
+                extra=None):
+    """A seeded vision tower written in the HF layout: `weights` is
+    "model.safetensors" (the port's codec) or "pytorch_model.bin"
+    (torch.save of the state dict), `config` the config.json dict or None.
+    Returns the directory, the seeded parameters (on the CPU), the file's
+    bytes and the seconds to draw and to write."""
+    from mit_tpu_torch.models.vision import (
+        PRESETS,
+        hf_vision_state_dict_from_params,
+        init_vision_params,
+    )
+    from mit_tpu_torch.train.checkpoint import save_file
+
+    t0 = time.perf_counter()
+    vcfg = PRESETS[preset]
+    params = init_vision_params(torch.Generator().manual_seed(SEED), vcfg)
+    sd = dict(hf_vision_state_dict_from_params(params, vcfg, prefix),
+              **(extra or {}))
+    t1 = time.perf_counter()
+    path = os.path.join(root, name)
+    os.makedirs(path)
+    if weights.endswith(".safetensors"):
+        save_file(sd, os.path.join(path, weights))
+    else:
+        torch.save({k: torch.from_numpy(v) for k, v in sd.items()},
+                   os.path.join(path, weights))
+    if config is not None:
+        with open(os.path.join(path, "config.json"), "w") as f:
+            json.dump(config, f)
+    return (path, params, os.path.getsize(os.path.join(path, weights)),
+            t1 - t0, time.perf_counter() - t1)
+
+
+def hf_vision_config(vcfg, model_type):
+    """The config.json fields of a vision tower, as transformers writes
+    them."""
+    return {"model_type": model_type, "hidden_size": vcfg.hidden_size,
+            "num_hidden_layers": vcfg.num_layers,
+            "num_attention_heads": vcfg.num_heads,
+            "intermediate_size": vcfg.intermediate_size,
+            "image_size": vcfg.image_size, "patch_size": vcfg.patch_size,
+            "hidden_act": vcfg.hidden_act,
+            "layer_norm_eps": vcfg.layer_norm_eps}
+
+
+def boot(torch, path, preset, seeded, written, device):
+    """init_model_params_pretrained from `path` onto `device` (the 6 x 512
+    decoder, vocab 10000): the loaded VisionConfig must equal the preset it
+    was written from and every loaded tensor the seeded one, bit for bit.
+    Returns (mcfg, params, seconds to load)."""
+    from mit_tpu_torch.config import Config
+    from mit_tpu_torch.models.model import init_model_params_pretrained
+
+    t0 = time.perf_counter()
+    mcfg, params = init_model_params_pretrained(
+        torch.Generator().manual_seed(SEED), Config(ENCODER_MODEL_NAME=preset),
+        vocab_size=10000, name_or_path=path, local_files_only=True,
+        device=device)
+    seconds = time.perf_counter() - t0
+    flat = lambda tree, pre="": (
+        [x for k, v in tree.items() for x in flat(v, f"{pre}{k}.")]
+        if isinstance(tree, dict) else [(pre[:-1], tree)])
+    loaded, want = dict(flat(params["encoder"])), dict(flat(seeded))
+    differ = [k for k in want if k not in loaded
+              or not torch.equal(loaded[k].cpu(), want[k])]
+    same_cfg = mcfg.vision == written
+    print(f"pretrained {preset}: loaded in {seconds:.2f} s onto {device}; "
+          f"VisionConfig equal to the written one: {same_cfg}; "
+          f"{len(want) - len(differ)} of {len(want)} tensors bit-equal to "
+          f"the seeded ones, {len(loaded)} loaded")
+    if not same_cfg or differ or len(loaded) != len(want):
+        raise AssertionError(f"{preset}: loaded {mcfg.vision}, tensors that "
+                             f"differ {differ[:4]}")
+    return mcfg, params, seconds
+
+
+def check_pretrained(torch, device="cuda"):
+    """Phase 4b, pretrained encoders from local HF files and the uint8 image
+    path (see the module docstring). Returns the counts of the CLIP ViT-L/14
+    paths."""
+    import tempfile
+
+    from mit_tpu_torch.data.preprocess import device_preprocess
+    from mit_tpu_torch.decode.api import Captioner
+    from mit_tpu_torch.models.vision import PRESETS, FAMILY_BASE
+    from mit_tpu_torch.utils.profiling import StepTimer, fence
+
+    t_phase = time.perf_counter()
+    ids = SpecialIds()
+    counts = {}
+    with tempfile.TemporaryDirectory() as root:
+        # a composite CLIP checkpoint: the tower under vision_model., one
+        # text tensor to skip, the nested vision_config
+        clip = PRESETS[CLIP_L]
+        stray = {"text_model.encoder.layers.0.self_attn.q_proj.weight":
+                 np.zeros((8, 8), np.float32)}
+        path, seeded, nbytes, draw_s, write_s = write_tower(
+            torch, root, "clip", CLIP_L, "vision_model.", "model.safetensors",
+            {"model_type": "clip", "projection_dim": 768,
+             "vision_config": hf_vision_config(clip, "clip_vision_model")},
+            stray)
+        print(f"pretrained checkpoint {CLIP_L}: {nbytes} bytes of "
+              f"safetensors, drawn in {draw_s:.2f} s, written in "
+              f"{write_s:.2f} s")
+        mcfg, params, _ = boot(torch, path, CLIP_L, seeded, clip, device)
+        del seeded
+
+        # uint8 -> normalized pixels on the card, held to the same call on
+        # the CPU
+        u8 = torch.from_numpy(np.random.default_rng(SEED).integers(
+            0, 256, (PRETRAINED_BATCH, *UINT8_HW, 3), dtype=np.uint8))
+        u8_dev = u8.to(device)
+        px = device_preprocess(u8_dev, CLIP_L)
+        px_cpu = device_preprocess(u8, CLIP_L)
+        err = (px.cpu() - px_cpu).abs().max().item()
+        pre_ms = cuda_ms(torch, lambda: device_preprocess(u8_dev, CLIP_L))
+        print(f"device_preprocess uint8 {tuple(u8.shape)} -> "
+              f"{tuple(px.shape)} (bicubic, antialias): card vs CPU "
+              f"max_abs_err={err:.3e} (limit {PREPROCESS_TOL:g}); "
+              f"{pre_ms:.4f} ms a batch (CUDA events, {TIMED_ITERS} calls); "
+              f"{DEVICE_LINE[0] if DEVICE_LINE else ''}")
+        if not err <= PREPROCESS_TOL:
+            raise AssertionError("device_preprocess: the card disagrees with "
+                                 "the CPU")
+
+        # f32, batch 8: kernel against plain memory; greedy tokens of the
+        # kernel path, the plain path and the fused decode step identical;
+        # the int8 arm within its own noise floor and near the float arm
+        full = mcfg.vision.num_layers - 1
+        px8 = px[:F32_BATCH]
+        kern = Captioner(params, mcfg, ids, torch.float32)
+        plain = Captioner(params, mcfg, ids, torch.float32, use_kernel=False)
+        fused = Captioner(params, mcfg, ids, torch.float32, fused_decode=True)
+        reset_counts()
+        mem_k = kern.memory_from_pixels(px8)
+        torch.cuda.synchronize()
+        hold_launches("clip-l f32 encode", read_counts(),
+                      per_encode(full)["float"])
+        hold_routes("clip-l f32", attention=full,
+                    decode={"fused": 0, "unfused": 0})
+        mem_p = plain.memory_from_pixels(px8)
+        err = (mem_k - mem_p).abs().max().item()
+        tok_k = kern.generate_from_memory(mem_k)
+        tok_p = plain.generate_from_memory(mem_p)
+        reset_counts()
+        tok_f = fused.generate_from_memory(mem_k)
+        steps = max(len(t) for t in tok_f) - 1
+        hold_routes("clip-l f32 fused greedy",
+                    decode={"fused": steps, "unfused": 0})
+        same = tok_k == tok_p == tok_f
+        print(f"pretrained clip-l f32 B={F32_BATCH}: memory kernel vs plain "
+              f"max_abs_err={err:.3e} (limit 1e-4); greedy tokens kernel == "
+              f"plain == fused step: {same} ({steps} steps, lengths "
+              f"{[len(t) for t in tok_k]})")
+        if not (err <= 1e-4 and same and mem_k.shape == (F32_BATCH, 1, 512)
+                and bool(torch.isfinite(mem_k).all())):
+            raise AssertionError("CLIP-L f32: the kernel path disagrees")
+        q8 = Captioner(params, mcfg, ids, torch.float32, encoder_quant="int8")
+        q8_plain = Captioner(params, mcfg, ids, torch.float32,
+                             use_kernel=False, encoder_quant="int8")
+        mem_q = q8.memory_from_pixels(px8)
+        mem_qp = q8_plain.memory_from_pixels(px8)
+        floor = rel_l2(q8_plain.memory_from_pixels(px8 * (1 + 1e-7)), mem_qp)
+        rel = rel_l2(mem_q, mem_qp)
+        cos = torch.nn.functional.cosine_similarity(
+            mem_q.flatten(), mem_k.flatten(), dim=0).item()
+        print(f"pretrained clip-l int8 f32 B={F32_BATCH}: memory kernel vs "
+              f"plain int8 relative L2 {rel:.3e} (limit {FLOOR_FACTOR} x "
+              f"{floor:.3e}, the plain int8 path's move under pixels x "
+              f"(1 + 1e-7)); cosine to the float arm {cos:.6f} (limit > 0.999)")
+        if not (0 < floor and rel <= FLOOR_FACTOR * floor and cos > 0.999):
+            raise AssertionError("CLIP-L int8 f32: the kernel path disagrees")
+        del kern, plain, fused, q8, q8_plain
+
+        # bf16, batch 64, both arms: launches per encode, encode ms in
+        # alternating turns, captions/s from uint8 through the fused step
+        arms = {
+            "float": Captioner(params, mcfg, ids, torch.bfloat16,
+                               fused_decode=True),
+            "int8": Captioner(params, mcfg, ids, torch.bfloat16,
+                              encoder_quant="int8", fused_decode=True),
+        }
+        want = per_encode(full)
+        for arm, cap in arms.items():
+            cap.memory_from_pixels(px)                          # warm-up
+            torch.cuda.synchronize()
+            reset_counts()
+            cap.memory_from_pixels(px)
+            torch.cuda.synchronize()
+            counts[f"clip_l_{arm}"] = read_counts()
+            hold_launches(f"clip-l bf16 B={PRETRAINED_BATCH} {arm} encode",
+                          counts[f"clip_l_{arm}"], want[arm])
+            hold_routes(f"clip-l bf16 {arm}",
+                        attention=full if arm == "float" else 0,
+                        decode={"fused": 0, "unfused": 0})
+        # each arm against its plain version on the same pixels, within
+        # FLOOR_FACTOR times the plain version's own move under one bf16 ulp
+        # of the pixels; the int8 arm near the float arm
+        plains = {
+            "float": Captioner(params, mcfg, ids, torch.bfloat16,
+                               use_kernel=False),
+            "int8": Captioner(params, mcfg, ids, torch.bfloat16,
+                              use_kernel=False, encoder_quant="int8"),
+        }
+        px_ulp = bf16_ulp_up(torch, px)
+        mems, held = {}, True
+        for arm, cap in arms.items():
+            mems[arm] = cap.memory_from_pixels(px)
+            mem_p = plains[arm].memory_from_pixels(px)
+            floor = rel_l2(plains[arm].memory_from_pixels(px_ulp), mem_p)
+            rel = rel_l2(mems[arm], mem_p)
+            err = (mems[arm].float() - mem_p.float()).abs().max().item()
+            print(f"pretrained clip-l bf16 B={PRETRAINED_BATCH} {arm}: memory "
+                  f"kernel vs plain relative L2 {rel:.3e} (limit "
+                  f"{FLOOR_FACTOR} x {floor:.3e}, the plain path's move under "
+                  f"one bf16 ulp of the pixels), max_abs_err={err:.3e}")
+            held &= (0 < floor and rel <= FLOOR_FACTOR * floor
+                     and mems[arm].shape == (PRETRAINED_BATCH, 1, 512)
+                     and bool(torch.isfinite(mems[arm]).all()))
+        cos = torch.nn.functional.cosine_similarity(
+            mems["int8"].float().flatten(), mems["float"].float().flatten(),
+            dim=0).item()
+        print(f"pretrained clip-l bf16 B={PRETRAINED_BATCH}: int8 arm's cosine "
+              f"to the float arm {cos:.6f} (limit > 0.999)")
+        if not (held and cos > 0.999):
+            raise AssertionError("CLIP-L bf16: a kernel path disagrees")
+        del plains, mems, mem_p
+        enc_ms = {arm: [] for arm in arms}
+        for turn in range(ENC_REPS):
+            for arm in (("float", "int8") if turn % 2 == 0
+                        else ("int8", "float")):
+                t0 = time.perf_counter()
+                arms[arm].memory_from_pixels(px)
+                torch.cuda.synchronize()
+                enc_ms[arm].append((time.perf_counter() - t0) * 1e3)
+        rates = {}
+        for arm, cap in arms.items():
+            q1, q2, q3 = statistics.quantiles(enc_ms[arm], n=4)
+            timer = StepTimer()
+            cap.generate_from_memory(cap.memory_from_pixels(                # warm-up
+                device_preprocess(u8.to(device), CLIP_L)))
+            reset_counts()
+            split = {"upload": [], "preprocess+encode": [], "decode": []}
+            for _ in range(REPS):
+                with timer.step(PRETRAINED_BATCH, sync=cap.params["decoder"]):
+                    t0 = time.perf_counter()
+                    batch = u8.to(device)
+                    fence(batch)
+                    t1 = time.perf_counter()
+                    mem = cap.memory_from_pixels(device_preprocess(batch,
+                                                                   CLIP_L))
+                    fence(mem)
+                    t2 = time.perf_counter()
+                    tokens = cap.generate_from_memory(mem)
+                    t3 = time.perf_counter()
+                for key, dt in zip(split, (t1 - t0, t2 - t1, t3 - t2)):
+                    split[key].append(dt * 1e3)
+            steps = max(len(t) for t in tokens) - 1
+            got = read_counts()
+            hold_routes(f"clip-l bf16 {arm} uint8 to caption",
+                        decode={"fused": steps * REPS, "unfused": 0})
+            hold_launches(f"clip-l bf16 {arm} uint8 to caption", got,
+                          dict(want[arm], fused_decode_layer=(
+                              mcfg.decoder.num_layers * steps)), REPS)
+            rates[arm] = timer.items_per_sec
+            print(f"pretrained clip-l bf16 B={PRETRAINED_BATCH} {arm}: encode "
+                  f"median {q2:.3f} ms (quartiles {q1:.3f}-{q3:.3f}, "
+                  f"{ENC_REPS} runs in alternating turns); uint8 (host) -> "
+                  f"caption {timer.items_per_sec:.2f} captions/s "
+                  f"(StepTimer over {REPS} runs, mean "
+                  f"{timer.mean_step_seconds * 1e3:.1f} ms a batch: "
+                  + ", ".join(f"{k} {statistics.mean(v):.2f} ms"
+                              for k, v in split.items())
+                  + f", {steps} fused greedy steps); "
+                  f"{DEVICE_LINE[0] if DEVICE_LINE else ''}")
+        del arms, params
+
+        # BLIP-base (self_attn.qkv under vision_model.) in f32 and a bare
+        # ViT-B/16 pytorch_model.bin without config.json (geometry inferred)
+        blip = FAMILY_BASE["blip"]
+        path, seeded, nbytes, _, write_s = write_tower(
+            torch, root, "blip", BLIP, "vision_model.", "model.safetensors",
+            {"model_type": "blip",
+             "vision_config": hf_vision_config(blip, "blip_vision_model")})
+        print(f"pretrained checkpoint {BLIP}: {nbytes} bytes, written in "
+              f"{write_s:.2f} s")
+        mcfg, params, _ = boot(torch, path, BLIP, seeded, blip, device)
+        pixels = torch.from_numpy(np.random.default_rng(SEED).uniform(
+            -1, 1, (F32_BATCH, 3, 384, 384)).astype(np.float32)).to(device)
+        kern = Captioner(params, mcfg, ids, torch.float32)
+        plain = Captioner(params, mcfg, ids, torch.float32, use_kernel=False)
+        reset_counts()
+        mem_k = kern.memory_from_pixels(pixels)
+        torch.cuda.synchronize()
+        hold_launches(f"blip-base f32 B={F32_BATCH} encode", read_counts(),
+                      {"flash_attention": blip.num_layers - 1})
+        hold_routes("blip-base f32", attention=blip.num_layers - 1,
+                    decode={"fused": 0, "unfused": 0})
+        err = (mem_k - plain.memory_from_pixels(pixels)).abs().max().item()
+        print(f"pretrained blip-base f32 B={F32_BATCH}: memory kernel vs "
+              f"plain max_abs_err={err:.3e} (limit 1e-4)")
+        if not (err <= 1e-4 and bool(torch.isfinite(mem_k).all())):
+            raise AssertionError("BLIP-base f32: the kernel path disagrees")
+        del kern, plain, params
+
+        vit = PRESETS[VIT_B]
+        path, seeded, nbytes, _, write_s = write_tower(
+            torch, root, "vit", VIT_B, "", "pytorch_model.bin", None)
+        print(f"pretrained checkpoint {VIT_B}: {nbytes} bytes of "
+              f"pytorch_model.bin, no config.json, written in {write_s:.2f} s")
+        mcfg, params, _ = boot(torch, path, VIT_B, seeded, vit, device)
+        px = device_preprocess(u8_dev, VIT_B)
+        f32 = Captioner(params, mcfg, ids, torch.float32)
+        f32_plain = Captioner(params, mcfg, ids, torch.float32,
+                              use_kernel=False)
+        err = (f32.memory_from_pixels(px[:F32_BATCH]) - f32_plain
+               .memory_from_pixels(px[:F32_BATCH])).abs().max().item()
+        bf16 = Captioner(params, mcfg, ids, torch.bfloat16)
+        bf16.memory_from_pixels(px)                              # warm-up
+        reset_counts()
+        mem = bf16.memory_from_pixels(px)
+        torch.cuda.synchronize()
+        hold_launches(f"vit-b bf16 B={PRETRAINED_BATCH} encode", read_counts(),
+                      per_encode(vit.num_layers - 1)["float"])
+        hold_routes("vit-b bf16", attention=vit.num_layers - 1,
+                    decode={"fused": 0, "unfused": 0})
+        print(f"pretrained vit-b: f32 B={F32_BATCH} memory kernel vs plain "
+              f"max_abs_err={err:.3e} (limit 1e-4); bf16 B="
+              f"{PRETRAINED_BATCH} memory finite")
+        if not (err <= 1e-4 and bool(torch.isfinite(mem).all())
+                and mem.shape == (PRETRAINED_BATCH, 1, 512)):
+            raise AssertionError("ViT-B: the kernel path disagrees")
+    print(f"phase pretrained: {time.perf_counter() - t_phase:.1f} s")
+    return {"counts": counts, "rates": rates,
+            "enc_ms": {a: statistics.median(m) for a, m in enc_ms.items()},
+            "preprocess_ms": pre_ms}
 
 
 def dropout_inputs(torch, b, h, t, s, dtype, seed=SEED):
@@ -2664,6 +3069,7 @@ KERNELS = {
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -2722,6 +3128,15 @@ def main() -> int:
           + f"; {smi}")
     slice_["counts"]["blip384"] = check_blip(torch)
 
+    print("== 4b pretrained", flush=True)
+    pretrained = check_pretrained(torch)
+    slice_["counts"].update(pretrained["counts"])
+    print(f"pretrained clip-l bf16 B={PRETRAINED_BATCH}: median encoder ms "
+          + ", ".join(f"{k} {v:.3f}" for k, v in pretrained["enc_ms"].items())
+          + "; uint8 to caption captions/s "
+          + ", ".join(f"{k} {v:.2f}" for k, v in pretrained["rates"].items())
+          + f"; device_preprocess {pretrained['preprocess_ms']:.4f} ms; {smi}")
+
     print("== 5 train", flush=True)
     train = check_training(torch)
     slice_["counts"]["train"] = train["counts"]
@@ -2733,6 +3148,8 @@ def main() -> int:
     if loaded:
         raise AssertionError(f"the smoke imported JAX-side modules: {loaded}")
 
+    print(f"smoke wall time before the result: "
+          f"{time.perf_counter() - t_start:.1f} s")
     print("== 6 result", flush=True)
     btd = times["bfloat16"]
     results = dict(int8, **dropout, **decode_layer, **bhtd, flash_attention_btd={

@@ -1,1 +1,1 @@
-"""Data: host-side image preprocessing."""
+"""Data: image preprocessing (host and device), the dataset, preparation."""

@@ -1,9 +1,14 @@
-"""Host image preprocessing (port of ``mit_tpu/data/preprocess.py:29-112``).
+"""Image preprocessing (port of ``mit_tpu/data/preprocess.py``): a host
+path and a device path.
 
-PIL resize/crop with the HF processor recipe of each encoder family (ViT:
-224² bilinear, mean/std 0.5; CLIP: shortest edge 224 bicubic + centre crop,
-OpenAI mean/std; BLIP: 384² bicubic, OpenAI mean/std). PIL is imported at
-the first call, so the package imports where Pillow is absent.
+- host: PIL resize/crop with the HF processor recipe of each encoder family
+  (ViT: 224² bilinear, mean/std 0.5; CLIP: shortest edge 224 bicubic +
+  centre crop, OpenAI mean/std; BLIP: 384² bicubic, OpenAI mean/std). PIL
+  is imported at the first call, so the package imports where Pillow is
+  absent.
+- device: :func:`device_preprocess`, a batch of uint8 images resized,
+  rescaled and normalized on the tensor's device, for inputs that arrive at
+  a known shape (serving, benchmarks).
 """
 
 from __future__ import annotations
@@ -11,6 +16,8 @@ from __future__ import annotations
 from typing import NamedTuple, Tuple
 
 import numpy as np
+import torch
+import torch.nn.functional as F
 
 OPENAI_MEAN = (0.48145466, 0.4578275, 0.40821073)
 OPENAI_STD = (0.26862954, 0.26130258, 0.27577711)
@@ -82,3 +89,25 @@ class HostPreprocessor:
             spec.std, np.float32
         )
         return arr.transpose(2, 0, 1).astype(np.float32)  # HWC -> CHW
+
+
+def device_preprocess(images_u8: torch.Tensor, encoder_name: str,
+                      image_size: int = None) -> torch.Tensor:
+    """(B, H, W, 3) uint8 → normalized (B, 3, h, w) f32 on the same device.
+
+    A square resize straight to the family's target, no crop, with
+    antialiasing (bilinear for ViT, bicubic for CLIP and BLIP: the Keys
+    cubic at a = -0.5 with renormalized weights, as ``jax.image.resize``
+    computes it), then /255 and the family's mean and std.
+    ``image_size``, as in :class:`HostPreprocessor`, overrides the target
+    where the tower's input size is not the family default.
+    """
+    spec = spec_for_encoder(encoder_name)
+    target = spec.target if image_size is None else (image_size, image_size)
+    x = images_u8.permute(0, 3, 1, 2).to(torch.float32)
+    x = F.interpolate(x, size=target, mode=spec.resample, antialias=True,
+                      align_corners=False)
+    stat = lambda v: torch.tensor(v, dtype=torch.float32,
+                                  device=x.device).view(1, 3, 1, 1)
+    # the resize keeps the input's channels-last strides; callers get NCHW
+    return ((x / 255.0 - stat(spec.mean)) / stat(spec.std)).contiguous()

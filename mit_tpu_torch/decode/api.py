@@ -6,7 +6,9 @@ captions with the KV-cached loops: ``method`` "greedy", "beam" (real beam
 search, ``beam_size`` beams) or "sample" (temperature, top-k, top-p, drawn
 from a ``torch.Generator``). ``postprocess`` is the reference's text
 clean-up (cut at the first END, strip START, decode with specials kept,
-drop UNK, collapse whitespace).
+drop UNK, collapse whitespace). ``load_captioner`` builds one from a
+reference-layout checkpoint, ``pretrained_captioner`` over a pretrained
+encoder held in local HF files.
 """
 
 from __future__ import annotations
@@ -20,7 +22,12 @@ from mit_tpu_torch.data.preprocess import HostPreprocessor
 from mit_tpu_torch.decode.beam import beam_generate
 from mit_tpu_torch.decode.greedy import greedy_generate
 from mit_tpu_torch.decode.sampling import sample_generate
-from mit_tpu_torch.models.model import ModelConfig, encode_images, project_features
+from mit_tpu_torch.models.model import (
+    ModelConfig,
+    encode_images,
+    init_model_params_pretrained,
+    project_features,
+)
 from mit_tpu_torch.models.vision import quantize_vision_params
 
 class Captioner:
@@ -215,6 +222,41 @@ def load_captioner(checkpoint_path: str, cfg, compute_dtype=torch.float32,
     cfg = cfg.with_tokenizer_ids(tokenizer)
     mcfg = ModelConfig.build(cfg, vocab_size=tokenizer.get_vocab_size())
     params = load_safetensors(checkpoint_path, mcfg, device)
+    return Captioner(params, mcfg, tokenizer, compute_dtype,
+                     encoder_quant=encoder_quant, fused_decode=fused_decode,
+                     beam_size=cfg.BEAM_SIZE)
+
+
+def pretrained_captioner(
+    cfg,
+    name_or_path: Optional[str] = None,
+    decoder_checkpoint: Optional[str] = None,
+    compute_dtype=torch.float32,
+    local_files_only: bool = True,
+    encoder_quant: str = "none",
+    device="cuda",
+    fused_decode: bool = False,
+) -> Captioner:
+    """Captioner over a pretrained encoder on ``device``: ``name_or_path``
+    (default ``cfg.ENCODER_MODEL_NAME``; a repo id, an HF-layout directory
+    or a weights file) through :mod:`mit_tpu_torch.models.pretrained`, a
+    decoder and projection drawn from ``cfg.RANDOM_SEED``, both overwritten
+    by ``decoder_checkpoint`` (a reference-layout safetensors file) when one
+    is given. A repo id is fetched only with ``local_files_only=False``."""
+    from mit_tpu_torch.text.tokenizer import get_tokenizer
+    from mit_tpu_torch.train.checkpoint import load_safetensors
+
+    tokenizer = get_tokenizer(cfg, force_reload=True)
+    cfg = cfg.with_tokenizer_ids(tokenizer)
+    mcfg, params = init_model_params_pretrained(
+        torch.Generator().manual_seed(cfg.RANDOM_SEED), cfg,
+        vocab_size=tokenizer.get_vocab_size(), name_or_path=name_or_path,
+        local_files_only=local_files_only, device=device)
+    if decoder_checkpoint is not None:
+        trained = load_safetensors(decoder_checkpoint, mcfg, device)
+        for k in ("decoder", "projection"):
+            if k in trained and k in params:
+                params[k] = trained[k]
     return Captioner(params, mcfg, tokenizer, compute_dtype,
                      encoder_quant=encoder_quant, fused_decode=fused_decode,
                      beam_size=cfg.BEAM_SIZE)

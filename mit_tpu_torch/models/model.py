@@ -66,10 +66,15 @@ class ModelConfig(NamedTuple):
 def init_model_params(generator: torch.Generator, mcfg: ModelConfig,
                       device=None) -> dict:
     """Random weights from ``generator`` (drawn on the CPU), on ``device``."""
-    params = {
-        "encoder": init_vision_params(generator, mcfg.vision, device),
-        "decoder": init_decoder_params(generator, mcfg.decoder, device),
-    }
+    encoder = init_vision_params(generator, mcfg.vision, device)
+    return {"encoder": encoder, **_init_trainable(generator, mcfg, device)}
+
+
+def _init_trainable(generator: torch.Generator, mcfg: ModelConfig,
+                    device=None) -> dict:
+    """The decoder's random weights and, where the widths differ, the
+    projection's."""
+    params = {"decoder": init_decoder_params(generator, mcfg.decoder, device)}
     if mcfg.needs_projection:
         d_in, d_out = mcfg.vision.hidden_size, mcfg.decoder.embed_dim
         lim = math.sqrt(6.0 / (d_in + d_out))
@@ -77,6 +82,30 @@ def init_model_params(generator: torch.Generator, mcfg: ModelConfig,
         params["projection"] = {"w": w.to(device),
                                 "b": torch.zeros(d_out, device=device)}
     return params
+
+
+def init_model_params_pretrained(
+    generator: torch.Generator,
+    cfg,
+    vocab_size: Optional[int] = None,
+    name_or_path: Optional[str] = None,
+    local_files_only: bool = True,
+    device=None,
+):
+    """(mcfg, params) with a pretrained frozen encoder: the vision tower of
+    ``name_or_path`` (default ``cfg.ENCODER_MODEL_NAME``) is loaded through
+    :mod:`mit_tpu_torch.models.pretrained` and its geometry replaces the
+    preset's; the decoder and projection are drawn from ``generator``. All
+    of it on ``device``. A repo id is fetched only with
+    ``local_files_only=False``."""
+    from mit_tpu_torch.models.pretrained import load_pretrained_encoder
+
+    vcfg, encoder = load_pretrained_encoder(
+        name_or_path or cfg.ENCODER_MODEL_NAME,
+        local_files_only=local_files_only, device=device)
+    mcfg = ModelConfig.build(cfg, vocab_size)._replace(vision=vcfg)
+    return mcfg, {"encoder": encoder,
+                  **_init_trainable(generator, mcfg, device)}
 
 
 def encode_images(

@@ -10,7 +10,7 @@ through :func:`~mit_tpu_torch.ops.flash_attention.flash_attention_btd`.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -109,6 +109,37 @@ def config_for_encoder(name: str) -> VisionConfig:
     if "clip" in low:
         return PRESETS["openai/clip-vit-base-patch32"]
     return PRESETS["google/vit-base-patch16-224-in21k"]
+
+
+# the preset each family's missing config fields come from
+FAMILY_BASE = {
+    "vit": PRESETS["google/vit-base-patch16-224-in21k"],
+    "clip": PRESETS["openai/clip-vit-base-patch32"],
+    "blip": PRESETS["Salesforce/blip-image-captioning-base"],
+}
+
+
+def config_from_hf(hf_config, family: Optional[str] = None) -> VisionConfig:
+    """A transformers config object (ViT, CLIP-vision or BLIP-vision, or a
+    composite CLIP/BLIP config, whose ``vision_config`` is taken) →
+    ``VisionConfig``. Read by attribute, so transformers is not imported;
+    ``family`` comes from the class name when omitted."""
+    if hasattr(hf_config, "vision_config"):
+        hf_config = hf_config.vision_config
+    if family is None:
+        cls = type(hf_config).__name__.lower()
+        family = "blip" if "blip" in cls else "clip" if "clip" in cls else "vit"
+    base = FAMILY_BASE[family]
+    return base._replace(
+        image_size=hf_config.image_size,
+        patch_size=hf_config.patch_size,
+        hidden_size=hf_config.hidden_size,
+        num_layers=hf_config.num_hidden_layers,
+        num_heads=hf_config.num_attention_heads,
+        intermediate_size=hf_config.intermediate_size,
+        hidden_act=getattr(hf_config, "hidden_act", base.hidden_act),
+        layer_norm_eps=getattr(hf_config, "layer_norm_eps", base.layer_norm_eps),
+    )
 
 
 def init_vision_params(generator: torch.Generator, cfg: VisionConfig,

@@ -6,10 +6,10 @@ dataset and split → model init (or resume) → the frozen-feature cache →
 epochs of train steps with periodic validation, best-val safetensors and
 the ``latest`` train state, and the optional HF Hub upload.
 
-Not ported, and refused with ``NotImplementedError``: a device mesh other
-than (1, 1) (ROADMAP.md, queue 1, multi-GPU) and pretrained encoder
-loading (queue 1, pretrained loading); ``PRETRAINED_ENCODER="auto"`` takes
-the JAX package's fallback, a random encoder.
+The encoder boots as ``PRETRAINED_ENCODER`` says (:func:`build_model_params`),
+and the dataset preprocesses at the booted encoder's image size. Not
+ported, and refused with ``NotImplementedError``: a device mesh other than
+(1, 1) (ROADMAP.md, queue 1, multi-GPU).
 """
 
 from __future__ import annotations
@@ -29,7 +29,12 @@ from mit_tpu_torch.data.dataset import (
     split_indices,
     to_device,
 )
-from mit_tpu_torch.models.model import ModelConfig, init_model_params, split_trainable
+from mit_tpu_torch.models.model import (
+    ModelConfig,
+    init_model_params,
+    init_model_params_pretrained,
+    split_trainable,
+)
 from mit_tpu_torch.models.vision import quantize_vision_params
 from mit_tpu_torch.train import checkpoint as ckpt
 from mit_tpu_torch.train.features import (
@@ -45,12 +50,8 @@ from mit_tpu_torch.train.steps import (
 )
 
 MESH_NOT_PORTED = (
-    "MESH_SHAPE other than (1, 1) is not ported: ROADMAP.md, queue 1, "
-    "multi-GPU training"
-)
-PRETRAINED_NOT_PORTED = (
-    "pretrained encoder loading is not ported: ROADMAP.md, queue 1, "
-    "pretrained loading"
+    "MESH_SHAPE other than (1, 1) (a device mesh) is not ported: ROADMAP.md, "
+    "queue 1, multi-GPU training"
 )
 STEP_KEYS = ("images", "features", "decoder_input_tokens", "target_tokens")
 
@@ -111,6 +112,35 @@ def _hf_uploader(cfg):
         return None
 
 
+def build_model_params(cfg, mcfg, generator: torch.Generator, vocab_size,
+                       device=None):
+    """(mcfg, params on ``device``) as ``cfg.PRETRAINED_ENCODER`` says:
+    "off" draws a random encoder; "auto" loads ``cfg.ENCODER_MODEL_NAME``
+    and, if that fails, says why and draws a random one; "required" loads it
+    or raises; any other value is a repo id, directory or weights file,
+    loaded as under "required". A loaded encoder's geometry replaces
+    ``mcfg.vision``. Only ``MIT_ALLOW_DOWNLOAD=1`` lets a repo id be fetched
+    over the network."""
+    mode = cfg.PRETRAINED_ENCODER
+    if mode == "off":
+        return mcfg, init_model_params(generator, mcfg, device)
+    name = None if mode in ("auto", "required") else mode
+    local_only = os.environ.get("MIT_ALLOW_DOWNLOAD", "0") != "1"
+    try:
+        mcfg, params = init_model_params_pretrained(
+            generator, cfg, vocab_size, name_or_path=name,
+            local_files_only=local_only, device=device)
+    except Exception as e:          # "auto" falls back on any failure, as JAX's
+        if mode != "auto":
+            raise
+        print(f"Pretrained encoder unavailable ({e}); "
+              "falling back to random encoder init.")
+        return mcfg, init_model_params(generator, mcfg, device)
+    print(f"Loaded pretrained encoder weights "
+          f"({name or cfg.ENCODER_MODEL_NAME}).")
+    return mcfg, params
+
+
 def train(
     cfg=None,
     auto_prepare: bool = True,
@@ -131,8 +161,6 @@ def train(
     t_setup = time.time()
     if tuple(cfg.MESH_SHAPE) != (1, 1):
         raise NotImplementedError(MESH_NOT_PORTED)
-    if cfg.PRETRAINED_ENCODER not in ("off", "auto"):
-        raise NotImplementedError(PRETRAINED_NOT_PORTED)
     if cfg.ENCODER_QUANT not in ("none", "int8"):
         raise ValueError(
             f"ENCODER_QUANT must be 'none' or 'int8', got {cfg.ENCODER_QUANT!r}")
@@ -153,7 +181,10 @@ def train(
     cfg = cfg.with_tokenizer_ids(tokenizer)
     vocab_size = tokenizer.get_vocab_size()
     print(f"Tokenizer loaded; vocab size {vocab_size}.")
-    mcfg = ModelConfig.build(cfg, vocab_size=vocab_size)
+    # the model first: the dataset preprocesses at the booted encoder's size
+    mcfg, params = build_model_params(
+        cfg, ModelConfig.build(cfg, vocab_size=vocab_size),
+        torch.Generator().manual_seed(cfg.RANDOM_SEED), vocab_size, device)
 
     dataset = ImageTextDataset(cfg.IMAGE_DIR, cfg.CAPTIONS_FILE,
                                cfg.MAX_SEQ_LEN, tokenizer,
@@ -165,10 +196,6 @@ def train(
                                    cfg.RANDOM_SEED)
     print(f"Dataset split: {len(tr_idx)} train / {len(va_idx)} val samples.")
 
-    if cfg.PRETRAINED_ENCODER == "auto":
-        print("Pretrained encoder loading is not ported; random encoder init.")
-    params = init_model_params(torch.Generator().manual_seed(cfg.RANDOM_SEED),
-                               mcfg, device)
     trainable, frozen = split_trainable(params)
     # W8A8 for the compute path only: `frozen` keeps the float weights that
     # checkpoints export

@@ -54,16 +54,20 @@ def test_no_port_source_imports_jax_or_the_jax_package():
     "mit_tpu_torch.text",
     "mit_tpu_torch.decode.service, mit_tpu_torch.eval.bleu, "
     "mit_tpu_torch.eval.cider",
+    "mit_tpu_torch.models.pretrained, mit_tpu_torch.models.encoder_tools, "
+    "mit_tpu_torch.utils.profiling, mit_tpu_torch.tools.profile_pipeline",
 ])
 def test_port_modules_load_neither_jax_nor_the_jax_package(modules):
-    """Importing the port's entry points leaves neither in sys.modules; the
-    decode and train packages do not pull in the tokenizer's `regex` or
-    Pillow either."""
+    """Importing the port's entry points leaves neither in sys.modules, nor
+    transformers or huggingface_hub (the card's machine does not promise
+    them); the decode, train and model packages do not pull in the
+    tokenizer's `regex` or Pillow either."""
     light = "text" not in modules
     code = (
         f"import sys, {modules}\n"
         "top = {m.split('.')[0] for m in sys.modules}\n"
-        "bad = sorted(top & {'jax', 'jaxlib', 'mit_tpu'})\n"
+        "bad = sorted(top & {'jax', 'jaxlib', 'mit_tpu', 'transformers',\n"
+        "                    'huggingface_hub'})\n"
         "assert not bad, bad\n"
         + ("assert not top & {'regex', 'PIL'}, sorted(top & {'regex', 'PIL'})\n"
            if light else "")

@@ -1312,3 +1312,62 @@ def test_unfused_service_equals_batch_greedy_on_card(cuda, mode):
     tokens, _ = greedy_generate(cap.params["decoder"], cap.mcfg.decoder, mems,
                                 2, SVC_END, 0, SVC_MAXLEN)
     assert rows == tokens.tolist()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w", [(4, 480, 640), (3, 100, 80)])
+@pytest.mark.parametrize("name", ["google/vit-base-patch16-224-in21k",
+                                  "openai/clip-vit-large-patch14",
+                                  "Salesforce/blip-image-captioning-base"])
+def test_device_preprocess_on_card_matches_cpu(cuda, name, b, h, w):
+    """The uint8 path on the card against the same call on the CPU (which
+    tests/test_torch_preprocess.py holds to the JAX package): within 1e-4 of
+    the normalized output, bilinear and bicubic, down and up."""
+    from mit_tpu_torch.data.preprocess import device_preprocess
+
+    u8 = torch.from_numpy(np.random.default_rng(b).integers(
+        0, 256, (b, h, w, 3), dtype=np.uint8))
+    card = device_preprocess(u8.to(cuda), name)
+    assert card.device.type == "cuda" and card.is_contiguous()
+    torch.testing.assert_close(card.cpu(), device_preprocess(u8, name),
+                               rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_pretrained_clip_tower_kernel_matches_plain_on_card(cuda, tmp_path):
+    """A CLIP ViT-L/14-wide tower at two layers, written as a composite HF
+    checkpoint and loaded onto the card: bit-equal weights, and its forward
+    through flash_attention_btd within 1e-4 of the plain path, f32, full
+    sequence and CLS only."""
+    import json
+
+    from mit_tpu_torch.models.pretrained import load_pretrained_encoder
+    from mit_tpu_torch.models.vision import (PRESETS,
+                                             hf_vision_state_dict_from_params,
+                                             init_vision_params, vision_forward)
+    from mit_tpu_torch.train.checkpoint import save_file
+
+    vcfg = PRESETS["openai/clip-vit-large-patch14"]._replace(num_layers=2)
+    params = init_vision_params(torch.Generator().manual_seed(0), vcfg)
+    save_file(hf_vision_state_dict_from_params(params, vcfg, "vision_model."),
+              str(tmp_path / "model.safetensors"))
+    vision = {"hidden_size": 1024, "num_hidden_layers": 2,
+              "num_attention_heads": 16, "intermediate_size": 4096,
+              "image_size": 224, "patch_size": 14}
+    (tmp_path / "config.json").write_text(json.dumps(
+        {"model_type": "clip", "vision_config": vision}))
+    cfg, loaded = load_pretrained_encoder(str(tmp_path), device=cuda)
+    assert cfg == vcfg
+    assert loaded["patch_w"].device.type == "cuda"
+    torch.testing.assert_close(loaded["layers"]["fc1"].cpu(),
+                               params["layers"]["fc1"], rtol=0, atol=0)
+    px = torch.from_numpy(np.random.default_rng(5).normal(
+        size=(2, 3, 224, 224)).astype(np.float32)).to(cuda)
+    before = flash_attention_btd.launches
+    with torch.no_grad():
+        for cls_only in (False, True):
+            kern = vision_forward(loaded, cfg, px, cls_only=cls_only)
+            plain = vision_forward(loaded, cfg, px, use_kernel=False,
+                                   cls_only=cls_only)
+            torch.testing.assert_close(kern, plain, rtol=0, atol=1e-4)
+    assert flash_attention_btd.launches - before == 3

@@ -394,7 +394,10 @@ def test_train_loop_resumes_and_refuses_what_is_not_ported(tiny_corpus,
     assert [e["epoch"] for e in resumed["epochs"]] == [2]
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         _tiny_train(cfg.replace(MESH_SHAPE=(2, 1)), monkeypatch)
-    with pytest.raises(NotImplementedError, match="pretrained"):
+    # pretrained loading is ported: a required encoder that resolves nowhere
+    # (no local file, no cached repo, no download) raises, as in JAX's loop
+    monkeypatch.delenv("MIT_ALLOW_DOWNLOAD", raising=False)
+    with pytest.raises(ValueError, match="tiny/test-vit"):
         _tiny_train(cfg.replace(PRETRAINED_ENCODER="required"), monkeypatch)
 
 
