@@ -112,7 +112,18 @@ the script exits non-zero without printing the result line.
             device-busy ms per step, busy share, the dropout kernels' ms per
             step. Every counter is set to 0 before the cache build and (c),
             and read after them; every bf16 backward of (c) ran the
-            tensor-core kernel. `python3 chip_smoke.py --trace-train` runs
+            tensor-core kernel. Then remat (check_remat): (a) f32, 8 rows,
+            dropout 0.1, fused dropout on and off: loss and every gradient
+            with remat against without, and one train step each way, within
+            1e-6 relative (bitwise is printed); (b) one bf16 fused-dropout
+            step each way, counters set to 0 before it and read after it:
+            6 dropout forward launches without remat and 12 with it (the
+            recompute), 6 backward either way; (c) steps/s (median and
+            quartiles, alternating turns) and max_memory_allocated over a
+            step, bf16 batch 32, with and without remat, not held; (d) one
+            line a host library of native/ (the JPEG loader, the BPE core):
+            built, or why not (the smoke needs neither).
+            `python3 chip_smoke.py --trace-train` runs
             phases 1, 2 and (f) alone, on seeded tokens and features.
             Phase 3 also holds fused_decode_layer to its plain version at
             (B, T) = (64, 16), (64, 100), (192, 100) and a ragged (3, 7),
@@ -323,6 +334,8 @@ BF16_STEPS = 30
 RUNS = 5                 # throughput runs per configuration
 RUN_STEPS = 10           # steps per throughput run
 TRACE_STEPS = 8          # traced bf16 train steps (fused dropout)
+REMAT_BATCH = 8          # rows of the f32 remat identity
+REMAT_TOL = 1e-6         # remat against no remat: relative, per gradient
 DROPOUT_SHAPES = [("decoder", 32, 8, 99, 99, True), ("ragged", 3, 2, 7, 9, False)]
 DROPOUT_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2e-2, 1e-2)}
 # the service phase: the END logit's bias raised by END_MARGIN (chosen on a
@@ -3033,7 +3046,150 @@ def check_training(torch):
               f"{RUNS} runs of {RUN_STEPS} steps), {q2 * TRAIN_BATCH:.1f} "
               f"images/s; runs {[round(x, 3) for x in sps]}")
     trace_train(torch, mcfg, trainable, optimizer, fixed)
-    return {"counts": counts, "rates": rates}
+    remat = check_remat(torch, mcfg, trainable, optimizer, batches)
+    return {"counts": counts, "rates": rates, "remat": remat}
+
+
+def host_libraries():
+    """Whether each host library of native/ (the JPEG loader, the BPE
+    core) built here, and if not, why. Nothing in the smoke needs
+    them: without one the dataset decodes with PIL and the tokenizer runs
+    the Python BPE."""
+    from mit_tpu_torch.kernels import host
+
+    for name, state in host.status().items():
+        print(f"host library {name}: {state.splitlines()[0]}")
+
+
+def remat_grads(torch, mcfg, params, batch, fused, remat):
+    """The loss and every gradient of one training forward at f32 from
+    the step's (TRAIN_SEED, step 0) dropout streams, as the train step
+    computes them."""
+    from mit_tpu_torch.models.model import forward_from_features
+    from mit_tpu_torch.ops.attention import DropoutGenerators
+    from mit_tpu_torch.train.steps import (
+        masked_cross_entropy,
+        tree_leaves,
+        tree_unflatten,
+    )
+
+    gens = DropoutGenerators.for_step(TRAIN_SEED, 0, batch["features"].device)
+    leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+    logits = forward_from_features(
+        tree_unflatten(params, leaves), mcfg, batch["features"],
+        batch["decoder_input_tokens"], False, gens, torch.float32, True,
+        fused, remat)
+    loss = masked_cross_entropy(logits, batch["target_tokens"],
+                                SpecialIds().pad_id)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                materialize_grads=True)
+    return loss.detach(), grads
+
+
+def check_remat(torch, mcfg, trainable, optimizer, batches):
+    """Remat in training, after the rest of phase 5:
+    (a) f32, REMAT_BATCH rows, dropout 0.1, fused dropout on and off: the
+    loss and every gradient with remat=True against remat=False from the
+    same state and (seed, step), and one train step each way: bitwise is
+    the aim, REMAT_TOL relative (largest |difference| over the largest
+    |gradient| of each leaf) the bound. (b) bf16 batch 32, fused dropout,
+    one step each way with the counters set to 0 before it and read after
+    it: without remat 6 dropout forward and 6 backward launches, with remat
+    12 forward (each layer's forward runs again in the recompute) and 6
+    backward, every attention call on a kernel route. (c) bf16 batch 32, T
+    99, fused dropout: steps/s (median and quartiles of RUNS runs of
+    RUN_STEPS steps in alternating turns) and torch.cuda.max_memory_allocated
+    over one step, with and without remat; printed, not held. (d) the host
+    libraries' build state."""
+    from mit_tpu_torch.train.steps import (
+        init_train_state,
+        make_train_step,
+        tree_leaves,
+    )
+
+    ids = SpecialIds()
+    small = {k: v[:REMAT_BATCH] for k, v in batches[0].items()}
+    worst, bitwise = 0.0, True
+    for fused in (True, False):
+        (l0, g0), (l1, g1) = (remat_grads(torch, mcfg, trainable, small,
+                                          fused, remat)
+                              for remat in (False, True))
+        rel = max((a - b).abs().max().item() / max(a.abs().max().item(),
+                                                   1e-30)
+                  for a, b in zip(g0, g1))
+        states = [make_train_step(mcfg, optimizer, ids.pad_id, torch.float32,
+                                  from_features=True, fused_dropout=fused,
+                                  remat=remat)(
+            init_train_state(trainable, optimizer), {}, small, TRAIN_SEED)
+            for remat in (False, True)]
+        same = (torch.equal(l0, l1) and all(map(torch.equal, g0, g1))
+                and torch.equal(states[0][1], states[1][1])
+                and all(torch.equal(a, b) for a, b in zip(
+                    tree_leaves(states[0][0].params),
+                    tree_leaves(states[1][0].params))))
+        loss_rel = abs(l1.item() - l0.item()) / abs(l0.item())
+        print(f"remat (a) f32 B={REMAT_BATCH} dropout "
+              f"{mcfg.decoder.dropout} fused_dropout={fused}: loss "
+              f"{l0.item():.8f} vs {l1.item():.8f} (relative {loss_rel:.3e}), "
+              f"largest gradient difference {rel:.3e} relative over "
+              f"{len(g0)} gradients (limit {REMAT_TOL:g}); loss, gradients "
+              f"and one train step bitwise equal={same}")
+        worst, bitwise = max(worst, rel, loss_rel), bitwise and same
+        if not max(rel, loss_rel) <= REMAT_TOL:
+            raise AssertionError("remat changes the loss or the gradients")
+
+    fixed = batches[0]
+    st0 = init_train_state(trainable, optimizer)
+    step = {remat: make_train_step(mcfg, optimizer, ids.pad_id,
+                                   torch.bfloat16, from_features=True,
+                                   fused_dropout=True, remat=remat)
+            for remat in (False, True)}
+    for remat in (False, True):
+        reset_counts()
+        step[remat](st0, {}, fixed, TRAIN_SEED)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        fwd = 12 if remat else 6
+        hold_launches(f"remat (b) bf16 one step remat={remat}", counts,
+                      {"flash_attention_dropout": fwd,
+                       "flash_attention_dropout_bwd": 6})
+        hold_routes(f"remat (b) remat={remat}", attention=fwd,
+                    decode={"fused": 0, "unfused": 0})
+
+    peak = {}
+    for remat in (False, True):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        step[remat](st0, {}, fixed, TRAIN_SEED)
+        torch.cuda.synchronize()
+        peak[remat] = (torch.cuda.max_memory_allocated(), before)
+    runs = {False: [], True: []}
+    for turn in range(RUNS):
+        for remat in ((False, True) if turn % 2 == 0 else (True, False)):
+            st = st0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(RUN_STEPS):
+                st, _ = step[remat](st, {}, batches[i % 2], TRAIN_SEED)
+            torch.cuda.synchronize()
+            runs[remat].append(RUN_STEPS / (time.perf_counter() - t0))
+    out = {"max_rel": worst, "bitwise": bitwise}
+    for remat, sps in runs.items():
+        q1, q2, q3 = statistics.quantiles(sps, n=4)
+        top, before = peak[remat]
+        key = "remat" if remat else "no_remat"
+        out[key] = {"steps_per_s": q2, "peak_bytes": top,
+                    "step_bytes": top - before}
+        print(f"remat (c) bf16 B={TRAIN_BATCH} fused dropout remat={remat}: "
+              f"{q2:.3f} steps/s median (quartiles {q1:.3f}-{q3:.3f}, {RUNS} "
+              f"runs of {RUN_STEPS} steps), runs "
+              f"{[round(x, 3) for x in sps]}; max_memory_allocated over one "
+              f"step {top / 2**20:.1f} MiB, {(top - before) / 2**20:.1f} MiB "
+              f"above the {before / 2**20:.1f} MiB held before it; "
+              f"{DEVICE_LINE[0] if DEVICE_LINE else ''}")
+    host_libraries()
+    return out
 
 
 # kernel name -> (source, the TPU kernel it replaces, the path whose run
@@ -3143,6 +3299,14 @@ def main() -> int:
     print(f"training bf16 B={TRAIN_BATCH}: fused dropout "
           f"{train['rates']['fused']:.3f} steps/s, plain dropout "
           f"{train['rates']['plain']:.3f} steps/s (medians)")
+    remat = train["remat"]
+    print(f"training remat bf16 B={TRAIN_BATCH} fused dropout: "
+          f"{remat['remat']['steps_per_s']:.3f} steps/s and "
+          f"{remat['remat']['peak_bytes'] / 2**20:.1f} MiB peak, without "
+          f"remat {remat['no_remat']['steps_per_s']:.3f} steps/s and "
+          f"{remat['no_remat']['peak_bytes'] / 2**20:.1f} MiB; f32 identity "
+          f"bitwise={remat['bitwise']}, largest relative difference "
+          f"{remat['max_rel']:.3e}; {smi}")
 
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "mit_tpu"))
     if loaded:

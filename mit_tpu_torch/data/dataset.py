@@ -14,8 +14,12 @@ pulls in JAX. Behaviours kept:
   shape;
 - ``num_workers`` threads load and preprocess ahead of the consumer.
 
-Images are decoded with PIL (imported at first use) through the port's
-:class:`HostPreprocessor`; the JAX package's C++ JPEG loader is not ported.
+JPEG files are decoded and preprocessed by the C++ loader
+(:class:`NativeImageLoader`, ``use_native_loader=True``, as in the JAX
+package) wherever its library builds; other files, and every file where it
+does not build, go through PIL (imported at first use) and the port's
+:class:`HostPreprocessor`. Unlike the JAX dataset, both preprocess at
+``image_size``, the loaded encoder's input size.
 :func:`prefetch_to_device` copies batches to an explicit device, from
 pinned host memory with ``non_blocking=True`` on a CUDA device, one batch
 ahead of the consumer.
@@ -47,11 +51,21 @@ class ImageTextDataset:
 
     def __init__(self, image_dir: str, captions_file: str, max_seq_len: int,
                  tokenizer, encoder_name: str, verbose: bool = True,
-                 image_size: Optional[int] = None):
+                 image_size: Optional[int] = None,
+                 use_native_loader: bool = True):
         self.image_dir = image_dir
         self.max_seq_len = max_seq_len
         self.tokenizer = tokenizer
         self.preprocessor = HostPreprocessor(encoder_name, image_size)
+        # the C++ JPEG path where its library builds, else PIL
+        self.native_loader = None
+        if use_native_loader:
+            try:
+                from mit_tpu_torch.data.native_loader import NativeImageLoader
+
+                self.native_loader = NativeImageLoader(encoder_name, image_size)
+            except Exception:
+                self.native_loader = None
         self.image_paths: List[str] = []
         self.captions: List[str] = []
 
@@ -111,6 +125,10 @@ class ImageTextDataset:
                 "caption_tokens": self.encode_caption(self.captions[idx])}
 
     def load_image(self, path: str) -> np.ndarray:
+        """Normalized (3, H, W) f32 pixels of one image file; raises when it
+        does not decode."""
+        if self.native_loader is not None:
+            return self.native_loader.load_path(path)
         from PIL import Image
 
         with Image.open(path) as im:

@@ -8,6 +8,13 @@ FFN) → f32 vocab projection. Dropout, while training, falls on the
 embedding, the three residual branches, the FFN hidden and the attention
 probabilities, as in the JAX decoder. Parameters keep the JAX tree: layer
 parameters stacked on a leading axis, (in, out) matrices.
+
+``remat`` recomputes each layer's activations in the backward instead of
+keeping them (``torch.utils.checkpoint``, the JAX decoder's
+``jax.checkpoint`` on the layer body). The recompute redraws the forward's
+dropout: both :class:`DropoutGenerators` restart from their state at the
+layer's entry, so the Bernoulli masks and the fused kernel's seeds repeat,
+and the gradients equal those without remat.
 """
 
 from __future__ import annotations
@@ -17,6 +24,7 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from mit_tpu_torch.models.convert import layer_params, params_from_jax
 from mit_tpu_torch.ops.attention import (
@@ -97,6 +105,7 @@ def decoder_forward(
     deterministic: bool = True,
     generator: Optional[DropoutGenerators] = None,
     fused_dropout: bool = False,
+    remat: bool = False,
 ) -> torch.Tensor:
     """Teacher-forced full-sequence forward → logits (B, T, V) in f32.
 
@@ -104,6 +113,9 @@ def decoder_forward(
     ``generator``; ``fused_dropout`` sends the self-attention's probability
     dropout through the hash-mask kernels (``MIT_FUSED_DROPOUT=1`` in the
     JAX package), else the plain path drops out the probabilities.
+    ``remat`` checkpoints every layer while gradients are recorded (its
+    forward then runs twice: every kernel of a layer launches once more in
+    the backward).
     """
     b, t = tgt_tokens.shape
     d = cfg.embed_dim
@@ -128,7 +140,7 @@ def decoder_forward(
     x = dr(emb + pos[None, :t])
     mem = memory.to(cd)
 
-    for i in range(cfg.num_layers):
+    def run_layer(x, i):
         layer = layer_params(params["layers"], i)
         sa = multihead_attention(
             layer["self"], x, x, cfg.num_heads, compute_dtype=cd,
@@ -148,10 +160,35 @@ def decoder_forward(
         x = layer_norm(layer["ln2"], x + dr(ca))
         f = layer["ffn"]
         h = dr(torch.relu(x @ f["w1"].to(cd) + f["b1"].to(cd)))
-        x = layer_norm(layer["ln3"], x + dr(h @ f["w2"].to(cd) + f["b2"].to(cd)))
+        return layer_norm(layer["ln3"],
+                          x + dr(h @ f["w2"].to(cd) + f["b2"].to(cd)))
+
+    for i in range(cfg.num_layers):
+        if remat and torch.is_grad_enabled():
+            x = _rematerialized(run_layer, x, i, generator)
+        else:
+            x = run_layer(x, i)
 
     logits = x.float() @ params["fc_out_w"].float()
     return logits + params["fc_out_b"].float()
+
+
+def _rematerialized(run_layer, x, i, generator):
+    """``run_layer(x, i)`` under ``checkpoint``. Dropout draws only from
+    ``generator`` (never from the global streams, so those are not saved),
+    and each run of the layer, the recompute too, first puts both of its
+    generators back where they stood at the layer's entry."""
+    if generator is None:
+        return checkpoint(run_layer, x, i, use_reentrant=False,
+                          preserve_rng_state=False)
+    entry = (generator.device.get_state(), generator.host.get_state())
+
+    def replay(x):
+        generator.device.set_state(entry[0])
+        generator.host.set_state(entry[1])
+        return run_layer(x, i)
+
+    return checkpoint(replay, x, use_reentrant=False, preserve_rng_state=False)
 
 
 def params_from_torch_state_dict(sd: dict, cfg: DecoderConfig,

@@ -169,12 +169,15 @@ def forward_from_features(
     compute_dtype=torch.float32,
     use_kernel: bool = True,
     fused_dropout: bool = False,
+    remat: bool = False,
 ) -> torch.Tensor:
-    """Teacher-forced logits (B, T, V) in f32 from encoder features."""
+    """Teacher-forced logits (B, T, V) in f32 from encoder features;
+    ``remat`` checkpoints each decoder layer (:func:`decoder_forward`)."""
     memory = project_features(params, mcfg, features, compute_dtype)
     return decoder_forward(
         params["decoder"], mcfg.decoder, tgt_tokens, memory, None,
         compute_dtype, use_kernel, deterministic, generator, fused_dropout,
+        remat,
     )
 
 
@@ -188,6 +191,7 @@ def model_forward(
     compute_dtype=torch.float32,
     use_kernel: bool = True,
     fused_dropout: bool = False,
+    remat: bool = False,
 ) -> torch.Tensor:
     """Teacher-forced logits (B, T, V) from pixels: the frozen encoder,
     then :func:`forward_from_features`."""
@@ -195,5 +199,5 @@ def model_forward(
                              use_kernel)
     return forward_from_features(
         params, mcfg, features, tgt_tokens, deterministic, generator,
-        compute_dtype, use_kernel, fused_dropout,
+        compute_dtype, use_kernel, fused_dropout, remat,
     )

@@ -120,10 +120,17 @@ class Tokenizer:
 
     # ------------------------------------------------------------------
     def use_native(self) -> bool:
-        """The C++ encode fast path (``text/native.py`` of the JAX package)
-        is not ported yet (ROADMAP.md, queue 1): always the pure-Python BPE."""
-        self._native = None
-        return False
+        """Attach the C++ encode path (:mod:`mit_tpu_torch.text.native`)
+        where its library builds; else keep the pure-Python BPE. Either
+        gives the same ids."""
+        try:
+            from mit_tpu_torch.text.native import NativeBPE
+
+            self._native = NativeBPE(self.bpe)
+            return True
+        except Exception:
+            self._native = None
+            return False
 
 
 # ----------------------------------------------------------------------

@@ -3,19 +3,20 @@
     python -m mit_tpu_torch.train.cli [--data_dir DIR] [--epochs N] \
         [--batch_size B] [--learning_rate LR] [--resume DIR] [--no_prepare] \
         [--no_wandb] [--no_cache] [--encoder_quant {none,int8}] \
-        [--train_state_interval N] [--device cuda]
+        [--train_state_interval N] [--no_hf_upload] [--device cuda]
 
 Flags override the values of ``mit_tpu_torch.config``. ``MIT_FUSED_DROPOUT=1``
 sends the decoder self-attention's dropout through the hash-mask CUDA
-kernels (the JAX package's switch of the same name); it is read here, once.
-Runs on a CUDA device only: without one it raises instead of training on
-the CPU. ``--mesh`` other than ``1,1`` is not ported and raises.
+kernels (the JAX package's switch of the same name; ``train()`` reads it).
+``--no_hf_upload`` keeps the run off the HF Hub (the config's default
+creates a repo there and uploads each best checkpoint). Runs on a CUDA
+device only: without one it raises instead of training on the CPU.
+``--mesh`` other than ``1,1`` is not ported and raises.
 """
 
 from __future__ import annotations
 
 import argparse
-import os
 
 
 def main(argv=None) -> int:
@@ -45,6 +46,9 @@ def main(argv=None) -> int:
                         help="Save the resume state every Nth epoch "
                         "(weights still save on every best-val; final epoch "
                         "always saves).")
+    parser.add_argument("--no_hf_upload", action="store_true",
+                        help="Neither create an HF Hub repo nor upload "
+                        "checkpoints (config HF_UPLOAD_BEST_CHECKPOINTS).")
     parser.add_argument("--device", type=str, default="cuda",
                         help="CUDA device to train on (default: cuda).")
     args = parser.parse_args(argv)
@@ -55,7 +59,6 @@ def main(argv=None) -> int:
         parser.error(f"--device must be a CUDA device, got {args.device!r}")
     if not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available: this CLI runs on the GPU only")
-    fused_dropout = os.environ.get("MIT_FUSED_DROPOUT") == "1"
 
     from mit_tpu_torch.config import CONFIG
 
@@ -82,12 +85,13 @@ def main(argv=None) -> int:
         cfg = cfg.replace(ENCODER_QUANT=args.encoder_quant)
     if args.train_state_interval is not None:
         cfg = cfg.replace(TRAIN_STATE_INTERVAL=args.train_state_interval)
+    if args.no_hf_upload:
+        cfg = cfg.replace(HF_UPLOAD_BEST_CHECKPOINTS=False)
 
     from mit_tpu_torch.train.loop import train
 
     summary = train(cfg, auto_prepare=not args.no_prepare,
-                    wandb_enabled=not args.no_wandb, device=args.device,
-                    fused_dropout=fused_dropout)
+                    wandb_enabled=not args.no_wandb, device=args.device)
     print(f"Training finished. Best val loss: {summary['best_val_loss']:.4f}")
     if summary.get("best_checkpoint"):
         print(f"Best checkpoint: {summary['best_checkpoint']}")

@@ -148,16 +148,19 @@ def train(
     hf_upload=None,                     # callable(path, name) or None
     max_steps_per_epoch: Optional[int] = None,
     device="cuda",
-    fused_dropout: bool = False,
+    fused_dropout: Optional[bool] = None,
 ) -> Dict:
     """Run the training job on ``device``; returns a summary dict.
 
     ``cfg`` is a ``mit_tpu_torch.config.Config`` (the package default when None).
     ``fused_dropout`` sends the decoder self-attention's dropout through
-    the hash-mask kernels (the CLI reads ``MIT_FUSED_DROPOUT``).
+    the hash-mask kernels; None reads ``MIT_FUSED_DROPOUT`` (on at "1"),
+    as the JAX package's attention does, and a bool overrides it.
     """
     if cfg is None:
         from mit_tpu_torch.config import CONFIG as cfg
+    if fused_dropout is None:
+        fused_dropout = os.environ.get("MIT_FUSED_DROPOUT") == "1"
     t_setup = time.time()
     if tuple(cfg.MESH_SHAPE) != (1, 1):
         raise NotImplementedError(MESH_NOT_PORTED)

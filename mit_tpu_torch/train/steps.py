@@ -183,6 +183,7 @@ def make_train_step(
     from_features: bool = False,
     fused_dropout: bool = False,
     use_kernel: bool = True,
+    remat: bool = False,
 ):
     """``step(state, frozen, batch, seed) -> (state', loss)``.
 
@@ -191,7 +192,10 @@ def make_train_step(
     ({} when training from features); ``seed`` an int, the run's dropout
     seed. ``fused_dropout`` sends the decoder self-attention's dropout
     through the hash-mask kernels. ``use_kernel=False`` runs every kernel's
-    plain version instead, for comparison on the card.
+    plain version instead, for comparison on the card. ``remat``
+    recomputes each decoder layer in the backward (the same loss and
+    gradients, less activation memory); as in the JAX package, no config
+    field and no ``train()`` argument turns it on.
     """
     forward = forward_from_features if from_features else model_forward
     inputs = "features" if from_features else "images"
@@ -203,7 +207,7 @@ def make_train_step(
         logits = forward(
             merge_params(params, frozen), mcfg, batch[inputs],
             batch["decoder_input_tokens"], False, gens, compute_dtype,
-            use_kernel, fused_dropout,
+            use_kernel, fused_dropout, remat,
         )
         loss = masked_cross_entropy(logits, batch["target_tokens"], pad_id)
         leaves = tree_leaves(params)

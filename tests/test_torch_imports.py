@@ -51,11 +51,14 @@ def test_no_port_source_imports_jax_or_the_jax_package():
     "mit_tpu_torch.decode.api, mit_tpu_torch.decode.beam, "
     "mit_tpu_torch.decode.sampling, mit_tpu_torch.train.loop, "
     "mit_tpu_torch.config, mit_tpu_torch.data.prepare",
-    "mit_tpu_torch.text",
+    "mit_tpu_torch.text, mit_tpu_torch.text.native",
     "mit_tpu_torch.decode.service, mit_tpu_torch.eval.bleu, "
     "mit_tpu_torch.eval.cider",
     "mit_tpu_torch.models.pretrained, mit_tpu_torch.models.encoder_tools, "
     "mit_tpu_torch.utils.profiling, mit_tpu_torch.tools.profile_pipeline",
+    "mit_tpu_torch.kernels.host, mit_tpu_torch.data.native_loader, "
+    "mit_tpu_torch.tools.evaluate, mit_tpu_torch.tools.compositional_gate, "
+    "mit_tpu_torch.tools.color_sanity, mit_tpu_torch.tools.gate_draws",
 ])
 def test_port_modules_load_neither_jax_nor_the_jax_package(modules):
     """Importing the port's entry points leaves neither in sys.modules, nor
@@ -130,5 +133,8 @@ def test_tokenizer_copy_round_trips_like_the_jax_package(tmp_path):
     crossed = ttok.get_tokenizer(tcfg.replace(DATA_DIR=jcfg.DATA_DIR),
                                  force_reload=True)
     assert crossed.encode(CORPUS[4]) == theirs.encode(CORPUS[4])
-    assert not ours.use_native()      # the C++ fast path is not ported
+    # the C++ encoder attaches where its library builds, as in JAX
+    from mit_tpu_torch.kernels import host
+
+    assert ours.use_native() == (host.status()["bpe_core"] == "built")
     assert tcfg.with_tokenizer_ids(ours).PAD_TOKEN_ID == ours.pad_id
