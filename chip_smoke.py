@@ -226,6 +226,40 @@ the script exits non-zero without printing the result line.
             (geometry inferred): f32 batch 8 within 1e-4 of plain, bf16
             batch 64 with 11 flash_attention_btd launches. The smoke prints
             its wall time before the result.
+5b. mesh    The device mesh (parallel/mesh.py). Rows 9 and 10 under the
+            cell map: at (32, 8, 99, 99, 64) bf16 split as the (2, 1) and
+            (1, 2) meshes split it, each rank's dump-kernel mask and its
+            forward kernel's mask (recovered from the output) bitwise equal
+            to the plain mask at its map and to its slice of the global
+            launch's; its forward and backward within DROPOUT_TOL of the
+            plain version's (bitwise against the global launch's slice is
+            printed); forward, backward and dump times at the global shape
+            (no map, the identity map: the same launches) and the ranks'
+            shapes, each the median of CELL_MAP_ROUNDS bursts taken in
+            turns, a burst CELL_MAP_ITERS launches queued behind a sleep
+            kernel and timed with CUDA events (the card's time, not the
+            host's issue time); the times are marked trusted where no map
+            and the identity map agree within CELL_MAP_AGREE and every
+            burst was queued before the sleep ended.
+            `python3 chip_smoke.py --cell-map` runs phases 1, 2 and this
+            part alone. Then two
+            ranks on the one card over gloo (this script run twice with
+            --mesh-rank, joined within MESH_TIMEOUT, every process stopped):
+            at (2, 1) and (1, 2), the training phase's model from seeded
+            CLS features, batch 32, dropout 0.1, fused dropout, MESH_STEPS
+            f32 steps with losses within 1e-5 relative of one rank's, then
+            MESH_STEPS bf16 steps whose loss falls; each rank, counted from
+            0 before each run: 6 dropout forward and 6 backward launches a
+            step at its local shape (16, 8 or 32, 4), the bf16 backward on
+            the tensor cores; steps/s printed as "2 ranks sharing one card,
+            not a multi-GPU rate". One rank under nccl (--mesh-nccl): the
+            mesh at (1, 1) built through init_distributed_mesh, an
+            all-reduce, two steps equal to two without the mesh. The
+            CaptionService over a single-process mesh of two "data" shards
+            on cuda:0: 64 slots, 256 requests, bf16, greedy fused and beam
+            K = 3, tokens equal to one shard's, fused_decode_layer launches
+            counted from 0 before each sharded run, captions/s and window
+            ms beside one shard's.
 6. result   The smoke's wall time, then one JSON line describing each
             kernel (its error, its time, its plain version's time, its
             bound and, where one PyTorch call
@@ -2577,11 +2611,13 @@ def dropout_inputs(torch, b, h, t, s, dtype, seed=SEED):
 DROPOUT_FWD_WARPS = (4, 8)      # the tilings of the bf16 dropout forward
 
 
-def dropout_fwd_tiled(torch, da, q, k, v, pad, seed, causal, rate, warps):
+def dropout_fwd_tiled(torch, da, q, k, v, pad, seed, causal, rate, warps,
+                      cells=None):
     """The tiled bf16 dropout forward at a tiling of the C entry point: 4 or
     8 warps a block on the tensor cores (64 query rows a warpgroup of 4), or
     0 for the CUDA-core kernel it replaced. The wrapper takes da.FWD_WARPS;
-    the others are reached only from here, for the design table."""
+    the others are reached only from here, for the design table. ``cells``:
+    the cell map (b_offset, h_total, h_offset), None for (0, H, 0)."""
     from mit_tpu_torch import kernels
 
     b, h, t, _ = q.shape
@@ -2590,15 +2626,17 @@ def dropout_fwd_tiled(torch, da, q, k, v, pad, seed, causal, rate, warps):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), pad.data_ptr(),
         out.data_ptr(), b, h, t, k.shape[2], int(causal), 1, warps,
         seed & 0xFFFFFFFF, da._threshold(rate), 1.0 - rate,
-        torch.cuda.current_stream().cuda_stream)
+        *(cells or (0, h, 0)), torch.cuda.current_stream().cuda_stream)
     kernels.check(rc, "mit_flash_attention_dropout_fwd")
     return out
 
 
-def recovered_keep_mask(torch, da, b, h, t, s, seed, rate, causal, warps):
-    """The bf16 forward kernel's keep-mask, read off its output: q = k = 0
-    makes p uniform over the visible keys, and v one-hot over 64 keys at a
-    time makes out[r, c] = pd[r, key c], positive iff the key is kept."""
+def recovered_keep_mask(torch, da, b, h, t, s, seed, rate, causal, warps,
+                        cells=None):
+    """The bf16 forward kernel's keep-mask at the cell map ``cells``, read
+    off its output: q = k = 0 makes p uniform over the visible keys, and v
+    one-hot over 64 keys at a time makes out[r, c] = pd[r, key c], positive
+    iff the key is kept."""
     dt = torch.bfloat16
     q = torch.zeros(b, h, t, 64, device="cuda", dtype=dt)
     k = torch.zeros(b, h, s, 64, device="cuda", dtype=dt)
@@ -2609,7 +2647,7 @@ def recovered_keep_mask(torch, da, b, h, t, s, seed, rate, causal, warps):
         v = torch.zeros(b, h, s, 64, device="cuda", dtype=dt)
         v[:, :, c0 + torch.arange(n), torch.arange(n)] = 1.0
         out = dropout_fwd_tiled(torch, da, q, k, v, pad, seed, causal, rate,
-                                warps)
+                                warps, cells)
         got[..., c0:c0 + n] = out[..., :n] > 0
     return got
 
@@ -3194,6 +3232,438 @@ def check_remat(torch, mcfg, trainable, optimizer, batches):
 
 # kernel name -> (source, the TPU kernel it replaces, the path whose run
 # gives its launch count)
+# ----------------------------------------------------------------------
+# phase 5b: the device mesh
+# ----------------------------------------------------------------------
+MESH_STEPS = 5                  # train steps of each mesh run
+MESH_SHAPES = ((2, 1), (1, 2))  # two ranks: data-parallel, tensor-parallel
+MESH_TOL = 1e-5                 # f32 mesh losses against one rank, relative
+MESH_TIMEOUT = 600              # seconds the ranks of one spawn may take
+MESH_LABEL = "2 ranks sharing one card, not a multi-GPU rate"
+CELL_SEED, CELL_RATE = 20261017, 0.1
+CELL_MAP_ITERS = 50             # launches in one timed burst
+CELL_MAP_ROUNDS = 5             # bursts of each case and kernel, in turns
+CELL_MAP_HOLD = 50_000_000      # cycles the stream sleeps while a burst queues
+CELL_MAP_AGREE = 0.05           # no map against the identity map, relative
+
+
+def mesh_train_inputs(torch):
+    """(mcfg, trainable, optimizer, batch) of the mesh runs: the training
+    phase's model from TRAIN_SEED and one batch of TRAIN_BATCH seeded CLS
+    features (what the cache holds) and token ids, on the card."""
+    from mit_tpu_torch.data.dataset import to_device
+
+    _, mcfg, trainable, _, optimizer = train_setup(torch)
+    rng = np.random.default_rng(TRAIN_SEED + 1)
+    t = mcfg.decoder.max_seq_len - 1
+    toks = token_batch(rng, TRAIN_BATCH, t, mcfg.decoder.vocab_size,
+                       SpecialIds())
+    feats = rng.normal(size=(TRAIN_BATCH, 1, mcfg.vision.hidden_size))
+    return mcfg, trainable, optimizer, to_device({
+        "features": feats.astype(np.float32),
+        "decoder_input_tokens": toks[:, :-1], "target_tokens": toks[:, 1:]},
+        "cuda")
+
+
+def mesh_train(torch, mcfg, trainable, optimizer, batch, mesh, dtype,
+               steps=MESH_STEPS):
+    """``steps`` fused-dropout train steps on ``batch`` at ``mesh`` (None:
+    one device) → (losses, seconds of the steps after the first)."""
+    from mit_tpu_torch.parallel import mesh as pmesh
+    from mit_tpu_torch.train.steps import init_train_state, make_train_step
+
+    step = make_train_step(mcfg, optimizer, SpecialIds().pad_id, dtype,
+                           from_features=True, fused_dropout=True, mesh=mesh)
+    state = init_train_state(trainable, optimizer)
+    if mesh is not None:
+        state = pmesh.shard_train_state(state, mesh,
+                                        tp=mesh.shape["model"] > 1)
+        batch = pmesh.shard_batch(batch, mesh)
+    losses = []
+    for i in range(steps):
+        if i == 1:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        state, loss = step(state, {}, batch, TRAIN_SEED)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    return [x.item() for x in losses], time.perf_counter() - t0
+
+
+def mesh_rank(argv) -> int:
+    """One rank of the gloo spawn (``--mesh-rank RANK WORLD INIT OUT``): at
+    each of MESH_SHAPES, MESH_STEPS f32 and MESH_STEPS bf16 steps on
+    ``cuda:0``, with the dropout kernels' launches, the forward's local
+    shapes and the backward's kernels counted from 0 before each run; a
+    JSON file of it all at OUT."""
+    rank, world, init, out = int(argv[0]), int(argv[1]), argv[2], argv[3]
+    import torch
+    import torch.distributed as dist
+
+    from mit_tpu_torch.ops import dropout_attention as da
+    from mit_tpu_torch.parallel.mesh import init_distributed_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{init}", rank=rank,
+                            world_size=world)
+    launch, bwd = da.flash_attention_dropout_fwd, da.flash_attention_dropout_bwd
+    shapes = []
+
+    def recording(q, *args, **kw):
+        shapes.append(tuple(q.shape))
+        return launch(q, *args, **kw)
+
+    # the wrapper counts its launches under its module name: this one now
+    da.flash_attention_dropout_fwd = fwd = recording
+    result = {}
+    try:
+        inputs = mesh_train_inputs(torch)
+        for shape in MESH_SHAPES:
+            mesh = init_distributed_mesh(shape, "cuda:0")
+            runs = {"coords": list(mesh.coords)}
+            for dtype in (torch.float32, torch.bfloat16):
+                fwd.launches = bwd.launches = 0
+                bwd.kernels = {k: 0 for k in bwd.kernels}
+                shapes.clear()
+                losses, secs = mesh_train(torch, *inputs, mesh, dtype)
+                runs[str(dtype)[6:]] = {
+                    "losses": losses, "seconds": secs, "fwd": fwd.launches,
+                    "bwd": bwd.launches, "bwd_kernels": dict(bwd.kernels),
+                    "shapes": sorted(set(shapes))}
+            result[f"{shape[0]},{shape[1]}"] = runs
+    finally:
+        dist.destroy_process_group()
+    with open(out, "w") as f:
+        json.dump(result, f)
+    return 0
+
+
+def mesh_nccl(argv) -> int:
+    """One rank under nccl (``--mesh-nccl INIT OUT``): the mesh at (1, 1)
+    built explicitly through ``init_distributed_mesh``, an all-reduce over
+    its "data" group, and two f32 train steps through the mesh's step
+    against two without it."""
+    init, out = argv
+    import torch
+    import torch.distributed as dist
+
+    from mit_tpu_torch.parallel.collectives import all_reduce_sum
+    from mit_tpu_torch.parallel.mesh import init_distributed_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = init_distributed_mesh((1, 1), "cuda:0", backend="nccl",
+                                 init_method=f"file://{init}", rank=0,
+                                 world_size=1)
+    try:
+        x = all_reduce_sum(torch.arange(4.0, device="cuda"),
+                           mesh.group("data"))
+        inputs = mesh_train_inputs(torch)
+        got, _ = mesh_train(torch, *inputs, mesh, torch.float32, steps=2)
+        want, _ = mesh_train(torch, *inputs, None, torch.float32, steps=2)
+        result = {"backend": dist.get_backend(), "world": dist.get_world_size(),
+                  "all_reduce": x.tolist(), "losses": got, "single": want}
+    finally:
+        dist.destroy_process_group()
+    with open(out, "w") as f:
+        json.dump(result, f)
+    return 0
+
+
+def spawn_ranks(argvs, label):
+    """Run ``chip_smoke.py <argv>`` once for each of ``argvs`` at once, and
+    join them all within MESH_TIMEOUT; every process is stopped before this
+    returns. Raises unless all exit 0."""
+    import tempfile
+
+    procs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            for i, argv in enumerate(argvs):
+                log = open(os.path.join(tmp, f"rank{i}.log"), "w")
+                procs.append((subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), *argv],
+                    stdout=log, stderr=subprocess.STDOUT), log))
+            deadline = time.monotonic() + MESH_TIMEOUT
+            for p, _ in procs:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+        finally:
+            for p, log in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+                log.close()
+        for i, (p, _) in enumerate(procs):
+            text = open(os.path.join(tmp, f"rank{i}.log")).read()
+            if p.returncode != 0:
+                raise AssertionError(f"{label} rank {i} exited {p.returncode}:"
+                                     f"\n{text[-3000:]}")
+
+
+def check_cell_map(torch):
+    """Rows 9 and 10 under the cell map, at the bf16 training shape (32, 8,
+    99, 99, 64) split as (2, 1) and (1, 2) meshes split it: each rank's
+    dump-kernel mask and forward-kernel mask (recovered from its output)
+    bitwise equal to the plain mask at its map and to its slice of the
+    global launch's; its forward and its dq, dk, dv against its slice of
+    the global launch's (bitwise printed) and the plain version's (the
+    DROPOUT_TOL bounds). Then the forward, backward and dump times at the
+    global shape, with no map and with the identity map, and at the ranks'
+    shapes (``time_cell_map``), which it returns for the kernels line."""
+    from mit_tpu_torch.ops import dropout_attention as da
+
+    seed, rate = CELL_SEED, CELL_RATE
+    _, b, h, t, s, causal = DROPOUT_SHAPES[0]
+    fwd_tol, bwd_tol = DROPOUT_TOL["bfloat16"]
+    q, k, v, pad, do = dropout_inputs(torch, b, h, t, s, torch.bfloat16)
+    whole = da.dump_dropout_mask(b, h, t, s, seed, rate, "cuda")
+    recovered = recovered_keep_mask(torch, da, b, h, t, s, seed, rate, causal,
+                                    da.FWD_WARPS)
+    out = da.flash_attention_dropout_fwd(q, k, v, pad, seed, causal, rate)
+    grads = da.flash_attention_dropout_bwd(q, k, v, pad, do, seed, causal,
+                                           rate)
+    local = {}
+    for d, m in MESH_SHAPES:
+        for i in range(d):
+            for j in range(m):
+                rows = slice(i * b // d, (i + 1) * b // d)
+                heads = slice(j * h // m, (j + 1) * h // m)
+                cells = (rows.start, h, heads.start)
+                part = lambda x: x[rows, heads].contiguous()
+                lb, lh = b // d, h // m
+                mask = da.dump_dropout_mask(lb, lh, t, s, seed, rate, "cuda",
+                                            cells)
+                plain = da.dump_dropout_mask(lb, lh, t, s, seed, rate, "cpu",
+                                             cells).cuda()
+                fmask = recovered_keep_mask(torch, da, lb, lh, t, s, seed,
+                                            rate, causal, da.FWD_WARPS, cells)
+                args = (part(q), part(k), part(v), pad[rows].contiguous())
+                got = da.flash_attention_dropout_fwd(*args, seed, causal, rate,
+                                                     cells)
+                ref = da.flash_attention_dropout_reference(*args, seed, causal,
+                                                           rate, cells)
+                g = da.flash_attention_dropout_bwd(*args, part(do), seed,
+                                                   causal, rate, cells)
+                rg = da.flash_attention_dropout_reference_backward(
+                    *args, part(do), seed, causal, rate, cells)
+                torch.cuda.synchronize()
+                same = {"dump vs plain": torch.equal(mask, plain),
+                        "dump vs global": torch.equal(mask, part(whole)),
+                        "forward's mask vs global": torch.equal(
+                            fmask, part(recovered)),
+                        "forward vs global": torch.equal(got, part(out)),
+                        "backward vs global": all(torch.equal(x, part(y))
+                                                  for x, y in zip(g, grads))}
+                fwd_err = (got.float() - ref.float()).abs().max().item()
+                bwd_rel = max(((x.float() - y.float()).abs().max()
+                               / y.float().abs().max()).item()
+                              for x, y in zip(g, rg))
+                print(f"cell map mesh ({d}, {m}) rank ({i}, {j}): local "
+                      f"({lb}, {lh}, {t}, {s}) at cells {cells}: bitwise "
+                      f"{same}; forward max_abs_err {fwd_err:.3e} (limit "
+                      f"{fwd_tol:.0e}), dq, dk, dv over their largest value "
+                      f"{bwd_rel:.3e} (limit {bwd_tol:.0e})")
+                if not (all(list(same.values())[:3]) and fwd_err <= fwd_tol
+                        and bwd_rel <= bwd_tol):
+                    raise AssertionError(f"cell map ({d}, {m}) rank ({i}, {j})")
+                local.setdefault((lb, lh), (args, part(do), cells))
+    cases = [(f"({b}, {h}) no map", ((q, k, v, pad), do, None)),
+             (f"({b}, {h}) map (0, {h}, 0)", ((q, k, v, pad), do, (0, h, 0)))]
+    cases += [(f"({lb}, {lh}) map {c[2]}", c) for (lb, lh), c in local.items()]
+    return time_cell_map(torch, da, cases, seed, causal, rate, t, s)
+
+
+def queued_ms(torch, fn, iters=CELL_MAP_ITERS):
+    """(device ms a call, queued) of ``iters`` calls of ``fn`` that the host
+    enqueues while the stream sleeps: the events then time the card's
+    back-to-back work, not the host's issue time. ``queued`` is False where
+    the host was still enqueueing when the sleep ended."""
+    fn()
+    torch.cuda.synchronize()
+    held, start, end = (torch.cuda.Event(enable_timing=True)
+                        for _ in range(3))
+    held.record()
+    torch.cuda._sleep(CELL_MAP_HOLD)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters, host_ms < held.elapsed_time(start)
+
+
+def time_cell_map(torch, da, cases, seed, causal, rate, t, s):
+    """Forward, backward and dump device times of each (label, (args, do,
+    cells)) case: the median of CELL_MAP_ROUNDS bursts (``queued_ms``),
+    the cases in turns, every other round reversed, with the spread (max −
+    min) / median. The first two cases are the same launches (no map, the
+    identity map): the times are trusted where those agree within
+    CELL_MAP_AGREE and every burst queued."""
+    calls = {}
+    for label, (args, dout, cells) in cases:
+        lb, lh = args[0].shape[:2]
+        calls[label] = {
+            "fwd": lambda a=args, c=cells: da.flash_attention_dropout_fwd(
+                *a, seed, causal, rate, c),
+            "bwd": lambda a=args, o=dout, c=cells:
+                da.flash_attention_dropout_bwd(*a, o, seed, causal, rate, c),
+            "dump": lambda lb=lb, lh=lh, c=cells: da.dump_dropout_mask(
+                lb, lh, t, s, seed, rate, "cuda", c)}
+    runs = {label: {kind: [] for kind in ("fwd", "bwd", "dump")}
+            for label in calls}
+    queued = True
+    for r in range(CELL_MAP_ROUNDS):
+        for label in (list(calls) if r % 2 == 0 else list(calls)[::-1]):
+            for kind, fn in calls[label].items():
+                ms, ok = queued_ms(torch, fn)
+                runs[label][kind].append(ms)
+                queued &= ok
+    times = {}
+    for label, (args, _, _) in cases:
+        lb, lh = args[0].shape[:2]
+        fb = attention_bound(lb, lh, t, s, torch.bfloat16,
+                             extra_bytes=lb * s * 4)
+        row = {"fwd_bound_ms": fb["bound_ms"]}
+        for kind, xs in runs[label].items():
+            med = statistics.median(xs)
+            row[f"{kind}_ms"] = med
+            row[f"{kind}_spread"] = (max(xs) - min(xs)) / med
+        times[label] = row
+        print(f"time cell map {label} ({t}, {s}, 64) bf16, device ms, median "
+              f"of {CELL_MAP_ROUNDS} bursts of {CELL_MAP_ITERS} (spread): "
+              + ", ".join(f"{kind} {row[kind + '_ms']:.5f} "
+                          f"({row[kind + '_spread']:.3f})"
+                          for kind in ("fwd", "bwd", "dump"))
+              + f"; forward bound {fb['bound_ms']:.5f} by {fb['bound_by']}; "
+              f"{DEVICE_LINE[0] if DEVICE_LINE else ''}")
+    none, ident = (times[label] for label, _ in cases[:2])
+    agree = {kind: abs(none[f"{kind}_ms"] - ident[f"{kind}_ms"])
+             / none[f"{kind}_ms"] for kind in ("fwd", "bwd", "dump")}
+    trusted = queued and all(x <= CELL_MAP_AGREE for x in agree.values())
+    print(f"time cell map: no map against the identity map (the same "
+          f"launches), relative difference "
+          + ", ".join(f"{k} {x:.3f}" for k, x in agree.items())
+          + f" (limit {CELL_MAP_AGREE}); every burst queued behind the sleep="
+          f"{queued}; trusted={trusted}")
+    return {"trusted": trusted, "cases": times}
+
+
+def check_mesh_service(torch):
+    """The CaptionService with its 64 slots split over two "data" shards on
+    the one card (a single-process mesh of cuda:0 twice), 256 requests in
+    bf16, greedy through the fused decode layer and beam K = 3: tokens equal
+    to the one-shard service's; the counts set to 0 before each sharded run
+    and read after it; captions/s and window ms of both."""
+    from mit_tpu_torch.decode.api import Captioner
+    from mit_tpu_torch.parallel.mesh import create_mesh
+
+    mcfg, params, pixels = service_setup(torch)
+    cap = Captioner(params, mcfg, SpecialIds(), torch.bfloat16,
+                    fused_decode=True)
+    mem = encoded(torch, cap, pixels, SERVICE_CHUNK)
+    mesh = create_mesh((2, 1), ["cuda:0", "cuda:0"])
+    L = mcfg.decoder.num_layers
+    counts, rates = {}, {}
+    for method, extra in (("greedy", {}), ("beam", {"beam_size": 3})):
+        kw = dict(num_slots=SERVICE_SLOTS, steps_per_sync=SERVICE_WINDOW,
+                  method=method, **extra)
+        one, _, s1, w1 = serve(torch, cap, mem, **kw)
+        reset_counts()
+        two, svc, s2, w2 = serve(torch, cap, mem, mesh=mesh, **kw)
+        counts[method] = read_counts()
+        micro = counts[method]["fused_decode_layer"]
+        hold_routes(f"mesh service {method}", attention=0,
+                    decode={"fused": micro // L, "unfused": 0})
+        same = one == two
+        n = len(one)
+        rates[method] = {"one": n / s1, "two": n / s2}
+        print(f"mesh service bf16 {method} fused {SERVICE_SLOTS} slots over "
+              f"2 shards, {n} requests: tokens equal to one shard={same}; "
+              f"captions/s {n / s2:.2f} against {n / s1:.2f} on one shard "
+              f"({MESH_LABEL}); median window ms "
+              f"{statistics.median(w2):.3f} against "
+              f"{statistics.median(w1):.3f}: the host issues both shards' "
+              f"windows; fused_decode_layer launches {micro} "
+              f"({svc.windows} windows)")
+        if not same:
+            raise AssertionError(f"mesh service {method}: tokens differ")
+        if micro == 0 or micro % (2 * L):
+            raise AssertionError(f"mesh service {method}: launches {micro}")
+    return {"counts": counts["greedy"], "rates": rates}
+
+
+def check_mesh(torch):
+    """Phase 5b, the device mesh (see the module docstring)."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    times = check_cell_map(torch)
+    with tempfile.TemporaryDirectory() as tmp:
+        init, outs = os.path.join(tmp, "pg"), [os.path.join(tmp, f"r{r}.json")
+                                               for r in range(2)]
+        t0 = time.perf_counter()
+        spawn_ranks([["--mesh-rank", str(r), "2", init, outs[r]]
+                     for r in range(2)], "gloo mesh")
+        spawn_s = time.perf_counter() - t0
+        ranks = [json.load(open(o)) for o in outs]
+        nccl_out = os.path.join(tmp, "nccl.json")
+        spawn_ranks([["--mesh-nccl", os.path.join(tmp, "pg_nccl"),
+                      nccl_out]], "nccl mesh")
+        nccl = json.load(open(nccl_out))
+    inputs = mesh_train_inputs(torch)
+    single = {str(dt)[6:]: mesh_train(torch, *inputs, None, dt)
+              for dt in (torch.float32, torch.bfloat16)}
+    counts = {}
+    for shape in MESH_SHAPES:
+        key = f"{shape[0]},{shape[1]}"
+        b, h = TRAIN_BATCH // shape[0], 8 // shape[1]
+        for r, res in enumerate(ranks):
+            run = res[key]
+            f32, bf16 = run["float32"], run["bfloat16"]
+            rel = max(abs(a - w) / abs(w) for a, w in
+                      zip(f32["losses"], single["float32"][0]))
+            falls = bf16["losses"][-1] < bf16["losses"][0]
+            want = [[b, h, 99, 64]]
+            sps = (MESH_STEPS - 1) / bf16["seconds"]
+            print(f"mesh {shape} rank {r} at {tuple(run['coords'])}: f32 "
+                  f"losses {f32['losses']} against one rank "
+                  f"{single['float32'][0]}, largest relative difference "
+                  f"{rel:.3e} (limit {MESH_TOL:.0e}); bf16 losses "
+                  f"{bf16['losses']} (falls={falls}); dropout launches per "
+                  f"step forward {bf16['fwd'] / MESH_STEPS}, backward "
+                  f"{bf16['bwd'] / MESH_STEPS} at local shapes "
+                  f"{bf16['shapes']}, backward kernels {bf16['bwd_kernels']}; "
+                  f"bf16 {sps:.3f} steps/s ({MESH_LABEL})")
+            for run_ in (f32, bf16):
+                if (run_["fwd"], run_["bwd"]) != (6 * MESH_STEPS,
+                                                  6 * MESH_STEPS) \
+                        or run_["shapes"] != want:
+                    raise AssertionError(f"mesh {shape} rank {r}: launches "
+                                         f"{run_}")
+            if not (rel <= MESH_TOL and falls
+                    and bf16["bwd_kernels"]["tensor_cores"] == 6 * MESH_STEPS):
+                raise AssertionError(f"mesh {shape} rank {r} disagrees")
+            counts.setdefault("flash_attention_dropout", bf16["fwd"])
+            counts.setdefault("flash_attention_dropout_bwd", bf16["bwd"])
+    one_sps = (MESH_STEPS - 1) / single["bfloat16"][1]
+    print(f"mesh: one rank bf16 {one_sps:.3f} steps/s in this process; the "
+          f"gloo spawn of two ranks took {spawn_s:.1f} s")
+    ok = (nccl["backend"] == "nccl" and nccl["all_reduce"] == [0, 1, 2, 3]
+          and nccl["losses"] == nccl["single"])
+    print(f"mesh nccl (1, 1): backend {nccl['backend']}, world "
+          f"{nccl['world']}, all_reduce {nccl['all_reduce']}, two f32 steps "
+          f"through the mesh {nccl['losses']} against without "
+          f"{nccl['single']}: ok={ok}. NCCL across real cards is not "
+          "measured: this machine has one card.")
+    if not ok:
+        raise AssertionError("the nccl mesh disagrees")
+    service = check_mesh_service(torch)
+    print(f"mesh phase {time.perf_counter() - t_phase:.1f} s")
+    return {"times": times, "counts": counts, "service": service}
+
+
 KERNELS = {
     "flash_attention_btd": ("flash_attention_btd.cu",
                             "mit_tpu/ops/pallas_attention.py:160", "float"),
@@ -3228,6 +3698,10 @@ def main() -> int:
     t_start = time.perf_counter()
     import torch
 
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        return mesh_rank(sys.argv[2:])
+    if sys.argv[1:2] == ["--mesh-nccl"]:
+        return mesh_nccl(sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
@@ -3255,6 +3729,9 @@ def main() -> int:
         print(log.read_text().strip())
     if sys.argv[1:] == ["--trace-train"]:
         trace_only(torch)
+        return 0
+    if sys.argv[1:] == ["--cell-map"]:
+        check_cell_map(torch)
         return 0
 
     print("== 3 kernels", flush=True)
@@ -3307,6 +3784,19 @@ def main() -> int:
           f"{remat['no_remat']['peak_bytes'] / 2**20:.1f} MiB; f32 identity "
           f"bitwise={remat['bitwise']}, largest relative difference "
           f"{remat['max_rel']:.3e}; {smi}")
+
+    print("== 5b mesh", flush=True)
+    mesh = check_mesh(torch)
+    slice_["counts"]["service_mesh"] = mesh["service"]["counts"]
+    for name in ("flash_attention_dropout", "flash_attention_dropout_bwd"):
+        dropout[name]["mesh_launches_per_rank"] = mesh["counts"][name]
+    cell_map = mesh["times"]
+    for name, kind in (("flash_attention_dropout", "fwd"),
+                       ("flash_attention_dropout_bwd", "bwd")):
+        dropout[name]["cell_map_ms"] = {
+            "trusted": cell_map["trusted"],
+            **{label: {key: v[f"{kind}_{key}"] for key in ("ms", "spread")}
+               for label, v in cell_map["cases"].items()}}
 
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "mit_tpu"))
     if loaded:

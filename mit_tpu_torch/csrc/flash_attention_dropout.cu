@@ -146,7 +146,8 @@ __global__ void __launch_bounds__(THREADS)
 dropout_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    const T* __restrict__ v, const float* __restrict__ pad,
                    T* __restrict__ out, int H, int Tq, int S, bool causal,
-                   uint32_t seed, uint32_t threshold, float one_minus_r) {
+                   uint32_t seed, uint32_t threshold, float one_minus_r,
+                   CellMap cm) {
   extern __shared__ float smem[];
   const int pld = S + 1;
   float* qs = smem;                  // BQ x LD
@@ -160,7 +161,7 @@ dropout_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const size_t qoff = ((size_t)cell * Tq + q0) * HD;
   const size_t kvoff = (size_t)cell * S * HD;
   const float* pad_row = pad + (size_t)(cell / H) * S;
-  const uint32_t base = cell_base(seed, (uint32_t)cell);
+  const uint32_t base = cell_base(seed, global_cell(cell, H, cm));
 
   load_rows(qs, q + qoff, nq, nq);
   load_rows(ks, k + kvoff, S, S);
@@ -260,7 +261,7 @@ dropout_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
                       const float* __restrict__ pad,
                       __nv_bfloat16* __restrict__ out, int H, int Tq, int S,
                       bool causal, uint32_t seed, uint32_t threshold,
-                      float one_minus_r) {
+                      float one_minus_r, CellMap cm) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(
       smem_raw + ((1024 - smem_u32(smem_raw)) & 1023));
@@ -276,7 +277,7 @@ dropout_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
   const __nv_bfloat16* qb = q + ((size_t)cell * Tq + q0) * HD;
   const size_t kvoff = (size_t)cell * S * HD;
   const float* pad_row = pad + (size_t)(cell / H) * S;
-  const uint32_t base = cell_base(seed, (uint32_t)cell);
+  const uint32_t base = cell_base(seed, global_cell(cell, H, cm));
 
   // whole tiles, zero past the last row: a product over a tile then needs
   // no test for where the rows end
@@ -522,7 +523,7 @@ dropout_bwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
                       __nv_bfloat16* __restrict__ dk,
                       __nv_bfloat16* __restrict__ dv, int H, int Tq, int S,
                       bool causal, uint32_t seed, uint32_t threshold,
-                      float inv) {
+                      float inv, CellMap cm) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   // Q, dO, K, V: 128 rows each (two tiles); then the pairs, 128 query rows
   // by 64 keys for each kind and key tile
@@ -544,7 +545,7 @@ dropout_bwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
   const size_t qoff = (size_t)cell * Tq * HD;
   const size_t kvoff = (size_t)cell * S * HD;
   const float* pad_row = pad + (size_t)(cell / H) * S;
-  const uint32_t base = cell_base(seed, (uint32_t)cell);
+  const uint32_t base = cell_base(seed, global_cell(cell, H, cm));
 
   // every tile, zero past T or S: every product reads all 128 rows
   load_rows_async(qs, q + qoff, MAX_LEN, Tq, HD);
@@ -779,7 +780,7 @@ dropout_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    const T* __restrict__ dout, T* __restrict__ dq,
                    T* __restrict__ dk, T* __restrict__ dv, int H, int Tq,
                    int S, bool causal, uint32_t seed, uint32_t threshold,
-                   float inv) {
+                   float inv, CellMap cm) {
   extern __shared__ float smem[];
   const int pld = S + 1;
   float* qs = smem;                  // Tq x LD
@@ -793,7 +794,7 @@ dropout_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const size_t qoff = (size_t)cell * Tq * HD;
   const size_t kvoff = (size_t)cell * S * HD;
   const float* pad_row = pad + (size_t)(cell / H) * S;
-  const uint32_t base = cell_base(seed, (uint32_t)cell);
+  const uint32_t base = cell_base(seed, global_cell(cell, H, cm));
 
   load_rows(qs, q + qoff, Tq, Tq);
   load_rows(dos, dout + qoff, Tq, Tq);
@@ -878,10 +879,11 @@ dropout_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-__global__ void dump_mask_kernel(uint8_t* __restrict__ out, int Tq, int S,
-                                 uint32_t seed, uint32_t threshold) {
+__global__ void dump_mask_kernel(uint8_t* __restrict__ out, int H, int Tq,
+                                 int S, uint32_t seed, uint32_t threshold,
+                                 CellMap cm) {
   const int cell = blockIdx.x;
-  const uint32_t base = cell_base(seed, (uint32_t)cell);
+  const uint32_t base = cell_base(seed, global_cell(cell, H, cm));
   uint8_t* o = out + (size_t)cell * Tq * S;
   for (int i = threadIdx.x; i < Tq * S; i += blockDim.x)
     o[i] = keep_at(i / S, i % S, S, base, threshold) ? 1 : 0;
@@ -905,7 +907,7 @@ template <typename T>
 int launch_fwd(const void* q, const void* k, const void* v, const void* pad,
                void* out, int B, int H, int Tq, int S, int causal,
                unsigned seed, unsigned threshold, float one_minus_r,
-               void* stream) {
+               CellMap cm, void* stream) {
   if (bad_shape(B * H, Tq, S)) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = fwd_smem(S);
   cudaError_t err = cudaFuncSetAttribute(
@@ -917,7 +919,7 @@ int launch_fwd(const void* q, const void* k, const void* v, const void* pad,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const float*>(pad),
       static_cast<T*>(out), H, Tq, S, causal != 0, seed, threshold,
-      one_minus_r);
+      one_minus_r, cm);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -925,7 +927,7 @@ template <int NW>
 int launch_fwd_tc(const void* q, const void* k, const void* v, const void* pad,
                   void* out, int B, int H, int Tq, int S, int causal,
                   unsigned seed, unsigned threshold, float one_minus_r,
-                  void* stream) {
+                  CellMap cm, void* stream) {
   if (bad_shape(B * H, Tq, S)) return static_cast<int>(cudaErrorInvalidValue);
   // the tiles, and the room to start them at 1024 bytes
   const int smem =
@@ -940,14 +942,14 @@ int launch_fwd_tc(const void* q, const void* k, const void* v, const void* pad,
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(pad),
       static_cast<__nv_bfloat16*>(out), H, Tq, S, causal != 0, seed, threshold,
-      one_minus_r);
+      one_minus_r, cm);
   return static_cast<int>(cudaGetLastError());
 }
 
 int launch_bwd(const void* q, const void* k, const void* v, const void* pad,
                const void* dout, void* dq, void* dk, void* dv, int B, int H,
                int Tq, int S, int causal, unsigned seed, unsigned threshold,
-               float inv, void* stream) {
+               float inv, CellMap cm, void* stream) {
   if (bad_shape(B * H, Tq, S)) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = bwd_smem(Tq, S);
   cudaError_t err = cudaFuncSetAttribute(
@@ -959,14 +961,15 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* pad,
       static_cast<const float*>(v), static_cast<const float*>(pad),
       static_cast<const float*>(dout), static_cast<float*>(dq),
       static_cast<float*>(dk), static_cast<float*>(dv), H, Tq, S, causal != 0,
-      seed, threshold, inv);
+      seed, threshold, inv, cm);
   return static_cast<int>(cudaGetLastError());
 }
 
 int launch_bwd_tc(const void* q, const void* k, const void* v,
                   const void* pad, const void* dout, void* dq, void* dk,
                   void* dv, int B, int H, int Tq, int S, int causal,
-                  unsigned seed, unsigned threshold, float inv, void* stream) {
+                  unsigned seed, unsigned threshold, float inv, CellMap cm,
+                  void* stream) {
   if (bad_shape(B * H, Tq, S)) return static_cast<int>(cudaErrorInvalidValue);
   // Q, dO, K, V and the four pair arrays, and the room to start at 1024
   const int smem = (4 * KT + 4 * KT * KT) * TILE *
@@ -982,7 +985,7 @@ int launch_bwd_tc(const void* q, const void* k, const void* v,
       static_cast<const __nv_bfloat16*>(dout),
       static_cast<__nv_bfloat16*>(dq), static_cast<__nv_bfloat16*>(dk),
       static_cast<__nv_bfloat16*>(dv), H, Tq, S, causal != 0, seed, threshold,
-      inv);
+      inv, cm);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -992,26 +995,30 @@ int launch_bwd_tc(const void* q, const void* k, const void* v,
 // or all bf16 (bf16 = 1); pad: (B, S) f32. T, S <= 128. warps = 4 or 8: the
 // tensor-core kernel with that many warps a block (bf16 only, tensors at
 // 16-byte boundaries); warps = 0: the CUDA-core kernel, the route of f32
-// and, for bf16, a yardstick for measurements.
+// and, for bf16, a yardstick for measurements. b_offset, h_total, h_offset:
+// the cell map of the keep-mask (dropout_hash.cuh; 0, H, 0 on one device).
 extern "C" int mit_flash_attention_dropout_fwd(
     const void* q, const void* k, const void* v, const void* pad, void* out,
     int B, int H, int T, int S, int causal, int bf16, int warps,
-    unsigned seed, unsigned threshold, float one_minus_r, void* stream) {
+    unsigned seed, unsigned threshold, float one_minus_r, int b_offset,
+    int h_total, int h_offset, void* stream) {
+  const CellMap cm{b_offset, h_total, h_offset};
+  if (bad_map(H, cm)) return static_cast<int>(cudaErrorInvalidValue);
   if (warps != 0) {
     if (!bf16) return static_cast<int>(cudaErrorInvalidValue);
     if (warps == 4)
       return launch_fwd_tc<4>(q, k, v, pad, out, B, H, T, S, causal, seed,
-                              threshold, one_minus_r, stream);
+                              threshold, one_minus_r, cm, stream);
     if (warps == 8)
       return launch_fwd_tc<8>(q, k, v, pad, out, B, H, T, S, causal, seed,
-                              threshold, one_minus_r, stream);
+                              threshold, one_minus_r, cm, stream);
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return bf16 ? launch_fwd<__nv_bfloat16>(q, k, v, pad, out, B, H, T, S,
                                           causal, seed, threshold,
-                                          one_minus_r, stream)
+                                          one_minus_r, cm, stream)
               : launch_fwd<float>(q, k, v, pad, out, B, H, T, S, causal, seed,
-                                  threshold, one_minus_r, stream);
+                                  threshold, one_minus_r, cm, stream);
 }
 
 // the same q, k, v and pad, dout like q; dq like q, dk and dv like k. bf16
@@ -1021,20 +1028,24 @@ extern "C" int mit_flash_attention_dropout_bwd(
     const void* q, const void* k, const void* v, const void* pad,
     const void* dout, void* dq, void* dk, void* dv, int B, int H, int T,
     int S, int causal, int bf16, unsigned seed, unsigned threshold, float inv,
-    void* stream) {
+    int b_offset, int h_total, int h_offset, void* stream) {
+  const CellMap cm{b_offset, h_total, h_offset};
+  if (bad_map(H, cm)) return static_cast<int>(cudaErrorInvalidValue);
   return bf16 ? launch_bwd_tc(q, k, v, pad, dout, dq, dk, dv, B, H, T, S,
-                              causal, seed, threshold, inv, stream)
+                              causal, seed, threshold, inv, cm, stream)
               : launch_bwd(q, k, v, pad, dout, dq, dk, dv, B, H, T, S, causal,
-                           seed, threshold, inv, stream);
+                           seed, threshold, inv, cm, stream);
 }
 
-// out: (cells, T, S) bytes, 1 where kept
-extern "C" int mit_dump_dropout_mask(void* out, int cells, int T, int S,
+// out: (cells, T, S) bytes, 1 where kept; cells = B * H, under the cell map
+extern "C" int mit_dump_dropout_mask(void* out, int cells, int H, int T, int S,
                                      unsigned seed, unsigned threshold,
+                                     int b_offset, int h_total, int h_offset,
                                      void* stream) {
-  if (cells <= 0 || T <= 0 || S <= 0)
+  const CellMap cm{b_offset, h_total, h_offset};
+  if (cells <= 0 || H <= 0 || cells % H || T <= 0 || S <= 0 || bad_map(H, cm))
     return static_cast<int>(cudaErrorInvalidValue);
   dump_mask_kernel<<<cells, 256, 0, (cudaStream_t)stream>>>(
-      static_cast<uint8_t*>(out), T, S, seed, threshold);
+      static_cast<uint8_t*>(out), H, T, S, seed, threshold, cm);
   return static_cast<int>(cudaGetLastError());
 }

@@ -41,10 +41,24 @@ JAX package keeps two bit-identical copies, for XLA's sake).
   caption that reaches the bucket without ending is evicted and re-decoded
   at full length through the batch loops when the service drains.
 
-One stream: the fused decode layer's grid barrier allows one launch at a
-time on a card, so the service and the encoder chunks it pulls run on the
-current stream. Left behind from the JAX package: the device mesh, the
-beam gather skip (``MIT_BEAM_GATHER_SKIP``) and the power-of-two padding of
+- **A device mesh** (``mesh``, the single-process form of
+  ``parallel.mesh``): the slots split evenly over the "data" devices. Each
+  device holds its ``num_slots / d`` slots' caches and cross state and a
+  replica of the prepared weights; the host bookkeeping stays one. A window
+  issues every device's part from this one thread, so the host's issue time
+  grows with the number of devices. Greedy and beam windows run each
+  device's slots alone; a sampling window gathers every slot's logits onto
+  the first device and draws there from the one generator, so tokens equal
+  the unsharded service's under every method. Chunks of memory land on the
+  first device, and admission gathers a slot's cross rows there and moves
+  them to its device. One code path serves one device or several: two
+  shards on one device (the CPU, or one card) run every line of it, but
+  it has not yet run across two cards.
+
+One stream a device: the fused decode layer's grid barrier allows one
+launch at a time on a card, so the service and the encoder chunks it pulls
+run on the current stream. Left behind from the JAX package: the beam
+gather skip (``MIT_BEAM_GATHER_SKIP``) and the power-of-two padding of
 admission waves and encoder chunks, which bounds only XLA's compile cache.
 """
 
@@ -88,15 +102,8 @@ def _one_token_logits(params, cfg, tokens, pos, key_pad, k_cache, v_cache,
 
 @torch.inference_mode()
 def service_decode_window(
-    params: dict,                      # prepare_decode_params output
+    shards: Sequence[tuple],           # one entry a device, as below
     cfg: DecoderConfig,
-    tokens: torch.Tensor,              # (S,) current token per slot
-    pos: torch.Tensor,                 # (S,) decode position per slot
-    active: torch.Tensor,              # (S,) bool
-    key_pad: torch.Tensor,             # (S, T) bool, True = PAD key; updated
-    k_cache: list,                     # L × (S, T, D), written in place
-    v_cache: list,
-    cross: dict,                       # {"const"} or {"k", "v"}
     end_id: int,
     pad_id: int,
     compute_dtype=torch.float32,
@@ -106,36 +113,60 @@ def service_decode_window(
     top_k: int = 0,
     top_p: float = 1.0,
     fused: bool = False,
-):
-    """``n_steps`` tokens for every slot → (ids (S, n_steps), pos', active').
+) -> List[tuple]:
+    """``n_steps`` tokens for every slot → one (ids (S_j, n_steps), pos',
+    active') a shard.
+
+    Each entry of ``shards`` holds one device's slots: (params, a
+    ``prepare_decode_params`` output; tokens (S_j,), the current token a
+    slot; pos (S_j,); active (S_j,) bool; key_pad (S_j, T) bool, True = PAD
+    key, updated in place; k_cache and v_cache, L × (S_j, T, D), written in
+    place; cross, ``{"const"}`` or ``{"k", "v"}``). The slots are the
+    shards' rows in order.
 
     Slot state advances on the device between the micro-steps with the host
     loop's semantics, so a window is token-identical to ``n_steps`` windows
-    of one. ``temperature=0`` picks the argmax (greedy); otherwise each
-    slot's token is drawn from the temperature-scaled, top-k/top-p-filtered
-    distribution (:func:`~mit_tpu_torch.decode.sampling.filter_logits`)
-    with ``generator``."""
-    t_max = k_cache[0].shape[1]
-    rows = torch.arange(tokens.shape[0], device=tokens.device)
-    outs = []
+    of one. ``temperature=0`` picks each shard's argmax on its device
+    (greedy); otherwise every shard's logits are gathered on the first
+    shard's device and each slot's token is drawn there from the
+    temperature-scaled, top-k/top-p-filtered distribution
+    (:func:`~mit_tpu_torch.decode.sampling.filter_logits`) with
+    ``generator``, so the tokens do not depend on how the slots split."""
+    states = [list(sh[1:5]) for sh in shards]
+    first = shards[0][1].device
+    outs: List[list] = [[] for _ in shards]
     for _ in range(n_steps):
-        logits = _one_token_logits(params, cfg, tokens, pos, key_pad, k_cache,
-                                   v_cache, cross, compute_dtype, fused)
+        logits = [_one_token_logits(sh[0], cfg, tok, pos, kp, *sh[5:],
+                                    compute_dtype, fused)
+                  for sh, (tok, pos, _, kp) in zip(shards, states)]
         if temperature == 0.0:
-            nxt = logits.argmax(-1)
+            nxt = [lg.argmax(-1) for lg in logits]
         else:
+            every = torch.cat([lg.to(first) for lg in logits])
             probs = torch.softmax(
-                filter_logits(logits, temperature, top_k, top_p), dim=-1)
-            nxt = torch.multinomial(probs, 1, generator=generator)[:, 0]
-        outs.append(nxt)
-        newpos = (pos + 1).clamp(max=t_max - 1)
-        key_pad[rows, newpos] = torch.where(active, nxt == pad_id,
-                                            key_pad[rows, newpos])
-        done = active & ((nxt == end_id) | (pos + 1 >= t_max - 1))
-        tokens = torch.where(active, nxt, tokens)
-        pos = torch.where(active, newpos, pos)
-        active = active & ~done
-    return torch.stack(outs, dim=1), pos, active
+                filter_logits(every, temperature, top_k, top_p), dim=-1)
+            drawn = torch.multinomial(probs, 1, generator=generator)[:, 0]
+            nxt = [x.to(lg.device) for x, lg in zip(
+                drawn.split([lg.shape[0] for lg in logits]), logits)]
+        for sh, st, out, x in zip(shards, states, outs, nxt):
+            out.append(x)
+            st[:3] = _advance(x, *st, sh[5][0].shape[1], end_id, pad_id)
+    return [(torch.stack(out, dim=1), st[1], st[2])
+            for out, st in zip(outs, states)]
+
+
+def _advance(nxt, tokens, pos, active, key_pad, t_max, end_id, pad_id):
+    """One micro-step of the slots' state on the device: the token, the
+    position, the PAD-key mask (in place) and the ``done`` rule at cache
+    length ``t_max``."""
+    rows = torch.arange(tokens.shape[0], device=tokens.device)
+    newpos = (pos + 1).clamp(max=t_max - 1)
+    key_pad[rows, newpos] = torch.where(active, nxt == pad_id,
+                                        key_pad[rows, newpos])
+    done = active & ((nxt == end_id) | (pos + 1 >= t_max - 1))
+    tokens = torch.where(active, nxt, tokens)
+    pos = torch.where(active, newpos, pos)
+    return tokens, pos, active & ~done
 
 
 @torch.inference_mode()
@@ -224,9 +255,9 @@ def service_decode_step(params, cfg, tokens, pos, active, key_pad, k_cache,
                         v_cache, cross, compute_dtype=torch.float32,
                         fused=False) -> torch.Tensor:
     """One greedy token for every slot → next ids (S,)."""
-    ids, _, _ = service_decode_window(
-        params, cfg, tokens, pos, active, key_pad, k_cache, v_cache, cross,
-        -1, -1, compute_dtype, 1, fused=fused)
+    (ids, _, _), = service_decode_window(
+        [(params, tokens, pos, active, key_pad, k_cache, v_cache, cross)],
+        cfg, -1, -1, compute_dtype, 1, fused=fused)
     return ids[:, 0]
 
 
@@ -243,22 +274,36 @@ def _cross_kv_for(cross: dict, memory: torch.Tensor, h: int, cd) -> dict:
     return {"k": ck, "v": cv}
 
 
-def _scatter_cross_gathered(cross: dict, chunk_cross: dict, src, idx) -> None:
-    """cross rows ``idx`` (W,) ← the chunk's rows ``src`` (W,), in place.
-    Every entry keeps the decoder-row dimension on axis 1."""
-    for name, c in cross.items():
-        c[:, idx] = chunk_cross[name][:, src]
-
-
 def _scatter_cross_rows(cross: dict, rows: dict, idx) -> None:
-    """cross rows ``idx`` (W,) ← ``rows`` (one per index), in place."""
+    """cross rows ``idx`` (W,) ← ``rows`` (one per index), in place. Every
+    entry keeps the decoder-row dimension on axis 1."""
     for name, c in cross.items():
         c[:, idx] = rows[name]
+
+
+def _to_device(tree, device):
+    """A parameter tree on ``device`` (a leaf already there is kept, not
+    copied)."""
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    return tree.to(device)
 
 
 def _derived_seed(base: int, salt: int) -> int:
     """A 63-bit seed for stream ``salt`` of base seed ``base``."""
     return (base * 0x9E3779B97F4A7C15 + salt * 0xBF58476D1CE4E5B9) % (1 << 63)
+
+
+class _SlotShard:
+    """One device's slots ``lo .. hi`` (its decoder rows from 0): their
+    caches and cross state, and the prepared weights and cross projections
+    on that device."""
+
+    def __init__(self, device, lo, hi, prepared, cross_proj, k_cache,
+                 v_cache, cross):
+        self.device, self.lo, self.hi = device, lo, hi
+        self.prepared, self.cross_proj = prepared, cross_proj
+        self.k_cache, self.v_cache, self.cross = k_cache, v_cache, cross
 
 
 class CaptionService:
@@ -279,6 +324,7 @@ class CaptionService:
         seed: int = 0,
         cache_len: Optional[int] = None,
         fused: Optional[bool] = None,
+        mesh=None,
     ):
         """``steps_per_sync``: tokens a window, between two read-backs
         (token-identical to 1; admission waits for the window's end).
@@ -295,7 +341,11 @@ class CaptionService:
         generators derived from ``seed``; the same seed and submission order
         repeat the same captions).
 
-        ``compute_dtype`` and ``fused`` default to the captioner's."""
+        ``compute_dtype`` and ``fused`` default to the captioner's.
+
+        ``mesh``: a single-process ``parallel.mesh.Mesh`` (``create_mesh``);
+        the slots split evenly over its "data" devices, so ``num_slots``
+        must divide by their count."""
         if method not in ("greedy", "beam", "sample"):
             raise ValueError(
                 f"method must be 'greedy', 'beam' or 'sample', got {method!r}")
@@ -324,26 +374,30 @@ class CaptionService:
         self._seed = int(seed)
         self._wave = 0
         dec = captioner.params["decoder"]
-        self.device = dec["token_embedding"].device
-        self._prepared = prepare_decode_params(dec, self.cd, self.fused)
-        cross_raw = dec["layers"]["cross"]
-        self._cross_proj = {
-            k: cross_raw[k].float()
-            for k in (("wk", "bk", "wv", "bv") if self.full_mem
-                      else ("wv", "bv", "wo", "bo"))
-        }
-        L, d = cfg.num_layers, cfg.embed_dim
+        devices = [dec["token_embedding"].device]
+        if mesh is not None:
+            if mesh.distributed:
+                raise ValueError("CaptionService takes the single-process "
+                                 "mesh of parallel.mesh.create_mesh")
+            n_data = mesh.shape["data"]
+            if num_slots % n_data != 0:
+                raise ValueError(
+                    f"num_slots={num_slots} must be divisible by the mesh "
+                    f"data axis ({n_data}).")
+            devices = [mesh.devices[i, 0] for i in range(n_data)]
+        self.mesh = mesh
+        self.device = devices[0]
         self.R = num_slots * self.K
-        zeros = lambda *shape, dtype=self.cd: torch.zeros(
-            shape, dtype=dtype, device=self.device)
-        self.k_cache = [zeros(self.R, self.Tc, d) for _ in range(L)]
-        self.v_cache = [zeros(self.R, self.Tc, d) for _ in range(L)]
-        if self.full_mem:
-            h = cfg.num_heads
-            self.cross = {"k": zeros(L, self.R, h, self.s_mem, d // h),
-                          "v": zeros(L, self.R, h, self.s_mem, d // h)}
-        else:
-            self.cross = {"const": zeros(L, self.R, d, dtype=torch.float32)}
+        per = num_slots // len(devices)
+        replicas = {}           # device -> (prepared, cross projections)
+        self.shards = []
+        for j, dev in enumerate(devices):
+            if dev not in replicas:
+                replicas[dev] = self._replica(_to_device(dec, dev))
+            self.shards.append(_SlotShard(
+                dev, j * per, (j + 1) * per, *replicas[dev],
+                *self._state(per * self.K, dev)))
+        self._cross_proj = self.shards[0].cross_proj
         pad = captioner.tokenizer.pad_id
         if method == "beam":
             # (S, K, Tc) token history per beam, replayed on the host
@@ -373,24 +427,54 @@ class CaptionService:
         self.reused = 0
         self._served = np.zeros((num_slots,), bool)
 
+    def _replica(self, dec: dict):
+        """(prepared weights, f32 cross projections) of ``dec``."""
+        cross_raw = dec["layers"]["cross"]
+        return (prepare_decode_params(dec, self.cd, self.fused),
+                {k: cross_raw[k].float()
+                 for k in (("wk", "bk", "wv", "bv") if self.full_mem
+                           else ("wv", "bv", "wo", "bo"))})
+
+    def _state(self, rows: int, device):
+        """Zeroed caches and cross state of ``rows`` decoder rows."""
+        L, d = self.cfg.num_layers, self.cfg.embed_dim
+        zeros = lambda *shape, dtype=self.cd: torch.zeros(
+            shape, dtype=dtype, device=device)
+        k_cache = [zeros(rows, self.Tc, d) for _ in range(L)]
+        v_cache = [zeros(rows, self.Tc, d) for _ in range(L)]
+        if self.full_mem:
+            h = self.cfg.num_heads
+            cross = {"k": zeros(L, rows, h, self.s_mem, d // h),
+                     "v": zeros(L, rows, h, self.s_mem, d // h)}
+        else:
+            cross = {"const": zeros(L, rows, d, dtype=torch.float32)}
+        return k_cache, v_cache, cross
+
+    # the first device's caches and cross state (all of them without a mesh)
+    k_cache = property(lambda self: self.shards[0].k_cache)
+    v_cache = property(lambda self: self.shards[0].v_cache)
+    cross = property(lambda self: self.shards[0].cross)
+
     # ------------------------------------------------------------------
-    def _put(self, a: np.ndarray) -> torch.Tensor:
-        """A host array on the service's device; on a card through pinned
-        memory, so the copy does not wait for the device."""
+    def _put(self, a: np.ndarray, device=None) -> torch.Tensor:
+        """A host array on ``device`` (default the service's first); on a
+        card through pinned memory, so the copy does not wait for it."""
+        device = self.device if device is None else device
         t = torch.from_numpy(np.array(a))           # a copy: never aliased
-        if self.device.type != "cuda":
+        if device.type != "cuda":
             return t
-        return t.pin_memory().to(self.device, non_blocking=True)
+        return t.pin_memory().to(device, non_blocking=True)
 
     def _fetch(self, *tensors: torch.Tensor) -> List[np.ndarray]:
-        """Device tensors → numpy arrays, with one wait for the device."""
-        if self.device.type != "cuda":
+        """Device tensors → numpy arrays, with one wait for each device."""
+        if all(t.device.type != "cuda" for t in tensors):
             return [t.numpy() for t in tensors]
         host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
                 for t in tensors]
         for h, t in zip(host, tensors):
             h.copy_(t, non_blocking=True)
-        torch.cuda.current_stream(self.device).synchronize()
+        for dev in {t.device for t in tensors}:
+            torch.cuda.current_stream(dev).synchronize()
         return [h.numpy() for h in host]
 
     def _generator(self, salt: int) -> torch.Generator:
@@ -509,19 +593,33 @@ class CaptionService:
             self.slot_request[slot] = rid
             self.slot_memory[slot] = memory
         for kind, cid, payload, slots in runs:
-            # a slot's K consecutive rows share its memory
-            idx = self._put(np.array(
-                [s * self.K + k for s in slots for k in range(self.K)]))
-            if kind == "dev":
-                src = self._put(np.repeat(np.array(payload), self.K))
-                _scatter_cross_gathered(self.cross,
-                                        self._chunks[cid]["cross"], src, idx)
-            else:
-                mems = self._put(np.repeat(np.stack(payload), self.K, axis=0))
-                _scatter_cross_rows(self.cross, self._cross_rows_for(mems),
-                                    idx)
+            for sh in self.shards:
+                sel = [i for i, s in enumerate(slots) if sh.lo <= s < sh.hi]
+                if sel:
+                    self._admit_rows(sh, kind, cid, [payload[i] for i in sel],
+                                     [slots[i] - sh.lo for i in sel])
         if runs:
             self._gc_chunks()
+
+    def _admit_rows(self, sh: _SlotShard, kind: str, cid, payload,
+                    slots) -> None:
+        """Cross state into one device's ``slots`` (its own numbering): from
+        the chunk ``cid``'s rows ``payload``, or from host memory rows."""
+        # a slot's K consecutive rows share its memory
+        idx = self._put(np.array(
+            [s * self.K + k for s in slots for k in range(self.K)]), sh.device)
+        if kind == "dev":
+            # gathered where the chunk lies, then moved to the shard's device
+            src = self._put(np.repeat(np.array(payload), self.K))
+            rows = {name: c[:, src].to(sh.device)
+                    for name, c in self._chunks[cid]["cross"].items()}
+        else:
+            mems = self._put(np.repeat(np.stack(payload), self.K, axis=0),
+                             sh.device)
+            rows = (_cross_kv_for(sh.cross_proj, mems, self.cfg.num_heads,
+                                  self.cd) if self.full_mem else
+                    {"const": _cross_const_for(sh.cross_proj, mems)})
+        _scatter_cross_rows(sh.cross, rows, idx)
 
     def _finish(self, slot: int) -> None:
         rid = self.slot_request[slot]
@@ -620,13 +718,14 @@ class CaptionService:
         else:
             gen, temperature = None, 0.0
         cur = self.tokens[np.arange(self.S), self.pos]
-        ids, _, _ = service_decode_window(
-            self._prepared, self.cfg, self._put(cur), self._put(self.pos),
-            self._put(self.active), self._put(self.tokens == pad_id),
-            self.k_cache, self.v_cache, self.cross, end_id, pad_id, self.cd,
-            self.steps_per_sync, gen, temperature, self.top_k, self.top_p,
-            self.fused)
-        ids, = self._fetch(ids)                                 # (S, n)
+        key_pad = self.tokens == pad_id
+        outs = service_decode_window(
+            [(sh.prepared, *(self._put(a[sh.lo:sh.hi], sh.device)
+                             for a in (cur, self.pos, self.active, key_pad)),
+              sh.k_cache, sh.v_cache, sh.cross) for sh in self.shards],
+            self.cfg, end_id, pad_id, self.cd, self.steps_per_sync, gen,
+            temperature, self.top_k, self.top_p, self.fused)
+        ids = np.concatenate(self._fetch(*(o[0] for o in outs)))  # (S, n)
         # replay the window's micro-steps (the device ran the same rules)
         for i in range(ids.shape[1]):
             act = self.active.copy()
@@ -650,16 +749,20 @@ class CaptionService:
         end_id = self.cap.tokenizer.end_id
         pad_id = self.cap.tokenizer.pad_id
         s_idx = np.arange(self.S)[:, None]
-        cur = self.tokens[s_idx, np.arange(self.K)[None, :],
-                          self.pos[:, None]].reshape(self.R)
-        ids, srcs, scores, _, _, _ = service_beam_window(
-            self._prepared, self.cfg, self._put(cur), self._put(self.pos),
-            self._put(self.active),
-            self._put((self.tokens == pad_id).reshape(self.R, self.Tc)),
-            self.k_cache, self.v_cache, self.cross, self._put(self.scores),
-            self._put(self.finished), end_id, pad_id, self.K, self.cd,
-            self.steps_per_sync, self.fused)
-        ids, srcs, scores = self._fetch(ids, srcs, scores)
+        cur = self.tokens[s_idx, np.arange(self.K)[None, :], self.pos[:, None]]
+        key_pad = self.tokens == pad_id                     # (S, K, Tc)
+        outs = []
+        for sh in self.shards:
+            sl, n = slice(sh.lo, sh.hi), (sh.hi - sh.lo) * self.K
+            put = lambda a: self._put(a, sh.device)
+            outs.extend(service_beam_window(
+                sh.prepared, self.cfg, put(cur[sl].reshape(n)),
+                put(self.pos[sl]), put(self.active[sl]),
+                put(key_pad[sl].reshape(n, self.Tc)), sh.k_cache, sh.v_cache,
+                sh.cross, put(self.scores[sl]), put(self.finished[sl]), end_id,
+                pad_id, self.K, self.cd, self.steps_per_sync, self.fused)[:3])
+        got = self._fetch(*outs)
+        ids, srcs, scores = (np.concatenate(got[i::3]) for i in range(3))
         # scores freeze at deactivation: the window's are each slot's final
         self.scores = scores.copy()
         for i in range(ids.shape[2]):

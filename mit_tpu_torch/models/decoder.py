@@ -15,6 +15,14 @@ keeping them (``torch.utils.checkpoint``, the JAX decoder's
 dropout: both :class:`DropoutGenerators` restart from their state at the
 layer's entry, so the Bernoulli masks and the fused kernel's seeds repeat,
 and the gradients equal those without remat.
+
+Under a device mesh (``shard``, :class:`~mit_tpu_torch.parallel.collectives.
+Shard`) the forward runs this rank's rows of the batch; with a "model"
+group the parameters are this rank's Megatron shard (``parallel.mesh.
+decoder_param_specs``): its heads and FFN columns, with one sum over
+"model" at the end of each attention and FFN sublayer. Dropout draws the
+global masks and keeps this rank's slice, so a mesh step equals the
+single-device step.
 """
 
 from __future__ import annotations
@@ -36,6 +44,11 @@ from mit_tpu_torch.ops.attention import (
 )
 from mit_tpu_torch.ops.masks import NEG_INF, padding_add
 from mit_tpu_torch.ops.positional import sinusoid_table
+from mit_tpu_torch.parallel.collectives import (
+    Shard,
+    copy_to_model,
+    reduce_from_model,
+)
 
 
 class DecoderConfig(NamedTuple):
@@ -106,6 +119,7 @@ def decoder_forward(
     generator: Optional[DropoutGenerators] = None,
     fused_dropout: bool = False,
     remat: bool = False,
+    shard: Optional[Shard] = None,
 ) -> torch.Tensor:
     """Teacher-forced full-sequence forward → logits (B, T, V) in f32.
 
@@ -124,8 +138,9 @@ def decoder_forward(
     if drop > 0.0 and not deterministic and generator is None:
         raise ValueError("dropout needs a generator")
     drop_kw = dict(dropout_rate=drop, generator=generator,
-                   deterministic=deterministic)
-    dr = lambda x: dropout(x, drop, generator, deterministic)
+                   deterministic=deterministic, shard=shard)
+    dr = lambda x: dropout(x, drop, generator, deterministic, shard)
+    group = shard.group if shard is not None else None
 
     tgt_pad = padding_add(tgt_tokens, cfg.pad_idx)
     single_key = memory.shape[1] == 1 and memory_padding_mask is None
@@ -159,9 +174,11 @@ def decoder_forward(
             )
         x = layer_norm(layer["ln2"], x + dr(ca))
         f = layer["ffn"]
-        h = dr(torch.relu(x @ f["w1"].to(cd) + f["b1"].to(cd)))
-        return layer_norm(layer["ln3"],
-                          x + dr(h @ f["w2"].to(cd) + f["b2"].to(cd)))
+        h = torch.relu(copy_to_model(x, group) @ f["w1"].to(cd)
+                       + f["b1"].to(cd))
+        h = dropout(h, drop, generator, deterministic, shard, split_dim=2)
+        ff = reduce_from_model(h @ f["w2"].to(cd), group) + f["b2"].to(cd)
+        return layer_norm(layer["ln3"], x + dr(ff))
 
     for i in range(cfg.num_layers):
         if remat and torch.is_grad_enabled():

@@ -170,14 +170,16 @@ def forward_from_features(
     use_kernel: bool = True,
     fused_dropout: bool = False,
     remat: bool = False,
+    shard=None,
 ) -> torch.Tensor:
     """Teacher-forced logits (B, T, V) in f32 from encoder features;
-    ``remat`` checkpoints each decoder layer (:func:`decoder_forward`)."""
+    ``remat`` checkpoints each decoder layer and ``shard`` places a mesh
+    rank's part of the step (:func:`decoder_forward`)."""
     memory = project_features(params, mcfg, features, compute_dtype)
     return decoder_forward(
         params["decoder"], mcfg.decoder, tgt_tokens, memory, None,
         compute_dtype, use_kernel, deterministic, generator, fused_dropout,
-        remat,
+        remat, shard,
     )
 
 
@@ -192,6 +194,7 @@ def model_forward(
     use_kernel: bool = True,
     fused_dropout: bool = False,
     remat: bool = False,
+    shard=None,
 ) -> torch.Tensor:
     """Teacher-forced logits (B, T, V) from pixels: the frozen encoder,
     then :func:`forward_from_features`."""
@@ -199,5 +202,5 @@ def model_forward(
                              use_kernel)
     return forward_from_features(
         params, mcfg, features, tgt_tokens, deterministic, generator,
-        compute_dtype, use_kernel, fused_dropout, remat,
+        compute_dtype, use_kernel, fused_dropout, remat, shard,
     )

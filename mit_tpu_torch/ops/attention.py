@@ -13,6 +13,15 @@ into every layer). :meth:`DropoutGenerators.for_step` derives both from
 (seed, step), the counterpart of ``fold_in(rng, step)``, so a resumed run
 draws the masks of an uninterrupted one. Library functions never read the
 environment: ``fused_dropout`` comes from the caller.
+
+Under a device mesh a :class:`~mit_tpu_torch.parallel.collectives.Shard`
+(``shard``) says which rows, heads and FFN columns this rank holds. Every
+rank draws each Bernoulli mask at its global shape and keeps its slice, and
+the fused kernel hashes global cells, so a rank's dropout is its slice of
+the single-device step's. With a "model" group, the projections are
+Megatron's: ``q_in``/``kv_in`` enter through ``copy_to_model``, the
+heads are this rank's, and the out projection's partial sums are summed
+over "model" (``reduce_from_model``) before its bias.
 """
 
 from __future__ import annotations
@@ -32,6 +41,11 @@ from mit_tpu_torch.ops.flash_attention import (
     takes_bhtd,
 )
 from mit_tpu_torch.ops.masks import causal_mask
+from mit_tpu_torch.parallel.collectives import (
+    Shard,
+    copy_to_model,
+    reduce_from_model,
+)
 
 _M64 = (1 << 64) - 1
 
@@ -64,15 +78,27 @@ def _linear(x, params, w, b, cd):
     return x.to(cd) @ params[w].to(cd) + params[b].to(cd)
 
 
+def keep_mask_for(shape, rate: float, generator: DropoutGenerators, device,
+                  shard: Optional[Shard] = None,
+                  split_dim: Optional[int] = None) -> torch.Tensor:
+    """Bernoulli(1 − rate) keep-mask of ``shape`` from ``generator.device``;
+    under ``shard`` this rank's slice of the global mask (``split_dim``: the
+    dimension split over "model")."""
+    if shard is None:
+        return torch.rand(shape, generator=generator.device,
+                          device=device) < 1.0 - rate
+    return shard.keep(shape, rate, generator.device, device, split_dim)
+
+
 def dropout(x: torch.Tensor, rate: float, generator: Optional[DropoutGenerators],
-            deterministic: bool = True) -> torch.Tensor:
+            deterministic: bool = True, shard: Optional[Shard] = None,
+            split_dim: Optional[int] = None) -> torch.Tensor:
     """Inverted dropout: ``where(keep, x / (1 − rate), 0)`` with keep drawn
     Bernoulli(1 − rate) from ``generator.device`` (``_dropout`` of the JAX
-    decoder)."""
+    decoder), this rank's slice of it under ``shard``."""
     if rate <= 0.0 or deterministic:
         return x
-    keep = torch.rand(x.shape, generator=generator.device,
-                      device=x.device) < 1.0 - rate
+    keep = keep_mask_for(x.shape, rate, generator, x.device, shard, split_dim)
     # a 0-dim device tensor made by a fill kernel: an IEEE divide (a
     # Python scalar would become a multiply by 1/c on CUDA) with no copy
     # from the host, which would wait for the device
@@ -104,6 +130,7 @@ def multihead_attention(
     generator: Optional[DropoutGenerators] = None,
     deterministic: bool = True,
     fused_dropout: bool = False,
+    shard: Optional[Shard] = None,
 ) -> torch.Tensor:
     """q_in (B, T, D) attends over kv_in (B, S, D) → (B, T, D).
 
@@ -128,15 +155,28 @@ def multihead_attention(
     kernels at head width 64, the any-shape kernels elsewhere) or raises.
     ``multihead_attention.routes`` counts every call by the route it took:
     ``"kernel"`` for the first two above, ``"plain"`` for the third.
+
+    ``num_heads`` is the model's; under ``shard`` with a "model" group,
+    ``params`` hold this rank's heads (``num_heads / m`` of them).
     """
     cd = compute_dtype
     b, t, d = q_in.shape
     s = kv_in.shape[1]
     hd = d // num_heads
+    group = shard.group if shard is not None else None
+    if group is not None:
+        num_heads //= shard.m
+        same = kv_in is q_in
+        q_in = copy_to_model(q_in, group)
+        kv_in = q_in if same else copy_to_model(kv_in, group)
     dropout_active = dropout_rate > 0.0 and not deterministic
     q = _linear(q_in, params, "wq", "bq", cd)
     k = _linear(kv_in, params, "wk", "bk", cd)
     v = _linear(kv_in, params, "wv", "bv", cd)
+
+    def out_proj(ctx):
+        part = reduce_from_model(ctx @ params["wo"].to(cd), group)
+        return part + params["bo"].to(cd)
 
     if dropout_active and fused_dropout:
         if mask is not None:
@@ -149,11 +189,13 @@ def multihead_attention(
         attend = flash_attention_dropout if use_kernel else \
             flash_attention_dropout_plain
         multihead_attention.routes["kernel" if use_kernel else "plain"] += 1
+        cells = None if shard is None else (
+            shard.b0, num_heads * shard.m, shard.m_index * num_heads)
         ctx = attend(*(_split_heads(x, num_heads).contiguous()
                        for x in (q, k, v)),
                      pad_add.float().contiguous(), seed, causal,
-                     float(dropout_rate))
-        return _merge_heads(ctx) @ params["wo"].to(cd) + params["bo"].to(cd)
+                     float(dropout_rate), cells)
+        return out_proj(_merge_heads(ctx))
 
     if use_kernel and not dropout_active:
         if mask is not None:
@@ -167,7 +209,7 @@ def multihead_attention(
                 pad_add, causal))
         else:
             out = flash_attention_btd(q, k, v, pad_add, causal, hd)
-        return out @ params["wo"].to(cd) + params["bo"].to(cd)
+        return out_proj(out)
 
     multihead_attention.routes["plain"] += 1
     if mask is None and (causal or pad_add is not None):
@@ -185,12 +227,12 @@ def multihead_attention(
     if mask is not None:
         scores = scores + mask.float()
     probs = dropout(torch.softmax(scores, dim=-1), dropout_rate, generator,
-                    deterministic)
+                    deterministic, shard, split_dim=1)
     ctx = torch.einsum(
         "bhts,bhsd->bhtd", probs.to(cd).float(),
         _split_heads(v, num_heads).float(),
     ).to(cd)
-    return _merge_heads(ctx) @ params["wo"].to(cd) + params["bo"].to(cd)
+    return out_proj(_merge_heads(ctx))
 
 
 # every call, by the route its arguments gave it
@@ -206,6 +248,7 @@ def single_key_cross_attention(
     dropout_rate: float = 0.0,
     generator: Optional[DropoutGenerators] = None,
     deterministic: bool = True,
+    shard: Optional[Shard] = None,
 ) -> torch.Tensor:
     """Cross-attention over a memory of length 1 (CLS-only mode).
 
@@ -213,23 +256,33 @@ def single_key_cross_attention(
     ``out_proj(v_proj(memory))`` broadcast over the q_len positions. While
     training, the probability dropout becomes a (B, H, T, 1) Bernoulli mask
     on the per-head context, as in the JAX package.
-    kv_in: (B, 1, D). Returns (B, q_len, D).
+    kv_in: (B, 1, D). Returns (B, q_len, D). Under ``shard`` as
+    :func:`multihead_attention`.
     """
     b, s, d = kv_in.shape
     if s != 1:
         raise ValueError(f"single_key_cross_attention needs memory length 1, got {s}")
     cd = compute_dtype
-    v = _linear(kv_in, params, "wv", "bv", cd)
-    if dropout_rate <= 0.0 or deterministic:
-        return _linear(v, params, "wo", "bo", cd).expand(b, q_len, d)
     hd = d // num_heads
+    group = shard.group if shard is not None else None
+    if group is not None:
+        num_heads //= shard.m
+        kv_in = copy_to_model(kv_in, group)
+    v = _linear(kv_in, params, "wv", "bv", cd)
+
+    def out_proj(ctx):
+        part = reduce_from_model(ctx @ params["wo"].to(cd), group)
+        return part + params["bo"].to(cd)
+
+    if dropout_rate <= 0.0 or deterministic:
+        return out_proj(v).expand(b, q_len, d)
     ctx = v.reshape(b, 1, num_heads, hd).transpose(1, 2).expand(
         b, num_heads, q_len, hd)
-    keep = torch.rand((b, num_heads, q_len, 1), generator=generator.device,
-                      device=v.device) < 1.0 - dropout_rate
+    keep = keep_mask_for((b, num_heads, q_len, 1), dropout_rate, generator,
+                         v.device, shard, split_dim=1)
     scale = torch.full((), 1.0 - dropout_rate, dtype=cd, device=v.device)
     ctx = torch.where(keep, ctx / scale, 0.0)
-    return _merge_heads(ctx) @ params["wo"].to(cd) + params["bo"].to(cd)
+    return out_proj(_merge_heads(ctx))
 
 
 def layer_norm(params: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:

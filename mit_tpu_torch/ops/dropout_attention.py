@@ -17,6 +17,13 @@ probabilities and mask never exist in device memory in either pass:
 - :func:`keep_mask` is the plain hash of ``_keep_mask``, bit for bit: a
   murmur3 finalizer over ``idx = row·S + col``, the seed and the cell
   ``b·H + h``, computed in int64 with every product reduced mod 2³².
+- **The cell map.** Under a device mesh a rank holds rows ``b_offset ..``
+  of the global batch and heads ``h_offset ..`` of ``h_total``, and its
+  local cell ``c`` (``b·H_local + h``) hashes as the global cell
+  ``(b_offset + c / H_local)·h_total + h_offset + c % H_local``, so a
+  rank's mask is its slice of the single-device mask. Every entry takes
+  the map as ``cells=(b_offset, h_total, h_offset)``; None is (0, H, 0),
+  the local cell itself. The pad row stays local (``c / H_local``).
 - :func:`flash_attention_dropout` is an autograd Function. For CUDA tensors
   it launches the forward kernel of ``csrc/flash_attention_dropout.cu`` (bf16
   on the tensor cores, a cell's whole score rows in registers and a keep bit
@@ -127,8 +134,27 @@ def keep_mask(t: int, s: int, rate: float, seed: int, cell,
     return x >= _threshold(rate)
 
 
-def _cells_mask(b, h, t, s, seed, rate, device):
-    return keep_mask(t, s, rate, seed, torch.arange(b * h, device=device),
+def _cell_map(cells, h: int):
+    """(b_offset, h_total, h_offset) of ``cells``; None is the identity."""
+    if cells is None:
+        return 0, h, 0
+    b_offset, h_total, h_offset = (int(x) for x in cells)
+    if b_offset < 0 or h_offset < 0 or h_offset + h > h_total:
+        raise ValueError(f"cell map {tuple(cells)} does not hold {h} heads")
+    return b_offset, h_total, h_offset
+
+
+def _global_cells(b: int, h: int, cells=None, device=None) -> torch.Tensor:
+    """(B·H,) the global cell of each local cell ``b·H + h`` under the map
+    ``cells`` = (b_offset, h_total, h_offset)."""
+    b_offset, h_total, h_offset = _cell_map(cells, h)
+    rows = torch.arange(b, dtype=torch.int64, device=device)[:, None]
+    heads = torch.arange(h, dtype=torch.int64, device=device)[None, :]
+    return ((b_offset + rows) * h_total + h_offset + heads).reshape(-1)
+
+
+def _cells_mask(b, h, t, s, seed, rate, device, cells=None):
+    return keep_mask(t, s, rate, seed, _global_cells(b, h, cells, device),
                      device).reshape(b, h, t, s)
 
 
@@ -146,12 +172,12 @@ def _probs(q, k, pad_add, causal):
 
 
 def flash_attention_dropout_reference(q, k, v, pad_add, seed: int,
-                                      causal: bool, rate: float):
+                                      causal: bool, rate: float, cells=None):
     """Plain forward: q (B, H, T, hd), k/v (B, H, S, hd), pad_add (B, S) f32
-    → (B, H, T, hd) in q's dtype."""
+    → (B, H, T, hd) in q's dtype; the mask at the cell map ``cells``."""
     b, h, t, _ = q.shape
     p = _probs(q, k, pad_add, causal)
-    keep = _cells_mask(b, h, t, k.shape[2], seed, rate, q.device)
+    keep = _cells_mask(b, h, t, k.shape[2], seed, rate, q.device, cells)
     # tensor / tensor: an IEEE divide, as the kernel's (PyTorch turns
     # t / c into t * (1/c) on CUDA); torch.full fills on the device, where
     # torch.tensor would copy from the host and wait for the device
@@ -164,13 +190,13 @@ def flash_attention_dropout_reference(q, k, v, pad_add, seed: int,
 
 def flash_attention_dropout_reference_backward(q, k, v, pad_add, do,
                                                seed: int, causal: bool,
-                                               rate: float):
+                                               rate: float, cells=None):
     """Plain backward, the formulas of ``_bwd_kernel``, all in f32:
     (dq, dk, dv) in the dtypes of q, k and v."""
     b, h, t, hd = q.shape
     scale = 1.0 / math.sqrt(hd)
     p = _probs(q, k, pad_add, causal)
-    keep = _cells_mask(b, h, t, k.shape[2], seed, rate, q.device)
+    keep = _cells_mask(b, h, t, k.shape[2], seed, rate, q.device, cells)
     inv = torch.full((), 1.0 / (1.0 - rate), dtype=torch.float32,
                      device=q.device)
     qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
@@ -233,7 +259,7 @@ def _bf16(x) -> int:
 
 
 def flash_attention_dropout_fwd(q, k, v, pad_add, seed: int, causal: bool,
-                                rate: float) -> torch.Tensor:
+                                rate: float, cells=None) -> torch.Tensor:
     """Forward: the plain version for CPU tensors, a kernel for CUDA.
 
     At the tiled kernels' shapes bf16 tensors run the tensor-core kernel
@@ -244,7 +270,7 @@ def flash_attention_dropout_fwd(q, k, v, pad_add, seed: int, causal: bool,
     _check_rate(rate)
     if q.device.type == "cpu":
         return flash_attention_dropout_reference(q, k, v, pad_add, seed,
-                                                 causal, rate)
+                                                 causal, rate, cells)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_dropout has no kernel for {q.device}")
     _check_cuda_inputs(q, k, v, pad_add)
@@ -253,6 +279,7 @@ def flash_attention_dropout_fwd(q, k, v, pad_add, seed: int, causal: bool,
 
     b, h, t, hd = q.shape
     s = k.shape[2]
+    cmap = _cell_map(cells, h)
     out = torch.empty_like(q)
     if dropout_kernel_for(hd, t, s) == "any_shape":
         name = "mit_dropout_attention_any_shape_fwd"
@@ -260,7 +287,7 @@ def flash_attention_dropout_fwd(q, k, v, pad_add, seed: int, causal: bool,
             rc = kernels.lib().mit_dropout_attention_any_shape_fwd(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), pad_add.data_ptr(),
                 out.data_ptr(), b, h, t, s, hd, int(causal), _bf16(q),
-                seed & _M32, _threshold(rate), 1.0 - rate, _stream(q),
+                seed & _M32, _threshold(rate), 1.0 - rate, *cmap, _stream(q),
             )
     else:
         name = "mit_flash_attention_dropout_fwd"
@@ -271,7 +298,7 @@ def flash_attention_dropout_fwd(q, k, v, pad_add, seed: int, causal: bool,
             rc = kernels.lib().mit_flash_attention_dropout_fwd(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), pad_add.data_ptr(),
                 out.data_ptr(), b, h, t, s, int(causal), _bf16(q), warps,
-                seed & _M32, _threshold(rate), 1.0 - rate, _stream(q),
+                seed & _M32, _threshold(rate), 1.0 - rate, *cmap, _stream(q),
             )
     kernels.check(rc, name)
     flash_attention_dropout_fwd.launches += 1
@@ -282,13 +309,13 @@ flash_attention_dropout_fwd.launches = 0
 
 
 def flash_attention_dropout_bwd(q, k, v, pad_add, do, seed: int,
-                                causal: bool, rate: float):
+                                causal: bool, rate: float, cells=None):
     """Backward → (dq, dk, dv): the plain formulas for CPU tensors, for
     CUDA the kernel :func:`dropout_bwd_kernel_for` names."""
     _check_rate(rate)
     if q.device.type == "cpu":
         return flash_attention_dropout_reference_backward(
-            q, k, v, pad_add, do, seed, causal, rate)
+            q, k, v, pad_add, do, seed, causal, rate, cells)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_dropout has no kernel for {q.device}")
     _check_cuda_inputs(q, k, v, pad_add, do)
@@ -297,6 +324,7 @@ def flash_attention_dropout_bwd(q, k, v, pad_add, do, seed: int,
 
     b, h, t, hd = q.shape
     s = k.shape[2]
+    cmap = _cell_map(cells, h)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     kernel = dropout_bwd_kernel_for(q.dtype, hd, t, s)
     if kernel == "any_shape":
@@ -309,7 +337,8 @@ def flash_attention_dropout_bwd(q, k, v, pad_add, do, seed: int,
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), pad_add.data_ptr(),
                 do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                 stats.data_ptr(), b, h, t, s, hd, int(causal), _bf16(q),
-                seed & _M32, _threshold(rate), 1.0 / (1.0 - rate), _stream(q),
+                seed & _M32, _threshold(rate), 1.0 / (1.0 - rate), *cmap,
+                _stream(q),
             )
     else:
         name = "mit_flash_attention_dropout_bwd"
@@ -321,7 +350,7 @@ def flash_attention_dropout_bwd(q, k, v, pad_add, do, seed: int,
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), pad_add.data_ptr(),
                 do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                 b, h, t, s, int(causal), _bf16(q), seed & _M32,
-                _threshold(rate), 1.0 / (1.0 - rate), _stream(q),
+                _threshold(rate), 1.0 / (1.0 - rate), *cmap, _stream(q),
             )
     kernels.check(rc, name)
     flash_attention_dropout_bwd.launches += 1
@@ -336,55 +365,60 @@ flash_attention_dropout_bwd.kernels = {"tensor_cores": 0, "cuda_cores": 0,
 
 class _DropoutAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, pad_add, seed, causal, rate, use_kernel):
+    def forward(ctx, q, k, v, pad_add, seed, causal, rate, use_kernel, cells):
         ctx.save_for_backward(q, k, v, pad_add)
-        ctx.args = (seed, causal, rate, use_kernel)
+        ctx.args = (seed, causal, rate, use_kernel, cells)
         if use_kernel:
             return flash_attention_dropout_fwd(q, k, v, pad_add, seed, causal,
-                                               rate)
+                                               rate, cells)
         return flash_attention_dropout_reference(q, k, v, pad_add, seed,
-                                                 causal, rate)
+                                                 causal, rate, cells)
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, pad_add = ctx.saved_tensors
-        seed, causal, rate, use_kernel = ctx.args
+        seed, causal, rate, use_kernel, cells = ctx.args
         bwd = (flash_attention_dropout_bwd if use_kernel
                else flash_attention_dropout_reference_backward)
-        dq, dk, dv = bwd(q, k, v, pad_add, do.contiguous(), seed, causal, rate)
-        return dq, dk, dv, None, None, None, None, None
+        dq, dk, dv = bwd(q, k, v, pad_add, do.contiguous(), seed, causal, rate,
+                         cells)
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def flash_attention_dropout(q, k, v, pad_add, seed: int, causal: bool = True,
-                            rate: float = 0.1) -> torch.Tensor:
+                            rate: float = 0.1, cells=None) -> torch.Tensor:
     """Fused attention with dropout on the probabilities.
 
     q (B, H, T, hd); k/v (B, H, S, hd); pad_add (B, S) additive f32; seed a
     host int, the dropout stream (the same seed gives the same mask, which
-    makes the backward exact). Differentiable in q, k and v.
+    makes the backward exact); ``cells`` the cell map (b_offset, h_total,
+    h_offset) of a mesh rank, None on one device. Differentiable in q, k
+    and v.
     """
     return _DropoutAttention.apply(q, k, v, pad_add, int(seed), bool(causal),
-                                   float(rate), True)
+                                   float(rate), True, cells)
 
 
 def flash_attention_dropout_plain(q, k, v, pad_add, seed: int,
-                                  causal: bool = True,
-                                  rate: float = 0.1) -> torch.Tensor:
+                                  causal: bool = True, rate: float = 0.1,
+                                  cells=None) -> torch.Tensor:
     """:func:`flash_attention_dropout` through the plain forward and
     backward on any device: the kernels' comparison on the card."""
     _check_rate(rate)
     return _DropoutAttention.apply(q, k, v, pad_add, int(seed), bool(causal),
-                                   float(rate), False)
+                                   float(rate), False, cells)
 
 
 def dump_dropout_mask(b: int, h: int, t: int, s: int, seed: int, rate: float,
-                      device="cpu") -> torch.Tensor:
-    """(B, H, T, S) bool keep-mask exactly as the kernels draw it: the dump
-    kernel on a CUDA device, :func:`keep_mask` on the CPU."""
+                      device="cpu", cells=None) -> torch.Tensor:
+    """(B, H, T, S) bool keep-mask exactly as the kernels draw it at the
+    cell map ``cells``: the dump kernel on a CUDA device, :func:`keep_mask`
+    on the CPU."""
     _check_rate(rate)
     device = torch.device(device)
+    cmap = _cell_map(cells, h)
     if device.type == "cpu":
-        return _cells_mask(b, h, t, s, seed, rate, device)
+        return _cells_mask(b, h, t, s, seed, rate, device, cells)
     if device.type != "cuda":
         raise ValueError(f"dump_dropout_mask has no kernel for {device}")
     if not (0 < t and 0 < s and 0 < b * h <= 2**31 - 1):
@@ -395,8 +429,8 @@ def dump_dropout_mask(b: int, h: int, t: int, s: int, seed: int, rate: float,
     out = torch.empty((b, h, t, s), dtype=torch.bool, device=device)
     with torch.cuda.device(device):
         rc = kernels.lib().mit_dump_dropout_mask(
-            out.data_ptr(), b * h, t, s, seed & _M32, _threshold(rate),
-            torch.cuda.current_stream(device).cuda_stream,
+            out.data_ptr(), b * h, h, t, s, seed & _M32, _threshold(rate),
+            *cmap, torch.cuda.current_stream(device).cuda_stream,
         )
     kernels.check(rc, "mit_dump_dropout_mask")
     dump_dropout_mask.launches += 1

@@ -3,7 +3,10 @@
     python -m mit_tpu_torch.train.cli [--data_dir DIR] [--epochs N] \
         [--batch_size B] [--learning_rate LR] [--resume DIR] [--no_prepare] \
         [--no_wandb] [--no_cache] [--encoder_quant {none,int8}] \
-        [--train_state_interval N] [--no_hf_upload] [--device cuda]
+        [--train_state_interval N] [--no_hf_upload] [--device cuda] \
+        [--mesh D,M] [--dist_backend nccl|gloo]
+
+    torchrun --nproc_per_node=N -m mit_tpu_torch.train.cli --mesh N,1 ...
 
 Flags override the values of ``mit_tpu_torch.config``. ``MIT_FUSED_DROPOUT=1``
 sends the decoder self-attention's dropout through the hash-mask CUDA
@@ -11,12 +14,20 @@ kernels (the JAX package's switch of the same name; ``train()`` reads it).
 ``--no_hf_upload`` keeps the run off the HF Hub (the config's default
 creates a repo there and uploads each best checkpoint). Runs on a CUDA
 device only: without one it raises instead of training on the CPU.
-``--mesh`` other than ``1,1`` is not ported and raises.
+
+``--mesh D,M`` trains over a ("data", "model") mesh of D x M processes,
+one a device, started by ``torchrun`` (``N,1`` data-parallel, ``1,N``
+tensor-parallel, ``N/2,2`` both; -1 infers an axis from the world size).
+Rank i runs on ``cuda:LOCAL_RANK`` unless ``--device`` names a device,
+which then holds for every rank. ``--dist_backend`` (or
+``MIT_DIST_BACKEND``) names the ``torch.distributed`` backend, ``nccl`` by
+default; one that fails to start raises, nothing falls back to another.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 
 
 def main(argv=None) -> int:
@@ -36,7 +47,11 @@ def main(argv=None) -> int:
     parser.add_argument("--no_cache", action="store_true",
                         help="Disable the frozen-encoder feature cache.")
     parser.add_argument("--mesh", type=str, default=None,
-                        help="Device mesh 'data,model'; only '1,1' is ported.")
+                        help="Device mesh 'data,model' (one process a device, "
+                        "under torchrun).")
+    parser.add_argument("--dist_backend", type=str, default=None,
+                        help="torch.distributed backend of the mesh "
+                        "(default: MIT_DIST_BACKEND, else nccl).")
     parser.add_argument("--encoder_quant", type=str, default=None,
                         choices=["none", "int8"],
                         help="int8 = W8A8-quantize the frozen encoder for "
@@ -49,13 +64,14 @@ def main(argv=None) -> int:
     parser.add_argument("--no_hf_upload", action="store_true",
                         help="Neither create an HF Hub repo nor upload "
                         "checkpoints (config HF_UPLOAD_BEST_CHECKPOINTS).")
-    parser.add_argument("--device", type=str, default="cuda",
-                        help="CUDA device to train on (default: cuda).")
+    parser.add_argument("--device", type=str, default=None,
+                        help="CUDA device to train on (default: cuda, or "
+                        "cuda:LOCAL_RANK under a mesh).")
     args = parser.parse_args(argv)
 
     import torch
 
-    if torch.device(args.device).type != "cuda":
+    if args.device is not None and torch.device(args.device).type != "cuda":
         parser.error(f"--device must be a CUDA device, got {args.device!r}")
     if not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available: this CLI runs on the GPU only")
@@ -90,11 +106,18 @@ def main(argv=None) -> int:
 
     from mit_tpu_torch.train.loop import train
 
-    summary = train(cfg, auto_prepare=not args.no_prepare,
-                    wandb_enabled=not args.no_wandb, device=args.device)
-    print(f"Training finished. Best val loss: {summary['best_val_loss']:.4f}")
-    if summary.get("best_checkpoint"):
-        print(f"Best checkpoint: {summary['best_checkpoint']}")
+    try:
+        summary = train(cfg, auto_prepare=not args.no_prepare,
+                        wandb_enabled=not args.no_wandb, device=args.device,
+                        backend=args.dist_backend)
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+    if int(os.environ.get("RANK", "0")) == 0:
+        print(f"Training finished. Best val loss: "
+              f"{summary['best_val_loss']:.4f}")
+        if summary.get("best_checkpoint"):
+            print(f"Best checkpoint: {summary['best_checkpoint']}")
     return 0
 
 

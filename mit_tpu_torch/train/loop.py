@@ -7,9 +7,23 @@ epochs of train steps with periodic validation, best-val safetensors and
 the ``latest`` train state, and the optional HF Hub upload.
 
 The encoder boots as ``PRETRAINED_ENCODER`` says (:func:`build_model_params`),
-and the dataset preprocesses at the booted encoder's image size. Not
-ported, and refused with ``NotImplementedError``: a device mesh other than
-(1, 1) (ROADMAP.md, queue 1, multi-GPU).
+and the dataset preprocesses at the booted encoder's image size.
+
+**A device mesh.** ``MESH_SHAPE`` other than (1, 1) trains data-parallel
+(``(N, 1)``), tensor-parallel (``(1, N)``) or both, one process a device
+under ``torchrun`` (``parallel.mesh.init_distributed_mesh``: the backend the
+caller names, else ``MIT_DIST_BACKEND``, else ``nccl`` for CUDA and
+``gloo`` for the CPU; rank i on ``cuda:LOCAL_RANK`` unless a device is
+given, which then holds for every rank). Every rank draws the same model
+from the seed, builds the same feature cache itself (unsharded, as the JAX
+loop builds it; the encoder is deterministic, so no rank waits for
+another's), iterates the same batches and takes its rows of each. The
+state is restored whole, then sharded. Each save gathers the parameters
+(and the optimizer state) over "model", so files equal a single device's;
+rank 0 alone trains the tokenizer, writes, logs and uploads. Not ported,
+and refused with ``NotImplementedError``: tensor parallelism with the
+frozen encoder in the step (``CACHE_ENCODER_FEATURES=False``), which the
+JAX loop Megatron-splits (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -49,9 +63,10 @@ from mit_tpu_torch.train.steps import (
     make_train_step,
 )
 
-MESH_NOT_PORTED = (
-    "MESH_SHAPE other than (1, 1) (a device mesh) is not ported: ROADMAP.md, "
-    "queue 1, multi-GPU training"
+TP_ENCODER_NOT_PORTED = (
+    "a model axis over 1 with the frozen encoder in the step "
+    "(CACHE_ENCODER_FEATURES=False, or a feature cache too large) is not "
+    "ported: ROADMAP.md, queue 1, tensor parallelism of the frozen encoder"
 )
 STEP_KEYS = ("images", "features", "decoder_input_tokens", "target_tokens")
 
@@ -147,8 +162,9 @@ def train(
     wandb_enabled: bool = True,
     hf_upload=None,                     # callable(path, name) or None
     max_steps_per_epoch: Optional[int] = None,
-    device="cuda",
+    device=None,
     fused_dropout: Optional[bool] = None,
+    backend: Optional[str] = None,
 ) -> Dict:
     """Run the training job on ``device``; returns a summary dict.
 
@@ -156,34 +172,65 @@ def train(
     ``fused_dropout`` sends the decoder self-attention's dropout through
     the hash-mask kernels; None reads ``MIT_FUSED_DROPOUT`` (on at "1"),
     as the JAX package's attention does, and a bool overrides it.
+    ``device`` defaults to "cuda", or under a mesh to ``cuda:LOCAL_RANK``;
+    ``backend`` names the mesh's ``torch.distributed`` backend (None reads
+    ``MIT_DIST_BACKEND``). A process group already up is used as it is.
     """
     if cfg is None:
         from mit_tpu_torch.config import CONFIG as cfg
     if fused_dropout is None:
         fused_dropout = os.environ.get("MIT_FUSED_DROPOUT") == "1"
     t_setup = time.time()
-    if tuple(cfg.MESH_SHAPE) != (1, 1):
-        raise NotImplementedError(MESH_NOT_PORTED)
     if cfg.ENCODER_QUANT not in ("none", "int8"):
         raise ValueError(
             f"ENCODER_QUANT must be 'none' or 'int8', got {cfg.ENCODER_QUANT!r}")
-    device = torch.device(device)
-    if auto_prepare:
+    mesh = None
+    if tuple(cfg.MESH_SHAPE) != (1, 1):
+        from mit_tpu_torch.parallel.mesh import (
+            init_distributed_mesh,
+            rank_device,
+        )
+
+        device = rank_device(device)
+        mesh = init_distributed_mesh(
+            cfg.MESH_SHAPE, device,
+            backend or os.environ.get("MIT_DIST_BACKEND") or None)
+        n_data = mesh.shape["data"]
+        if cfg.BATCH_SIZE % n_data != 0:
+            raise ValueError(
+                f"BATCH_SIZE={cfg.BATCH_SIZE} must be divisible by the mesh "
+                f"data axis ({n_data}) so every chip gets equal batch shards.")
+    device = torch.device("cuda" if device is None else device)
+    main = mesh is None or torch.distributed.get_rank() == 0
+    say = print if main else (lambda *a, **k: None)
+    use_tp = mesh is not None and mesh.shape["model"] > 1
+    if mesh is not None:
+        say(f"Device mesh: data={mesh.shape['data']}, "
+            f"model={mesh.shape['model']} ({mesh.size} devices).")
+    if auto_prepare and main:
         from mit_tpu_torch.data.prepare import prepare_flickr30k
 
         prepare_flickr30k(cfg)
     os.makedirs(cfg.OUTPUT_DIR, exist_ok=True)
     np.random.seed(cfg.RANDOM_SEED)
 
-    wandb_run = setup_wandb(cfg) if wandb_enabled else None
+    wandb_run = setup_wandb(cfg) if wandb_enabled and main else None
     log = wandb_run.log if wandb_run else (lambda d: None)
-    if hf_upload is None and cfg.HF_UPLOAD_BEST_CHECKPOINTS:
+    if not main:
+        hf_upload = None
+    elif hf_upload is None and cfg.HF_UPLOAD_BEST_CHECKPOINTS:
         hf_upload = _hf_uploader(cfg)
 
-    tokenizer = ensure_tokenizer(cfg)
+    # rank 0 trains a missing tokenizer; the others then load its files
+    if main:
+        tokenizer = ensure_tokenizer(cfg)
+    if mesh is not None:
+        torch.distributed.barrier()
+    if not main:
+        tokenizer = ensure_tokenizer(cfg)
     cfg = cfg.with_tokenizer_ids(tokenizer)
     vocab_size = tokenizer.get_vocab_size()
-    print(f"Tokenizer loaded; vocab size {vocab_size}.")
+    say(f"Tokenizer loaded; vocab size {vocab_size}.")
     # the model first: the dataset preprocesses at the booted encoder's size
     mcfg, params = build_model_params(
         cfg, ModelConfig.build(cfg, vocab_size=vocab_size),
@@ -197,7 +244,7 @@ def train(
         raise ValueError("Dataset is empty — check IMAGE_DIR and CAPTIONS_FILE.")
     tr_idx, va_idx = split_indices(len(dataset), cfg.TRAIN_SPLIT_RATIO,
                                    cfg.RANDOM_SEED)
-    print(f"Dataset split: {len(tr_idx)} train / {len(va_idx)} val samples.")
+    say(f"Dataset split: {len(tr_idx)} train / {len(va_idx)} val samples.")
 
     trainable, frozen = split_trainable(params)
     # W8A8 for the compute path only: `frozen` keeps the float weights that
@@ -206,13 +253,13 @@ def train(
     if cfg.ENCODER_QUANT == "int8":
         step_encoder = {"encoder": quantize_vision_params(frozen["encoder"],
                                                           mcfg.vision)}
-        print("Frozen encoder quantized to int8 (W8A8) for training compute.")
+        say("Frozen encoder quantized to int8 (W8A8) for training compute.")
 
     compute_dtype = (torch.bfloat16 if cfg.COMPUTE_DTYPE == "bfloat16"
                      else torch.float32)
     use_cache, cache = cfg.CACHE_ENCODER_FEATURES, None
     if use_cache:
-        print("Building frozen-encoder feature cache ...")
+        say("Building frozen-encoder feature cache ...")
         try:
             cache = FeatureCache.build(
                 dataset, step_encoder["encoder"], mcfg, device,
@@ -221,11 +268,13 @@ def train(
                 max_bytes=cfg.FEATURE_CACHE_MAX_BYTES,
                 compute_dtype=compute_dtype,
             )
-            print(f"Feature cache: {tuple(cache.features.shape)} "
-                  f"@ {cache.features.dtype}, {cache.nbytes / 1e6:.1f} MB")
+            say(f"Feature cache: {tuple(cache.features.shape)} "
+                f"@ {cache.features.dtype}, {cache.nbytes / 1e6:.1f} MB")
         except FeatureCacheTooLarge as e:
-            print(f"{e}; training with the encoder in-graph instead.")
+            say(f"{e}; training with the encoder in-graph instead.")
             use_cache = False
+    if use_tp and not use_cache:
+        raise NotImplementedError(TP_ENCODER_NOT_PORTED)
 
     loader_kw = dict(batch_size=cfg.BATCH_SIZE, num_workers=cfg.NUM_WORKERS,
                      load_images=not use_cache,
@@ -238,9 +287,10 @@ def train(
     state = init_train_state(trainable, optimizer)
     train_step = make_train_step(mcfg, optimizer, cfg.PAD_TOKEN_ID,
                                  compute_dtype, from_features=use_cache,
-                                 fused_dropout=fused_dropout)
+                                 fused_dropout=fused_dropout, mesh=mesh)
     eval_step = make_eval_step(mcfg, cfg.PAD_TOKEN_ID, compute_dtype,
-                               from_features=use_cache)
+                               from_features=use_cache, mesh=mesh)
+    # every rank holds the whole frozen encoder (DP runs it on its rows)
     step_frozen = {} if use_cache else step_encoder
 
     start_epoch, best_val_loss = 0, float("inf")
@@ -248,21 +298,39 @@ def train(
         try:
             state, start_epoch, best_val_loss = ckpt.restore_train_state(
                 cfg.RESUME_CHECKPOINT_PATH, state)
-            print(f"Resumed from {cfg.RESUME_CHECKPOINT_PATH}; "
-                  f"starting at epoch {start_epoch + 1}.")
+            say(f"Resumed from {cfg.RESUME_CHECKPOINT_PATH}; "
+                f"starting at epoch {start_epoch + 1}.")
         except Exception as e:      # the JAX loop starts afresh on any failure
-            print(f"Error loading checkpoint: {e}. Starting from scratch.")
+            say(f"Error loading checkpoint: {e}. Starting from scratch.")
             start_epoch, best_val_loss = 0, float("inf")
 
-    print(f"Setup done in {time.time() - t_setup:.1f}s; training "
-          f"epochs {start_epoch + 1}..{cfg.NUM_EPOCHS}.")
+    if mesh is not None:
+        from mit_tpu_torch.parallel import mesh as pmesh
+
+        # shard after the restore: the template and the file stay whole
+        state = pmesh.shard_train_state(state, mesh, mcfg, tp=use_tp)
+
+    def whole(state):
+        """The whole state (a collective over "model" under a mesh)."""
+        if mesh is None:
+            return state
+        return pmesh.gather_train_state(state, mesh, tp=use_tp)
+
+    say(f"Setup done in {time.time() - t_setup:.1f}s; training "
+        f"epochs {start_epoch + 1}..{cfg.NUM_EPOCHS}.")
     summary = {"epochs": [], "best_val_loss": best_val_loss,
                "best_checkpoint": None}
+    if mesh is not None:
+        summary["mesh"] = {"data": mesh.shape["data"],
+                           "model": mesh.shape["model"]}
 
     def batch_to_device(batch):
         batch = attach_features(batch, cache)
-        return to_device({k: v for k, v in batch.items() if k in STEP_KEYS},
-                         device)
+        batch = {k: v for k, v in batch.items() if k in STEP_KEYS}
+        if mesh is not None:
+            # this rank's rows only cross to its device
+            batch = pmesh.shard_batch(batch, mesh)
+        return to_device(batch, device)
 
     for epoch in range(start_epoch, cfg.NUM_EPOCHS):
         t0 = time.time()
@@ -284,8 +352,8 @@ def train(
         dur = time.time() - t0
         sps = n_batches / max(dur, 1e-9)
         ips = sps * cfg.BATCH_SIZE
-        print(f"Epoch {epoch + 1}/{cfg.NUM_EPOCHS} | Train loss {train_loss:.4f} "
-              f"| {dur:.1f}s ({sps:.2f} steps/s, {ips:.0f} images/s)")
+        say(f"Epoch {epoch + 1}/{cfg.NUM_EPOCHS} | Train loss {train_loss:.4f} "
+            f"| {dur:.1f}s ({sps:.2f} steps/s, {ips:.0f} images/s)")
         log({"epoch_train_loss": train_loss, "epoch": epoch + 1,
              "epoch_duration_seconds": dur, "train_images_per_sec": ips})
         epoch_summary = {"epoch": epoch + 1, "train_loss": train_loss}
@@ -300,10 +368,15 @@ def train(
                 s, c = eval_step(merged, batch_to_device(batch))
                 nll_sum = s if nll_sum is None else nll_sum + s
                 tok_sum = c if tok_sum is None else tok_sum + c
+            if mesh is not None and nll_sum is not None:
+                from mit_tpu_torch.parallel.collectives import all_reduce_sum
+
+                nll_sum, tok_sum = all_reduce_sum(
+                    torch.stack([nll_sum, tok_sum]), mesh.group("data"))
             val_loss = (float(nll_sum) / max(1.0, float(tok_sum))
                         if nll_sum is not None else 0.0)
-            print(f"Epoch {epoch + 1} | Val loss {val_loss:.4f} "
-                  f"| {time.time() - tv:.1f}s")
+            say(f"Epoch {epoch + 1} | Val loss {val_loss:.4f} "
+                f"| {time.time() - tv:.1f}s")
             log({"epoch_val_loss": val_loss, "epoch": epoch + 1})
             epoch_summary["val_loss"] = val_loss
 
@@ -311,8 +384,11 @@ def train(
                 best_val_loss = val_loss
                 name = ckpt.checkpoint_filename(cfg, epoch, val_loss)
                 st_path = os.path.join(cfg.OUTPUT_DIR, name + ".safetensors")
-                ckpt.save_safetensors(st_path, {**state.params, **frozen}, mcfg)
-                print(f"Checkpoint saved: {st_path} (val loss {val_loss:.4f})")
+                params = whole(state).params
+                if main:
+                    ckpt.save_safetensors(st_path, {**params, **frozen}, mcfg)
+                    print(f"Checkpoint saved: {st_path} "
+                          f"(val loss {val_loss:.4f})")
                 summary["best_checkpoint"] = st_path
                 if wandb_run:                   # the model artifact
                     try:
@@ -334,21 +410,30 @@ def train(
                     except Exception as e:      # uploads are optional
                         print(f"HF upload failed (continuing): {e}")
             else:
-                print(f"Val loss {val_loss:.4f} did not improve on "
-                      f"{best_val_loss:.4f}; not saving.")
+                say(f"Val loss {val_loss:.4f} did not improve on "
+                    f"{best_val_loss:.4f}; not saving.")
 
         # the latest completed epoch, every TRAIN_STATE_INTERVAL epochs and
         # at the last
         interval = max(1, cfg.TRAIN_STATE_INTERVAL)
         if (epoch + 1) % interval == 0 or epoch + 1 == cfg.NUM_EPOCHS:
+            full = whole(state)
             try:
-                ckpt.save_train_state(os.path.join(cfg.OUTPUT_DIR, "latest"),
-                                      state, epoch, best_val_loss, cfg)
+                if main:
+                    ckpt.save_train_state(
+                        os.path.join(cfg.OUTPUT_DIR, "latest"), full, epoch,
+                        best_val_loss, cfg)
             except Exception as e:          # a failed autosave loses no epoch
                 print(f"Warning: periodic train-state save failed: {e}")
         summary["epochs"].append(epoch_summary)
 
     summary["best_val_loss"] = best_val_loss
+    if mesh is not None:
+        from mit_tpu_torch.parallel.mesh import param_devices
+
+        # every rank holds a piece of every parameter leaf
+        summary["param_devices"] = param_devices(state.params, mesh)
+        torch.distributed.barrier()
     if wandb_run:
         wandb_run.finish()
     return summary

@@ -18,6 +18,17 @@ Steps are functional, as in JAX: a step returns a new :class:`TrainState`
 and leaves its argument intact. The loss stays on the device; nothing in a
 step reads a value back to the host. Each step's dropout streams are a
 function of (seed, step) (:meth:`DropoutGenerators.for_step`).
+
+Under a device mesh (``mesh``, the distributed form of
+``parallel.mesh``) a step runs this rank's rows of the batch and its shard
+of the parameters, and equals the single-device step:
+
+- the loss is the global token mean: each rank backpropagates its summed
+  NLL over the global count of non-PAD targets (one sum over "data"), and
+  the gradients are then summed over "data" (one flat buffer);
+- the clip's global norm counts each leaf sharded over "model" once over
+  "model" (one sum of its squares) and each replicated leaf once;
+- dropout draws the single-device masks (``ops/attention.py``).
 """
 
 from __future__ import annotations
@@ -34,6 +45,7 @@ from mit_tpu_torch.models.model import (
     model_forward,
 )
 from mit_tpu_torch.ops.attention import DropoutGenerators
+from mit_tpu_torch.parallel.collectives import all_reduce_sum
 
 
 def tree_map(fn, *trees):
@@ -118,11 +130,14 @@ class Optimizer(NamedTuple):
         zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)
         return OptState(0, tree_map(zeros, params), tree_map(zeros, params))
 
-    def update(self, grads: dict, state: OptState, params: dict):
-        """(params', state') from the step's gradients."""
+    def update(self, grads: dict, state: OptState, params: dict, norm=None):
+        """(params', state') from the step's gradients; ``norm``, when given,
+        is their global norm (a mesh rank holds only some of them)."""
         g = tree_leaves(grads)
         if self.clip:
-            norm = torch.sqrt(sum((x.float() * x.float()).sum() for x in g))
+            if norm is None:
+                norm = torch.sqrt(sum((x.float() * x.float()).sum()
+                                      for x in g))
             trigger = norm < self.clip
             g = [torch.where(trigger, x, (x / norm) * self.clip) for x in g]
         f32 = np.float32
@@ -184,6 +199,7 @@ def make_train_step(
     fused_dropout: bool = False,
     use_kernel: bool = True,
     remat: bool = False,
+    mesh=None,
 ):
     """``step(state, frozen, batch, seed) -> (state', loss)``.
 
@@ -196,31 +212,77 @@ def make_train_step(
     recomputes each decoder layer in the backward (the same loss and
     gradients, less activation memory); as in the JAX package, no config
     field and no ``train()`` argument turns it on.
+
+    ``mesh``: a distributed ``parallel.mesh.Mesh``; ``state`` then holds
+    this rank's shard (``shard_train_state``), ``frozen`` the replicated
+    encoder, ``batch`` this rank's rows (``shard_batch``), and the returned
+    loss is the global one.
     """
     forward = forward_from_features if from_features else model_forward
     inputs = "features" if from_features else "images"
+    data_group = (mesh.group("data") if mesh is not None
+                  and mesh.shape["data"] > 1 else None)
 
     def step(state: TrainState, frozen: dict, batch: dict, seed: int):
         device = batch["decoder_input_tokens"].device
         gens = DropoutGenerators.for_step(seed, state.step, device)
         params = tree_map(lambda p: p.detach().requires_grad_(), state.params)
+        shard = (mesh.step_shard(batch["decoder_input_tokens"].shape[0])
+                 if mesh is not None else None)
         logits = forward(
             merge_params(params, frozen), mcfg, batch[inputs],
             batch["decoder_input_tokens"], False, gens, compute_dtype,
-            use_kernel, fused_dropout, remat,
+            use_kernel, fused_dropout, remat, shard,
         )
-        loss = masked_cross_entropy(logits, batch["target_tokens"], pad_id)
+        if mesh is None:
+            loss = objective = masked_cross_entropy(
+                logits, batch["target_tokens"], pad_id)
+        else:
+            total, count = _nll_sums(logits, batch["target_tokens"], pad_id)
+            sums = torch.stack([total.detach(), count])
+            if data_group is not None:
+                all_reduce_sum(sums, data_group)
+            denom = torch.clamp(sums[1], min=1.0)
+            objective, loss = total / denom, sums[0] / denom
         leaves = tree_leaves(params)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
-                                    materialize_grads=True)
-        grads = _zero_pad_row_grad(tree_unflatten(params, list(grads)),
+        grads = list(torch.autograd.grad(objective, leaves, allow_unused=True,
+                                         materialize_grads=True))
+        if data_group is not None:
+            grads = _sum_over(grads, data_group)
+        grads = _zero_pad_row_grad(tree_unflatten(params, grads),
                                    mcfg.decoder.pad_idx)
         with torch.no_grad():
+            norm = (_global_norm(grads, mesh) if mesh is not None
+                    and optimizer.clip else None)
             new, opt_state = optimizer.update(grads, state.opt_state,
-                                              state.params)
+                                              state.params, norm)
         return TrainState(state.step + 1, new, opt_state), loss.detach()
 
     return step
+
+
+def _sum_over(tensors: list, group) -> list:
+    """The tensors summed over ``group``, through one flat buffer."""
+    from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
+
+    flat = all_reduce_sum(_flatten_dense_tensors(tensors), group)
+    return list(_unflatten_dense_tensors(flat, tensors))
+
+
+def _global_norm(grads: dict, mesh) -> torch.Tensor:
+    """The norm of the whole gradient from a rank's shard of it: the squares
+    of the leaves split over "model" summed over "model", the replicated
+    leaves' counted once."""
+    from mit_tpu_torch.parallel.mesh import model_param_specs
+
+    split, whole = [], []
+    tree_map(lambda g, s: (split if "model" in s else whole).append(
+        (g.float() * g.float()).sum()),
+        grads, model_param_specs(grads, mesh.shape["model"] > 1))
+    sq = sum(whole)
+    if split:
+        sq = sq + all_reduce_sum(sum(split), mesh.group("model"))
+    return torch.sqrt(sq)
 
 
 def make_eval_step(
@@ -229,17 +291,23 @@ def make_eval_step(
     compute_dtype=torch.bfloat16,
     from_features: bool = False,
     use_kernel: bool = True,
+    mesh=None,
 ):
     """``step(params, batch) -> (sum_nll, token_count)``, both on the
-    device, for a token-weighted epoch mean."""
+    device, for a token-weighted epoch mean. Under ``mesh`` (distributed)
+    ``params`` are this rank's shard, ``batch`` its rows, and the sums
+    this rank's: the caller sums them over "data"."""
     forward = forward_from_features if from_features else model_forward
     inputs = "features" if from_features else "images"
 
     @torch.no_grad()
     def step(params: dict, batch: dict):
-        logits = forward(params, mcfg, batch[inputs],
-                         batch["decoder_input_tokens"],
-                         compute_dtype=compute_dtype, use_kernel=use_kernel)
+        tokens = batch["decoder_input_tokens"]
+        shard = (mesh.step_shard(tokens.shape[0]) if mesh is not None
+                 else None)
+        logits = forward(params, mcfg, batch[inputs], tokens,
+                         compute_dtype=compute_dtype, use_kernel=use_kernel,
+                         shard=shard)
         return _nll_sums(logits, batch["target_tokens"], pad_id)
 
     return step

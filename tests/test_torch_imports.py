@@ -59,6 +59,9 @@ def test_no_port_source_imports_jax_or_the_jax_package():
     "mit_tpu_torch.kernels.host, mit_tpu_torch.data.native_loader, "
     "mit_tpu_torch.tools.evaluate, mit_tpu_torch.tools.compositional_gate, "
     "mit_tpu_torch.tools.color_sanity, mit_tpu_torch.tools.gate_draws",
+    "mit_tpu_torch.parallel, mit_tpu_torch.parallel.mesh, "
+    "mit_tpu_torch.parallel.collectives, mit_tpu_torch.tools.gate_diagnose, "
+    "mit_tpu_torch.tools.loss_curve, mit_tpu_torch.tools.gate_probe",
 ])
 def test_port_modules_load_neither_jax_nor_the_jax_package(modules):
     """Importing the port's entry points leaves neither in sys.modules, nor

@@ -962,7 +962,7 @@ def _dropout_fwd_tiled(q, k, v, pad, seed, causal, rate, warps):
     rc = kernels.lib().mit_flash_attention_dropout_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), pad.data_ptr(),
         out.data_ptr(), b, h, t, k.shape[2], int(causal), 1, warps,
-        seed & 0xFFFFFFFF, dropout_attention._threshold(rate), 1.0 - rate,
+        seed & 0xFFFFFFFF, dropout_attention._threshold(rate), 1.0 - rate, 0, h, 0,
         torch.cuda.current_stream().cuda_stream)
     kernels.check(rc, "mit_flash_attention_dropout_fwd")
     return out
@@ -1371,3 +1371,47 @@ def test_pretrained_clip_tower_kernel_matches_plain_on_card(cuda, tmp_path):
                                    cls_only=cls_only)
             torch.testing.assert_close(kern, plain, rtol=0, atol=1e-4)
     assert flash_attention_btd.launches - before == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,h,t,s,hd,d,m", [
+    (8, 8, 99, 99, 64, 2, 1), (8, 8, 99, 99, 64, 1, 2),
+    (4, 4, 99, 99, 64, 2, 2), (4, 4, 40, 160, 32, 2, 2)],
+    ids=["dp", "tp", "dp_x_tp", "any_shape"])
+def test_dropout_cell_map_gives_the_global_launchs_slice_on_card(
+        cuda, dtype, b, h, t, s, hd, d, m):
+    """A mesh rank's launch at its cell map (b_offset, h_total, h_offset):
+    the dump kernel's mask, the forward's output and the backward's dq, dk,
+    dv bitwise equal to its slice of the global launch's (cells are
+    independent), and the mask to the plain mask at the map."""
+    g = torch.Generator().manual_seed(3)
+    q, k, v, do = (torch.randn(b, h, n, hd, generator=g).to(cuda, dtype)
+                   for n in (t, s, s, t))
+    pad = torch.zeros(b, s, device=cuda)
+    pad[0, -5:] = -1e9
+    seed, rate = 77, 0.2
+    da = dropout_attention
+    whole = da.dump_dropout_mask(b, h, t, s, seed, rate, cuda)
+    out = da.flash_attention_dropout_fwd(q, k, v, pad, seed, True, rate)
+    grads = da.flash_attention_dropout_bwd(q, k, v, pad, do, seed, True, rate)
+    for i in range(d):
+        for j in range(m):
+            rows = slice(i * b // d, (i + 1) * b // d)
+            heads = slice(j * h // m, (j + 1) * h // m)
+            cells = (rows.start, h, heads.start)
+            part = lambda x: x[rows, heads].contiguous()
+            args = (part(q), part(k), part(v), pad[rows].contiguous())
+            mask = da.dump_dropout_mask(b // d, h // m, t, s, seed, rate, cuda,
+                                        cells)
+            got = da.flash_attention_dropout_fwd(*args, seed, True, rate, cells)
+            got_g = da.flash_attention_dropout_bwd(*args, part(do), seed, True,
+                                                   rate, cells)
+            torch.cuda.synchronize()
+            assert torch.equal(mask, part(whole))
+            assert torch.equal(mask.cpu(), da.dump_dropout_mask(
+                b // d, h // m, t, s, seed, rate, "cpu", cells))
+            assert torch.equal(got, part(out))
+            for x, y in zip(got_g, grads):
+                assert torch.equal(x, part(y))

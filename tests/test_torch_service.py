@@ -381,3 +381,59 @@ def test_service_decode_step_is_one_greedy_token():
     assert ids.tolist() == [row[1] for row in _jax_batch("cls", "greedy")]
     assert all(bool(a[:, 0].abs().sum(-1).gt(0).all()) for a in k + v)
     assert not any(a[:, 1:].any() for a in k + v)
+
+
+# ----------------------------------------------------------------------
+# the slot-sharded service (JAX tests/test_service.py:121-146)
+# ----------------------------------------------------------------------
+def _two_devices():
+    from mit_tpu_torch.parallel.mesh import create_mesh
+
+    return create_mesh((2, 1), devices=["cpu", "cpu"])
+
+
+@pytest.mark.parametrize("mode,method,kw", [
+    ("cls", "greedy", dict(steps_per_sync=3)),
+    ("cls", "greedy", dict(fused=True)),
+    ("cls", "beam", dict(steps_per_sync=2)),
+    ("full", "greedy", dict(cache_len=6)),
+    ("full", "beam", dict()),
+    ("cls", "sample", dict(top_k=10, seed=3, steps_per_sync=2)),
+], ids=["greedy", "greedy_fused", "beam", "full_bucketed", "full_beam",
+        "sample"])
+def test_service_sharded_mesh_matches_unsharded(mode, method, kw):
+    """Slots split over two "data" devices: every request's tokens equal
+    the one-device service's, greedy, beam and sampled, and (greedy and
+    beam) the JAX package's batch loops; each device holds its half of the
+    slots' caches."""
+    mems = _memories(mode)
+    make = lambda **m: CaptionService(_captioner(mode), num_slots=4,
+                                      method=method, **kw, **m)
+    ref = _serve(make(), mems, interleave=1)
+    svc = make(mesh=_two_devices())
+    assert _serve(svc, mems, interleave=1) == ref
+    if method != "sample" and "cache_len" not in kw:
+        assert ref == _jax_batch(mode, method)
+    assert [(sh.lo, sh.hi) for sh in svc.shards] == [(0, 2), (2, 4)]
+    k = 3 if method == "beam" else 1
+    assert all(sh.k_cache[0].shape[0] == 2 * k for sh in svc.shards)
+
+
+def test_sharded_service_takes_device_chunks_and_streams():
+    """``run_stream`` over chunks kept on the first device: admission
+    gathers a chunk's rows there and moves them to each shard's device
+    (both shards share the CPU here, so no row changes device), and the
+    sharded service gives the one-device service's tokens."""
+    mems = torch.from_numpy(_memories("cls", seed=4))
+
+    def serve(**m):
+        svc = CaptionService(_captioner("cls"), num_slots=4, **m)
+        ids = svc.run_stream(iter([(mems[:5], 5), (mems[5:], 7)]))
+        return [svc.result(i) for i in ids]
+
+    assert serve(mesh=_two_devices()) == serve()
+
+
+def test_service_mesh_slot_divisibility_enforced():
+    with pytest.raises(ValueError, match="divisible"):
+        CaptionService(_captioner("cls"), num_slots=3, mesh=_two_devices())

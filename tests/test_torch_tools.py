@@ -226,3 +226,165 @@ def test_gate_skip_train_without_a_checkpoint_writes_nothing(tmp_path,
         gate.main([str(tmp_path), "--skip_train"])
     assert "no checkpoint" in str(e.value.code) and touched == []
     assert os.listdir(tmp_path) == []
+
+
+# ----------------------------------------------------------------------
+# the gate's three diagnostics against scripts/
+# ----------------------------------------------------------------------
+def _script(name):
+    return _load(f"jax_{name}", os.path.join(REPO, "scripts", f"{name}.py"))
+
+
+CAPTIONS = ["a red square in the top left", "a red circle in the top right",
+            "a blue ring", "the green cross in the bottom left corner",
+            "a a a a", "", "red square top left", "a purple triangle in the "
+            "top left top right", "A WHITE Ring In The Bottom Right"]
+
+
+def test_gate_diagnose_parses_as_the_script():
+    from mit_tpu_torch.tools import gate_diagnose
+
+    js = _script("gate_diagnose")
+    for name in ("red_square_top-left_00.jpg", "/x/y/black_ring_bottom-"
+                 "right_17.jpg", "white_cross_top-right_3.png"):
+        assert gate_diagnose.parse_name(name) == js.parse_name(name)
+    for cap in CAPTIONS:
+        assert gate_diagnose.parse_pred(cap) == js.parse_pred(cap)
+
+
+class _FixedCaptioner:
+    """Captions in a fixed turn, whatever the image."""
+
+    def __init__(self):
+        self.n = 0
+
+    def caption_batch(self, images, method="greedy"):
+        out = [CAPTIONS[(self.n + i) % len(CAPTIONS)]
+               for i in range(len(images))]
+        self.n += len(images)
+        return out
+
+
+def test_gate_diagnose_line_is_the_scripts(tmp_path, monkeypatch, capsys):
+    """The whole report on one workdir, both captioners replaced by one
+    that captions in a fixed turn: the same JSON line."""
+    import sys
+
+    from PIL import Image
+
+    import mit_tpu.decode.api as japi
+    import mit_tpu_torch.decode.api as tapi
+    from mit_tpu_torch.tools import gate_diagnose
+
+    for split, combos in (("train", gate.split_combos()[0][:7]),
+                          ("heldout", gate.split_combos()[1][:5])):
+        os.makedirs(tmp_path / split / "images")
+        for c, s, p in combos:
+            Image.new("RGB", (8, 8)).save(
+                tmp_path / split / "images" / f"{c}_{s}_{p.replace(' ', '-')}"
+                f"_00.jpg")
+    for v in ("0.5000", "0.3000"):
+        (tmp_path / "train" / f"m_epoch_1_val_loss_{v}.safetensors").touch()
+    monkeypatch.setattr(japi, "load_captioner", lambda *a, **k:
+                        _FixedCaptioner())
+    monkeypatch.setattr(tapi, "load_captioner", lambda *a, **k:
+                        _FixedCaptioner())
+    monkeypatch.setattr(sys, "argv", ["gate_diagnose.py", str(tmp_path),
+                                      "--batch_size", "3"])
+    _script("gate_diagnose").main()
+    want = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    gate_diagnose.main([str(tmp_path), "--batch_size", "3", "--device", "cpu"])
+    got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert got == want
+    assert got["checkpoint"].endswith("0.3000.safetensors")
+    assert got["train"]["n"] == 7 and got["heldout"]["n"] == 5
+
+
+def test_loss_curve_fabricates_the_scripts_corpus_and_line(tmp_path,
+                                                          monkeypatch):
+    """The mini-Flickr fixture byte for byte, and the output JSON of the
+    same training summary."""
+    import sys
+
+    import mit_tpu.train.loop as jloop
+    import mit_tpu_torch.train.loop as tloop
+    from mit_tpu_torch.tools import loss_curve
+
+    js = _script("loss_curve")
+    js.fabricate_mini_flickr(str(tmp_path / "jax"), n_images=6, caps_per=3)
+    loss_curve.fabricate_mini_flickr(str(tmp_path / "port"), n_images=6,
+                                     caps_per=3)
+    for rel in ["captions.json"] + [f"images/mini_{i:05d}.jpg"
+                                    for i in range(6)]:
+        assert (tmp_path / "port" / rel).read_bytes() == \
+            (tmp_path / "jax" / rel).read_bytes(), rel
+    summary = {"epochs": [{"epoch": 1, "train_loss": 3.123456,
+                           "val_loss": 2.987654},
+                          {"epoch": 2, "train_loss": 2.5}]}
+    seen = []
+
+    def fake_train(cfg, **kw):
+        seen.append((cfg.NUM_EPOCHS, cfg.BATCH_SIZE,
+                     cfg.HF_UPLOAD_BEST_CHECKPOINTS, kw.get("auto_prepare")))
+        return summary
+
+    monkeypatch.setattr(jloop, "train", fake_train)
+    monkeypatch.setattr(tloop, "train", fake_train)
+    args = ["--epochs", "2", "--batch_size", "4", "--fixture_dir",
+            str(tmp_path / "jax")]
+    monkeypatch.setattr(sys, "argv", ["loss_curve.py", *args, "--output",
+                                      str(tmp_path / "jax.json")])
+    js.main()
+    loss_curve.main([*args, "--output", str(tmp_path / "port.json"),
+                     "--device", "cpu"])
+    assert (tmp_path / "port.json").read_text() == \
+        (tmp_path / "jax.json").read_text()
+    assert seen[0] == seen[1] == (2, 4, False, False)
+
+
+def test_gate_probe_renders_the_scripts_images():
+    from mit_tpu_torch.tools import gate_probe
+
+    js = _script("gate_probe")
+    for name, (s_lo, s_hi, noisy) in gate_probe.VARIANTS.items():
+        a, b = np.random.default_rng(5), np.random.default_rng(5)
+        for color, shape, pos in list(zip(gate.COLORS, gate.SHAPES,
+                                          gate.POSITIONS))[:4]:
+            np.testing.assert_array_equal(
+                gate_probe.render_variant(a, gate.COLORS[color], shape,
+                                          gate.POSITIONS[pos], s_lo, s_hi,
+                                          noisy),
+                js.render_variant(b, js.cg.COLORS[color], shape,
+                                  js.cg.POSITIONS[pos], s_lo, s_hi, noisy))
+
+
+def test_gate_probe_line_and_its_output_file(tmp_path, monkeypatch, capsys):
+    """The probe line's keys, its chance levels and accuracies, from
+    features that carry the colour and nothing else; written where asked
+    and nowhere else."""
+    from mit_tpu_torch.tools import gate_probe
+
+    def features(u8, device):
+        # the images' mean colour over the shape's area: colour carried
+        m = (u8 != 127).any(-1)
+        return np.stack([u8[i][m[i]].mean(0) if m[i].any() else np.zeros(3)
+                         for i in range(len(u8))]).astype(np.float32)
+
+    out = gate_probe.run(n_per=8, steps=60, device="cpu",
+                         features=features)
+    assert set(out) == {"metric", "n_images_per_variant", "encoder", "chance",
+                        *gate_probe.VARIANTS}
+    assert out["n_images_per_variant"] == 8 * len(gate.SHAPES)
+    assert out["chance"] == {"color": 0.125, "shape": 0.2, "position": 0.25}
+    # on the clean background the mean colour names the colour
+    assert out["cleanbg"]["color_acc"] >= 0.5
+    monkeypatch.setattr(gate_probe, "cls_features", features)
+    before = set(os.listdir(REPO)) | set(os.listdir(os.path.join(
+        REPO, "benchmarks")))
+    path = tmp_path / "probe.json"
+    gate_probe.main(["--n_per", "2", "--steps", "2", "--device", "cpu",
+                     "--output", str(path)])
+    line = capsys.readouterr().out.strip().splitlines()[-1]
+    assert path.read_text() == line + "\n"
+    assert set(os.listdir(REPO)) | set(os.listdir(os.path.join(
+        REPO, "benchmarks"))) == before

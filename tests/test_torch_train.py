@@ -392,8 +392,17 @@ def test_train_loop_resumes_and_refuses_what_is_not_ported(tiny_corpus,
             cfg.OUTPUT_DIR, "latest")), monkeypatch, fused_dropout=True,
         max_steps_per_epoch=2)
     assert [e["epoch"] for e in resumed["epochs"]] == [2]
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        _tiny_train(cfg.replace(MESH_SHAPE=(2, 1)), monkeypatch)
+    # the mesh is ported (tests/test_torch_parallel.py); a mesh shape that
+    # the world's processes do not fill is refused, as JAX's create_mesh
+    # refuses one its devices do not fill
+    torch.distributed.init_process_group(
+        "gloo", init_method=f"file://{cfg.OUTPUT_DIR}/pg", rank=0,
+        world_size=1)
+    try:
+        with pytest.raises(ValueError, match="does not match 1 available"):
+            _tiny_train(cfg.replace(MESH_SHAPE=(2, 1)), monkeypatch)
+    finally:
+        torch.distributed.destroy_process_group()
     # pretrained loading is ported: a required encoder that resolves nowhere
     # (no local file, no cached repo, no download) raises, as in JAX's loop
     monkeypatch.delenv("MIT_ALLOW_DOWNLOAD", raising=False)
