@@ -260,13 +260,39 @@ the script exits non-zero without printing the result line.
             K = 3, tokens equal to one shard's, fused_decode_layer launches
             counted from 0 before each sharded run, captions/s and window
             ms beside one shard's.
+5c. tp encoder
+            The frozen encoder in the train step, split over "model"
+            (TP_SHAPE (1, 2)). Rows 7 and 8 first, at the local shapes a
+            rank gives them: flash_attention_btd at (32, 197, 384) f32
+            (limit 1e-4) and bf16 (2e-2), flash_attention at (4, 6, 577,
+            64) f32 (1e-5), each against its plain version, timed against
+            it, with its bound and the library call. Then two ranks on the
+            one card over gloo (this script run twice with
+            --tp-encoder-rank, joined within MESH_TIMEOUT): ViT-B/16 at
+            full width with the training phase's decoder, batch 32 of
+            seeded pixel images, dropout 0.1, fused dropout, the encoder
+            this rank's piece (shard_encoder), MESH_STEPS f32 steps with
+            losses within 1e-5 relative of one rank's, then MESH_STEPS bf16
+            steps whose loss falls; counted from 0 before each run, 11
+            flash_attention_btd launches a step a rank, all at (32, 197,
+            384), 6 dropout forward and 6 backward, no other kernel and no
+            plain attention route. One BLIP-384 f32 step at batch 4: 11
+            flash_attention launches at (4, 6, 577, 64) and no
+            flash_attention_btd, its loss within 1e-5 of one rank's. The
+            int8 arm, TP_INT8_STEPS f32 steps: the int8 encoder whole on
+            each rank, launch counts equal to one rank's, losses within
+            1e-5. steps/s printed as "2 ranks sharing one card, not a
+            multi-GPU rate". `python3 chip_smoke.py --tp-encoder` runs
+            phases 1, 2 and this phase alone.
 6. result   The smoke's wall time, then one JSON line describing each
             kernel (its error, its time, its plain version's time, its
             bound and, where one PyTorch call
             computes the same function, that call's time; for the kernels
             near the host's issue floor also the profiler's device time of
-            the kernel and of the library call), before it the same for the
-            any-shape kernels, then the last line,
+            the kernel and of the library call; rows 7 and 8 also under
+            "tp": their local shape in phase 5c, launches a rank there, and
+            their error, times and bound at that shape), before it the same
+            for the any-shape kernels, then the last line,
             {"ok": true, "device": {...}}.
 """
 
@@ -3266,25 +3292,35 @@ def mesh_train_inputs(torch):
 
 
 def mesh_train(torch, mcfg, trainable, optimizer, batch, mesh, dtype,
-               steps=MESH_STEPS):
+               steps=MESH_STEPS, frozen=None):
     """``steps`` fused-dropout train steps on ``batch`` at ``mesh`` (None:
-    one device) → (losses, seconds of the steps after the first)."""
+    one device) → (losses, seconds of the steps after the first, or of the
+    one step). With
+    ``frozen`` (the whole frozen subtree) the steps run from the batch's
+    images with the encoder in the step, this rank's as ``train()`` gives
+    it (``shard_encoder``: a float encoder split over "model", an int8 one
+    whole); without, from its features."""
     from mit_tpu_torch.parallel import mesh as pmesh
     from mit_tpu_torch.train.steps import init_train_state, make_train_step
 
     step = make_train_step(mcfg, optimizer, SpecialIds().pad_id, dtype,
-                           from_features=True, fused_dropout=True, mesh=mesh)
+                           from_features=frozen is None, fused_dropout=True,
+                           mesh=mesh)
     state = init_train_state(trainable, optimizer)
+    frozen = frozen or {}
     if mesh is not None:
         state = pmesh.shard_train_state(state, mesh,
                                         tp=mesh.shape["model"] > 1)
         batch = pmesh.shard_batch(batch, mesh)
-    losses = []
+        if frozen:
+            frozen = {"encoder": pmesh.shard_encoder(
+                frozen["encoder"], mcfg.vision, mesh)}
+    losses, t0 = [], time.perf_counter()
     for i in range(steps):
         if i == 1:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-        state, loss = step(state, {}, batch, TRAIN_SEED)
+        state, loss = step(state, frozen, batch, TRAIN_SEED)
         losses.append(loss)
     torch.cuda.synchronize()
     return [x.item() for x in losses], time.perf_counter() - t0
@@ -3664,6 +3700,287 @@ def check_mesh(torch):
     return {"times": times, "counts": counts, "service": service}
 
 
+# ----------------------------------------------------------------------
+# phase 5c: the frozen encoder split over "model" in the train step
+# ----------------------------------------------------------------------
+TP_SHAPE = (1, 2)               # two ranks, the encoder's heads split
+TP_BLIP_BATCH = 4               # rows of the BLIP-384 step
+TP_INT8_STEPS = 2               # steps of the int8 arm, each way
+
+
+def tp_inputs(torch, name, rows, device="cuda"):
+    """(mcfg, trainable, frozen, optimizer, batch) of a step with the
+    encoder in it: encoder preset ``name`` at full width with the training
+    phase's decoder, weights from TRAIN_SEED, ``rows`` seeded pixel images
+    and token ids on ``device``."""
+    from mit_tpu_torch.data.dataset import to_device
+    from mit_tpu_torch.models.decoder import DecoderConfig
+    from mit_tpu_torch.models.model import (
+        ModelConfig,
+        init_model_params,
+        split_trainable,
+    )
+    from mit_tpu_torch.models.vision import PRESETS
+    from mit_tpu_torch.train.steps import make_optimizer
+
+    tcfg = TrainConfig()
+    mcfg = ModelConfig(name, PRESETS[name],
+                       DecoderConfig(vocab_size=10000,
+                                     dropout=tcfg.DECODER_DROPOUT), "cls")
+    params = init_model_params(torch.Generator().manual_seed(TRAIN_SEED),
+                               mcfg, device)
+    trainable, frozen = split_trainable(params)
+    rng = np.random.default_rng(TRAIN_SEED + 2)
+    size = mcfg.vision.image_size
+    toks = token_batch(rng, rows, mcfg.decoder.max_seq_len - 1,
+                       mcfg.decoder.vocab_size, SpecialIds())
+    batch = to_device({
+        "images": rng.uniform(-1, 1, (rows, 3, size, size)).astype(np.float32),
+        "decoder_input_tokens": toks[:, :-1], "target_tokens": toks[:, 1:]},
+        device)
+    return mcfg, trainable, frozen, make_optimizer(tcfg)[0], batch
+
+
+def tp_int8(inputs):
+    """``tp_inputs`` with the frozen encoder quantized to int8."""
+    from mit_tpu_torch.models.vision import quantize_vision_params
+
+    mcfg, trainable, frozen, optimizer, batch = inputs
+    enc = quantize_vision_params(frozen["encoder"], mcfg.vision)
+    return mcfg, trainable, {"encoder": enc}, optimizer, batch
+
+
+def tp_run(torch, inputs, mesh, dtype, steps=MESH_STEPS):
+    """``mesh_train`` from pixels on ``tp_inputs``, the counts set to 0
+    just before it and read just after → (losses, seconds, counts, routes
+    of multihead_attention)."""
+    mcfg, trainable, frozen, optimizer, batch = inputs
+    reset_counts()
+    losses, secs = mesh_train(torch, mcfg, trainable, optimizer, batch,
+                              mesh, dtype, steps, frozen=frozen)
+    return losses, secs, read_counts(), dict(dispatchers()["attention"].routes)
+
+
+def tp_encoder_rank(argv) -> int:
+    """One rank of phase 5c (``--tp-encoder-rank RANK WORLD INIT OUT
+    DEVICE``, every rank on DEVICE) at TP_SHAPE over gloo: the ViT-B
+    model MESH_STEPS f32 and MESH_STEPS bf16 steps, one BLIP-384 f32 step
+    and TP_INT8_STEPS f32 steps of the int8 arm, each with its counts from
+    0 and the local shapes its attention kernels were called at; a JSON
+    file of it all at OUT."""
+    rank, world, init, out, device = (int(argv[0]), int(argv[1]), argv[2],
+                                      argv[3], argv[4])
+    import torch
+    import torch.distributed as dist
+
+    from mit_tpu_torch.ops import flash_attention as fa
+    from mit_tpu_torch.parallel.mesh import init_distributed_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{init}", rank=rank,
+                            world_size=world)
+    shapes = {"btd": set(), "bhtd": set()}
+
+    def recording(kind, forward):
+        def call(q, *args, **kw):
+            shapes[kind].add(tuple(q.shape))
+            return forward(q, *args, **kw)
+        return call
+
+    # the wrappers look their forwards up by name at each call
+    fa._flash_forward_btd = recording("btd", fa._flash_forward_btd)
+    fa._flash_forward = recording("bhtd", fa._flash_forward)
+    result = {}
+
+    def run(key, inputs, dtype, steps=MESH_STEPS):
+        for kind in shapes:
+            shapes[kind].clear()
+        losses, secs, counts, routes = tp_run(torch, inputs, mesh, dtype,
+                                              steps)
+        result[key] = {"losses": losses, "seconds": secs, "counts": counts,
+                       "routes": routes,
+                       **{k: sorted(v) for k, v in shapes.items()}}
+
+    try:
+        mesh = init_distributed_mesh(TP_SHAPE, device)
+        result["coords"] = list(mesh.coords)
+        vit = tp_inputs(torch, VIT_B, TRAIN_BATCH, device)
+        run("float32", vit, torch.float32)
+        run("bfloat16", vit, torch.bfloat16)
+        run("int8", tp_int8(vit), torch.float32, TP_INT8_STEPS)
+        del vit
+        run("blip", tp_inputs(torch, BLIP, TP_BLIP_BATCH, device),
+            torch.float32, 1)
+    finally:
+        dist.destroy_process_group()
+    with open(out, "w") as f:
+        json.dump(result, f)
+    return 0
+
+
+def hold_tp_kernels(torch):
+    """Rows 7 and 8 at the local shapes a rank of TP_SHAPE gives them:
+    flash_attention_btd at (TRAIN_BATCH, 197, 768 / m), f32 and bf16, and
+    flash_attention at (TP_BLIP_BATCH, 12 / m, 577, 64) f32, each against
+    its plain version (TOL, BHTD_TOL), timed against it, with its bound and
+    the library call → the results by row, with the local shapes."""
+    from mit_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_btd,
+        flash_attention_btd_reference,
+        flash_attention_reference,
+    )
+
+    m = TP_SHAPE[1]
+    out = {}
+    b, t, d = TRAIN_BATCH // TP_SHAPE[0], 197, 768 // m
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype)[6:]
+        q, k, v, _ = attention_inputs(torch, b, t, d, False, dtype)
+        got = flash_attention_btd(q, k, v, None, False, 64)
+        want = flash_attention_btd_reference(q, k, v, None, False, 64)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        print(f"tp kernel vs plain flash_attention_btd ({b}, {t}, {d}) "
+              f"{dname} max_abs_err={err:.3e} limit={TOL[dname]:.0e}")
+        if not (bool(torch.isfinite(got).all()) and err <= TOL[dname]):
+            raise AssertionError(f"flash_attention_btd at the TP shape "
+                                 f"disagrees: {dname}")
+        runs = timed_turns(
+            torch, lambda: flash_attention_btd(q, k, v, None, False, 64),
+            lambda: flash_attention_btd_reference(q, k, v, None, False, 64))
+        res = {}
+        report(res, f"flash_attention_btd tp {dname}", err, runs,
+               f"({b}, {t}, {d})", attention_bound(b, d // 64, t, t, dtype),
+               sdpa_ms(torch, heads_view(q), heads_view(k), heads_view(v)),
+               device_ms(torch,
+                         lambda: flash_attention_btd(q, k, v, None, False,
+                                                     64)))
+        out[("flash_attention_btd", dname)] = {
+            "local_shape": [b, t, d], **next(iter(res.values()))}
+    b, h, t = TP_BLIP_BATCH // TP_SHAPE[0], 12 // m, 577
+    q, k, v, _ = bhtd_inputs(torch, b, h, t, False, torch.float32)
+    got = flash_attention(q, k, v, None, False)
+    want = flash_attention_reference(q, k, v, None, False)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    print(f"tp kernel vs plain flash_attention ({b}, {h}, {t}, 64) float32 "
+          f"max_abs_err={err:.3e} limit={BHTD_TOL['float32']:.0e}")
+    if not (bool(torch.isfinite(got).all()) and err <= BHTD_TOL["float32"]):
+        raise AssertionError("flash_attention at the TP shape disagrees")
+    runs = timed_turns(torch, lambda: flash_attention(q, k, v, None, False),
+                       lambda: flash_attention_reference(q, k, v, None, False))
+    res = {}
+    report(res, "flash_attention tp float32", err, runs,
+           f"({b}, {h}, {t}, 64)", attention_bound(b, h, t, t, torch.float32),
+           sdpa_ms(torch, q, k, v),
+           device_ms(torch, lambda: flash_attention(q, k, v, None, False)))
+    out[("flash_attention", "float32")] = {"local_shape": [b, h, t, 64],
+                                           **res["flash_attention tp float32"]}
+    return out
+
+
+def check_tp_encoder(torch):
+    """Phase 5c, the frozen encoder split over "model" in the train step
+    (see the module docstring)."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    kernels = hold_tp_kernels(torch)
+    world = TP_SHAPE[0] * TP_SHAPE[1]
+    with tempfile.TemporaryDirectory() as tmp:
+        init, outs = os.path.join(tmp, "pg"), [os.path.join(tmp, f"r{r}.json")
+                                               for r in range(world)]
+        t0 = time.perf_counter()
+        spawn_ranks([["--tp-encoder-rank", str(r), str(world), init, outs[r],
+                      "cuda:0"] for r in range(world)], "tp encoder")
+        spawn_s = time.perf_counter() - t0
+        ranks = [json.load(open(o)) for o in outs]
+    vit = tp_inputs(torch, VIT_B, TRAIN_BATCH)
+    single = {str(dt)[6:]: tp_run(torch, vit, None, dt)
+              for dt in (torch.float32, torch.bfloat16)}
+    single["int8"] = tp_run(torch, tp_int8(vit), None, torch.float32,
+                            TP_INT8_STEPS)
+    del vit
+    single["blip"] = tp_run(torch, tp_inputs(torch, BLIP, TP_BLIP_BATCH),
+                            None, torch.float32, 1)
+    m, steps = TP_SHAPE[1], MESH_STEPS
+    btd_shape = [TRAIN_BATCH // TP_SHAPE[0], 197, 768 // m]
+    bhtd_shape = [TP_BLIP_BATCH // TP_SHAPE[0], 12 // m, 577, 64]
+
+    def want(counts, **launches):
+        w = {k: 0 for k in counts}
+        w.update(launches)
+        return w
+
+    def rel(got, ref):
+        return max(abs(a - w) / abs(w) for a, w in zip(got, ref))
+
+    for r, res in enumerate(ranks):
+        where = f"tp encoder {TP_SHAPE} rank {r} at {tuple(res['coords'])}"
+        f32, bf16 = res["float32"], res["bfloat16"]
+        diff = rel(f32["losses"], single["float32"][0])
+        falls = bf16["losses"][-1] < bf16["losses"][0]
+        sps = (steps - 1) / bf16["seconds"]
+        one_sps = (steps - 1) / single["bfloat16"][1]
+        print(f"{where}: vit-b f32 losses {f32['losses']} against one rank "
+              f"{single['float32'][0]}, largest relative difference "
+              f"{diff:.3e} (limit {MESH_TOL:.0e}); bf16 losses "
+              f"{bf16['losses']} (falls={falls}); launches per step "
+              f"flash_attention_btd {bf16['counts']['flash_attention_btd'] / steps}"
+              f" at local shapes {bf16['btd']}, dropout forward "
+              f"{bf16['counts']['flash_attention_dropout'] / steps}, backward "
+              f"{bf16['counts']['flash_attention_dropout_bwd'] / steps}; "
+              f"attention routes {bf16['routes']}; bf16 {sps:.3f} steps/s "
+              f"against one rank {one_sps:.3f} in this process ({MESH_LABEL}"
+              f"; {DEVICE_LINE[0] if DEVICE_LINE else ''})")
+        for run_ in (f32, bf16):
+            expect = want(run_["counts"], flash_attention_btd=11 * steps,
+                          flash_attention_dropout=6 * steps,
+                          flash_attention_dropout_bwd=6 * steps)
+            if run_["counts"] != expect or run_["btd"] != [btd_shape] \
+                    or run_["bhtd"] or run_["routes"]["plain"]:
+                raise AssertionError(f"{where}: launches {run_}")
+        if not (diff <= MESH_TOL and falls):
+            raise AssertionError(f"{where}: the split encoder's step "
+                                 f"disagrees")
+        blip = res["blip"]
+        diff = rel(blip["losses"], single["blip"][0])
+        print(f"{where}: blip-384 f32 B={TP_BLIP_BATCH} one step, loss "
+              f"{blip['losses']} against one rank {single['blip'][0]} "
+              f"(relative {diff:.3e}), flash_attention launches "
+              f"{blip['counts']['flash_attention']} at local shapes "
+              f"{blip['bhtd']}, flash_attention_btd "
+              f"{blip['counts']['flash_attention_btd']}")
+        expect = want(blip["counts"], flash_attention=11,
+                      flash_attention_dropout=6,
+                      flash_attention_dropout_bwd=6)
+        if blip["counts"] != expect or blip["bhtd"] != [bhtd_shape] \
+                or blip["btd"] or not diff <= MESH_TOL:
+            raise AssertionError(f"{where}: BLIP-384 {blip}")
+        int8 = res["int8"]
+        diff = rel(int8["losses"], single["int8"][0])
+        same = int8["counts"] == single["int8"][2]
+        print(f"{where}: int8 arm f32 {TP_INT8_STEPS} steps, the encoder "
+              f"whole on the rank: losses {int8['losses']} against one rank "
+              f"{single['int8'][0]} (relative {diff:.3e}); launches "
+              f"{ {k: v for k, v in int8['counts'].items() if v} } equal to "
+              f"one rank's: {same}")
+        if not (same and diff <= MESH_TOL and int8["btd"] == []
+                and int8["counts"]["fused_int8_vit_layer"]
+                == 11 * TP_INT8_STEPS):
+            raise AssertionError(f"{where}: the int8 arm {int8}")
+    print(f"tp encoder: the gloo spawn of {world} ranks took {spawn_s:.1f} s;"
+          f" phase {time.perf_counter() - t_phase:.1f} s")
+    launches = ranks[0]["bfloat16"]["counts"]["flash_attention_btd"]
+    kernels[("flash_attention_btd", "bfloat16")]["launches_per_rank"] = \
+        launches
+    kernels[("flash_attention", "float32")]["launches_per_rank"] = \
+        ranks[0]["blip"]["counts"]["flash_attention"]
+    return {"kernels": kernels}
+
+
 KERNELS = {
     "flash_attention_btd": ("flash_attention_btd.cu",
                             "mit_tpu/ops/pallas_attention.py:160", "float"),
@@ -3702,6 +4019,8 @@ def main() -> int:
         return mesh_rank(sys.argv[2:])
     if sys.argv[1:2] == ["--mesh-nccl"]:
         return mesh_nccl(sys.argv[2:])
+    if sys.argv[1:2] == ["--tp-encoder-rank"]:
+        return tp_encoder_rank(sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
@@ -3732,6 +4051,9 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--cell-map"]:
         check_cell_map(torch)
+        return 0
+    if sys.argv[1:] == ["--tp-encoder"]:
+        check_tp_encoder(torch)
         return 0
 
     print("== 3 kernels", flush=True)
@@ -3798,6 +4120,18 @@ def main() -> int:
             **{label: {key: v[f"{kind}_{key}"] for key in ("ms", "spread")}
                for label, v in cell_map["cases"].items()}}
 
+    print("== 5c tp encoder", flush=True)
+    tp = check_tp_encoder(torch)
+    results_tp = {}
+    for (name, dname), line in tp["kernels"].items():
+        if name == "flash_attention_btd" and dname != "bfloat16":
+            continue
+        tp_line = {k: line[k] for k in (
+            "local_shape", "launches_per_rank", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms")}
+        tp_line["dtype"] = dname
+        results_tp[name] = tp_line
+
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "mit_tpu"))
     if loaded:
         raise AssertionError(f"the smoke imported JAX-side modules: {loaded}")
@@ -3822,7 +4156,9 @@ def main() -> int:
         lines.append({"name": name, "route": "cuda",
                       "source": f"mit_tpu_torch/csrc/{source}",
                       "replaces": replaces, "launches": launches,
-                      **results[name]})
+                      **results[name],
+                      **({"tp": results_tp[name]} if name in results_tp
+                         else {})})
     # beside the kernels of the paths: the any-shape kernels, which the
     # default models' geometries never reach
     print(json.dumps({"any_shape_kernels": [

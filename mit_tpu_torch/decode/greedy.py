@@ -141,3 +141,44 @@ def greedy_generate(
                                   None, end_id, pad_id, max_len, bucket_sizes,
                                   compute_dtype, fused)
     return tokens, (tokens != pad_id).sum(dim=1)
+
+
+@torch.inference_mode()
+def greedy_generate_uncached(
+    params: dict,
+    cfg: DecoderConfig,
+    memory: torch.Tensor,              # (B, S, D) projected decoder memory
+    start_id: int,
+    end_id: int,
+    pad_id: int,
+    max_len: int,
+) -> torch.Tensor:
+    """Greedy decoding with no KV cache: the whole decoder re-runs over the
+    growing prefix at every step, as the reference's loop does. The oracle
+    of :func:`greedy_generate` and a readable spec of it; O(T²) in the
+    caption's length, not for serving. → tokens (B, max_len) int64, START
+    first, PAD after a row's END."""
+    from mit_tpu_torch.models.decoder import decoder_forward
+
+    b = memory.shape[0]
+    seqs = [[start_id] for _ in range(b)]
+    done = [False] * b
+    for _ in range(max_len - 1):
+        t = max(len(s) for s in seqs)
+        batch = torch.full((b, t), pad_id, dtype=torch.int64)
+        for i, s in enumerate(seqs):
+            batch[i, :len(s)] = torch.tensor(s)
+        logits = decoder_forward(params, cfg, batch.to(memory.device), memory)
+        last = torch.tensor([len(s) - 1 for s in seqs], device=logits.device)
+        nxt = logits[torch.arange(b, device=logits.device), last].argmax(-1)
+        for i, tok in enumerate(nxt.tolist()):
+            if done[i]:
+                continue
+            seqs[i].append(tok)
+            done[i] = tok == end_id
+        if all(done):
+            break
+    out = torch.full((b, max_len), pad_id, dtype=torch.int64)
+    for i, s in enumerate(seqs):
+        out[i, :len(s)] = torch.tensor(s[:max_len])
+    return out.to(memory.device)

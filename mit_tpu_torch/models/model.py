@@ -7,6 +7,11 @@ parts them into the trainable projection and decoder and the frozen
 encoder. Memory modes: "cls" (the projected CLS token, length 1) and "full"
 (the whole patch sequence). The encoder runs under ``torch.no_grad()``,
 the counterpart of the JAX package's ``stop_gradient``.
+
+Under a device mesh with a model axis over 1, the float encoder tree is a
+rank's piece (``parallel.mesh.shard_encoder``) and runs split over
+"model"; an int8 tree is whole and runs on the rank's rows
+(:func:`encode_images`).
 """
 
 from __future__ import annotations
@@ -115,13 +120,17 @@ def encode_images(
     compute_dtype=torch.float32,
     use_kernel: bool = True,
     fused_layers: bool = True,
+    shard=None,
 ) -> torch.Tensor:
     """Frozen-encoder features before projection: (B, 1, H_enc) in "cls"
     mode, (B, N+1, H_enc) in "full" mode.
 
     An int8 encoder tree (``quantize_vision_params``, recognized by its
     ``"patch"`` weight) runs :func:`vision_forward_int8`, in the form that
-    ``fused_layers`` picks; a float tree runs :func:`vision_forward`.
+    ``fused_layers`` picks; a float tree runs :func:`vision_forward`, split
+    over "model" where ``shard`` (a mesh rank's place in the step) has a
+    "model" group, and then ``params`` hold this rank's piece of it. An
+    int8 tree runs whole on the rank's rows under any ``shard``.
     """
     enc = params["encoder"]
     cls_only = mcfg.memory_mode == "cls"
@@ -133,7 +142,7 @@ def encode_images(
             )
         return vision_forward(
             enc, mcfg.vision, pixel_values, compute_dtype, use_kernel,
-            cls_only=cls_only,
+            cls_only=cls_only, shard=shard,
         )
 
 
@@ -196,10 +205,11 @@ def model_forward(
     remat: bool = False,
     shard=None,
 ) -> torch.Tensor:
-    """Teacher-forced logits (B, T, V) from pixels: the frozen encoder,
-    then :func:`forward_from_features`."""
+    """Teacher-forced logits (B, T, V) from pixels: the frozen encoder
+    (:func:`encode_images`, under ``shard`` too), then
+    :func:`forward_from_features`."""
     features = encode_images(params, mcfg, pixel_values, compute_dtype,
-                             use_kernel)
+                             use_kernel, shard=shard)
     return forward_from_features(
         params, mcfg, features, tgt_tokens, deterministic, generator,
         compute_dtype, use_kernel, fused_dropout, remat, shard,

@@ -5,6 +5,16 @@ One generic pre-LN ViT; family differences are data: pre/post LayerNorm,
 GELU (exact erf) or quick_gelu, patch-projection bias, LayerNorm eps. The
 patch embedding is a matmul over unfolded patches. Self-attention runs
 through :func:`~mit_tpu_torch.ops.flash_attention.flash_attention_btd`.
+
+Under a device mesh the float encoder splits over "model" as the decoder
+does (Megatron's layout, ``parallel.mesh.vision_param_specs(tp=True)``):
+a rank holds its heads' columns of ``wq/wk/wv`` and rows of ``wo``, and its
+columns of ``fc1`` and rows of ``fc2``. Each sublayer ends in one sum over
+"model" (``reduce_from_model``), and the replicated biases and LayerNorms
+apply once, after it. The JAX package gets this from GSPMD, with its
+attention kernel run per shard over the local heads
+(``custom_partitioning``); here each rank launches the same kernels over its
+own heads.
 """
 
 from __future__ import annotations
@@ -33,6 +43,11 @@ from mit_tpu_torch.ops.int8_mlp import (
     int8_linear_reference,
 )
 from mit_tpu_torch.ops.quant import quantize_weight
+from mit_tpu_torch.parallel.collectives import (
+    Shard,
+    copy_to_model,
+    reduce_from_model,
+)
 
 
 class VisionConfig(NamedTuple):
@@ -198,18 +213,33 @@ def vision_forward(
     compute_dtype=torch.float32,
     use_kernel: bool = True,
     cls_only: bool = False,
+    shard: Optional[Shard] = None,
 ) -> torch.Tensor:
     """last_hidden_state (B, N+1, D), or with ``cls_only`` the CLS row
     (B, 1, D) only: the last layer then attends with the CLS query alone and
     runs its MLP on one token, since the other rows feed nothing downstream
     in CLS-memory mode. ``use_kernel`` sends the self-attention of every
     full layer through ``flash_attention_btd``.
+
+    ``shard`` with a "model" group: ``params`` are this rank's piece of the
+    tree (``shard_tree`` with ``vision_param_specs(tp=True)``), and every
+    rank returns the whole output.
     """
     cd = compute_dtype
     eps = cfg.layer_norm_eps
     b = pixel_values.shape[0]
     d = cfg.hidden_size
     act = _quick_gelu if cfg.hidden_act == "quick_gelu" else F.gelu
+    group = shard.group if shard is not None else None
+    heads = cfg.num_heads
+    if group is not None:
+        width = params["layers"]["attn"]["wq"].shape[-1]
+        if width * shard.m != d:
+            raise ValueError(
+                f"a split encoder needs this rank's {d // shard.m} of {d} "
+                f"attention columns, got {width}")
+        heads //= shard.m
+    hd = d // cfg.num_heads
 
     x = _patchify(pixel_values.to(cd), cfg.patch_size) @ params["patch_w"].to(cd)
     if cfg.patch_bias:
@@ -220,9 +250,12 @@ def vision_forward(
         x = layer_norm(params["ln_pre"], x, eps)
 
     def mlp(x, layer):
+        # column-parallel fc1, row-parallel fc2: b2 after the sum
         h = layer_norm(layer["ln2"], x, eps)
-        h = act(h @ layer["fc1"].to(cd) + layer["b1"].to(cd))
-        return x + (h @ layer["fc2"].to(cd) + layer["b2"].to(cd))
+        h = act(copy_to_model(h, group) @ layer["fc1"].to(cd)
+                + layer["b1"].to(cd))
+        return x + (reduce_from_model(h @ layer["fc2"].to(cd), group)
+                    + layer["b2"].to(cd))
 
     n_full = cfg.num_layers - 1 if cls_only else cfg.num_layers
     for i in range(n_full):
@@ -230,16 +263,16 @@ def vision_forward(
         h = layer_norm(layer["ln1"], x, eps)
         x = x + multihead_attention(
             layer["attn"], h, h, cfg.num_heads, compute_dtype=cd,
-            use_kernel=use_kernel,
+            use_kernel=use_kernel, shard=shard,
         )
         x = mlp(x, layer)
 
     if cls_only:
         layer = layer_params(params["layers"], cfg.num_layers - 1)
         attn = layer["attn"]
-        h = layer_norm(layer["ln1"], x, eps)
-        heads, hd = cfg.num_heads, d // cfg.num_heads
-        # keys/values over the full sequence, query = the CLS row only
+        h = copy_to_model(layer_norm(layer["ln1"], x, eps), group)
+        # keys/values over the full sequence, query = the CLS row only; this
+        # rank's heads
         q1 = h[:, :1] @ attn["wq"].to(cd) + attn["bq"].to(cd)
         k = h @ attn["wk"].to(cd) + attn["bk"].to(cd)
         v = h @ attn["wv"].to(cd) + attn["bv"].to(cd)
@@ -252,7 +285,9 @@ def vision_forward(
         ctx = torch.einsum(
             "bhs,bshd->bhd", probs.to(cd), v.reshape(b, s, heads, hd)
         )
-        a = ctx.reshape(b, 1, d) @ attn["wo"].to(cd) + attn["bo"].to(cd)
+        a = (reduce_from_model(ctx.reshape(b, 1, heads * hd)
+                               @ attn["wo"].to(cd), group)
+             + attn["bo"].to(cd))
         x = mlp(x[:, :1] + a, layer)
 
     if cfg.ln_post:

@@ -34,3 +34,14 @@ def padding_add(seq: torch.Tensor, pad_idx: int) -> torch.Tensor:
     return torch.where(padding_mask(seq, pad_idx), NEG_INF, 0.0).to(
         torch.float32
     )
+
+
+def combine_causal_and_padding(sz: int, seq: torch.Tensor, pad_idx: int,
+                               dtype=torch.float32) -> torch.Tensor:
+    """Additive (B, 1, T, T) mask, causal plus key padding (NEG_INF at the
+    keys that are PAD), broadcastable over heads: what torch's
+    ``MultiheadAttention`` builds from ``attn_mask`` and
+    ``key_padding_mask``."""
+    c = causal_mask(sz, device=seq.device).to(dtype)[None, None]
+    p = torch.where(padding_mask(seq, pad_idx), NEG_INF, 0.0).to(dtype)
+    return c + p[:, None, None, :]

@@ -25,3 +25,8 @@ def sinusoid_table(max_len: int, d_model: int, dtype=torch.float32,
     pe[:, 0::2] = np.sin(position * div_term)
     pe[:, 1::2] = np.cos(position * div_term[: d_model // 2])
     return torch.from_numpy(pe.astype(np.float32)).to(device=device, dtype=dtype)
+
+
+def add_positional(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """x (B, T, D) plus the first T rows of ``table``, in x's dtype."""
+    return x + table[None, :x.shape[1]].to(x.dtype)

@@ -7,6 +7,8 @@ A logical ("data", "model") mesh, with the JAX package's strategies:
 - **TP**: the decoder's attention heads and FFN hidden columns split over
   "model", Megatron's way (column-parallel ``wq/wk/wv/w1`` and their biases,
   row-parallel ``wo/w2``), so each sublayer ends in one sum over "model".
+  A frozen float encoder in the step splits the same way
+  (:func:`vision_param_specs`); an int8 one is replicated.
 
 What differs from JAX. There, one program runs over every device and
 GSPMD inserts the collectives from sharding annotations. Here training
@@ -205,8 +207,11 @@ def decoder_param_specs(tp: bool) -> dict:
 
 def vision_param_specs(params: dict, tp: bool) -> dict:
     """Specs of the frozen float encoder: with ``tp`` attention and FFN
-    split like the decoder's, otherwise all replicated. (The training loop
-    runs the encoder replicated; this is the JAX package's rule.)"""
+    split like the decoder's (column-parallel ``wq/wk/wv/fc1`` and their
+    biases, row-parallel ``wo/fc2``), otherwise all replicated; the JAX
+    package's rule. The training loop splits the encoder in the step by it
+    under a model axis over 1 (:func:`check_vision_split` first), and
+    replicates an int8 tree, whose leaves it does not describe."""
     mp = "model" if tp else None
 
     def spec_for(name, leaf):
@@ -222,6 +227,33 @@ def vision_param_specs(params: dict, tp: bool) -> dict:
                 for k, v in tree.items()}
 
     return go(params)
+
+
+def check_vision_split(vcfg, m: int) -> None:
+    """Raise ``ValueError`` unless the encoder of ``vcfg`` splits over a
+    model axis of ``m``: its heads and its FFN columns, ``m`` equal pieces
+    each."""
+    if vcfg.num_heads % m or vcfg.intermediate_size % m:
+        raise ValueError(
+            f"the encoder's {vcfg.num_heads} heads and "
+            f"{vcfg.intermediate_size} FFN columns must split evenly over "
+            f"the mesh model axis ({m}) to run it tensor-parallel")
+
+
+def shard_encoder(encoder: dict, vcfg, mesh: Mesh) -> dict:
+    """This rank's frozen encoder for a step with the encoder in it: a
+    float tree split over "model" by ``vision_param_specs(tp=True)`` when
+    the model axis is over 1 (after :func:`check_vision_split`); an int8
+    tree, or any tree when the axis is 1, whole on the rank's device (an
+    int8 tree as it is: its leaves are ``QuantizedLinear`` triples, which
+    the specs do not describe)."""
+    m = mesh.shape["model"]
+    if "patch" in encoder:
+        return encoder
+    if m == 1:
+        return replicate(encoder, mesh)
+    check_vision_split(vcfg, m)
+    return shard_tree(encoder, vision_param_specs(encoder, tp=True), mesh)
 
 
 def model_param_specs(params: dict, tp: bool = False) -> dict:

@@ -22,6 +22,8 @@ Rank i runs on ``cuda:LOCAL_RANK`` unless ``--device`` names a device,
 which then holds for every rank. ``--dist_backend`` (or
 ``MIT_DIST_BACKEND``) names the ``torch.distributed`` backend, ``nccl`` by
 default; one that fails to start raises, nothing falls back to another.
+With the encoder in the step (``--no_cache``) a model axis over 1 splits
+the float encoder over "model" too, and replicates an int8 one.
 """
 
 from __future__ import annotations

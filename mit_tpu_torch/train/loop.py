@@ -20,10 +20,13 @@ loop builds it; the encoder is deterministic, so no rank waits for
 another's), iterates the same batches and takes its rows of each. The
 state is restored whole, then sharded. Each save gathers the parameters
 (and the optimizer state) over "model", so files equal a single device's;
-rank 0 alone trains the tokenizer, writes, logs and uploads. Not ported,
-and refused with ``NotImplementedError``: tensor parallelism with the
-frozen encoder in the step (``CACHE_ENCODER_FEATURES=False``), which the
-JAX loop Megatron-splits (ROADMAP.md).
+rank 0 alone trains the tokenizer, writes, logs and uploads. With the
+frozen encoder in the step (``CACHE_ENCODER_FEATURES=False``, or a cache
+over ``FEATURE_CACHE_MAX_BYTES``), a model axis over 1 splits a float
+encoder over "model" as the JAX loop does (Megatron's layout,
+``vision_param_specs(tp=True)``; its heads and FFN columns must divide
+evenly) and replicates an int8 one; files hold the whole float encoder,
+never a shard of it.
 """
 
 from __future__ import annotations
@@ -63,11 +66,6 @@ from mit_tpu_torch.train.steps import (
     make_train_step,
 )
 
-TP_ENCODER_NOT_PORTED = (
-    "a model axis over 1 with the frozen encoder in the step "
-    "(CACHE_ENCODER_FEATURES=False, or a feature cache too large) is not "
-    "ported: ROADMAP.md, queue 1, tensor parallelism of the frozen encoder"
-)
 STEP_KEYS = ("images", "features", "decoder_input_tokens", "target_tokens")
 
 
@@ -273,8 +271,6 @@ def train(
         except FeatureCacheTooLarge as e:
             say(f"{e}; training with the encoder in-graph instead.")
             use_cache = False
-    if use_tp and not use_cache:
-        raise NotImplementedError(TP_ENCODER_NOT_PORTED)
 
     loader_kw = dict(batch_size=cfg.BATCH_SIZE, num_workers=cfg.NUM_WORKERS,
                      load_images=not use_cache,
@@ -290,8 +286,14 @@ def train(
                                  fused_dropout=fused_dropout, mesh=mesh)
     eval_step = make_eval_step(mcfg, cfg.PAD_TOKEN_ID, compute_dtype,
                                from_features=use_cache, mesh=mesh)
-    # every rank holds the whole frozen encoder (DP runs it on its rows)
     step_frozen = {} if use_cache else step_encoder
+    if step_frozen and mesh is not None:
+        from mit_tpu_torch.parallel import mesh as pmesh
+
+        # the float encoder Megatron-split over "model"; an int8 tree stays
+        # whole on every rank, as in the JAX loop
+        step_frozen = {"encoder": pmesh.shard_encoder(
+            step_frozen["encoder"], mcfg.vision, mesh)}
 
     start_epoch, best_val_loss = 0, float("inf")
     if cfg.RESUME_CHECKPOINT_PATH:

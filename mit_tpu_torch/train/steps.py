@@ -214,9 +214,11 @@ def make_train_step(
     field and no ``train()`` argument turns it on.
 
     ``mesh``: a distributed ``parallel.mesh.Mesh``; ``state`` then holds
-    this rank's shard (``shard_train_state``), ``frozen`` the replicated
-    encoder, ``batch`` this rank's rows (``shard_batch``), and the returned
-    loss is the global one.
+    this rank's shard (``shard_train_state``), ``frozen`` this rank's shard
+    of the float encoder (``shard_tree`` with ``vision_param_specs(tp=
+    True)``, which then runs split over "model") or the replicated int8 one,
+    ``batch`` this rank's rows (``shard_batch``), and the returned loss is
+    the global one.
     """
     forward = forward_from_features if from_features else model_forward
     inputs = "features" if from_features else "images"
@@ -295,8 +297,9 @@ def make_eval_step(
 ):
     """``step(params, batch) -> (sum_nll, token_count)``, both on the
     device, for a token-weighted epoch mean. Under ``mesh`` (distributed)
-    ``params`` are this rank's shard, ``batch`` its rows, and the sums
-    this rank's: the caller sums them over "data"."""
+    ``params`` are this rank's shard (the encoder's as in
+    :func:`make_train_step`), ``batch`` its rows, and the sums this rank's:
+    the caller sums them over "data"."""
     forward = forward_from_features if from_features else model_forward
     inputs = "features" if from_features else "images"
 

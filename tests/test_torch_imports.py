@@ -62,6 +62,8 @@ def test_no_port_source_imports_jax_or_the_jax_package():
     "mit_tpu_torch.parallel, mit_tpu_torch.parallel.mesh, "
     "mit_tpu_torch.parallel.collectives, mit_tpu_torch.tools.gate_diagnose, "
     "mit_tpu_torch.tools.loss_curve, mit_tpu_torch.tools.gate_probe",
+    "mit_tpu_torch.tools.pretrained_report, mit_tpu_torch.ops.masks, "
+    "mit_tpu_torch.ops.positional, mit_tpu_torch.decode.greedy",
 ])
 def test_port_modules_load_neither_jax_nor_the_jax_package(modules):
     """Importing the port's entry points leaves neither in sys.modules, nor

@@ -8,7 +8,9 @@ At the JAX package's mesh-test sizes (``tests/test_parallel.py``, f32), one
 train step at meshes (2, 1), (1, 2) and (2, 2) equals the port's
 single-device step: the loss within 1e-6 relative, every parameter within
 rtol 1e-5 / atol 1e-6 (JAX's bound), at dropout 0 and 0.1, fused and
-unfused, with the clip binding and not, from features and from pixels.
+unfused, with the clip binding and not, from features and from pixels
+(the float encoder split over "model" where the mesh has a model axis, the
+int8 encoder whole on every rank).
 Adam's first step is ``lr · g / (|g| + eps)`` with eps 1e-9, so where the
 gradient Adam sees is under ``ILL_CONDITIONED`` (a key bias, whose exact
 gradient is zero, and any element that lands near zero) the last bits of
@@ -41,6 +43,7 @@ from mit_tpu_torch.config import Config  # noqa: E402
 from mit_tpu_torch.models import decoder as tdec  # noqa: E402
 from mit_tpu_torch.models import model as tmodel  # noqa: E402
 from mit_tpu_torch.models import vision as tvis  # noqa: E402
+from mit_tpu_torch.models.convert import params_from_jax  # noqa: E402
 from mit_tpu_torch.parallel import mesh as pmesh  # noqa: E402
 from mit_tpu_torch.train import checkpoint as tckpt  # noqa: E402
 from mit_tpu_torch.train import steps as tsteps  # noqa: E402
@@ -61,7 +64,21 @@ FEW = 8                     # ill-conditioned elements besides the key biases
 # about 1.5 here, so a clip of 0.5 binds and one of 5.0 does not
 CASES = [(0.0, False, 5.0, True), (0.1, False, 0.5, True),
          (0.1, True, 0.5, True), (0.1, True, 0.0, True),
-         (0.1, True, 0.5, False)]
+         (0.1, True, 0.5, False), (0.0, False, 5.0, False)]
+PIXELS_AT_0 = CASES[5]      # the encoder in the step, dropout 0
+INT8_CASE = (0.1, True, 0.5, False)     # with the int8 encoder
+# a tiny 4-head encoder of each family, for the split encoder at (1, 2) and
+# (1, 4) (tests/test_torch_models.py's sizes, with 4 heads)
+VIT4 = dict(family="vit", image_size=32, patch_size=8, hidden_size=32,
+            num_layers=2, num_heads=4, intermediate_size=48,
+            hidden_act="gelu", layer_norm_eps=1e-12, patch_bias=True,
+            ln_pre=False, ln_post=True)
+FAMILIES = {"vit": VIT4,
+            "clip": dict(VIT4, family="clip", hidden_act="quick_gelu",
+                         layer_norm_eps=1e-5, patch_bias=False, ln_pre=True,
+                         ln_post=False),
+            "blip": dict(VIT4, family="blip", layer_norm_eps=1e-5)}
+ENCODER_TOL = 2e-5          # f32, rtol and atol, split encoder vs one device
 
 
 def mcfg(dropout=0.0):
@@ -96,8 +113,10 @@ def host(tree):
 # ----------------------------------------------------------------------
 # checks, run in every rank of a spawn
 # ----------------------------------------------------------------------
-def one_step(mesh, case, params, b):
-    """(state after one step, loss) at ``mesh`` (None: one device), whole."""
+def one_step(mesh, case, params, b, int8=False):
+    """(state after one step, loss) at ``mesh`` (None: one device), whole.
+    From pixels, the encoder is this rank's as ``train()`` gives it
+    (``shard_encoder``); ``int8`` quantizes it first."""
     rate, fused, clip, from_features = case
     cfg = Config(GRAD_CLIP_VALUE=clip, LEARNING_RATE=LR)
     opt, _ = tsteps.make_optimizer(cfg)
@@ -107,10 +126,16 @@ def one_step(mesh, case, params, b):
                                   fused_dropout=fused, mesh=mesh)
     state = tsteps.init_train_state(trainable, opt)
     frozen = {} if from_features else frozen
+    if int8:
+        frozen = {"encoder": tvis.quantize_vision_params(frozen["encoder"],
+                                                         mcfg().vision)}
     if mesh is not None:
         tp = mesh.shape["model"] > 1
         state = pmesh.shard_train_state(state, mesh, tp=tp)
         b = pmesh.shard_batch(b, mesh)
+        if frozen:
+            frozen = {"encoder": pmesh.shard_encoder(
+                frozen["encoder"], mcfg().vision, mesh)}
     state, loss = step(state, frozen, b, 7)
     if mesh is not None:
         state = pmesh.gather_train_state(state, mesh, tp=tp)
@@ -137,8 +162,45 @@ def check_steps(rank, world, shapes):
                 ref=host(ref.params), got=host(got.params), ref_loss=ref_loss,
                 loss=loss, clip_bound=bound, mu=host(ref.opt_state.mu),
                 got_mu=host(got.opt_state.mu))
+        ref, ref_loss = one_step(None, INT8_CASE, model_params(0.1), b,
+                                 int8=True)
+        got, loss = one_step(mesh, INT8_CASE, model_params(0.1), b, int8=True)
+        enc = pmesh.shard_encoder(tvis.quantize_vision_params(
+            params["encoder"], mcfg().vision), mcfg().vision, mesh)
+        out[(tuple(shape), "int8")] = dict(
+            ref=host(ref.params), got=host(got.params), ref_loss=ref_loss,
+            loss=loss, mu=host(ref.opt_state.mu),
+            got_mu=host(got.opt_state.mu),
+            qkv=tuple(enc["layers"]["attn"]["qkv"].w8.shape))
+        float_enc = pmesh.shard_encoder(params["encoder"], mcfg().vision, mesh)
+        out[(tuple(shape), "wq")] = tuple(
+            float_enc["layers"]["attn"]["wq"].shape)
     out["params"] = host(params)
     return out if rank == 0 else None
+
+
+def check_tp_encoder(rank, world, weights):
+    """Each family's encoder of ``weights`` (drawn by the JAX package) at
+    (1, world): whole on one device and split over "model", CLS-only and
+    not; and this rank's widths."""
+    mesh = pmesh.init_distributed_mesh((1, world), "cpu")
+    trees = torch.load(weights, weights_only=False)
+    px = torch.from_numpy(trees["pixels"])
+    out = {}
+    for family, vis in FAMILIES.items():
+        cfg = tvis.VisionConfig(**vis)
+        whole = params_from_jax(trees[family])
+        local = pmesh.shard_encoder(whole, cfg, mesh)
+        for cls_only in (False, True):
+            one = tvis.vision_forward(whole, cfg, px, cls_only=cls_only)
+            split = tvis.vision_forward(local, cfg, px, cls_only=cls_only,
+                                        shard=mesh.step_shard(px.shape[0]))
+            out[(family, cls_only)] = (one.numpy(), split.numpy())
+        out[(family, "widths")] = (local["layers"]["attn"]["wq"].shape[-1],
+                                   local["layers"]["fc1"].shape[-1],
+                                   local["layers"]["fc2"].shape[-2],
+                                   local["layers"]["attn"]["bo"].shape[-1])
+    return out
 
 
 def check_tp_forward(rank, world):
@@ -249,20 +311,23 @@ def check_saves_and_resume(rank, world, workdir):
 
 
 def check_refusals(rank, world, data_dir):
-    """``train()``'s two ValueErrors, the mesh's shape error, and the
-    in-graph encoder under a model axis."""
+    """``train()``'s ValueErrors: the batch, the mesh's shape, and an
+    encoder in the step whose heads do not split over the model axis."""
     from mit_tpu_torch.train.loop import train
 
     tvis.PRESETS["tiny/test-vit"] = tvis.VisionConfig(
         **dict(VIS, image_size=224, patch_size=56, num_heads=2))
+    tvis.PRESETS["tiny/test-vit-3"] = tvis.VisionConfig(
+        **dict(VIS, image_size=224, patch_size=56, num_heads=3))
     cfg = tiny_config(data_dir)
     out = {}
     for key, c, exc in (
             ("batch", cfg.replace(MESH_SHAPE=(2, 1), BATCH_SIZE=3), ValueError),
             ("shape", cfg.replace(MESH_SHAPE=(3, 1)), ValueError),
-            ("tp_encoder", cfg.replace(MESH_SHAPE=(1, 2),
-                                       CACHE_ENCODER_FEATURES=False),
-             NotImplementedError)):
+            ("encoder_heads", cfg.replace(
+                MESH_SHAPE=(1, 2), CACHE_ENCODER_FEATURES=False,
+                ENCODER_MODEL_NAME="tiny/test-vit-3",
+                IMAGE_PROCESSOR_NAME="tiny/test-vit-3"), ValueError)):
         try:
             train(c, auto_prepare=False, wandb_enabled=False, device="cpu")
             out[key] = None
@@ -271,20 +336,22 @@ def check_refusals(rank, world, data_dir):
     return out
 
 
-def check_train_loop(rank, world, data_dir, single_dir, shape):
+def check_train_loop(rank, world, data_dir, single_dir, shape, cache):
     """``train()`` under the mesh on the tiny corpus in ``data_dir``: its
     summary, and its losses against ``train()`` on one device on a copy of
-    the corpus in ``single_dir`` (rank 0, afterwards)."""
+    the corpus in ``single_dir`` (rank 0, afterwards). ``cache`` False puts
+    the encoder in the step."""
     from mit_tpu_torch.train.loop import train
 
     tvis.PRESETS["tiny/test-vit"] = tvis.VisionConfig(
         **dict(VIS, image_size=224, patch_size=56, num_heads=2))
-    summary = train(tiny_config(data_dir).replace(MESH_SHAPE=tuple(shape)),
+    config = lambda d: tiny_config(d).replace(CACHE_ENCODER_FEATURES=cache)
+    summary = train(config(data_dir).replace(MESH_SHAPE=tuple(shape)),
                     auto_prepare=False, wandb_enabled=False, device="cpu",
                     fused_dropout=True)
     if rank != 0:
         return None
-    single = train(tiny_config(single_dir), auto_prepare=False,
+    single = train(config(single_dir), auto_prepare=False,
                    wandb_enabled=False, device="cpu", fused_dropout=True)
     return {"mesh": summary, "single": single}
 
@@ -301,8 +368,9 @@ def tiny_config(data_dir):
 
 
 CHECKS = {f.__name__: f for f in (check_steps, check_tp_forward,
-                                  check_round_trips, check_saves_and_resume,
-                                  check_refusals, check_train_loop)}
+                                  check_tp_encoder, check_round_trips,
+                                  check_saves_and_resume, check_refusals,
+                                  check_train_loop)}
 
 
 # ----------------------------------------------------------------------
@@ -413,6 +481,13 @@ def test_mesh_step_equals_the_single_device_step(tmp_path, world, shapes):
             # the key biases and 0 to 4 more elements a case, not the tree
             ill = _close(r["got"], r["ref"], r["mu"], r["got_mu"])
             assert ill <= FEW, (shape, case, ill)
+        # the float encoder split over "model", the int8 one whole on every
+        # rank, and its step the single-device step
+        assert res[(shape, "wq")][-1] == VIS["hidden_size"] // shape[1]
+        r = res[(shape, "int8")]
+        assert 3 * VIS["hidden_size"] in r["qkv"], r["qkv"]
+        np.testing.assert_allclose(r["loss"], r["ref_loss"], rtol=1e-6)
+        assert _close(r["got"], r["ref"], r["mu"], r["got_mu"]) <= FEW
     # the halves hold 12 and 44 targets: the mean of their own means misses
     # the global token mean by far more than the bound above
     b, params = batch(), model_params()
@@ -445,21 +520,72 @@ def test_mesh_step_at_dropout_0_matches_the_jax_step(tmp_path):
     res = run_ranks("check_steps", 2, tmp_path, shapes=[(2, 1), (1, 2)])[0]
     mj = jmodel.ModelConfig("tiny", jvis.VisionConfig(**VIS),
                             jdec.DecoderConfig(**DEC), "cls")
-    trainable, _ = jmodel.split_trainable(res["params"])
-    jopt, _ = jsteps.make_optimizer(JConfig(GRAD_CLIP_VALUE=CASES[0][2],
-                                            LEARNING_RATE=LR))
-    jstep = jsteps.make_train_step(mj, jopt, 0, jnp.float32,
-                                   from_features=True, donate=False)
-    js = jsteps.init_train_state(jax.tree.map(jnp.asarray, trainable), jopt)
+    trainable, frozen = jmodel.split_trainable(res["params"])
     b = {k: jnp.asarray(v.numpy()) for k, v in batch().items()}
-    js, jloss = jstep(js, {}, b, jax.random.PRNGKey(0))
-    want = jax.tree.map(np.asarray, js.params)
-    for shape in ((2, 1), (1, 2)):
-        r = res[(shape, CASES[0])]
-        np.testing.assert_allclose(r["loss"], float(jloss), rtol=1e-5)
-        assert _close(r["got"], jax.tree.map(np.array, want),
-                      jax.tree.map(np.array, _adam_mu(js.opt_state)),
-                      r["got_mu"], rtol=1e-5, atol=1e-5) <= FEW
+    # from features, and from pixels with the encoder in the step (split
+    # over "model" at (1, 2))
+    for case, enc in ((CASES[0], {}), (PIXELS_AT_0, frozen)):
+        jopt, _ = jsteps.make_optimizer(JConfig(GRAD_CLIP_VALUE=case[2],
+                                                LEARNING_RATE=LR))
+        jstep = jsteps.make_train_step(mj, jopt, 0, jnp.float32,
+                                       from_features=case[3], donate=False)
+        js = jsteps.init_train_state(jax.tree.map(jnp.asarray, trainable),
+                                     jopt)
+        js, jloss = jstep(js, jax.tree.map(jnp.asarray, enc), b,
+                          jax.random.PRNGKey(0))
+        want = jax.tree.map(np.asarray, js.params)
+        for shape in ((2, 1), (1, 2)):
+            r = res[(shape, case)]
+            np.testing.assert_allclose(r["loss"], float(jloss), rtol=1e-5)
+            assert _close(r["got"], jax.tree.map(np.array, want),
+                          jax.tree.map(np.array, _adam_mu(js.opt_state)),
+                          r["got_mu"], rtol=1e-5, atol=1e-5) <= FEW
+
+
+@pytest.mark.parametrize("world", [2, 4], ids=["1x2", "1x4"])
+def test_tp_encoder_matches_one_device_and_jax(tmp_path, world):
+    """Each family's encoder split over "model" at (1, world), CLS-only and
+    not: equal to the port's encoder on one device and to the JAX
+    package's ``vision_forward`` (plain attention) on the same weights,
+    within ``ENCODER_TOL`` in f32; a rank holds 1/world of the heads' and
+    FFN's columns and the whole out-projection bias."""
+    import jax
+    import jax.numpy as jnp
+
+    from mit_tpu.models import vision as jvis
+
+    r = np.random.default_rng(5)
+    trees = {"pixels": r.normal(size=(3, 3, 32, 32)).astype(np.float32)}
+    for i, (family, vis) in enumerate(FAMILIES.items()):
+        tree = jax.tree.map(np.asarray, jvis.init_vision_params(
+            jax.random.PRNGKey(i), jvis.VisionConfig(**vis)))
+        # non-trivial biases and LN parameters, so each is exercised
+        trees[family] = jax.tree.map(
+            lambda a: a + r.normal(size=a.shape).astype(np.float32) * 0.05,
+            tree)
+    path = tmp_path / "weights.pt"
+    torch.save(trees, path)
+    ranks = run_ranks("check_tp_encoder", world, tmp_path, weights=str(path))
+    for family, vis in FAMILIES.items():
+        d, f = vis["hidden_size"], vis["intermediate_size"]
+        for res in ranks:
+            assert res[(family, "widths")] == (d // world, f // world,
+                                               f // world, d)
+        for cls_only in (False, True):
+            want = np.asarray(jvis.vision_forward(
+                jax.tree.map(jnp.asarray, trees[family]),
+                jvis.VisionConfig(**vis), jnp.asarray(trees["pixels"]),
+                use_pallas=False, cls_only=cls_only))
+            for res in ranks:
+                one, split = res[(family, cls_only)]
+                assert split.shape == want.shape == (
+                    3, 1 if cls_only else 17, d)
+                np.testing.assert_allclose(split, one, rtol=ENCODER_TOL,
+                                           atol=ENCODER_TOL)
+                np.testing.assert_allclose(split, want, rtol=ENCODER_TOL,
+                                           atol=ENCODER_TOL)
+                np.testing.assert_allclose(one, want, rtol=ENCODER_TOL,
+                                           atol=ENCODER_TOL)
 
 
 def test_tp_decoder_forward_matches_the_replicated_one(tmp_path):
@@ -497,21 +623,26 @@ def test_train_refuses_what_the_mesh_cannot_take(tmp_path, corpus):
     for r in run_ranks("check_refusals", 2, tmp_path, data_dir=corpus):
         assert "divisible by the mesh data axis (2)" in r["batch"]
         assert "does not match 2 available devices" in r["shape"]
-        assert "tensor parallelism of the frozen encoder" in r["tp_encoder"]
+        assert "encoder's 3 heads" in r["encoder_heads"]
+        assert "model axis (2)" in r["encoder_heads"]
 
 
-@pytest.mark.parametrize("shape", [(2, 1), (1, 2)], ids=["dp", "tp"])
+@pytest.mark.parametrize("shape,cache", [((2, 1), True), ((1, 2), True),
+                                         ((1, 2), False)],
+                         ids=["dp", "tp", "tp_encoder"])
 def test_train_loop_under_the_mesh_repeats_one_device(tmp_path, corpus,
-                                                      shape):
+                                                      shape, cache):
     """``train()`` at dropout 0.1 with fused dropout: the same epoch losses
-    as on one device, within 1e-5, and the JAX loop's summary keys."""
+    as on one device, within 1e-5, and the JAX loop's summary keys; without
+    the feature cache the encoder runs in the step, split over "model"."""
     import shutil
 
     for d in ("mesh", "single"):
         shutil.copytree(corpus, tmp_path / d)
     r = run_ranks("check_train_loop", 2, tmp_path,
                   data_dir=str(tmp_path / "mesh"),
-                  single_dir=str(tmp_path / "single"), shape=list(shape))[0]
+                  single_dir=str(tmp_path / "single"), shape=list(shape),
+                  cache=cache)[0]
     mesh, single = r["mesh"], r["single"]
     assert mesh["mesh"] == {"data": shape[0], "model": shape[1]}
     assert mesh["param_devices"] == 2
