@@ -53,7 +53,8 @@ the script exits non-zero without printing the result line.
               16 heads, bf16: relative L2 <= 5e-3 (the JAX package's bound
               between its layer kernel and its composition); the ViT-B
               layer also at head widths 128 and 32 (6 and 24 heads), whose
-              attention runs the any-shape kernel.
+              attention runs the wide tiled kernel and the any-shape
+              kernel.
 4. slice    The default captioning path at full width: ViT-B/16 encoder in
             CLS-memory mode, projection 768 -> 512, 6-layer 512-wide
             decoder, vocab 10000, max_len 100, random weights from a seeded
@@ -139,16 +140,32 @@ the script exits non-zero without printing the result line.
             each also against the first CUDA-core kernel; at the 577-token
             shape that kernel's time, the profiler's device time, and
             flash_attention_btd on the same numbers in (B, T, D).
-            Phase 3 ends with the kernels of csrc/attention_any_shape.cu,
+            Phase 3 then holds the kernels of csrc/attention_any_shape.cu,
             which take the shapes the tiled kernels do not: every attention
-            wrapper at head widths 128, 96 and 32 (causal, padded, a fully
+            wrapper at head widths 136, 100 and 32 (causal, padded, a fully
             padded batch row), f32 and bf16, at the tiled kernels' limits;
             the dropout wrappers, forward and backward, at 160 tokens and
             at head widths 128 and 32; the dropout forward's keep-mask
             recovered from its output bit for bit; then multihead_attention
-            on the card, 512 wide in 4 heads over 160 tokens, without and
+            on the card, 544 wide in 4 heads over 160 tokens, without and
             with fused dropout, which must launch a kernel at every call
             and agree with the plain path in output and input gradient.
+            Phase 3 ends with the tiled kernels at heads of 72 to 128
+            columns (check_wide_heads): flash_attention_btd (bf16, f32)
+            and fused QKV (bf16, f32, the int8 layer's numerics) at
+            ViT-H/14's (64, 257, 1280) in 16 heads of 80, the (B, T, D)
+            entry also causal and padded; flash_attention at (8, 16, 257,
+            hd) for hd 72, 80, 96, 112 and 128, causal and padded (a fully
+            padded batch row, a row whose only visible key is padded), bf16
+            and f32; the int8 layer at ViT-H/14's width (relative L2 5e-3).
+            Each against its plain version at the limits above, each launch
+            counted as "tiled" in its wrapper's .kernels, and each beside
+            the any-shape kernel through its C entry at the same shape
+            (which ran these widths before; the int8 layer with that
+            attention): its error, and times of the kernel (events and the
+            profiler's device time), the plain version, the bound, SDPA
+            (events and device) and the any-shape kernel; then a table of
+            the wide bf16 kernel's two tilings at ViT-H/14's shape.
             Yardsticks, timed and used nowhere in the port: one
             F.scaled_dot_product_attention call at each attention kernel's
             shape and torch._int_mm at each int8_gemm shape.
@@ -226,6 +243,28 @@ the script exits non-zero without printing the result line.
             (geometry inferred): f32 batch 8 within 1e-4 of plain, bf16
             batch 64 with 11 flash_attention_btd launches. The smoke prints
             its wall time before the result.
+4c. vit-h   ViT-H/14 at its published widths (VIT_H: 32 layers of 1280 in
+            16 heads of 80, MLP 5120, patch 14 at 224, 257 tokens; no
+            PRESETS entry) from a model.safetensors (2.5 GB f32, seeded)
+            and config.json (model_type "vit") written in the run to a
+            temporary directory, deleted at the end: booted through
+            init_model_params_pretrained(..., local_files_only=True), its
+            VisionConfig equal to the written one and every tensor bit
+            for bit the seeded one; seeded uint8 64 x 480 x 640 through
+            device_preprocess, card against CPU. f32 batch 8: memory from
+            the kernel (the f32 kernel at head width 80) within 1e-4 of the
+            plain path, greedy tokens equal on the kernel, plain and fused
+            step routes; the int8 arm within FLOOR_FACTOR times its own
+            noise floor and at cosine > 0.999 to the float arm. bf16 batch
+            64, both arms, fused greedy: launches per encode held to
+            per_encode(31), the routes held, and 31 "tiled" and 0
+            "any_shape" launches an encode in flash_attention_btd.kernels
+            (float) and flash_attention_btd_fusedqkv.kernels (int8); encode
+            ms in alternating turns, and captions/s from uint8 split into
+            upload, preprocess + encode and the 99 fused steps. Prints its
+            seconds. `python3 chip_smoke.py --wide-heads` runs phases 1, 2,
+            check_wide_heads and this phase alone, then one JSON line of
+            the wide-head kernels.
 5b. mesh    The device mesh (parallel/mesh.py). Rows 9 and 10 under the
             cell map: at (32, 8, 99, 99, 64) bf16 split as the (2, 1) and
             (1, 2) meshes split it, each rank's dump-kernel mask and its
@@ -291,8 +330,11 @@ the script exits non-zero without printing the result line.
             near the host's issue floor also the profiler's device time of
             the kernel and of the library call; rows 7 and 8 also under
             "tp": their local shape in phase 5c, launches a rank there, and
-            their error, times and bound at that shape), before it the same
-            for the any-shape kernels, then the last line,
+            their error, times and bound at that shape; the wide heads'
+            instantiations that phase 4c's path runs, with its launches),
+            before it the same for every wide-head line of phase 3
+            ("wide_head_kernels", each with "any_shape_ms") and for the
+            any-shape kernels, then the last line,
             {"ok": true, "device": {...}}.
 """
 
@@ -336,8 +378,8 @@ GEMM_SHAPES = [
     ("vit-l fc1", 8 * 257, 1024, 4096, "gelu", None, "float32"),
     ("vit-l fc2", 8 * 257, 4096, 1024, "none", "bfloat16", "bfloat16"),
 ]
-# head widths other than 64 of the int8 layer at ViT-B's width (the
-# any-shape kernel runs its attention)
+# head widths other than 64 of the int8 layer at ViT-B's width (the wide
+# tiled kernel runs its attention at 128, the any-shape kernel at 32)
 INT8_HEADS = [("hd128", 6), ("hd32", 24)]
 
 
@@ -487,7 +529,7 @@ def cudacore_bf16(torch, q, k, v, pad, causal, layer=False):
     return out
 
 
-def tiled_bf16(torch, q, k, v, pad, causal, tiling):
+def tiled_bf16(torch, q, k, v, pad, causal, tiling, hd=64):
     """The tensor-core kernel at a tiling other than the wrapper's."""
     from mit_tpu_torch import kernels
 
@@ -496,7 +538,7 @@ def tiled_bf16(torch, q, k, v, pad, causal, tiling):
     rc = kernels.lib().mit_flash_attention_btd_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if pad is None else pad.data_ptr(), out.data_ptr(), b, t,
-        k.shape[1], d, int(causal), int(pad is not None), *tiling,
+        k.shape[1], d, hd, int(causal), int(pad is not None), *tiling,
         torch.cuda.current_stream().cuda_stream)
     kernels.check(rc, "mit_flash_attention_btd_bf16")
     return out
@@ -788,11 +830,11 @@ def bound(nbytes, ops, kind):
             "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
 
-def attention_bound(b, h, t, s, dtype, n_products=2, extra_bytes=0):
-    """q, k, v read and the output written once; two (T, S, 64) products."""
+def attention_bound(b, h, t, s, dtype, n_products=2, extra_bytes=0, hd=64):
+    """q, k, v read and the output written once; two (T, S, hd) products."""
     size = 2 if "bfloat16" in str(dtype) else 4
-    nbytes = (2 * b * h * t * 64 + 2 * b * h * s * 64) * size + extra_bytes
-    ops = n_products * 2 * b * h * t * s * 64
+    nbytes = (2 * b * h * t * hd + 2 * b * h * s * hd) * size + extra_bytes
+    ops = n_products * 2 * b * h * t * s * hd
     return bound(nbytes, ops, "bf16" if size == 2 else "f32")
 
 
@@ -1101,16 +1143,17 @@ def check_int8_kernels(torch):
                 "bound_by": "bytes" if by_bytes >= by_ops else "operations"})
         if name == "fused_int8_vit_layer":
             for label, h in INT8_HEADS:
-                before = flash_attention_btd_fusedqkv.launches
+                before = dict(flash_attention_btd_fusedqkv.kernels)
                 out, ref = kern_fn(x, *args[:-2], h, 1e-12), plain_fn(
                     x, *args[:-2], h, 1e-12)
                 torch.cuda.synchronize()
                 rel = rel_l2(out, ref)
+                launched = {k: n - before[k] for k, n in
+                            flash_attention_btd_fusedqkv.kernels.items()}
                 ms = cuda_ms(torch, lambda: kern_fn(x, *args[:-2], h, 1e-12))
                 print(f"{name} {label} ({b}, {t}, {d}) {h} heads bf16: "
                       f"relative L2 {rel:.3e} (limit 5e-3), attention "
-                      f"launches {flash_attention_btd_fusedqkv.launches - before}"
-                      f" (any-shape kernel); kernel {ms:.4f} ms")
+                      f"launches by kernel {launched}; kernel {ms:.4f} ms")
                 if not (rel <= 5e-3 and bool(torch.isfinite(out).all())):
                     raise AssertionError(f"{name} disagrees at {label}")
     return results
@@ -1378,9 +1421,10 @@ def check_bhtd_kernel(torch):
     return {"flash_attention": results["flash_attention"]}
 
 
-# the any-shape kernels: (name, B, H, T = S, hd), all causal and padded
-ANY_SHAPES = [("decoder 512 wide in 4 heads", 64, 4, 100, 128),
-              ("heads of 96 columns", 8, 8, 197, 96),
+# the any-shape kernels: (name, B, H, T = S, hd), all causal and padded, at
+# widths the tiled kernels do not take (past 128, not a multiple of 8)
+ANY_SHAPES = [("decoder 544 wide in 4 heads", 64, 4, 100, 136),
+              ("heads of 100 columns", 8, 8, 197, 100),
               ("narrow heads", 3, 2, 33, 32)]
 DROPOUT_ANY_SHAPES = [("160 tokens", 32, 8, 160, 64),
                       ("decoder 512 wide in 4 heads", 32, 4, 99, 128),
@@ -1531,7 +1575,7 @@ def check_any_shape_kernels(torch):
             raise AssertionError("the any-shape forward draws another mask")
 
     # multihead_attention on the card at these shapes: a kernel at every call
-    heads, b, t, d = 4, 8, 160, 512
+    heads, b, t, d = 4, 8, 160, 544
     g = torch.Generator().manual_seed(SEED)
     params = {w: (torch.randn(d, d, generator=g) * 0.05).cuda()
               for w in ("wq", "wk", "wv", "wo")}
@@ -1554,7 +1598,7 @@ def check_any_shape_kernels(torch):
         outs[use_kernel] = (plain.detach(), dropped.detach(), grad)
         if use_kernel:
             counts = {k: n for k, n in read_counts().items() if n}
-            hold_routes(f"multihead_attention 512 wide in {heads} heads, T {t}",
+            hold_routes(f"multihead_attention {d} wide in {heads} heads, T {t}",
                         attention=2)
     errs = [((a - r).abs().max() / r.abs().max()).item()
             for a, r in zip(outs[True], outs[False])]
@@ -1570,6 +1614,189 @@ def check_any_shape_kernels(torch):
     return lines
 
 
+# heads wider than 64 on the tiled kernels: ViT-H/14's attention (B, T, D,
+# head width) and the (B, H, T, hd) entry's widths at (8, 16, 257, hd)
+VIT_H = "google/vit-huge-patch14-224-in21k"
+VIT_H_LAYERS = 32        # its depth (the phase's CPU rehearsal cuts it)
+WIDE_BTD = (64, 257, 1280, 80)
+WIDE_BHTD = (8, 16, 257)
+WIDE_HDS = (72, 80, 96, 112, 128)
+
+
+def kernels_delta(fn, before):
+    """Launches of `fn` by kernel since `before` (a copy of fn.kernels)."""
+    return {k: n - before[k] for k, n in fn.kernels.items()}
+
+
+def any_shape_call(torch, fa, kind, q, k, v, pad, causal, hd, layer=False):
+    """The any-shape kernel through its C entry at a tiled kernel's shape,
+    as a function of no arguments: the kernel that ran these widths before
+    (old against new), reached only from here. kind "btd": q, k, v (B, T|S,
+    D); "fused": q is the (B, T, 3D) qkv; "bhtd": (B, H, T|S, hd)."""
+    bf16 = q.dtype == torch.bfloat16
+    if kind == "bhtd":
+        b, h, t, _ = q.shape
+        out = torch.empty_like(q)
+        return lambda: (fa._any_shape(q, k, v, pad, out, b, h, t, k.shape[2],
+                                      hd, hd, hd, hd, True, causal,
+                                      fa.ANY_NORM_FIRST, bf16), out)[1]
+    if kind == "btd":
+        b, t, d = q.shape
+        out = torch.empty_like(q)
+        return lambda: (fa._any_shape(q, k, v, pad, out, b, d // hd, t,
+                                      k.shape[1], hd, d, d, d, False, causal,
+                                      fa.ANY_DIVIDE_AFTER, bf16), out)[1]
+    b, t, d3 = q.shape
+    d = d3 // 3
+    out = torch.empty((b, t, d), device=q.device,
+                      dtype=torch.float32 if layer else q.dtype)
+    at = lambda i: q.data_ptr() + i * d * q.element_size()
+    mode = fa.ANY_LAYER if layer else fa.ANY_DIVIDE_AFTER
+    return lambda: (fa._any_shape(at(0), at(1), at(2), None, out, b, d // hd,
+                                  t, t, hd, d3, d3, d, False, False, mode,
+                                  bf16), out)[1]
+
+
+def check_wide_heads(torch):
+    """Phase 3, heads of 72 to 128 columns on the tiled kernels: each entry
+    at ViT-H/14's attention and flash_attention at every wide width, against
+    its plain version, with its time, device time, bound, SDPA's device time
+    and the any-shape kernel's time at the same shape (old against new);
+    then the int8 layer at ViT-H/14's width. Returns the timed lines."""
+    from mit_tpu_torch.ops import flash_attention as fa
+    from mit_tpu_torch.ops import int8_layer, int8_mlp
+
+    t_phase = time.perf_counter()
+    lines = {}
+    fmt = lambda x: "not measured" if x is None else f"{x:.4f}"
+
+    def hold(label, kern, plain, old, limit, wrapper, time_it, bound_,
+             lib=None, rel=False):
+        before = dict(wrapper.kernels)
+        out = kern()
+        launched = kernels_delta(wrapper, before)
+        ref, was = plain(), old()
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        err_old = (was.float() - ref.float()).abs().max().item()
+        if rel:                  # the int8 layer's numerics: relative L2
+            err, err_old = rel_l2(out, ref), rel_l2(was, ref)
+        finite = bool(torch.isfinite(out).all())
+        print(f"wide {label}: {'relative L2' if rel else 'max_abs_err'} vs "
+              f"plain {err:.3e} (any-shape kernel {err_old:.3e}), limit "
+              f"{limit:.0e}, finite={finite}, launches {launched}")
+        if not (finite and err <= limit and err_old <= limit
+                and launched == {"tiled": 1, "any_shape": 0}):
+            raise AssertionError(f"wide heads: {label} disagrees")
+        if not time_it:
+            return
+        runs = timed_turns(torch, kern, plain)
+        old_ms = cuda_ms(torch, old)
+        report(lines, label, err, runs, f"tiled, any-shape {old_ms:.4f} ms",
+               bound_, None if lib is None else cuda_ms(torch, lib),
+               device_ms(torch, kern),
+               None if lib is None else device_ms(torch, lib))
+        lines[label]["any_shape_ms"] = old_ms
+
+    # ViT-H/14's attention in (B, T, D) and fused qkv: the path's calls
+    # (bidirectional, unpadded), then causal and padded
+    b, t, d, hd = WIDE_BTD
+    h = d // hd
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype)[6:]
+        q4, k4, v4, pad, _ = any_shape_inputs(torch, b, h, t, hd, dtype)
+        q, k, v = (x.transpose(1, 2).reshape(b, t, d).contiguous()
+                   for x in (q4, k4, v4))
+        for causal in (False, True):
+            p = pad if causal else None
+            hold(f"flash_attention_btd ({b}, {t}, {d}) hd {hd} {dname}"
+                 + (" causal+pad" if causal else ""),
+                 lambda: fa.flash_attention_btd(q, k, v, p, causal, hd),
+                 lambda: fa.flash_attention_btd_reference(q, k, v, p, causal,
+                                                          hd),
+                 any_shape_call(torch, fa, "btd", q, k, v, p, causal, hd),
+                 TOL[dname], fa.flash_attention_btd, not causal,
+                 attention_bound(b, h, t, t, dtype, hd=hd),
+                 sdpa_call(torch, q4, k4, v4))
+        if dtype == torch.bfloat16:
+            # the wide kernel's tilings at ViT-H/14's shape (the wrapper's
+            # rule picks by T alone)
+            ref = fa.flash_attention_btd_reference(q, k, v, None, False, hd)
+            cells = []
+            for tiling in [fa.bf16_tiling(t, w) for w in fa.BF16_WARPS]:
+                run = lambda: tiled_bf16(torch, q, k, v, None, False, tiling,
+                                         hd)
+                err = (run().float() - ref.float()).abs().max().item()
+                if not err <= TOL[dname]:
+                    raise AssertionError(f"tiling {tiling} disagrees: {err}")
+                cells.append(f"{tiling[0]} warps, {tiling[1]} rows a block "
+                             f"{fmt(device_ms(torch, run))}")
+            print(f"design flash_attention_btd ({b}, {t}, {d}) hd {hd} bf16, "
+                  f"device ms (the wrapper takes {fa.bf16_tiling(t)}): "
+                  + "; ".join(cells))
+        qkv = torch.cat([q, k, v], -1).contiguous()
+        layers = (False, True) if dtype == torch.bfloat16 else (False,)
+        for layer in layers:
+            hold(f"flash_attention_btd_fusedqkv ({b}, {t}, {3 * d}) hd {hd} "
+                 f"{dname}" + (" layer numerics" if layer else ""),
+                 lambda: fa.flash_attention_btd_fusedqkv(qkv, hd, layer),
+                 lambda: fa.flash_attention_btd_fusedqkv_reference(qkv, hd,
+                                                                   layer),
+                 any_shape_call(torch, fa, "fused", qkv, None, None, None,
+                                False, hd, layer),
+                 TOL[dname], fa.flash_attention_btd_fusedqkv,
+                 dtype == torch.bfloat16,
+                 attention_bound(b, h, t, t, dtype, hd=hd,
+                                 extra_bytes=2 * b * t * d if layer else 0),
+                 sdpa_call(torch, q4, k4, v4))
+        del q4, k4, v4, q, k, v, qkv
+
+    # flash_attention (B, H, T, hd) at every wide width, causal and padded
+    b, h, t = WIDE_BHTD
+    for hd in WIDE_HDS:
+        if fa.attention_kernel_for(hd) != "tiled":
+            raise AssertionError(f"head_dim {hd} does not get the tiled kernels")
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype)[6:]
+            q, k, v, pad, _ = any_shape_inputs(torch, b, h, t, hd, dtype)
+            hold(f"flash_attention ({b}, {h}, {t}, {hd}) {dname} causal+pad",
+                 lambda: fa.flash_attention(q, k, v, pad, True),
+                 lambda: fa.flash_attention_reference(q, k, v, pad, True),
+                 any_shape_call(torch, fa, "bhtd", q, k, v, pad, True, hd),
+                 BHTD_TOL[dname], fa.flash_attention, True,
+                 attention_bound(b, h, t, t, dtype, hd=hd,
+                                 extra_bytes=b * t * 4),
+                 sdpa_call(torch, q, k, v, True, pad))
+
+    # the int8 layer at ViT-H/14's width: its attention in LAYER mode at hd 80
+    b, t, d, hd = WIDE_BTD
+    f = 4 * d
+    x = random_rows(torch, b * t, d, torch.bfloat16, seed=60,
+                    zero_row=False).reshape(b, t, d)
+    args = (random_ln(torch, d, 61), random_qlinear(torch, d, 3 * d, 62),
+            random_qlinear(torch, d, d, 63), random_ln(torch, d, 64),
+            random_qlinear(torch, d, f, 65), random_qlinear(torch, f, d, 66),
+            d // hd, 1e-12)
+    by_bytes = (b * t * d * 4 + 4 * d * d + 2 * d * f) / MEM_BYTES_PER_S
+    by_ops = (2 * b * t * (4 * d * d + 2 * d * f) / PEAK_OPS["int8"]
+              + 4 * b * t * t * d / PEAK_OPS["bf16"])
+    # the layer as it ran before: the same kernels, the any-shape attention
+    old_attention = lambda qkv, hd, layer_numerics: any_shape_call(
+        torch, fa, "fused", qkv, None, None, None, False, hd, True)()
+    hold(f"fused_int8_vit_layer ({b}, {t}, {d}) F {f} {d // hd} heads bf16",
+         lambda: int8_layer.fused_int8_vit_layer(x, *args),
+         lambda: int8_layer.fused_int8_vit_layer_reference(x, *args),
+         lambda: int8_layer._layer(x, *args, "gelu", False,
+                                   int8_mlp.quantize_rows, int8_mlp.int8_gemm,
+                                   old_attention),
+         5e-3, fa.flash_attention_btd_fusedqkv, True,
+         {"bound_ms": max(by_bytes, by_ops) * 1e3,
+          "bound_by": "bytes" if by_bytes >= by_ops else "operations"},
+         rel=True)
+    print(f"wide heads: {time.perf_counter() - t_phase:.1f} s")
+    return lines
+
+
 def hold_launches(label, counts, want, calls=1):
     """The launch counters since reset_counts equal `want` per call, every
     other counter 0."""
@@ -1578,6 +1805,16 @@ def hold_launches(label, counts, want, calls=1):
     print(f"launches {label}: per call {shown}, every other counter 0")
     if counts != want:
         raise AssertionError(f"{label}: launches {counts}, want {want}")
+
+
+def hold_kernels(label, wrapper, want):
+    """The launches of an attention wrapper by kernel since reset_counts
+    equal `want` ({"tiled": n, "any_shape": m})."""
+    got = dict(wrapper.kernels)
+    print(f"kernels {label}: {wrapper.__name__} {got}")
+    if got != want:
+        raise AssertionError(f"{label}: {wrapper.__name__} launched {got}, "
+                             f"want {want}")
 
 
 def drive(torch, name, cap, px, reps):
@@ -2282,22 +2519,20 @@ def check_blip(torch):
     return counts
 
 
-def write_tower(torch, root, name, preset, prefix, weights, config,
+def write_tower(torch, root, name, vcfg, prefix, weights, config,
                 extra=None):
-    """A seeded vision tower written in the HF layout: `weights` is
-    "model.safetensors" (the port's codec) or "pytorch_model.bin"
-    (torch.save of the state dict), `config` the config.json dict or None.
-    Returns the directory, the seeded parameters (on the CPU), the file's
-    bytes and the seconds to draw and to write."""
+    """A seeded vision tower of geometry `vcfg` (a VisionConfig) written in
+    the HF layout: `weights` is "model.safetensors" (the port's codec) or
+    "pytorch_model.bin" (torch.save of the state dict), `config` the
+    config.json dict or None. Returns the directory, the seeded parameters
+    (on the CPU), the file's bytes and the seconds to draw and to write."""
     from mit_tpu_torch.models.vision import (
-        PRESETS,
         hf_vision_state_dict_from_params,
         init_vision_params,
     )
     from mit_tpu_torch.train.checkpoint import save_file
 
     t0 = time.perf_counter()
-    vcfg = PRESETS[preset]
     params = init_vision_params(torch.Generator().manual_seed(SEED), vcfg)
     sd = dict(hf_vision_state_dict_from_params(params, vcfg, prefix),
               **(extra or {}))
@@ -2380,7 +2615,7 @@ def check_pretrained(torch, device="cuda"):
         stray = {"text_model.encoder.layers.0.self_attn.q_proj.weight":
                  np.zeros((8, 8), np.float32)}
         path, seeded, nbytes, draw_s, write_s = write_tower(
-            torch, root, "clip", CLIP_L, "vision_model.", "model.safetensors",
+            torch, root, "clip", clip, "vision_model.", "model.safetensors",
             {"model_type": "clip", "projection_dim": 768,
              "vision_config": hf_vision_config(clip, "clip_vision_model")},
             stray)
@@ -2564,7 +2799,7 @@ def check_pretrained(torch, device="cuda"):
         # ViT-B/16 pytorch_model.bin without config.json (geometry inferred)
         blip = FAMILY_BASE["blip"]
         path, seeded, nbytes, _, write_s = write_tower(
-            torch, root, "blip", BLIP, "vision_model.", "model.safetensors",
+            torch, root, "blip", blip, "vision_model.", "model.safetensors",
             {"model_type": "blip",
              "vision_config": hf_vision_config(blip, "blip_vision_model")})
         print(f"pretrained checkpoint {BLIP}: {nbytes} bytes, written in "
@@ -2590,7 +2825,7 @@ def check_pretrained(torch, device="cuda"):
 
         vit = PRESETS[VIT_B]
         path, seeded, nbytes, _, write_s = write_tower(
-            torch, root, "vit", VIT_B, "", "pytorch_model.bin", None)
+            torch, root, "vit", vit, "", "pytorch_model.bin", None)
         print(f"pretrained checkpoint {VIT_B}: {nbytes} bytes of "
               f"pytorch_model.bin, no config.json, written in {write_s:.2f} s")
         mcfg, params, _ = boot(torch, path, VIT_B, seeded, vit, device)
@@ -2619,6 +2854,186 @@ def check_pretrained(torch, device="cuda"):
     return {"counts": counts, "rates": rates,
             "enc_ms": {a: statistics.median(m) for a, m in enc_ms.items()},
             "preprocess_ms": pre_ms}
+
+
+def vit_h_config():
+    """ViT-H/14 at its published widths (google/vit-huge-patch14-224-in21k's
+    config.json): 32 layers of 1280 in 16 heads of 80, MLP 5120, patch 14 at
+    224 (257 tokens), LayerNorm eps 1e-12, GELU. No PRESETS entry: the
+    loaders read the widths from config.json."""
+    from mit_tpu_torch.models.vision import FAMILY_BASE
+
+    return FAMILY_BASE["vit"]._replace(
+        image_size=224, patch_size=14, hidden_size=1280,
+        num_layers=VIT_H_LAYERS, num_heads=16, intermediate_size=5120,
+        hidden_act="gelu", layer_norm_eps=1e-12)
+
+
+def check_vit_h(torch, device="cuda"):
+    """Phase 4c, ViT-H/14 from local HF files (see the module docstring):
+    its attention at head width 80 on the tiled kernels, float and int8
+    arms, uint8 to caption. Returns its counts, rates and encode ms."""
+    import tempfile
+
+    from mit_tpu_torch.data.preprocess import device_preprocess
+    from mit_tpu_torch.decode.api import Captioner
+    from mit_tpu_torch.ops import flash_attention as fa
+    from mit_tpu_torch.utils.profiling import StepTimer, fence
+
+    t_phase = time.perf_counter()
+    ids = SpecialIds()
+    vcfg = vit_h_config()
+    full = vcfg.num_layers - 1
+    hd = vcfg.hidden_size // vcfg.num_heads
+    tiled = {"tiled": full, "any_shape": 0}
+    counts, rates, enc_ms = {}, {}, {}
+    with tempfile.TemporaryDirectory() as root:
+        path, seeded, nbytes, draw_s, write_s = write_tower(
+            torch, root, "vit-h", vcfg, "", "model.safetensors",
+            hf_vision_config(vcfg, "vit"))
+        print(f"pretrained checkpoint {VIT_H}: {nbytes} bytes of safetensors "
+              f"(config.json: {vcfg.num_layers} layers of "
+              f"{vcfg.hidden_size}, {vcfg.num_heads} heads of {hd}), drawn "
+              f"in {draw_s:.2f} s, written in {write_s:.2f} s")
+        mcfg, params, _ = boot(torch, path, VIT_H, seeded, vcfg, device)
+        del seeded
+    u8 = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, 256, (PRETRAINED_BATCH, *UINT8_HW, 3), dtype=np.uint8))
+    u8_dev = u8.to(device)
+    px = device_preprocess(u8_dev, VIT_H)
+    err = (px.cpu() - device_preprocess(u8, VIT_H)).abs().max().item()
+    print(f"device_preprocess uint8 {tuple(u8.shape)} -> {tuple(px.shape)} "
+          f"(bilinear, antialias): card vs CPU max_abs_err={err:.3e} (limit "
+          f"{PREPROCESS_TOL:g})")
+    if not err <= PREPROCESS_TOL:
+        raise AssertionError("device_preprocess: the card disagrees with the "
+                             "CPU")
+
+    # f32, batch 8: the f32 kernel at head width 80 against the plain path;
+    # greedy tokens of the kernel path, the plain path and the fused step
+    px8 = px[:F32_BATCH]
+    kern = Captioner(params, mcfg, ids, torch.float32)
+    plain = Captioner(params, mcfg, ids, torch.float32, use_kernel=False)
+    fused = Captioner(params, mcfg, ids, torch.float32, fused_decode=True)
+    reset_counts()
+    mem_k = kern.memory_from_pixels(px8)
+    torch.cuda.synchronize()
+    hold_launches("vit-h f32 encode", read_counts(), per_encode(full)["float"])
+    hold_routes("vit-h f32", attention=full, decode={"fused": 0, "unfused": 0})
+    hold_kernels("vit-h f32 encode", fa.flash_attention_btd, tiled)
+    mem_p = plain.memory_from_pixels(px8)
+    err = (mem_k - mem_p).abs().max().item()
+    tok_k = kern.generate_from_memory(mem_k)
+    tok_p = plain.generate_from_memory(mem_p)
+    reset_counts()
+    tok_f = fused.generate_from_memory(mem_k)
+    steps = max(len(t) for t in tok_f) - 1
+    hold_routes("vit-h f32 fused greedy", decode={"fused": steps, "unfused": 0})
+    same = tok_k == tok_p == tok_f
+    print(f"pretrained vit-h f32 B={F32_BATCH}: memory kernel vs plain "
+          f"max_abs_err={err:.3e} (limit 1e-4); greedy tokens kernel == plain "
+          f"== fused step: {same} ({steps} steps)")
+    if not (err <= 1e-4 and same and mem_k.shape == (F32_BATCH, 1, 512)
+            and bool(torch.isfinite(mem_k).all())):
+        raise AssertionError("ViT-H f32: the kernel path disagrees")
+    q8 = Captioner(params, mcfg, ids, torch.float32, encoder_quant="int8")
+    q8_plain = Captioner(params, mcfg, ids, torch.float32, use_kernel=False,
+                         encoder_quant="int8")
+    mem_q = q8.memory_from_pixels(px8)
+    mem_qp = q8_plain.memory_from_pixels(px8)
+    floor = rel_l2(q8_plain.memory_from_pixels(px8 * (1 + 1e-7)), mem_qp)
+    rel = rel_l2(mem_q, mem_qp)
+    cos = torch.nn.functional.cosine_similarity(
+        mem_q.flatten(), mem_k.flatten(), dim=0).item()
+    print(f"pretrained vit-h int8 f32 B={F32_BATCH}: memory kernel vs plain "
+          f"int8 relative L2 {rel:.3e} (limit {FLOOR_FACTOR} x {floor:.3e}, "
+          f"the plain int8 path's move under pixels x (1 + 1e-7)); cosine to "
+          f"the float arm {cos:.6f} (limit > 0.999)")
+    if not (0 < floor and rel <= FLOOR_FACTOR * floor and cos > 0.999):
+        raise AssertionError("ViT-H int8 f32: the kernel path disagrees")
+    del kern, plain, fused, q8, q8_plain
+
+    # bf16, batch 64, both arms, fused greedy: launches per encode, the
+    # attention's kernel, encode ms in alternating turns, uint8 to caption
+    arms = {
+        "float": Captioner(params, mcfg, ids, torch.bfloat16,
+                           fused_decode=True),
+        "int8": Captioner(params, mcfg, ids, torch.bfloat16,
+                          encoder_quant="int8", fused_decode=True),
+    }
+    wrapper = {"float": fa.flash_attention_btd,
+               "int8": fa.flash_attention_btd_fusedqkv}
+    want = per_encode(full)
+    mems = {}
+    for arm, cap in arms.items():
+        cap.memory_from_pixels(px)                              # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        mems[arm] = cap.memory_from_pixels(px)
+        torch.cuda.synchronize()
+        counts[f"vit_h_{arm}"] = read_counts()
+        hold_launches(f"vit-h bf16 B={PRETRAINED_BATCH} {arm} encode",
+                      counts[f"vit_h_{arm}"], want[arm])
+        hold_routes(f"vit-h bf16 {arm}",
+                    attention=full if arm == "float" else 0,
+                    decode={"fused": 0, "unfused": 0})
+        hold_kernels(f"vit-h bf16 {arm} encode", wrapper[arm], tiled)
+        if not (mems[arm].shape == (PRETRAINED_BATCH, 1, 512)
+                and bool(torch.isfinite(mems[arm]).all())):
+            raise AssertionError(f"ViT-H bf16 {arm}: bad memory")
+    cos = torch.nn.functional.cosine_similarity(
+        mems["int8"].float().flatten(), mems["float"].float().flatten(),
+        dim=0).item()
+    print(f"pretrained vit-h bf16 B={PRETRAINED_BATCH}: int8 arm's cosine to "
+          f"the float arm {cos:.6f} (printed, not held)")
+    del mems
+    times = {arm: [] for arm in arms}
+    for turn in range(ENC_REPS):
+        for arm in (("float", "int8") if turn % 2 == 0 else ("int8", "float")):
+            t0 = time.perf_counter()
+            arms[arm].memory_from_pixels(px)
+            torch.cuda.synchronize()
+            times[arm].append((time.perf_counter() - t0) * 1e3)
+    for arm, cap in arms.items():
+        q1, q2, q3 = statistics.quantiles(times[arm], n=4)
+        enc_ms[arm] = q2
+        timer = StepTimer()
+        cap.generate_from_memory(cap.memory_from_pixels(                # warm-up
+            device_preprocess(u8_dev, VIT_H)))
+        reset_counts()
+        split = {"upload": [], "preprocess+encode": [], "decode": []}
+        for _ in range(REPS):
+            with timer.step(PRETRAINED_BATCH, sync=cap.params["decoder"]):
+                t0 = time.perf_counter()
+                batch = u8.to(device)
+                fence(batch)
+                t1 = time.perf_counter()
+                mem = cap.memory_from_pixels(device_preprocess(batch, VIT_H))
+                fence(mem)
+                t2 = time.perf_counter()
+                tokens = cap.generate_from_memory(mem)
+                t3 = time.perf_counter()
+            for key, dt in zip(split, (t1 - t0, t2 - t1, t3 - t2)):
+                split[key].append(dt * 1e3)
+        steps = max(len(t) for t in tokens) - 1
+        got = read_counts()
+        hold_routes(f"vit-h bf16 {arm} uint8 to caption",
+                    decode={"fused": steps * REPS, "unfused": 0})
+        hold_launches(f"vit-h bf16 {arm} uint8 to caption", got,
+                      dict(want[arm], fused_decode_layer=(
+                          mcfg.decoder.num_layers * steps)), REPS)
+        rates[arm] = timer.items_per_sec
+        print(f"pretrained vit-h bf16 B={PRETRAINED_BATCH} {arm}: encode "
+              f"median {q2:.3f} ms (quartiles {q1:.3f}-{q3:.3f}, {ENC_REPS} "
+              f"runs in alternating turns); uint8 (host) -> caption "
+              f"{timer.items_per_sec:.2f} captions/s (StepTimer over {REPS} "
+              f"runs, mean {timer.mean_step_seconds * 1e3:.1f} ms a batch: "
+              + ", ".join(f"{k} {statistics.mean(v):.2f} ms"
+                          for k, v in split.items())
+              + f", {steps} fused greedy steps); "
+              f"{DEVICE_LINE[0] if DEVICE_LINE else ''}")
+    print(f"phase vit-h: {time.perf_counter() - t_phase:.1f} s")
+    return {"counts": counts, "rates": rates, "enc_ms": enc_ms}
 
 
 def dropout_inputs(torch, b, h, t, s, dtype, seed=SEED):
@@ -4011,6 +4426,34 @@ KERNELS = {
 }
 
 
+# the wide-head lines of phase 3 that phase 4c's path runs: line label ->
+# (phase 4c's counts, the counter)
+WIDE_PATH = {
+    "flash_attention_btd (64, 257, 1280) hd 80 bfloat16": (
+        "vit_h_float", "flash_attention_btd"),
+    "flash_attention_btd_fusedqkv (64, 257, 3840) hd 80 bfloat16 layer "
+    "numerics": ("vit_h_int8", "flash_attention_btd_fusedqkv"),
+    "fused_int8_vit_layer (64, 257, 1280) F 5120 16 heads bf16": (
+        "vit_h_int8", "fused_int8_vit_layer"),
+}
+
+
+def wide_lines(wide, counts):
+    """Phase 3's wide-head lines as kernel entries (source and TPU kernel
+    as KERNELS has them for the wrapper); those that phase 4c's path runs
+    carry its launches and "path", the rest 0 launches."""
+    out = []
+    for label, line in wide.items():
+        source, replaces, _ = KERNELS[label.split(" ")[0]]
+        path, counter = WIDE_PATH.get(label, (None, None))
+        out.append({"name": label, "route": "cuda",
+                    "source": f"mit_tpu_torch/csrc/{source}",
+                    "replaces": replaces, "path": path,
+                    "launches": counts[path][counter] if path else 0,
+                    **line})
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -4055,6 +4498,10 @@ def main() -> int:
     if sys.argv[1:] == ["--tp-encoder"]:
         check_tp_encoder(torch)
         return 0
+    if sys.argv[1:] == ["--wide-heads"]:
+        print(json.dumps({"wide_head_kernels": wide_lines(
+            check_wide_heads(torch), check_vit_h(torch)["counts"])}))
+        return 0
 
     print("== 3 kernels", flush=True)
     errors, times = check_kernels(torch)
@@ -4064,6 +4511,7 @@ def main() -> int:
     decode_layer = check_decode_layer_kernel(torch)
     bhtd = check_bhtd_kernel(torch)
     any_shape = check_any_shape_kernels(torch)
+    wide = check_wide_heads(torch)
 
     print("== 4 slice", flush=True)
     slice_ = check_slice(torch)
@@ -4091,6 +4539,15 @@ def main() -> int:
           + "; uint8 to caption captions/s "
           + ", ".join(f"{k} {v:.2f}" for k, v in pretrained["rates"].items())
           + f"; device_preprocess {pretrained['preprocess_ms']:.4f} ms; {smi}")
+
+    print("== 4c vit-h", flush=True)
+    vit_h = check_vit_h(torch)
+    slice_["counts"].update(vit_h["counts"])
+    print(f"pretrained vit-h bf16 B={PRETRAINED_BATCH}: median encoder ms "
+          + ", ".join(f"{k} {v:.3f}" for k, v in vit_h["enc_ms"].items())
+          + "; uint8 to caption captions/s "
+          + ", ".join(f"{k} {v:.2f}" for k, v in vit_h["rates"].items())
+          + f"; {smi}")
 
     print("== 5 train", flush=True)
     train = check_training(torch)
@@ -4159,8 +4616,17 @@ def main() -> int:
                       **results[name],
                       **({"tp": results_tp[name]} if name in results_tp
                          else {})})
+    # the wide heads' instantiations on the ViT-H/14 path (phase 4c)
+    wide_path = wide_lines(wide, vit_h["counts"])
+    for line in wide_path:
+        if line.get("path") is None:
+            continue
+        if line["launches"] == 0:
+            raise AssertionError(f"{line['name']} was not launched on its path")
+        lines.append({k: v for k, v in line.items() if k != "path"})
     # beside the kernels of the paths: the any-shape kernels, which the
-    # default models' geometries never reach
+    # default models' geometries never reach, and every wide-head line
+    print(json.dumps({"wide_head_kernels": wide_path}))
     print(json.dumps({"any_shape_kernels": [
         {"name": name, "route": "cuda",
          "source": "mit_tpu_torch/csrc/attention_any_shape.cu", **line}

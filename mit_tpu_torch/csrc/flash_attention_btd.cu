@@ -1,11 +1,11 @@
 // flash_attention_btd and flash_attention: multi-head attention in the
-// (B, T, D) activation layout, heads as column blocks of HEAD_DIM = 64, and
-// in (B, H, T, 64), for sm_90a.
+// (B, T, D) activation layout, heads as column blocks of hd columns, and in
+// (B, H, T, hd), for sm_90a, at hd = 64 and at 72 to 128 in multiples of 8.
 //
 // Replaces the TPU kernel _attn_kernel_btd in mit_tpu/ops/pallas_attention.py
 // (behind flash_attention_btd / _flash_forward_btd) and computes the same
-// thing, per head h (columns h*64 .. h*64+63):
-//   s   = (q_h . k_h^T) * 1/sqrt(64)                     in f32
+// thing, per head h (columns h*hd .. h*hd+hd-1):
+//   s   = (q_h . k_h^T) * 1/sqrt(hd)                     in f32
 //   s  += -1e9 where col > row              (causal)
 //   s  += pad[b, col]                       (has_pad)
 //   p   = exp(s - rowmax(s))
@@ -143,6 +143,29 @@
 // are normalized BEFORE P.V, probs = p / rowsum(p), rounded to v's dtype,
 // and the product is the output (NORM above; in f32 nothing is rounded and
 // the f32 kernel divides after the product).
+//
+// Heads wider than 64 (ViT-H/14's 80, and every multiple of 8 up to 128).
+// Both kernels are templates on the padded width HDP, hd rounded up to a
+// multiple of 16 (64 itself at 64: that instantiation is the kernel the text
+// above describes); every HDP is its own instantiation, because a wgmma
+// behind a runtime branch serializes them all. The columns from hd to HDP
+// are zero-filled by the loads (cp.async with src-size 0, as for rows past
+// S) and never stored; hd sets the loads, the stores and the scale.
+// - bf16: a Q, K or V tile is two 64-column panels in the 128-byte swizzle,
+//   each the tile the descriptors already name. Q.K^T takes HDP / 16
+//   k-steps across the panels; P.V one wgmma a panel and 16-key step,
+//   m64n64k16 on the first and m64nNk16 with N = HDP - 64 (16 to 64) on the
+//   second, into HDP / 2 accumulators a thread. The K and V ring has two
+//   stages (96 KB a block of 8 warps): two blocks an SM up to HDP 96 (128
+//   registers), one at 112 and 128 (163 to 199); a block still owns 64 or
+//   128 query rows (bf16_tiling: at ViT-H/14's 257 rows, 8 warps took
+//   0.148 ms against 4 warps' 0.221 on the H100).
+// - f32: 4 query rows a thread (64 a block), so that a thread's 4 x HDP/8
+//   output accumulators do not spill; the output's 4-column groups go round
+//   the 8 lanes of a row. Two blocks an SM up to HDP 112, one at 128 (79 to
+//   115 KB of shared memory).
+// What bounds them is what bounds the 64-column kernels: bytes in bf16 (at
+// ViT-H/14's (64, 257, 1280) 168 MB, 0.050 ms), f32 operations in f32.
 //
 // Every entry point returns cudaGetLastError() after its launch; the Python
 // wrapper raises when it is not cudaSuccess.
@@ -372,43 +395,78 @@ flash_attention_btd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // ----------------------------------------------------------------------
 // f32 on the CUDA cores (see the head of this file)
 // ----------------------------------------------------------------------
-constexpr int FM = 128;           // query rows a block
 constexpr int FN = 64;            // keys a tile
 constexpr int FTHREADS = 128;     // 16 row groups (ty) x 8 column groups (tx)
-constexpr int FLD = HD + 4;       // q, k, v rows: 16-byte aligned, 4 banks on
-constexpr int F_SMEM =
-    (FM * FLD + 2 * FN * FLD + FM * FN) * (int)sizeof(float);   // 100 KB
 
-// rows [0, nrows) x HD f32 of a matrix with row stride `ld` into dst (row
-// stride FLD), 16 bytes a thread; rows past `valid` (>= 1) are zero
+// Padded head widths HDP (64, or 80 to 128 by 16): query rows a thread
+// owns, the block's rows (4 warps of 4 * rows), the row stride of q, k and
+// v in shared memory (16-byte aligned, 4 banks on) and the shared memory
+// of a block (100 KB at 64, 79 to 115 KB past it: two blocks an SM up to
+// HDP 112, one at 128)
+#define MIT_HD __host__ __device__ constexpr
+MIT_HD int f32_row_tiles(int hdp) { return hdp == 64 ? 8 : 4; }
+MIT_HD int f32_rows(int hdp) { return 16 * f32_row_tiles(hdp); }
+MIT_HD int f32_ld(int hdp) { return hdp + 4; }
+MIT_HD int f32_smem(int hdp) {
+  return (f32_rows(hdp) * f32_ld(hdp) + 2 * FN * f32_ld(hdp) +
+          f32_rows(hdp) * FN) * (int)sizeof(float);
+}
+
+// rows [0, nrows) x HDP f32 of a matrix with row stride `ld` into dst (row
+// stride FLD), 16 bytes a thread; rows past `valid` (>= 1) and columns past
+// `hd` are zero
+template <int HDP>
 __device__ __forceinline__ void load_f32_rows_async(float* dst,
                                                     const float* src,
                                                     int nrows, int valid,
-                                                    int ld) {
-  for (int i = threadIdx.x; i < nrows * (HD / 4); i += FTHREADS) {
-    const int r = i >> 4, c = (i & 15) * 4;
-    const bool ok = r < valid;
-    cp_async16(dst + r * FLD + c, src + (size_t)(ok ? r : 0) * ld + c, ok);
+                                                    int ld, int hd) {
+  constexpr int FLD = f32_ld(HDP);
+  if constexpr (HDP == HD) {
+    for (int i = threadIdx.x; i < nrows * (HD / 4); i += FTHREADS) {
+      const int r = i >> 4, c = (i & 15) * 4;
+      const bool ok = r < valid;
+      cp_async16(dst + r * FLD + c, src + (size_t)(ok ? r : 0) * ld + c, ok);
+    }
+  } else {
+    for (int i = threadIdx.x; i < nrows * (HDP / 4); i += FTHREADS) {
+      const int r = i / (HDP / 4), c = (i % (HDP / 4)) * 4;
+      const bool ok = r < valid && c < hd;
+      cp_async16(dst + r * FLD + c,
+                 src + (size_t)(ok ? r : 0) * ld + (ok ? c : 0), ok);
+    }
   }
 }
 
 // q rows have stride ldq, k and v rows stride ldkv, out rows stride D (the
-// model width); head h is columns h*64 .. h*64+63 of each. With bhtd the
-// tensors are (B, H, T|S, 64): ldq = ldkv = D = 64 and head h of batch b
-// starts (b*H + h) * (Tq or S) rows in.
+// model width); head h is columns h*hd .. h*hd+hd-1 of each. With bhtd the
+// tensors are (B, H, T|S, hd): ldq = ldkv = D = hd and head h of batch b
+// starts (b*H + h) * (Tq or S) rows in. HDP is hd rounded up to 16 (64
+// itself at 64); the columns from hd to HDP are zero in shared memory.
 //
-// Thread (ty, tx) owns 8 query rows of the block, rbase + 4 i with rbase =
-// 32 (ty / 4) + ty % 4; of a score tile the keys tx + 8 j, and of the output
-// the columns 4 tx .. 4 tx + 3 and 32 + 4 tx .. 32 + 4 tx + 3. The 8 lanes
-// that share ty are neighbours in one warp, a warp owns 32 rows, and the 4
-// row groups of a warp read neighbouring rows, in different banks.
+// Thread (ty, tx) owns RI query rows of the block, rbase + 4 i with rbase =
+// 4 RI (ty / 4) + ty % 4; of a score tile the keys tx + 8 j, and of the
+// output the 4-column groups tx + 8 c (columns 4 tx + 32 c onwards; at 64,
+// 4 tx .. 4 tx + 3 and 32 + 4 tx .. 32 + 4 tx + 3). The 8 lanes that share
+// ty are neighbours in one warp, a warp owns 4 RI rows, and the 4 row
+// groups of a warp read neighbouring rows, in different banks. RI is 8 at
+// HDP 64 and 4 past it (64 query rows a block): at 8 the output's 8 x
+// HDP/8 accumulators spilled at HDP 80 and 96 (140 bytes a thread at 255
+// registers, ptxas on the H100's toolkit).
+template <int HDP>
 __global__ void __launch_bounds__(FTHREADS, 2)
 flash_attention_f32_kernel(const float* __restrict__ q,
                            const float* __restrict__ k,
                            const float* __restrict__ v,
                            const float* __restrict__ pad,
                            float* __restrict__ out, int Tq, int S, int D,
-                           int ldq, int ldkv, bool causal, bool bhtd) {
+                           int ldq, int ldkv, bool causal, bool bhtd,
+                           int hd_arg, float scale_arg) {
+  constexpr int RI = f32_row_tiles(HDP);
+  constexpr int FM = f32_rows(HDP);
+  constexpr int FLD = f32_ld(HDP);
+  constexpr int NC = (HDP + 31) / 32;   // a thread's 4-column output groups / 8
+  const int hd = HDP == HD ? HD : hd_arg;
+  const float scale = HDP == HD ? SCALE : scale_arg;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* qs = reinterpret_cast<float*>(smem_raw);   // FM x FLD
   float* ks = qs + FM * FLD;                        // FN x FLD
@@ -421,17 +479,17 @@ flash_attention_f32_kernel(const float* __restrict__ q,
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int nq = min(FM, Tq - q0);
-  // a warp owns 32 rows; one with no row below Tq only loads and waits
-  const bool active = (threadIdx.x >> 5) * 32 < nq;
+  // a warp owns 4 RI rows; one with no row below Tq only loads and waits
+  const bool active = (threadIdx.x >> 5) * 4 * RI < nq;
   // a row of P is written and read by the 8 lanes that share ty; its
   // 8-column groups are XORed by ty mod 4 (the row mod 4), so the 4 row
   // groups of a warp store to 4 different bank groups
   const int sw = (ty & 3) << 3;
-  // this thread's 8 rows: rbase + 4 i, inside its warp's 32
-  const int rbase = (ty >> 2) * 32 + (ty & 3);
+  // this thread's RI rows: rbase + 4 i, inside its warp's 4 RI
+  const int rbase = (ty >> 2) * 4 * RI + (ty & 3);
 
   const size_t cell = bhtd ? (size_t)b * gridDim.y + h : (size_t)b;
-  const int col0 = bhtd ? 0 : h * HD;
+  const int col0 = bhtd ? 0 : h * hd;
   const float* qb = q + (cell * Tq + q0) * ldq + col0;
   const float* kb = k + cell * S * ldkv + col0;
   const float* vb = v + cell * S * ldkv + col0;
@@ -442,18 +500,18 @@ flash_attention_f32_kernel(const float* __restrict__ q,
   // steps past S, and what they read beyond S is zero
   auto tile_rows = [&](int kt) { return (min(FN, S - kt * FN) + 7) & ~7; };
 
-  load_f32_rows_async(qs, qb, FM, nq, ldq);
-  load_f32_rows_async(ks, kb, tile_rows(0), min(FN, S), ldkv);
+  load_f32_rows_async<HDP>(qs, qb, FM, nq, ldq, hd);
+  load_f32_rows_async<HDP>(ks, kb, tile_rows(0), min(FN, S), ldkv, hd);
   cp_async_commit();
 
-  float o[8][8];                  // unnormalized output
-  float m[8], l[8];               // running row max; this lane's share of the sum
+  float o[RI][4 * NC];            // unnormalized output
+  float m[RI], l[RI];   // running row max; this lane's share of the sum
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
+  for (int i = 0; i < RI; ++i) {
     m[i] = -INFINITY;
     l[i] = 0.f;
 #pragma unroll
-    for (int c = 0; c < 8; ++c) o[i][c] = 0.f;
+    for (int c = 0; c < 4 * NC; ++c) o[i][c] = 0.f;
   }
 
   for (int kt = 0; kt < nkt; ++kt) {
@@ -461,8 +519,8 @@ flash_attention_f32_kernel(const float* __restrict__ q,
     const int valid = min(FN, S - k0);
     // V comes in under the scores; every warp left the last tile's P.V at
     // the barrier that ended it
-    load_f32_rows_async(vs, vb + (size_t)k0 * ldkv, tile_rows(kt), valid,
-                        ldkv);
+    load_f32_rows_async<HDP>(vs, vb + (size_t)k0 * ldkv, tile_rows(kt),
+                             valid, ldkv, hd);
     cp_async_commit();
     cp_async_wait<1>();           // this tile's K (and, the first time, Q)
     __syncthreads();
@@ -472,17 +530,17 @@ flash_attention_f32_kernel(const float* __restrict__ q,
     auto scores = [&](auto full_tile) {
       constexpr bool FULL = decltype(full_tile)::value;
       const int nj = FULL ? 8 : (valid + 7) >> 3;     // 8-key groups in use
-      float s[8][8];
+      float s[RI][8];
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+      for (int i = 0; i < RI; ++i)
 #pragma unroll
         for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
       const float* qrow = qs + rbase * FLD;
 #pragma unroll 2
-      for (int d = 0; d < HD; d += 4) {
-        float4 qv[8];
+      for (int d = 0; d < HDP; d += 4) {
+        float4 qv[RI];
 #pragma unroll
-        for (int i = 0; i < 8; ++i)
+        for (int i = 0; i < RI; ++i)
           qv[i] = *reinterpret_cast<const float4*>(qrow + 4 * i * FLD + d);
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
@@ -490,7 +548,7 @@ flash_attention_f32_kernel(const float* __restrict__ q,
           const float4 kv =
               *reinterpret_cast<const float4*>(ks + (tx + 8 * j) * FLD + d);
 #pragma unroll
-          for (int i = 0; i < 8; ++i) {
+          for (int i = 0; i < RI; ++i) {
             s[i][j] = fmaf(qv[i].x, kv.x, s[i][j]);
             s[i][j] = fmaf(qv[i].y, kv.y, s[i][j]);
             s[i][j] = fmaf(qv[i].z, kv.z, s[i][j]);
@@ -508,13 +566,13 @@ flash_attention_f32_kernel(const float* __restrict__ q,
                       ? __ldg(pad_row + col) : 0.f;
       }
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
+      for (int i = 0; i < RI; ++i) {
         const int row = q0 + rbase + 4 * i;
         float mx = -INFINITY;
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           const int col = k0 + tx + 8 * j;
-          float x = s[i][j] * SCALE;
+          float x = s[i][j] * scale;
           if (causal) x += col <= row ? 0.f : NEG_INF;
           if (pad_row != nullptr) x += padv[j];
           if (!FULL && col >= S) x = -INFINITY;
@@ -531,7 +589,7 @@ flash_attention_f32_kernel(const float* __restrict__ q,
         m[i] = mn;
         l[i] *= a;
 #pragma unroll
-        for (int c = 0; c < 8; ++c) o[i][c] *= a;
+        for (int c = 0; c < 4 * NC; ++c) o[i][c] *= a;
         // the difference first: at a masked row's -1e9 a fused
         // x log2 e - max log2 e would leave a rounding, not 0
         float* prow = ps + (rbase + 4 * i) * FN;
@@ -551,8 +609,9 @@ flash_attention_f32_kernel(const float* __restrict__ q,
     cp_async_wait<0>();           // this tile's V
     __syncthreads();              // and every warp is done with its K
     if (kt + 1 < nkt) {           // the next K comes in under P.V
-      load_f32_rows_async(ks, kb + (size_t)(k0 + FN) * ldkv, tile_rows(kt + 1),
-                          min(FN, S - k0 - FN), ldkv);
+      load_f32_rows_async<HDP>(ks, kb + (size_t)(k0 + FN) * ldkv,
+                               tile_rows(kt + 1), min(FN, S - k0 - FN), ldkv,
+                               hd);
     }
     cp_async_commit();
 
@@ -561,29 +620,32 @@ flash_attention_f32_kernel(const float* __restrict__ q,
       const float* prow = ps + rbase * FN;
 #pragma unroll 2
       for (int j4 = 0; j4 < steps; ++j4) {
-        float4 pv[8];
+        float4 pv[RI];
 #pragma unroll
-        for (int i = 0; i < 8; ++i)
+        for (int i = 0; i < RI; ++i)
           pv[i] = *reinterpret_cast<const float4*>(prow + 4 * i * FN +
                                                    ((4 * j4) ^ sw));
 #pragma unroll
         for (int jj = 0; jj < 4; ++jj) {
+          // a group past HDP (the last one's upper lanes at HDP 80 and
+          // 112) reads the next row or P's first: never stored
           const float* vr = vs + (4 * j4 + jj) * FLD + 4 * tx;
-          const float4 v0 = *reinterpret_cast<const float4*>(vr);
-          const float4 v1 = *reinterpret_cast<const float4*>(vr + 32);
+          float4 vv[NC];
 #pragma unroll
-          for (int i = 0; i < 8; ++i) {
+          for (int c = 0; c < NC; ++c)
+            vv[c] = *reinterpret_cast<const float4*>(vr + 32 * c);
+#pragma unroll
+          for (int i = 0; i < RI; ++i) {
             const float p = jj == 0 ? pv[i].x
                           : jj == 1 ? pv[i].y
                           : jj == 2 ? pv[i].z : pv[i].w;
-            o[i][0] = fmaf(p, v0.x, o[i][0]);
-            o[i][1] = fmaf(p, v0.y, o[i][1]);
-            o[i][2] = fmaf(p, v0.z, o[i][2]);
-            o[i][3] = fmaf(p, v0.w, o[i][3]);
-            o[i][4] = fmaf(p, v1.x, o[i][4]);
-            o[i][5] = fmaf(p, v1.y, o[i][5]);
-            o[i][6] = fmaf(p, v1.z, o[i][6]);
-            o[i][7] = fmaf(p, v1.w, o[i][7]);
+#pragma unroll
+            for (int c = 0; c < NC; ++c) {
+              o[i][4 * c + 0] = fmaf(p, vv[c].x, o[i][4 * c + 0]);
+              o[i][4 * c + 1] = fmaf(p, vv[c].y, o[i][4 * c + 1]);
+              o[i][4 * c + 2] = fmaf(p, vv[c].z, o[i][4 * c + 2]);
+              o[i][4 * c + 3] = fmaf(p, vv[c].w, o[i][4 * c + 3]);
+            }
           }
         }
       }
@@ -594,17 +656,21 @@ flash_attention_f32_kernel(const float* __restrict__ q,
 
   float* ob = out + (cell * Tq + q0) * D + col0;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
+  for (int i = 0; i < RI; ++i) {
 #pragma unroll
     for (int off = 1; off <= 4; off <<= 1)
       l[i] += __shfl_xor_sync(0xffffffffu, l[i], off);
     const int r = rbase + 4 * i;
     if (r >= nq) continue;
     float* orow = ob + (size_t)r * D + 4 * tx;
-    *reinterpret_cast<float4*>(orow) = make_float4(
-        o[i][0] / l[i], o[i][1] / l[i], o[i][2] / l[i], o[i][3] / l[i]);
-    *reinterpret_cast<float4*>(orow + 32) = make_float4(
-        o[i][4] / l[i], o[i][5] / l[i], o[i][6] / l[i], o[i][7] / l[i]);
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      // columns 4 (tx + 8 c) .. + 3: below hd, a multiple of 8, or not at all
+      if (HDP != HD && 4 * tx + 32 * c >= hd) continue;
+      *reinterpret_cast<float4*>(orow + 32 * c) = make_float4(
+          o[i][4 * c] / l[i], o[i][4 * c + 1] / l[i], o[i][4 * c + 2] / l[i],
+          o[i][4 * c + 3] / l[i]);
+    }
   }
 }
 
@@ -613,27 +679,77 @@ flash_attention_f32_kernel(const float* __restrict__ q,
 // ----------------------------------------------------------------------
 constexpr int BN = 64;            // keys per tile
 constexpr int WGR = 64;           // query rows a warpgroup
-constexpr int STAGES = 3;         // K and V tiles in shared memory
 // a row whose running max is below this has seen only masked keys so far
 constexpr float ROW_MASKED = -5e8f;
 // the softmax's three forms (see the head of this file)
 constexpr int ONLINE_MODE = 0, LAYER_MODE = 1, NORM_MODE = 2;
+
+// The padded head width HDP (64, or 80 to 128 by 16) sets the tiles: a Q,
+// K or V tile is NP = HDP / 64 rounded up panels of 64 columns (TILE
+// elements each, 1024-byte aligned). At 64, three stages of K and V and 3
+// (4 warps) or 2 (8 warps) blocks an SM; past it the ring has two stages,
+// so that two blocks of 8 warps fit an SM (96 KB each) as they do at 64.
+MIT_HD int tc_panels(int hdp) { return (hdp + 63) / 64; }
+MIT_HD int tc_stages(int hdp) { return hdp == HD ? 3 : 2; }
+MIT_HD int tc_min_blocks(int nw, int hdp) {
+  return hdp == HD ? (nw == 4 ? 3 : 2) : (nw == 4 || hdp <= 96 ? 2 : 1);
+}
+
+// rows [0, nrows) x HDP columns of a bf16 matrix with row stride `ld` into
+// wide tiles at dst: row r to tile r / 64 (NP panels apart), column c to
+// panel c / 64. Rows past `valid` (>= 1) and columns past `hd` (a multiple
+// of 8, so a 16-byte chunk is all in or all out) are zero.
+template <int HDP>
+__device__ __forceinline__ void load_wide_rows_async(__nv_bfloat16* dst,
+                                                     const __nv_bfloat16* src,
+                                                     int nrows, int valid,
+                                                     int ld, int hd) {
+  if constexpr (HDP == HD) {
+    load_rows_async(dst, src, nrows, valid, ld);
+  } else {
+    constexpr int CH = HDP / 8;             // 16-byte chunks a row
+    constexpr int WT = tc_panels(HDP) * TILE;
+    for (int i = threadIdx.x; i < nrows * CH; i += blockDim.x) {
+      const int r = i / CH, c = (i % CH) * 8;
+      const bool ok = r < valid && c < hd;
+      cp_async16(dst + (r >> 6) * WT + (c >> 6) * TILE +
+                     tile_at(r & 63, c & 63),
+                 src + (size_t)(ok ? r : 0) * ld + (ok ? c : 0), ok);
+    }
+  }
+}
+
+// P.V for 16 keys: o (HDP columns) += p . v, one wgmma a panel of the V
+// tile at descriptor dv (panels 512 descriptor units apart)
+template <int HDP>
+__device__ __forceinline__ void wgmma_pv(float (&o)[HDP / 8][4],
+                                         const unsigned (&a)[4],
+                                         unsigned long long dv) {
+  if constexpr (HDP == HD) {
+    wgmma_rs_bt(o, a, dv);
+  } else {
+    wgmma_rs_bt_at<8, 0>(o, a, dv);
+    wgmma_rs_bt_at<HDP / 8 - 8, 8>(o, a, dv + TILE * 2 / 16);
+  }
+}
 
 // A block of NW warps, NW / 4 warpgroups, owns `rows` query rows of one
 // (batch, head), a multiple of 64 and at most 16 * NW; warpgroup w owns
 // rows 64w onwards and warp i of it rows 16i of those. Strides as in
 // flash_attention_f32_kernel. Dynamic shared memory, from the first 1024
 // bytes boundary (the swizzle is a function of the address): the query
-// tiles, then STAGES stages of a K tile and a V tile.
+// tiles, then tc_stages(HDP) stages of a K tile and a V tile. hd (HDP at
+// 64) sets the columns loaded and stored and `scale`, 1/sqrt(hd) (LAYER:
+// log2(e)/sqrt(hd)), computed by the launcher as the plain versions do.
 //
 // LAYER_MODE (the whole-layer numerics; never causal or padded) and
-// NORM_MODE (the (B, H, T, 64) numerics) walk the key tiles twice, first
+// NORM_MODE (the (B, H, T, hd) numerics) walk the key tiles twice, first
 // over the K tiles alone: LAYER for the exact row max of the raw scores,
 // NORM for the row max and the row sum of the masked ones. ONLINE_MODE
 // walks once, with an online softmax.
 
-template <int NW, int MODE>
-__global__ void __launch_bounds__(NW * 32, NW == 4 ? 3 : 2)
+template <int NW, int MODE, int HDP>
+__global__ void __launch_bounds__(NW * 32, tc_min_blocks(NW, HDP))
 flash_attention_btd_tc_kernel(const __nv_bfloat16* __restrict__ q,
                               const __nv_bfloat16* __restrict__ k,
                               const __nv_bfloat16* __restrict__ v,
@@ -643,13 +759,19 @@ flash_attention_btd_tc_kernel(const __nv_bfloat16* __restrict__ q,
                                                         __nv_bfloat16>::type*
                                   __restrict__ out,
                               int Tq, int S, int D, int ldq, int ldkv,
-                              int rows, bool causal, bool bhtd) {
+                              int rows, bool causal, bool bhtd, int hd_arg,
+                              float scale_arg) {
   constexpr bool LAYER = MODE == LAYER_MODE;
   constexpr bool NORM = MODE == NORM_MODE;
+  constexpr int WT = tc_panels(HDP) * TILE;   // elements of a wide tile
+  constexpr int STAGES = tc_stages(HDP);
+  constexpr int AHEAD = STAGES - 1;           // tiles loaded ahead: 2 or 1
+  constexpr int ONT = HDP / 8;                // 8-column tiles of the output
+  const int hd = HDP == HD ? HD : hd_arg;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(
       smem_raw + ((1024 - smem_u32(smem_raw)) & 1023));
-  __nv_bfloat16* kvs = qs + (NW / 4) * TILE;
+  __nv_bfloat16* kvs = qs + (NW / 4) * WT;
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -659,15 +781,15 @@ flash_attention_btd_tc_kernel(const __nv_bfloat16* __restrict__ q,
   const int h = blockIdx.y;
   const int b = blockIdx.z;
 
-  // (B, T, D): head h is a column block of batch cell b; (B, H, T, 64):
-  // head h of batch b is cell b*H + h, with rows of 64
+  // (B, T, D): head h is a column block of batch cell b; (B, H, T, hd):
+  // head h of batch b is cell b*H + h, with rows of hd
   const size_t cell = bhtd ? (size_t)b * gridDim.y + h : (size_t)b;
-  const int col0 = bhtd ? 0 : h * HD;
+  const int col0 = bhtd ? 0 : h * hd;
   const __nv_bfloat16* qb = q + (cell * Tq + q0) * ldq + col0;
   const __nv_bfloat16* kb = k + cell * S * ldkv + col0;
   const __nv_bfloat16* vb = v + cell * S * ldkv + col0;
   const float* pad_row = pad != nullptr ? pad + (size_t)b * S : nullptr;
-  const float scale = LAYER ? SCALE2 : SCALE;
+  const float scale = HDP == HD ? (LAYER ? SCALE2 : SCALE) : scale_arg;
 
   // a warpgroup multiplies as one: its warps past Tq go along, on zero rows
   const int grow = (warp >> 2) * WGR;               // its first row here
@@ -685,21 +807,25 @@ flash_attention_btd_tc_kernel(const __nv_bfloat16* __restrict__ q,
     const int k0 = (step >= first_pv ? step - first_pv : step) * BN;
     const int valid = min(BN, S - k0);
     const int nrows = ((valid + 15) >> 4) << 4;     // whole 16-key steps
-    __nv_bfloat16* ks = kvs + stage * 2 * TILE;
-    load_rows_async(ks, kb + (size_t)k0 * ldkv, nrows, valid, ldkv);
+    __nv_bfloat16* ks = kvs + stage * 2 * WT;
+    load_wide_rows_async<HDP>(ks, kb + (size_t)k0 * ldkv, nrows, valid, ldkv,
+                              hd);
     if (step >= first_pv)
-      load_rows_async(ks + TILE, vb + (size_t)k0 * ldkv, nrows, valid, ldkv);
+      load_wide_rows_async<HDP>(ks + WT, vb + (size_t)k0 * ldkv, nrows, valid,
+                                ldkv, hd);
     cp_async_commit();
   };
 
-  load_rows_async(qs, qb, rows, Tq - q0, ldq);
+  load_wide_rows_async<HDP>(qs, qb, rows, Tq - q0, ldq, hd);
   load_kv(0, 0);
-  if (1 < first_pv + kt_end) load_kv(1, 1);
-  else cp_async_commit();
+  if constexpr (AHEAD == 2) {
+    if (1 < first_pv + kt_end) load_kv(1, 1);
+    else cp_async_commit();
+  }
 
-  float o[8][4];                    // this warp's 16 x 64 output, unnormalized
+  float o[ONT][4];                  // this warp's 16 x HDP output, unnormalized
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
+  for (int nt = 0; nt < ONT; ++nt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[nt][e] = 0.f;
   float m0 = -INFINITY, m1 = -INFINITY;   // row max (rows g, g + 8)
@@ -711,17 +837,18 @@ flash_attention_btd_tc_kernel(const __nv_bfloat16* __restrict__ q,
                       (m1 <= ROW_MASKED && row1 < Tq));
   };
 
-  // Three stages, two tiles ahead: a tile is waited for, then one barrier
-  // (every warp is done with the tile before it, whose stage the load
-  // started next refills), then the load of the tile after next. A step
+  // STAGES stages, AHEAD tiles ahead: a tile is waited for, then one
+  // barrier (every warp is done with the tile before it, whose stage the
+  // load started next refills), then the load of the tile AHEAD on. A step
   // that has nothing to load commits an empty group, so the count holds.
   for (int step = 0; step < first_pv + kt_end; ++step) {
     const int stage = step % STAGES;
-    cp_async_wait<1>();
+    cp_async_wait<AHEAD - 1>();
     // cp.async wrote the tile; wgmma reads it through the async proxy
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     __syncthreads();
-    if (step + 2 < first_pv + kt_end) load_kv(step + 2, (step + 2) % STAGES);
+    if (step + AHEAD < first_pv + kt_end)
+      load_kv(step + AHEAD, (step + AHEAD) % STAGES);
     else cp_async_commit();
 
     if (LAYER && step == first_pv) {
@@ -756,17 +883,19 @@ flash_attention_btd_tc_kernel(const __nv_bfloat16* __restrict__ q,
       constexpr bool FULL = decltype(full_tile)::value;
       const int valid = FULL ? BN : S - k0;
       const int steps = FULL ? 4 : (valid + 15) >> 4;   // 16-key steps in use
-      const __nv_bfloat16* ks = kvs + stage * 2 * TILE;
+      const __nv_bfloat16* ks = kvs + stage * 2 * WT;
 
-      // scores: four k-steps of the warpgroup's 64 query rows by the tile's
-      // 64 keys (those past S are masked below, whatever lies there)
+      // scores: HDP / 16 k-steps (four a panel; a panel is 512 descriptor
+      // units on) of the warpgroup's 64 query rows by the tile's 64 keys
+      // (those past S are masked below, whatever lies there)
       float s[8][4];
-      const unsigned long long dq = wg_desc(qs + (warp >> 2) * TILE);
+      const unsigned long long dq = wg_desc(qs + (warp >> 2) * WT);
       const unsigned long long dk = wg_desc(ks);
       wg_fence();
 #pragma unroll
-      for (int ks4 = 0; ks4 < 4; ++ks4)
-        wgmma_ss(s, dq + 2 * ks4, dk + 2 * ks4, ks4 > 0);
+      for (int ks4 = 0; ks4 < HDP / 16; ++ks4)
+        wgmma_ss(s, dq + 512 * (ks4 >> 2) + 2 * (ks4 & 3),
+                 dk + 512 * (ks4 >> 2) + 2 * (ks4 & 3), ks4 > 0);
       wg_commit_wait(s);
 
       if (LAYER && !pv) {
@@ -840,7 +969,7 @@ flash_attention_btd_tc_kernel(const __nv_bfloat16* __restrict__ q,
         l1 *= a1;
         if (!NORM) {
 #pragma unroll
-          for (int nt = 0; nt < 8; ++nt) {
+          for (int nt = 0; nt < ONT; ++nt) {
             o[nt][0] *= a0;
             o[nt][1] *= a0;
             o[nt][2] *= a1;
@@ -898,11 +1027,11 @@ flash_attention_btd_tc_kernel(const __nv_bfloat16* __restrict__ q,
       // P.V: p from registers, 16 keys (rows of the V tile) a step, and
       // only the steps with a key below S (the rows up to the end of the
       // last such step are zero-filled, the rest never loaded)
-      const unsigned long long dv = wg_desc(ks + TILE);
+      const unsigned long long dv = wg_desc(ks + WT);
       wg_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        if (FULL || kk < steps) wgmma_rs_bt(o, pf[kk], dv + 128 * kk);
+        if (FULL || kk < steps) wgmma_pv<HDP>(o, pf[kk], dv + 128 * kk);
       // (letting this run on under the next tile's scores, with a fourth
       // stage to keep the V tile alive, gained nothing when timed)
       wg_commit_wait(o);
@@ -928,9 +1057,11 @@ flash_attention_btd_tc_kernel(const __nv_bfloat16* __restrict__ q,
         kt_end = nkt;
         if (NORM) first_pv = nkt;
         load_kv(step + 1, (step + 1) % STAGES);
-        if (step + 2 < first_pv + kt_end)
-          load_kv(step + 2, (step + 2) % STAGES);
-        else cp_async_commit();
+        if constexpr (AHEAD == 2) {
+          if (step + 2 < first_pv + kt_end)
+            load_kv(step + 2, (step + 2) % STAGES);
+          else cp_async_commit();
+        }
       }
     }
   }
@@ -951,8 +1082,9 @@ flash_attention_btd_tc_kernel(const __nv_bfloat16* __restrict__ q,
     // contiguous bytes of a row
     float* ob = reinterpret_cast<float*>(out) + cell * Tq * D + col0;
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
+    for (int nt = 0; nt < ONT; ++nt) {
       const int col = nt * 8 + 2 * t4;
+      if (HDP != HD && nt * 8 >= hd) continue;
       if (row0 < Tq)
         *reinterpret_cast<float2*>(ob + (size_t)row0 * D + col) =
             make_float2(__fmul_rn(o[nt][0], i0), __fmul_rn(o[nt][1], i0));
@@ -960,7 +1092,7 @@ flash_attention_btd_tc_kernel(const __nv_bfloat16* __restrict__ q,
         *reinterpret_cast<float2*>(ob + (size_t)row1 * D + col) =
             make_float2(__fmul_rn(o[nt][2], i1), __fmul_rn(o[nt][3], i1));
     }
-  } else {
+  } else if constexpr (HDP == HD) {
     // bf16 out: into the warp's own (spent) query rows in shared memory and
     // from there 16 bytes a lane, four rows a store. o * (1 / l) for o / l:
     // one division a row, and the difference (an f32 rounding) vanishes in
@@ -986,71 +1118,156 @@ flash_attention_btd_tc_kernel(const __nv_bfloat16* __restrict__ q,
         *reinterpret_cast<uint4*>(ob + (size_t)(wrow + r) * D + c) =
             *reinterpret_cast<const uint4*>(mine + tile_at(r, c));
     }
+  } else {
+    // the same for HDP columns: the warp's 16 rows of each panel, then
+    // HDP / 8 chunks of 16 bytes a row, those below hd stored
+    __nv_bfloat16* mine = qs + (warp >> 2) * WT + (warp & 3) * 16 * HD;
+    __syncwarp();
+#pragma unroll
+    for (int nt = 0; nt < ONT; ++nt) {
+      const int col = (nt & 7) * 8 + 2 * t4;
+      __nv_bfloat16* panel = mine + (nt >> 3) * TILE;
+      *reinterpret_cast<unsigned*>(panel + tile_at(g, col)) =
+          pack_bf16(o[nt][0] * i0, o[nt][1] * i0);
+      *reinterpret_cast<unsigned*>(panel + tile_at(g + 8, col)) =
+          pack_bf16(o[nt][2] * i1, o[nt][3] * i1);
+    }
+    __syncwarp();
+    __nv_bfloat16* ob =
+        reinterpret_cast<__nv_bfloat16*>(out) + cell * Tq * D + col0;
+    const int wrow = q0 + warp * 16;
+    constexpr int CH = HDP / 8;
+#pragma unroll
+    for (int it = 0; it < HDP / 16; ++it) {       // 16 rows x CH chunks
+      const int i = it * 32 + lane;
+      const int r = i / CH, c = (i % CH) * 8;
+      if (wrow + r < Tq && c < hd)
+        *reinterpret_cast<uint4*>(ob + (size_t)(wrow + r) * D + c) =
+            *reinterpret_cast<const uint4*>(mine + (c >> 6) * TILE +
+                                            tile_at(r, c & 63));
+    }
   }
 }
 
-template <int NW, int MODE>
+// the padded head width of hd: 64 itself, 65..128 in multiples of 8 up to
+// a multiple of 16; 0 where the tiled kernels take no such heads
+int padded_head_dim(int hd) {
+  if (hd == HD) return HD;
+  if (hd > HD && hd <= 2 * HD && hd % 8 == 0) return (hd + 15) / 16 * 16;
+  return 0;
+}
+
+template <int NW, int MODE, int HDP>
 int launch_tc(const void* q, const void* k, const void* v, const void* pad,
               void* out, int B, int heads, int Tq, int S, int D, int ldq,
-              int ldkv, int rows, int causal, int has_pad, int bhtd,
+              int ldkv, int rows, int causal, int has_pad, int bhtd, int hd,
               void* stream) {
   using OutT = typename std::conditional<MODE == LAYER_MODE, float,
                                          __nv_bfloat16>::type;
   if (rows < WGR || rows % WGR || rows > NW * 16)
     return static_cast<int>(cudaErrorInvalidValue);
   // the tiles, and the room to start them at 1024 bytes
-  const int smem =
-      (NW / 4 + 2 * STAGES) * TILE * (int)sizeof(__nv_bfloat16) + 1024;
+  const int smem = (NW / 4 + 2 * tc_stages(HDP)) * tc_panels(HDP) * TILE *
+                       (int)sizeof(__nv_bfloat16) + 1024;
   const cudaError_t e = cudaFuncSetAttribute(
-      flash_attention_btd_tc_kernel<NW, MODE>,
+      flash_attention_btd_tc_kernel<NW, MODE, HDP>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
+  const float scale = (float)((MODE == LAYER_MODE ? 1.4426950408889634 : 1.0) /
+                              sqrt((double)hd));
   const dim3 grid((Tq + rows - 1) / rows, heads, B);
-  flash_attention_btd_tc_kernel<NW, MODE>
+  flash_attention_btd_tc_kernel<NW, MODE, HDP>
       <<<grid, NW * 32, smem, (cudaStream_t)stream>>>(
           static_cast<const __nv_bfloat16*>(q),
           static_cast<const __nv_bfloat16*>(k),
           static_cast<const __nv_bfloat16*>(v),
           has_pad ? static_cast<const float*>(pad) : nullptr,
           static_cast<OutT*>(out), Tq, S, D, ldq, ldkv, rows, causal != 0,
-          bhtd != 0);
+          bhtd != 0, hd, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int MODE, int HDP>
+int launch_tc_warps(int warps, const void* q, const void* k, const void* v,
+                    const void* pad, void* out, int B, int heads, int Tq,
+                    int S, int D, int ldq, int ldkv, int rows, int causal,
+                    int has_pad, int bhtd, int hd, void* stream) {
+  if (warps == 4)
+    return launch_tc<4, MODE, HDP>(q, k, v, pad, out, B, heads, Tq, S, D, ldq,
+                                   ldkv, rows, causal, has_pad, bhtd, hd,
+                                   stream);
+  if (warps == 8)
+    return launch_tc<8, MODE, HDP>(q, k, v, pad, out, B, heads, Tq, S, D, ldq,
+                                   ldkv, rows, causal, has_pad, bhtd, hd,
+                                   stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 // `warps` warps a block, 4 or 8 (one warpgroup or two), each block `rows`
-// query rows
+// query rows; heads of hd columns (padded_head_dim picks the instantiation)
 template <int MODE>
 int launch_tc_tiled(int warps, const void* q, const void* k, const void* v,
                     const void* pad, void* out, int B, int heads, int Tq,
                     int S, int D, int ldq, int ldkv, int rows, int causal,
-                    int has_pad, int bhtd, void* stream) {
+                    int has_pad, int bhtd, int hd, void* stream) {
   if (B < 1 || B > 65535 || heads < 1 || heads > 65535 || Tq < 1 || S < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (warps == 4)
-    return launch_tc<4, MODE>(q, k, v, pad, out, B, heads, Tq, S, D, ldq,
-                              ldkv, rows, causal, has_pad, bhtd, stream);
-  if (warps == 8)
-    return launch_tc<8, MODE>(q, k, v, pad, out, B, heads, Tq, S, D, ldq,
-                              ldkv, rows, causal, has_pad, bhtd, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
+#define MIT_TC_CASE(HDP)                                                     \
+  case HDP:                                                                  \
+    return launch_tc_warps<MODE, HDP>(warps, q, k, v, pad, out, B, heads, Tq, \
+                                      S, D, ldq, ldkv, rows, causal, has_pad, \
+                                      bhtd, hd, stream);
+  switch (padded_head_dim(hd)) {
+    MIT_TC_CASE(64)
+    MIT_TC_CASE(80)
+    MIT_TC_CASE(96)
+    MIT_TC_CASE(112)
+    MIT_TC_CASE(128)
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef MIT_TC_CASE
+}
+
+template <int HDP>
+int launch_f32_at(const void* q, const void* k, const void* v,
+                  const void* pad, void* out, int B, int heads, int Tq, int S,
+                  int D, int ldq, int ldkv, int causal, int has_pad, int bhtd,
+                  int hd, void* stream) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_attention_f32_kernel<HDP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, f32_smem(HDP));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const float scale = (float)(1.0 / sqrt((double)hd));
+  const dim3 grid((Tq + f32_rows(HDP) - 1) / f32_rows(HDP), heads, B);
+  flash_attention_f32_kernel<HDP>
+      <<<grid, FTHREADS, f32_smem(HDP), (cudaStream_t)stream>>>(
+          static_cast<const float*>(q), static_cast<const float*>(k),
+          static_cast<const float*>(v),
+          has_pad ? static_cast<const float*>(pad) : nullptr,
+          static_cast<float*>(out), Tq, S, D, ldq, ldkv, causal != 0,
+          bhtd != 0, hd, scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 int launch_f32(const void* q, const void* k, const void* v, const void* pad,
                void* out, int B, int heads, int Tq, int S, int D, int ldq,
-               int ldkv, int causal, int has_pad, int bhtd, void* stream) {
+               int ldkv, int causal, int has_pad, int bhtd, int hd,
+               void* stream) {
   if (B < 1 || B > 65535 || heads < 1 || heads > 65535 || Tq < 1 || S < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t e = cudaFuncSetAttribute(
-      flash_attention_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      F_SMEM);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((Tq + FM - 1) / FM, heads, B);
-  flash_attention_f32_kernel<<<grid, FTHREADS, F_SMEM, (cudaStream_t)stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v),
-      has_pad ? static_cast<const float*>(pad) : nullptr,
-      static_cast<float*>(out), Tq, S, D, ldq, ldkv, causal != 0, bhtd != 0);
-  return static_cast<int>(cudaGetLastError());
+#define MIT_F32_CASE(HDP)                                                  \
+  case HDP:                                                                \
+    return launch_f32_at<HDP>(q, k, v, pad, out, B, heads, Tq, S, D, ldq,  \
+                              ldkv, causal, has_pad, bhtd, hd, stream);
+  switch (padded_head_dim(hd)) {
+    MIT_F32_CASE(64)
+    MIT_F32_CASE(80)
+    MIT_F32_CASE(96)
+    MIT_F32_CASE(112)
+    MIT_F32_CASE(128)
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef MIT_F32_CASE
 }
 
 // the first CUDA-core kernel, for the measuring entries
@@ -1071,16 +1288,21 @@ int launch_v1(const void* q, const void* k, const void* v, const void* pad,
 
 }  // namespace
 
+// Every entry below takes heads of hd columns: 64, or 72 to 128 in
+// multiples of 8 (padded_head_dim); any other hd returns
+// cudaErrorInvalidValue.
+//
 // q, out: (B, Tq, D); k, v: (B, S, D), all contiguous f32 at 16-byte
 // boundaries; pad: (B, S) f32, read only when has_pad. D must be a multiple
-// of 64.
+// of hd.
 extern "C" int mit_flash_attention_btd_f32(const void* q, const void* k,
                                            const void* v, const void* pad,
                                            void* out, int B, int Tq, int S,
-                                           int D, int causal, int has_pad,
-                                           void* stream) {
-  return launch_f32(q, k, v, pad, out, B, D / HD, Tq, S, D, D, D, causal,
-                    has_pad, 0, stream);
+                                           int D, int hd, int causal,
+                                           int has_pad, void* stream) {
+  if (hd < 1 || D % hd) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_f32(q, k, v, pad, out, B, D / hd, Tq, S, D, D, D, causal,
+                    has_pad, 0, hd, stream);
 }
 
 // bf16: the tensor-core kernel. A block has `warps` warps, 4 or 8 (one
@@ -1088,42 +1310,45 @@ extern "C" int mit_flash_attention_btd_f32(const void* q, const void* k,
 extern "C" int mit_flash_attention_btd_bf16(const void* q, const void* k,
                                             const void* v, const void* pad,
                                             void* out, int B, int Tq, int S,
-                                            int D, int causal, int has_pad,
-                                            int warps, int rows,
+                                            int D, int hd, int causal,
+                                            int has_pad, int warps, int rows,
                                             void* stream) {
-  return launch_tc_tiled<ONLINE_MODE>(warps, q, k, v, pad, out, B, D / HD, Tq,
+  if (hd < 1 || D % hd) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_tc_tiled<ONLINE_MODE>(warps, q, k, v, pad, out, B, D / hd, Tq,
                                       S, D, D, D, rows, causal, has_pad, 0,
-                                      stream);
+                                      hd, stream);
 }
 
 // qkv: (B, T, 3D) contiguous; out: (B, T, D). mode 0: f32 in and out (the
 // f32 kernel); mode 1: bf16 in and out; mode 2: bf16 in, f32 out, the
 // whole-layer kernel's numerics (exp2, o * (1 / rowsum)). Modes 1 and 2 run
 // the tensor-core kernel with `warps` and `rows` as above. D must be a
-// multiple of 64.
+// multiple of hd.
 extern "C" int mit_flash_attention_fusedqkv(const void* qkv, void* out, int B,
-                                            int T, int D, int mode, int warps,
-                                            int rows, void* stream) {
+                                            int T, int D, int hd, int mode,
+                                            int warps, int rows,
+                                            void* stream) {
+  if (hd < 1 || D % hd) return static_cast<int>(cudaErrorInvalidValue);
   // q, k and v are the column blocks 0, D, 2D of qkv, with row stride 3D
   const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(qkv);
   const float* q32 = static_cast<const float*>(qkv);
   switch (mode) {
     case 0:
-      return launch_f32(q32, q32 + D, q32 + 2 * D, nullptr, out, B, D / HD, T,
-                        T, D, 3 * D, 3 * D, 0, 0, 0, stream);
+      return launch_f32(q32, q32 + D, q32 + 2 * D, nullptr, out, B, D / hd, T,
+                        T, D, 3 * D, 3 * D, 0, 0, 0, hd, stream);
     case 1:
       return launch_tc_tiled<ONLINE_MODE>(warps, q, q + D, q + 2 * D, nullptr,
-                                          out, B, D / HD, T, T, D, 3 * D,
-                                          3 * D, rows, 0, 0, 0, stream);
+                                          out, B, D / hd, T, T, D, 3 * D,
+                                          3 * D, rows, 0, 0, 0, hd, stream);
     case 2:
       return launch_tc_tiled<LAYER_MODE>(warps, q, q + D, q + 2 * D, nullptr,
-                                         out, B, D / HD, T, T, D, 3 * D, 3 * D,
-                                         rows, 0, 0, 0, stream);
+                                         out, B, D / hd, T, T, D, 3 * D, 3 * D,
+                                         rows, 0, 0, 0, hd, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// q, out: (B, H, Tq, 64); k, v: (B, H, S, 64), all contiguous and of one
+// q, out: (B, H, Tq, hd); k, v: (B, H, S, hd), all contiguous and of one
 // dtype (is_bf16 or f32) at 16-byte boundaries; pad: (B, S) f32, read only
 // when has_pad. f32 runs the f32 kernel; bf16 the tensor-core kernel in its
 // NORM mode (probabilities normalized before they are rounded for P.V, see
@@ -1131,14 +1356,15 @@ extern "C" int mit_flash_attention_fusedqkv(const void* qkv, void* out, int B,
 extern "C" int mit_flash_attention_bhtd(const void* q, const void* k,
                                         const void* v, const void* pad,
                                         void* out, int B, int H, int Tq, int S,
-                                        int causal, int has_pad, int is_bf16,
-                                        int warps, int rows, void* stream) {
+                                        int hd, int causal, int has_pad,
+                                        int is_bf16, int warps, int rows,
+                                        void* stream) {
   if (is_bf16)
     return launch_tc_tiled<NORM_MODE>(warps, q, k, v, pad, out, B, H, Tq, S,
-                                      HD, HD, HD, rows, causal, has_pad, 1,
+                                      hd, hd, hd, rows, causal, has_pad, 1, hd,
                                       stream);
-  return launch_f32(q, k, v, pad, out, B, H, Tq, S, HD, HD, HD, causal,
-                    has_pad, 1, stream);
+  return launch_f32(q, k, v, pad, out, B, H, Tq, S, hd, hd, hd, causal,
+                    has_pad, 1, hd, stream);
 }
 
 // For measurements only, not for the port's paths: bf16 (B, T, D) through

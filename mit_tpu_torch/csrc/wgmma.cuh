@@ -2,7 +2,10 @@
 // loads into 64-column tiles in the 128-byte swizzle, the wgmma descriptors
 // that name such tiles (a row of 64 bf16 or of 128 int8), the wgmma
 // products the attention kernels use, and how an accumulator's elements map
-// to rows and columns (f32 and s32 alike). Included by
+// to rows and columns (f32 and s32 alike). Heads wider than 64 columns are
+// held as two such tiles side by side (panels, TILE elements apart), and
+// P.V runs one product a panel: m64n64k16 on a full panel, m64nNk16 with N
+// = 16, 32 or 48 on the last one (wgmma_rs_bt_at). Included by
 // flash_attention_btd.cu, flash_attention_dropout.cu and int8_gemm.cu;
 // everything has internal linkage.
 
@@ -82,20 +85,22 @@ __device__ __forceinline__ void wg_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
 // close the group of products started so far and wait for it; d, their
-// accumulator, is not read before
-__device__ __forceinline__ void wg_commit_wait(float (&d)[8][4]) {
+// accumulator (NT tiles of 8 columns), is not read before
+template <int NT>
+__device__ __forceinline__ void wg_commit_wait(float (&d)[NT][4]) {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < NT; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) asm volatile("" : "+f"(d[i][j])::"memory");
 }
 // keeps reads of d, an accumulator of products that wg_commit_wait has just
 // waited for beside its own, from moving above that wait
-__device__ __forceinline__ void wg_touch(float (&d)[8][4]) {
+template <int NT>
+__device__ __forceinline__ void wg_touch(float (&d)[NT][4]) {
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < NT; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) asm volatile("" : "+f"(d[i][j])::"memory");
 }
@@ -144,6 +149,56 @@ __device__ __forceinline__ void wgmma_rs_bt(float (&d)[8][4],
       ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
       : MIT_WG_D(d)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+// The same product into N = 8 NT columns of a wider accumulator: d's
+// 8-column tiles OFF .. OFF + NT - 1 += a . b, b the first N columns of 16
+// rows of a tile (transposed). A head of 65 to 128 columns runs it once a
+// panel and 16-key step: NT = 8 on a full panel, 2, 4 or 6 on the last.
+#define MIT_WG_T(d, i) \
+  "+f"(d[i][0]), "+f"(d[i][1]), "+f"(d[i][2]), "+f"(d[i][3])
+template <int NT, int OFF, int TOTAL>
+__device__ __forceinline__ void wgmma_rs_bt_at(float (&d)[TOTAL][4],
+                                               const unsigned (&a)[4],
+                                               unsigned long long b) {
+  static_assert(OFF + NT <= TOTAL, "the product's columns lie in d");
+  if constexpr (NT == 2) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, "
+        "1, 1;\n}\n"
+        : MIT_WG_T(d, OFF), MIT_WG_T(d, OFF + 1)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  } else if constexpr (NT == 4) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+        : MIT_WG_T(d, OFF), MIT_WG_T(d, OFF + 1), MIT_WG_T(d, OFF + 2),
+          MIT_WG_T(d, OFF + 3)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  } else if constexpr (NT == 6) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23}, {%24, %25, %26, "
+        "%27}, %28, p, 1, 1, 1;\n}\n"
+        : MIT_WG_T(d, OFF), MIT_WG_T(d, OFF + 1), MIT_WG_T(d, OFF + 2),
+          MIT_WG_T(d, OFF + 3), MIT_WG_T(d, OFF + 4), MIT_WG_T(d, OFF + 5)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  } else {
+    static_assert(NT == 8, "N is 16, 32, 48 or 64");
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " MIT_WG_REGS
+        ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : MIT_WG_T(d, OFF), MIT_WG_T(d, OFF + 1), MIT_WG_T(d, OFF + 2),
+          MIT_WG_T(d, OFF + 3), MIT_WG_T(d, OFF + 4), MIT_WG_T(d, OFF + 5),
+          MIT_WG_T(d, OFF + 6), MIT_WG_T(d, OFF + 7)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
 }
 // d += a . b: a (64 x 16) from shared memory as in wgmma_ss, b (16 rows x
 // 64 columns of its tile, so transposed) as in wgmma_rs_bt

@@ -38,12 +38,13 @@ NVCC_FLAGS = (
 _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
 _LL = ctypes.c_longlong
 ENTRY_POINTS = {
-    "mit_flash_attention_btd_f32": [_P] * 5 + [_I] * 6 + [_P],
-    "mit_flash_attention_btd_bf16": [_P] * 5 + [_I] * 8 + [_P],
-    "mit_flash_attention_fusedqkv": [_P] * 2 + [_I] * 6 + [_P],
+    # the attention entries take the head width (64, or 72 to 128 by 8)
+    "mit_flash_attention_btd_f32": [_P] * 5 + [_I] * 7 + [_P],
+    "mit_flash_attention_btd_bf16": [_P] * 5 + [_I] * 9 + [_P],
+    "mit_flash_attention_fusedqkv": [_P] * 2 + [_I] * 7 + [_P],
     # for measurements only: bf16 through the CUDA-core kernel
     "mit_flash_attention_btd_bf16_cudacore": [_P] * 5 + [_I] * 9 + [_P],
-    "mit_flash_attention_bhtd": [_P] * 5 + [_I] * 9 + [_P],
+    "mit_flash_attention_bhtd": [_P] * 5 + [_I] * 10 + [_P],
     # for measurements only: the first CUDA-core kernel, f32 and (B, H, T, hd)
     "mit_flash_attention_v1": [_P] * 5 + [_I] * 8 + [_P],
     "mit_fused_decode_layer": [_P] * 25 + [_I] * 8 + [_LL, _F, _P],

@@ -52,12 +52,16 @@ rounded in between, and the f32 kernel's one walk serves both layouts.
 between the two, the JAX package's rule, so both packages run the same
 numerics at the same shapes.
 
-Those kernels are laid out for heads of 64 columns. At any other head width
-up to 256 every entry, the fused layer's numerics included, launches the
-any-shape kernel of ``csrc/attention_any_shape.cu`` instead (a warp to a
-query row; simple and slower), so that a CUDA tensor never runs the plain
-version: :func:`attention_kernel_for` names the kernel a head width gets,
-and the wrappers raise where it has none.
+Those kernels take heads of 64 columns and of 72 to 128 in multiples of 8
+(ViT-H/14's 80 among them; templates on the width padded to 16, two
+64-column panels a tile past 64). At any other head width up to 256 every
+entry, the fused layer's numerics included, launches the any-shape kernel
+of ``csrc/attention_any_shape.cu`` instead (a warp to a query row; simple
+and slower), so that a CUDA tensor never runs the plain version:
+:func:`attention_kernel_for` names the kernel a head width gets, and the
+wrappers raise where it has none. Each of the three wrappers counts its
+launches by kernel in ``.kernels`` (``"tiled"``, ``"any_shape"``) beside
+``.launches``.
 """
 
 from __future__ import annotations
@@ -70,6 +74,7 @@ import torch
 from mit_tpu_torch.ops.masks import causal_mask
 
 TILED_HEAD_DIM = 64         # the head width the tiled kernels are laid out for
+WIDE_HEAD_DIM = 128         # and past it, multiples of 8 up to this
 MAX_HEAD_DIM = 256          # the any-shape kernel: 8 columns a lane
 LOG2E = 1.4426950408889634
 # warps a block of the bf16 (tensor-core) kernel: one warpgroup or two, and a
@@ -86,22 +91,29 @@ def attention_kernel_supported(head_dim: int) -> bool:
 
 def attention_kernel_for(head_dim: int, layer_numerics: bool = False) -> str:
     """The kernel that runs attention over heads of ``head_dim`` columns on
-    the card: ``"tiled"`` (``csrc/flash_attention_btd.cu``, whose tiles,
-    fragments and descriptors are laid out for 64) or ``"any_shape"``
-    (``csrc/attention_any_shape.cu``), in every numerics mode, the fused
-    int8 layer's (``layer_numerics``) included. Raises where there is no
-    kernel; every wrapper's check and its choice of entry point ask this one
-    function."""
+    the card: ``"tiled"`` (``csrc/flash_attention_btd.cu``: 64, and 72 to
+    128 in multiples of 8, each 16-byte aligned and padded to a multiple of
+    16 inside) or ``"any_shape"`` (``csrc/attention_any_shape.cu``), in
+    every numerics mode, the fused int8 layer's (``layer_numerics``)
+    included. Raises where there is no kernel; every wrapper's check and its
+    choice of entry point ask this one function."""
     del layer_numerics          # both kernels have every mode
-    if head_dim == TILED_HEAD_DIM:
+    if head_dim == TILED_HEAD_DIM or (
+            TILED_HEAD_DIM < head_dim <= WIDE_HEAD_DIM and head_dim % 8 == 0):
         return "tiled"
     if not attention_kernel_supported(head_dim):
         raise ValueError(
             f"no CUDA attention kernel for head_dim {head_dim}: the tiled "
-            f"kernels take {TILED_HEAD_DIM}, the any-shape kernel 1 to "
-            f"{MAX_HEAD_DIM}"
+            f"kernels take {TILED_HEAD_DIM} and multiples of 8 up to "
+            f"{WIDE_HEAD_DIM}, the any-shape kernel 1 to {MAX_HEAD_DIM}"
         )
     return "any_shape"
+
+
+def _count(wrapper, kernel: str) -> None:
+    """One launch of ``kernel`` ("tiled" or "any_shape") by ``wrapper``."""
+    wrapper.launches += 1
+    wrapper.kernels[kernel] += 1
 
 
 def _check_aligned(*tensors: torch.Tensor) -> None:
@@ -244,7 +256,7 @@ def _flash_forward_btd(q, k, v, pad_add, causal, head_dim):
         _any_shape(q, k, v, pad_add, out, b, d // head_dim, t, k.shape[1],
                    head_dim, d, d, d, False, causal, ANY_DIVIDE_AFTER,
                    q.dtype == torch.bfloat16)
-        flash_attention_btd.launches += 1
+        _count(flash_attention_btd, "any_shape")
         return out
     name = btd_entry(q.dtype)
     fn = getattr(kernels.lib(), name)
@@ -253,11 +265,12 @@ def _flash_forward_btd(q, k, v, pad_add, causal, head_dim):
         rc = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if pad_add is None else pad_add.data_ptr(), out.data_ptr(),
-            b, t, k.shape[1], d, int(causal), int(pad_add is not None),
-            *tiling, torch.cuda.current_stream(q.device).cuda_stream,
+            b, t, k.shape[1], d, head_dim, int(causal),
+            int(pad_add is not None), *tiling,
+            torch.cuda.current_stream(q.device).cuda_stream,
         )
     kernels.check(rc, name)
-    flash_attention_btd.launches += 1
+    _count(flash_attention_btd, "tiled")
     return out
 
 
@@ -299,6 +312,7 @@ def flash_attention_btd(
 
 
 flash_attention_btd.launches = 0
+flash_attention_btd.kernels = {"tiled": 0, "any_shape": 0}
 
 
 # ----------------------------------------------------------------------
@@ -380,21 +394,22 @@ def flash_attention_btd_fusedqkv(
                    head_dim, d3, d3, d, False, False,
                    ANY_LAYER if layer_numerics else ANY_DIVIDE_AFTER,
                    qkv.dtype == torch.bfloat16)
-        flash_attention_btd_fusedqkv.launches += 1
+        _count(flash_attention_btd_fusedqkv, "any_shape")
         return out
     mode = 2 if layer_numerics else int(qkv.dtype == torch.bfloat16)
     with torch.cuda.device(qkv.device):
         rc = kernels.lib().mit_flash_attention_fusedqkv(
-            qkv.data_ptr(), out.data_ptr(), b, t, d3 // 3, mode,
+            qkv.data_ptr(), out.data_ptr(), b, t, d3 // 3, head_dim, mode,
             *bf16_tiling(t),         # read by the bf16 modes only
             torch.cuda.current_stream(qkv.device).cuda_stream,
         )
     kernels.check(rc, "mit_flash_attention_fusedqkv")
-    flash_attention_btd_fusedqkv.launches += 1
+    _count(flash_attention_btd_fusedqkv, "tiled")
     return out
 
 
 flash_attention_btd_fusedqkv.launches = 0
+flash_attention_btd_fusedqkv.kernels = {"tiled": 0, "any_shape": 0}
 
 
 # ----------------------------------------------------------------------
@@ -487,19 +502,19 @@ def _flash_forward(q, k, v, pad_add, causal):
     if attention_kernel_for(hd) == "any_shape":
         _any_shape(q, k, v, pad_add, out, b, h, t, k.shape[2], hd, hd, hd, hd,
                    True, causal, ANY_NORM_FIRST, q.dtype == torch.bfloat16)
-        flash_attention.launches += 1
+        _count(flash_attention, "any_shape")
         return out
     with torch.cuda.device(q.device):
         rc = kernels.lib().mit_flash_attention_bhtd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if pad_add is None else pad_add.data_ptr(), out.data_ptr(),
-            b, h, t, k.shape[2], int(causal), int(pad_add is not None),
+            b, h, t, k.shape[2], hd, int(causal), int(pad_add is not None),
             int(q.dtype == torch.bfloat16),
             *bf16_tiling(t),         # read by the bf16 kernel only
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     kernels.check(rc, "mit_flash_attention_bhtd")
-    flash_attention.launches += 1
+    _count(flash_attention, "tiled")
     return out
 
 
@@ -538,3 +553,4 @@ def flash_attention(
 
 
 flash_attention.launches = 0
+flash_attention.kernels = {"tiled": 0, "any_shape": 0}

@@ -144,8 +144,8 @@ def replay_backward(q, k, v, pad, do, causal, seed, rate):
     return (dq * scale).to(q.dtype), (dk * scale).to(k.dtype), dv.to(v.dtype)
 
 
-SHAPES = [(3, 2, 40, 70, 32), (3, 2, 33, 31, 128), (2, 3, 5, 5, 16),
-          (2, 1, 9, 130, 80)]
+SHAPES = [(3, 2, 40, 70, 32), (3, 2, 33, 31, 136), (2, 3, 5, 5, 16),
+          (2, 1, 9, 130, 100), (2, 2, 17, 23, 200)]
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 
 
@@ -263,7 +263,7 @@ def replay_layer(qkv, hd):
     return o.transpose(1, 2).reshape(b, t, d)
 
 
-@pytest.mark.parametrize("b,t,hd", [(2, 40, 32), (3, 33, 128), (2, 70, 96),
+@pytest.mark.parametrize("b,t,hd", [(2, 40, 32), (3, 33, 136), (2, 70, 100),
                                     (1, 5, 256)])
 def test_any_shape_layer_walk_matches_plain(b, t, hd):
     """The layer mode runs on the any-shape kernel at every head width but
@@ -303,8 +303,9 @@ def int8_layer128():
 
 @pytest.mark.parametrize("heads", [4, 1], ids=["hd32", "hd128"])
 def test_fused_int8_vit_layer_any_head_width_matches_jax(int8_layer128, heads):
-    """The fused int8 layer at head widths 32 and 128, whose attention runs
-    the any-shape kernel on the card: the port's layer, and the same layer
+    """The fused int8 layer at head widths 32 and 128 (on the card the
+    any-shape kernel runs the attention at 32, the tiled kernel at 128): the
+    port's layer, and the same layer
     with the kernel's walk replayed for its attention, against the JAX
     layer kernel (interpret mode), within the JAX package's own bound
     between its layer kernel and its composition."""

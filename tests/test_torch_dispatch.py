@@ -59,17 +59,20 @@ def _raises(fn, *args) -> bool:
 # ----------------------------------------------------------------------
 # the kernel a shape gets, and the wrappers' checks
 # ----------------------------------------------------------------------
-@pytest.mark.parametrize("hd", [0, 8, 32, 64, 128, 256, 257])
+@pytest.mark.parametrize("hd", [0, 8, 32, 64, 72, 80, 96, 100, 112, 120,
+                                128, 136, 200, 256, 257])
 def test_attention_kernel_choice_is_the_wrappers_check(hd):
-    """Head width 64 gets the tiled kernels, every other width up to 256 the
-    any-shape kernel, and every entry refuses exactly the widths that get
-    none (CPU tensors: the checks read shapes only). The fused layer's
-    numerics follow the same rule: the any-shape kernel has them too."""
+    """Head width 64 and 72 to 128 in multiples of 8 get the tiled kernels,
+    every other width up to 256 the any-shape kernel, and every entry
+    refuses exactly the widths that get none (CPU tensors: the checks read
+    shapes only). The fused layer's numerics follow the same rule: both
+    kernels have them."""
     takes = tflash.attention_kernel_supported(hd)
     assert takes == (1 <= hd <= 256)
     if takes:
+        tiled = hd == 64 or (64 < hd <= 128 and hd % 8 == 0)
         assert tflash.attention_kernel_for(hd) == (
-            "tiled" if hd == 64 else "any_shape")
+            "tiled" if tiled else "any_shape")
     assert _raises(tflash.attention_kernel_for, hd) != takes
     assert _raises(tflash.attention_kernel_for, hd, True) != takes
     if takes:

@@ -118,7 +118,7 @@ def test_bf16_tilings_match_plain_on_card(cuda, warps, b, t, s, d, causal,
     rc = kernels.lib().mit_flash_attention_btd_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if pad is None else pad.data_ptr(), out.data_ptr(), b, t, s, d,
-        int(causal), int(padded), *bf16_tiling(t, warps),
+        64, int(causal), int(padded), *bf16_tiling(t, warps),
         torch.cuda.current_stream().cuda_stream)
     kernels.check(rc, "mit_flash_attention_btd_bf16")
     ref = flash_attention_btd_reference(q, k, v, pad, causal, 64)
@@ -944,7 +944,7 @@ def test_flash_attention_bhtd_bf16_tilings_on_card(cuda, warps):
         out = torch.empty_like(q)
         rc = kernels.lib().mit_flash_attention_bhtd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), pad.data_ptr(),
-            out.data_ptr(), b, h, t, s, int(causal), 1, 1,
+            out.data_ptr(), b, h, t, s, 64, int(causal), 1, 1,
             *bf16_tiling(t, warps), torch.cuda.current_stream().cuda_stream)
         kernels.check(rc, "mit_flash_attention_bhtd")
         ref = flash_attention_reference(q, k, v, pad, causal)
@@ -1043,8 +1043,9 @@ def _wide_heads(b, h, t, s, hd, dtype, device, seed=11):
     return q, k, v, torch.from_numpy(pad).to(device), do
 
 
-ANY_SHAPES = [(3, 4, 40, 70, 128), (3, 2, 33, 31, 32), (2, 3, 5, 5, 16),
-              (2, 2, 64, 64, 80), (2, 1, 9, 130, 256), (2, 2, 1, 1, 8)]
+ANY_SHAPES = [(3, 4, 40, 70, 136), (3, 2, 33, 31, 32), (2, 3, 5, 5, 16),
+              (2, 2, 64, 64, 100), (2, 1, 9, 130, 256), (2, 2, 1, 1, 8),
+              (2, 2, 33, 40, 200)]
 
 
 @pytest.mark.cuda
@@ -1092,6 +1093,113 @@ def test_attention_any_head_width_matches_plain_on_card(cuda, b, h, t, s, hd,
     assert (flash_attention.launches, flash_attention_btd.launches,
             flash_attention_btd_fusedqkv.launches) == \
         (before[0] + 1, before[1] + 2, before[2] + 1)
+
+
+# heads wider than 64 on the tiled kernels: every padded width (80 to 128)
+# and the widths padded up to them (72, 120); ViT-H/14's 257 tokens
+WIDE_HDS = [72, 80, 96, 112, 120, 128]
+WIDE_SHAPES = [(3, 2, 40, 70), (2, 3, 257, 257), (2, 2, 1, 1), (2, 2, 130, 65)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,h,t,s", WIDE_SHAPES)
+@pytest.mark.parametrize("hd", WIDE_HDS)
+def test_attention_wide_heads_match_plain_on_card(cuda, hd, b, h, t, s, dtype,
+                                                  causal):
+    """Every attention entry at head widths 72 to 128 runs the tiled
+    kernels and matches its plain version, with a fully padded batch row
+    and a row whose only visible key is padded; the int8 layer's numerics
+    (bf16 in, f32 out) too."""
+    from mit_tpu_torch.ops.flash_attention import (
+        attention_kernel_for,
+        flash_attention,
+        flash_attention_reference,
+    )
+
+    assert attention_kernel_for(hd) == "tiled"
+    q, k, v, pad, _ = _wide_heads(b, h, t, s, hd, dtype, cuda)
+    tol = TOL[dtype]
+    wrappers = (flash_attention, flash_attention_btd,
+                flash_attention_btd_fusedqkv)
+    before = [dict(w.kernels) for w in wrappers]
+    out = flash_attention(q, k, v, pad, causal)
+    ref = flash_attention_reference(q, k, v, pad, causal)
+    assert torch.isfinite(out).all()
+    assert (out.float() - ref.float()).abs().max().item() <= \
+        (1e-5 if dtype == torch.float32 else tol)
+
+    merge = lambda x: x.transpose(1, 2).reshape(b, x.shape[2], h * hd).contiguous()
+    qm, km, vm = merge(q), merge(k), merge(v)
+    for p in (pad, None):
+        out = flash_attention_btd(qm, km, vm, p, causal, hd)
+        ref = flash_attention_btd_reference(qm, km, vm, p, causal, hd)
+        assert torch.isfinite(out).all()
+        assert (out.float() - ref.float()).abs().max().item() <= tol
+
+    qkv = torch.cat([km, km.flip(1), vm], -1).contiguous()   # T = S = s
+    layers = (False, True) if dtype == torch.bfloat16 else (False,)
+    for layer in layers:
+        out = flash_attention_btd_fusedqkv(qkv, hd, layer)
+        ref = flash_attention_btd_fusedqkv_reference(qkv, hd, layer)
+        torch.cuda.synchronize()
+        assert out.dtype == (torch.float32 if layer else dtype)
+        assert (out.float() - ref.float()).abs().max().item() <= tol
+    launched = [w.kernels["tiled"] - n["tiled"] for w, n in zip(wrappers, before)]
+    assert launched == [1, 2, len(layers)]
+    assert [w.kernels["any_shape"] for w in wrappers] == \
+        [n["any_shape"] for n in before]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("warps", BF16_WARPS)
+@pytest.mark.parametrize("hd", [80, 128])
+def test_wide_bf16_tilings_match_plain_on_card(cuda, hd, warps):
+    """Both tilings of the wide bf16 kernel (one warpgroup a block, or two)
+    through the C entry, causal and padded, and at ViT-H/14's shape."""
+    from mit_tpu_torch.ops.flash_attention import flash_attention_reference
+
+    for b, h, t, s, causal in ((2, 3, 300, 333, True), (2, 16, 257, 257,
+                                                          False)):
+        q4, k4, v4, pad, _ = _wide_heads(b, h, t, s, hd, torch.bfloat16, cuda)
+        merge = lambda x: x.transpose(1, 2).reshape(b, x.shape[2], h * hd
+                                                    ).contiguous()
+        q, k, v = merge(q4), merge(k4), merge(v4)
+        out = torch.empty_like(q)
+        rc = kernels.lib().mit_flash_attention_btd_bf16(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), pad.data_ptr(),
+            out.data_ptr(), b, t, s, h * hd, hd, int(causal), 1,
+            *bf16_tiling(t, warps), torch.cuda.current_stream().cuda_stream)
+        kernels.check(rc, "mit_flash_attention_btd_bf16")
+        ref = flash_attention_btd_reference(q, k, v, pad, causal, hd)
+        out4 = torch.empty_like(q4)
+        rc = kernels.lib().mit_flash_attention_bhtd(
+            q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), pad.data_ptr(),
+            out4.data_ptr(), b, h, t, s, hd, int(causal), 1, 1,
+            *bf16_tiling(t, warps), torch.cuda.current_stream().cuda_stream)
+        kernels.check(rc, "mit_flash_attention_bhtd")
+        ref4 = flash_attention_reference(q4, k4, v4, pad, causal)
+        torch.cuda.synchronize()
+        assert torch.isfinite(out).all() and torch.isfinite(out4).all()
+        assert (out.float() - ref.float()).abs().max().item() <= 2e-2
+        assert (out4.float() - ref4.float()).abs().max().item() <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [60, 136, 129])
+def test_wide_entries_refuse_other_head_widths_on_card(cuda, hd):
+    """The C entries of the tiled kernels return an error for a head width
+    they have no instantiation for, instead of running one."""
+    b, t, h = 1, 8, 2
+    q = torch.zeros(b, t, h * hd, dtype=torch.bfloat16, device=cuda)
+    out = torch.empty_like(q)
+    rc = kernels.lib().mit_flash_attention_btd_bf16(
+        q.data_ptr(), q.data_ptr(), q.data_ptr(), None, out.data_ptr(), b, t,
+        t, h * hd, hd, 0, 0, *bf16_tiling(t),
+        torch.cuda.current_stream().cuda_stream)
+    assert rc != 0
 
 
 DROPOUT_ANY_SHAPES = [(2, 2, 160, 160, 64), (2, 2, 129, 40, 64),
