@@ -54,7 +54,21 @@ the script exits non-zero without printing the result line.
               between its layer kernel and its composition); the ViT-B
               layer also at head widths 128 and 32 (6 and 24 heads), whose
               attention runs the wide tiled kernel and the any-shape
-              kernel.
+              kernel; rows 2, 3 and the layers beside their library
+              yardsticks (torch._int_mm at their GEMM shapes, plus one
+              SDPA call for a layer);
+            - int8_mlp_fused (csrc/int8_mlp_fused.cu, check_int8_mlp_fused)
+              at ViT-B's, CLIP-L's and ViT-H's widths, batch 64: its shared
+              memory and cudaOccupancyMaxActiveClusters; in the layer's,
+              the split layer's and fused_int8_mlp's forms one launch,
+              bitwise the composition's for gelu (quick_gelu: at most 1e-3
+              of the rows differ, one ulp of expf), within 5e-3 (layer) or
+              1e-3 (MLP) relative L2 of the plain version; the layer form
+              timed against the plain version and in turns against the
+              composition, with its bound, device time and torch._int_mm at
+              fc1 and fc2; then row 4 in turns (check_row4_turns): the
+              split form at (8, 257, 1024) and fused_int8_vit_layer at
+              (64, 257, 1024), each with either MLP route.
 4. slice    The default captioning path at full width: ViT-B/16 encoder in
             CLS-memory mode, projection 768 -> 512, 6-layer 512-wide
             decoder, vocab 10000, max_len 100, random weights from a seeded
@@ -71,11 +85,14 @@ the script exits non-zero without printing the result line.
             bf16 batch 64: every launch counter is set to 0 before each
             path and read after it. The float arm and the int8 arm (fused
             layers) run REPS times each, the int8 per-op form once; each
-            must launch exactly its kernels per encode call (float:
-            flash_attention_btd 11; int8 fused: fused_int8_vit_layer 11,
-            int8_linear 3, fused_int8_mlp 1; int8 per-op: int8_linear 25,
-            fused_int8_mlp 12, flash_attention_btd_fusedqkv 11). Prints
-            captions/s of both arms and their median encoder ms.
+            must launch exactly its kernels per encode call
+            (slice_per_encode; float: flash_attention_btd 11; int8 fused:
+            fused_int8_vit_layer 11, int8_linear 3, fused_int8_mlp 1, and
+            where the port's rule sends the MLP halves to int8_mlp_fused,
+            12 of those with 25 quantize_rows and 25 int8_gemm, else 49
+            and 49; int8 per-op: int8_linear 25, fused_int8_mlp 12,
+            flash_attention_btd_fusedqkv 11). Prints captions/s of both
+            arms and their median encoder ms.
             Phase 3 also holds the dropout-attention kernels (training's
             decoder self-attention) to their plain versions at (32, 8, 99,
             99, 64), causal with padded keys (every key of batch row 0), and
@@ -236,7 +253,10 @@ the script exits non-zero without printing the result line.
             > 0.999 to the float arm; encode ms (median of ENC_REPS in alternating
             turns) and captions/s from uint8 on the host through upload,
             device_preprocess, encode and fused greedy (StepTimer and fence
-            of the port), with the fused steps' launches held. Then a
+            of the port), with the fused steps' launches held; the int8
+            encode with each MLP route (int8_mlp_turns: launches per encode
+            and the layers' MLP routes held, encode ms in alternating
+            turns, device ms by kernel name under torch.profiler). Then a
             BLIP-base checkpoint (self_attn.qkv under vision_model.), f32
             batch 8, 11 flash_attention launches, memory within 1e-4 of
             plain; and a bare ViT-B/16 pytorch_model.bin without config.json
@@ -261,10 +281,15 @@ the script exits non-zero without printing the result line.
             "any_shape" launches an encode in flash_attention_btd.kernels
             (float) and flash_attention_btd_fusedqkv.kernels (int8); encode
             ms in alternating turns, and captions/s from uint8 split into
-            upload, preprocess + encode and the 99 fused steps. Prints its
-            seconds. `python3 chip_smoke.py --wide-heads` runs phases 1, 2,
+            upload, preprocess + encode and the 99 fused steps; the int8
+            encode with each MLP route, as in 4b. Prints its seconds.
+            `python3 chip_smoke.py --wide-heads` runs phases 1, 2,
             check_wide_heads and this phase alone, then one JSON line of
-            the wide-head kernels.
+            the wide-head kernels. `python3 chip_smoke.py --int8-mlp` runs
+            phases 1, 2, the int8 lines of phase 3 (check_int8_kernels)
+            and the int8 arms of 4b and 4c alone (check_int8_paths: each
+            held to its plain version and int8_mlp_turns), then one JSON
+            line of the fused MLP's kernel lines.
 5b. mesh    The device mesh (parallel/mesh.py). Rows 9 and 10 under the
             cell map: at (32, 8, 99, 99, 64) bf16 split as the (2, 1) and
             (1, 2) meshes split it, each rank's dump-kernel mask and its
@@ -340,6 +365,7 @@ the script exits non-zero without printing the result line.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -383,27 +409,56 @@ GEMM_SHAPES = [
 INT8_HEADS = [("hd128", 6), ("hd32", 24)]
 
 
-def per_encode(full_layers):
+def per_encode(full_layers, mlp_layers=True, mlp_cls=True):
     """Launches of one CLS-memory encode call with `full_layers` full
     layers (the last layer runs on the CLS rows): the float arm's attention
-    in each full layer; the int8 arm's fused layer of four quantize_rows and
-    four int8_gemm launches and its attention, plus the patch embedding and
-    the last layer's QKV and out-projection (int8_linear) and MLP
-    (fused_int8_mlp, two of each)."""
-    per_op = 4 * full_layers + 3 + 2
+    in each full layer; the int8 arm's fused layer of two quantize_rows and
+    two int8_gemm launches (LN1 + QKV, the context + out-projection), its
+    attention and its MLP half, plus the patch embedding and the last
+    layer's QKV and out-projection (int8_linear) and MLP (fused_int8_mlp).
+    An MLP half is one int8_mlp_fused launch where the port's rule fuses it
+    (`mlp_layers` for the full layers', `mlp_cls` for the CLS rows'), else
+    the composition: two more quantize_rows and int8_gemm launches."""
+    mlps = (full_layers if mlp_layers else 0) + (1 if mlp_cls else 0)
+    per_op = 2 * full_layers + 3 + 2 * (full_layers + 1 - mlps)
     return {
         "float": {"flash_attention_btd": full_layers},
         "int8": {"fused_int8_vit_layer": full_layers, "int8_linear": 3,
                  "fused_int8_mlp": 1,
                  "flash_attention_btd_fusedqkv": full_layers,
-                 "quantize_rows": per_op, "int8_gemm": per_op},
+                 "quantize_rows": per_op, "int8_gemm": per_op,
+                 "int8_mlp_fused": mlps},
     }
 
 
-# launches per encode call of each path (bf16, batch 64)
-PER_ENCODE = dict(per_encode(11), int8_per_op={
-    "int8_linear": 25, "fused_int8_mlp": 12,
-    "flash_attention_btd_fusedqkv": 11, "quantize_rows": 49, "int8_gemm": 49})
+def mlp_fused_on(vcfg, rows):
+    """Whether the port's rule (int8_mlp.mlp_kernel_for) sends an MLP half
+    of this encoder over `rows` rows to the fused kernel."""
+    from mit_tpu_torch.ops import int8_mlp
+
+    act = "quick_gelu" if vcfg.hidden_act == "quick_gelu" else "gelu"
+    return int8_mlp.mlp_kernel_for(vcfg.hidden_size, vcfg.intermediate_size,
+                                   act, rows) == "fused"
+
+
+def encode_launches(vcfg, batch, tokens):
+    """per_encode for this encoder at `batch` images of `tokens` tokens,
+    its MLP halves routed as the port's rule routes them."""
+    return per_encode(vcfg.num_layers - 1, mlp_fused_on(vcfg, batch * tokens),
+                      mlp_fused_on(vcfg, batch))
+
+
+def slice_per_encode(vcfg, batch):
+    """Launches per encode call of each path of the slice (ViT-B/16, 197
+    tokens): encode_launches and the int8 per-op form, whose 12 MLPs run
+    fused_int8_mlp (11 over every token, 1 over the CLS rows)."""
+    mlp = (11 * mlp_fused_on(vcfg, batch * 197)
+           + mlp_fused_on(vcfg, batch))
+    per_op = 25 + 2 * (12 - mlp)
+    return dict(encode_launches(vcfg, batch, 197), int8_per_op={
+        "int8_linear": 25, "fused_int8_mlp": 12,
+        "flash_attention_btd_fusedqkv": 11, "quantize_rows": per_op,
+        "int8_gemm": per_op, "int8_mlp_fused": mlp})
 
 
 # peak rates of one H100 SXM (NVIDIA's data sheet, dense) for the bounds
@@ -732,6 +787,7 @@ def wrappers():
         "quantize_rows": int8_mlp.quantize_rows,
         "int8_gemm": int8_mlp.int8_gemm,
         "int8_linear": int8_mlp.int8_linear,
+        "int8_mlp_fused": int8_mlp.int8_mlp_fused,
         "fused_int8_mlp": int8_mlp.fused_int8_mlp,
         "fused_int8_vit_layer": int8_layer.fused_int8_vit_layer,
         "fused_int8_vit_layer_split": int8_layer.fused_int8_vit_layer_split,
@@ -1086,17 +1142,18 @@ def check_int8_kernels(torch):
     q1 = random_qlinear(torch, 768, 3072, seed=53)
     q2 = random_qlinear(torch, 3072, 768, seed=54)
     mp = 64 * 196
-    for name, kern, plain, what, bound_ in (
+    for name, kern, plain, what, bound_, lib in (
         ("int8_linear", lambda: int8_mlp.int8_linear(patches, q),
          lambda: int8_mlp.int8_linear_reference(patches, q),
          "(64, 196, 768) bf16, the patch embedding",
          bound(mp * 768 * 4 + 768 * 768 + 8 * 768, 2 * mp * 768 * 768,
-               "int8")),
+               "int8"), int_mm_call(torch, [(768, 768)], mp)),
         ("fused_int8_mlp", lambda: int8_mlp.fused_int8_mlp(x, q1, q2),
          lambda: int8_mlp.fused_int8_mlp_reference(x, q1, q2),
          "(64, 197, 768) bf16, F 3072, gelu",
          bound(M_FULL * 768 * 4 + 2 * 768 * 3072 + 8 * 3840,
-               4 * M_FULL * 768 * 3072, "int8")),
+               4 * M_FULL * 768 * 3072, "int8"),
+         int_mm_call(torch, [(768, 3072), (3072, 768)], M_FULL)),
     ):
         out, ref = kern(), plain()
         torch.cuda.synchronize()
@@ -1107,7 +1164,8 @@ def check_int8_kernels(torch):
         if not rel <= 1e-3:
             raise AssertionError(f"{name} disagrees")
         report(results, name, err, timed_turns(torch, kern, plain), what,
-               bound_)
+               bound_, cuda_ms(torch, lib), device_ms(torch, kern),
+               device_ms(torch, lib))
 
     # the whole layer: ViT-B (one pass) and ViT-L (the split form)
     for name, b, t, d, f, heads in (
@@ -1136,11 +1194,14 @@ def check_int8_kernels(torch):
         by_bytes = (b * t * d * 4 + 4 * d * d + 2 * d * f) / MEM_BYTES_PER_S
         by_ops = (2 * b * t * (4 * d * d + 2 * d * f) / PEAK_OPS["int8"]
                   + 4 * b * t * t * d / PEAK_OPS["bf16"])
+        lib = layer_yardstick(torch, b, t, d, f, heads)
         report(results, name, err,
                timed_turns(torch, lambda: kern_fn(x, *args),
                            lambda: plain_fn(x, *args)), what,
                {"bound_ms": max(by_bytes, by_ops) * 1e3,
-                "bound_by": "bytes" if by_bytes >= by_ops else "operations"})
+                "bound_by": "bytes" if by_bytes >= by_ops else "operations"},
+               cuda_ms(torch, lib), device_ms(torch, lambda: kern_fn(x, *args)),
+               device_ms(torch, lib))
         if name == "fused_int8_vit_layer":
             for label, h in INT8_HEADS:
                 before = dict(flash_attention_btd_fusedqkv.kernels)
@@ -1156,6 +1217,9 @@ def check_int8_kernels(torch):
                       f"launches by kernel {launched}; kernel {ms:.4f} ms")
                 if not (rel <= 5e-3 and bool(torch.isfinite(out).all())):
                     raise AssertionError(f"{name} disagrees at {label}")
+    results.update(check_int8_mlp_fused(torch))
+    results["fused_int8_vit_layer_split"]["turns_ms"] = {
+        str(b): times for b, times in check_row4_turns(torch).items()}
     return results
 
 
@@ -1211,6 +1275,264 @@ def check_int8_gemm_shapes(torch):
     print(f"int8_gemm ViT-L layer (M={8 * 257}): torch._int_mm on its four "
           f"shapes {vit_l_lib:.4f} ms")
     return vit_l_lib
+
+
+# the fused MLP half (csrc/int8_mlp_fused.cu) at the three geometries it is
+# built for, batch 64: (label, B, T, D, F), and the phase 4b/4c counts that
+# give each line's launches on its path
+MLP_WIDTHS = [("vit-b", 64, 197, 768, 3072), ("clip-l", 64, 257, 1024, 4096),
+              ("vit-h", 64, 257, 1280, 5120)]
+MLP_PATH = {"clip-l": "clip_l_int8", "vit-h": "vit_h_int8"}
+PROFILE_ENCODES = 3      # encodes under torch.profiler per MLP route
+
+
+@contextlib.contextmanager
+def mlp_route(route):
+    """Inside, every MLP half on a (D, F) the fused kernel is built for takes
+    `route`, at any number of rows: "fused" (one int8_mlp_fused launch) or
+    "composition" (quantize_rows, int8_gemm, quantize_rows, int8_gemm),
+    whatever the port's rule (int8_mlp.MLP_KERNEL_MAX_ROWS) picks. For
+    measurements: the two routes in turns."""
+    from mit_tpu_torch.ops import int8_mlp
+
+    rule = int8_mlp.MLP_KERNEL_MAX_ROWS
+    int8_mlp.MLP_KERNEL_MAX_ROWS = (
+        {shape: 1 << 62 for shape in int8_mlp.FUSED_MLP_SHAPES}
+        if route == "fused" else {})
+    try:
+        yield
+    finally:
+        int8_mlp.MLP_KERNEL_MAX_ROWS = rule
+
+
+def int_mm_call(torch, shapes, m, extra=None):
+    """torch._int_mm at each (K, N) of `shapes` over M rows of int8, then
+    `extra`, as one function of no arguments: the library's way to the same
+    int8 products, a yardstick only."""
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    draw = lambda r, c: torch.randint(-127, 128, (r, c), dtype=torch.int8,
+                                      device="cuda", generator=g)
+    ops = [(draw(m, k), draw(n, k).t()) for k, n in shapes]
+
+    def run():
+        for a, w in ops:
+            torch._int_mm(a, w)
+        if extra is not None:
+            extra()
+    return run
+
+
+def layer_yardstick(torch, b, t, d, f, heads):
+    """An int8 layer's library yardstick: torch._int_mm at its four GEMM
+    shapes and one SDPA call at its attention shape (bf16)."""
+    qkv = random_rows(torch, b * t, 3 * d, torch.bfloat16, seed=95,
+                      zero_row=False).reshape(b, t, 3 * d)
+    views = [heads_view(x, d // heads) for x in qkv.split(d, dim=-1)]
+    return int_mm_call(torch, [(d, 3 * d), (d, d), (d, f), (f, d)], b * t,
+                       sdpa_call(torch, *views))
+
+
+def check_int8_mlp_fused(torch):
+    """Phase 3, the fused MLP half at ViT-B's, CLIP-L's and ViT-H's widths:
+    its shared memory and the clusters the card holds; at batch 64, in four
+    forms (the layer's f32 stream with LN2 and the residual, gelu and
+    quick_gelu; the split layer's bf16 stream; fused_int8_mlp's bf16 rows,
+    no LayerNorm or residual) one launch, bitwise the composition's for gelu
+    (for quick_gelu, rows that differ at most 1e-3 of them: one ulp of expf
+    may flip a code), within 5e-3 (the layer's forms) or 1e-3 (the MLP's)
+    relative L2 of the plain version; and over the 64 CLS rows of the last
+    layer (fused_int8_mlp's form, the act of the width's preset), bitwise
+    the composition's. Two timed lines a width: the layer form at batch 64
+    and the CLS rows, each against the plain version and in turns against
+    the composition, with its bound, device time and torch._int_mm at fc1
+    and fc2. A line carries the path whose counts give its launches where
+    the port's rule sends that shape to the kernel. Returns the timed lines
+    by label."""
+    import ctypes
+
+    from mit_tpu_torch import kernels
+    from mit_tpu_torch.models.vision import PRESETS
+    from mit_tpu_torch.ops import int8_mlp
+
+    comp = lambda *args: int8_mlp._mlp_half(
+        *args, int8_mlp.quantize_rows, int8_mlp._gemm_any_k)
+    vcfgs = {"vit-b": PRESETS[VIT_B], "clip-l": PRESETS[CLIP_L],
+             "vit-h": vit_h_config()}
+    paths = {"vit-b": "int8", **MLP_PATH}
+    lines = {}
+
+    def timed(label, args, m, d, f, what):
+        kern = lambda: int8_mlp.int8_mlp_fused(*args)
+        plain = lambda: int8_mlp.int8_mlp_fused_reference(*args)
+        err = (kern().float() - plain().float()).abs().max().item()
+        runs = timed_turns(torch, kern, plain)
+        vs = timed_turns(torch, kern, lambda: comp(*args))
+        lib = int_mm_call(torch, [(d, f), (f, d)], m)
+        report(lines, label, err, runs, what,
+               bound(m * d * (args[0].element_size() + 2) + 2 * d * f
+                     + 8 * (2 * d + f),
+                     4 * m * d * f, "int8"),
+               cuda_ms(torch, lib), device_ms(torch, kern),
+               device_ms(torch, lib))
+        comp_dev = device_ms(torch, lambda: comp(*args))
+        lines[label].update(
+            composition_ms=statistics.mean(vs["plain"]),
+            composition_device_ms=comp_dev,
+            ms_in_turns_with_composition=statistics.mean(vs["kernel"]))
+        print(f"     {label}: kernel {vs['kernel']} ms in turns with the "
+              f"composition {vs['plain']} ms (device "
+              f"{comp_dev if comp_dev is None else round(comp_dev, 4)} ms); "
+              f"{DEVICE_LINE[0] if DEVICE_LINE else ''}")
+
+    for i, (name, b, t, d, f) in enumerate(MLP_WIDTHS):
+        smem, clusters = ctypes.c_int(), ctypes.c_int()
+        kernels.check(kernels.lib().mit_int8_mlp_fused_info(
+            d, f, ctypes.byref(smem), ctypes.byref(clusters)),
+            "mit_int8_mlp_fused_info")
+        print(f"int8_mlp_fused D={d} F={f}: {smem.value} bytes of shared "
+              f"memory a block, clusters of 8 blocks, "
+              f"cudaOccupancyMaxActiveClusters {clusters.value}")
+        m = b * t
+        q1 = random_qlinear(torch, d, f, 100 + 4 * i)
+        q2 = random_qlinear(torch, f, d, 101 + 4 * i)
+        ln = random_ln(torch, d, 102 + 4 * i)
+        x1 = random_rows(torch, m, d, torch.float32, seed=103 + 4 * i)
+        cls_act = ("quick_gelu" if vcfgs[name].hidden_act == "quick_gelu"
+                   else "gelu")
+        forms = {"layer": (x1, "gelu", ln, True, 5e-3),
+                 "layer quick_gelu": (x1, "quick_gelu", ln, True, 5e-3),
+                 "split": (x1.to(torch.bfloat16), "gelu", ln, True, 5e-3),
+                 "mlp": (x1.to(torch.bfloat16), "gelu", None, False, 1e-3),
+                 "cls rows": (x1[:b].to(torch.bfloat16), cls_act, None,
+                              False, 1e-3)}
+        for form, (x, act, ln_, res, limit) in forms.items():
+            args = (x, q1, q2, act, ln_, 1e-6, res, torch.bfloat16)
+            before = int8_mlp.int8_mlp_fused.launches
+            y = int8_mlp.int8_mlp_fused(*args)
+            launched = int8_mlp.int8_mlp_fused.launches - before
+            z, ref = comp(*args), int8_mlp.int8_mlp_fused_reference(*args)
+            torch.cuda.synchronize()
+            same = torch.equal(y, z)
+            rows = (y != z).any(dim=1).float().mean().item()
+            rel = rel_l2(y, ref)
+            print(f"int8_mlp_fused {name} {tuple(x.shape)} F {f} {form} "
+                  f"{act} x={str(x.dtype)[6:]}: {launched} launch, bitwise "
+                  f"the composition's {same} (rows that differ "
+                  f"{rows:.2e}), relative L2 to plain {rel:.3e} (limit "
+                  f"{limit:.0e})")
+            if not (launched == 1 and bool(torch.isfinite(y).all())
+                    and rel <= limit
+                    and (same if act == "gelu" else rows <= 1e-3)):
+                raise AssertionError(f"int8_mlp_fused disagrees: {name} "
+                                     f"{form}")
+        label = f"int8_mlp_fused ({b}, {t}, {d}) F {f}"
+        timed(label, (x1, q1, q2, "gelu", ln, 1e-6, True, torch.bfloat16),
+              m, d, f, f"{name}: f32 stream, LN2, residual, bf16 out")
+        lines[label].update(smem_bytes=smem.value,
+                            max_active_clusters=clusters.value)
+        if mlp_fused_on(vcfgs[name], m):
+            lines[label]["path"] = paths[name]
+        label = ("int8_mlp_fused" if name == "vit-b"
+                 else f"int8_mlp_fused ({b}, {d}) F {f} cls rows")
+        timed(label, (x1[:b].to(torch.bfloat16), q1, q2, cls_act, None, 0.0,
+                      False, torch.bfloat16), b, d, f,
+              f"{name}: the last layer's {b} CLS rows, bf16, {cls_act}")
+        if name != "vit-b" and mlp_fused_on(vcfgs[name], b):
+            lines[label]["path"] = paths[name]
+    return lines
+
+
+def check_row4_turns(torch):
+    """Phase 3, row 4 (the int8 layer at ViT-L's width, F 4096, 16 heads,
+    bf16) in turns: the split form at (8, 257, 1024), as phase 3 has timed
+    it, and fused_int8_vit_layer at (64, 257, 1024), as CLIP ViT-L/14's int8
+    encode calls it, each with the fused MLP half and with the composition
+    (turns fused, composition, composition, fused, twice). Prints the times
+    and returns them by shape and route."""
+    from mit_tpu_torch.ops import int8_layer
+
+    d, f, heads, t = 1024, 4096, 16, 257
+    args = (random_ln(torch, d, 61), random_qlinear(torch, d, 3 * d, 62),
+            random_qlinear(torch, d, d, 63), random_ln(torch, d, 64),
+            random_qlinear(torch, d, f, 65), random_qlinear(torch, f, d, 66),
+            heads, 1e-12)
+    out = {}
+    for b, fn in ((8, int8_layer.fused_int8_vit_layer_split),
+                  (64, int8_layer.fused_int8_vit_layer)):
+        x = random_rows(torch, b * t, d, torch.bfloat16, seed=60,
+                        zero_row=False).reshape(b, t, d)
+        times = {"fused": [], "composition": []}
+        for turn in range(2):
+            for route in ("fused", "composition", "composition", "fused"):
+                with mlp_route(route):
+                    times[route].append(cuda_ms(torch, lambda: fn(x, *args)))
+        out[b] = times
+        print(f"row 4 {fn.__name__} ({b}, {t}, {d}) bf16 in turns: fused MLP "
+              f"{[round(v, 4) for v in times['fused']]} ms, composition "
+              f"{[round(v, 4) for v in times['composition']]} ms; "
+              f"{DEVICE_LINE[0] if DEVICE_LINE else ''}")
+    return out
+
+
+def int8_mlp_turns(torch, label, cap, px, full):
+    """An int8 encode (bf16) with the fused MLP half against the
+    composition: each route's launches per encode held (per_encode) and its
+    layers' MLP routes (fused_int8_vit_layer.kernels); encode ms in
+    alternating turns, ENC_REPS each; then device ms by kernel name under
+    torch.profiler over PROFILE_ENCODES encodes each. Returns
+    {route: {"ms": median, "by_kernel": {name: ms an encode}}}."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mit_tpu_torch.ops import int8_layer
+
+    routes = ("fused", "composition")
+    for route in routes:
+        with mlp_route(route):
+            cap.memory_from_pixels(px)
+            torch.cuda.synchronize()
+            reset_counts()
+            cap.memory_from_pixels(px)
+            torch.cuda.synchronize()
+            hold_launches(f"{label} int8 encode, MLP {route}", read_counts(),
+                          per_encode(full, route == "fused",
+                                     route == "fused")["int8"])
+            hold_kernels(f"{label} int8 encode, MLP {route}",
+                         int8_layer.fused_int8_vit_layer,
+                         {"fused": full if route == "fused" else 0,
+                          "composition": 0 if route == "fused" else full})
+    times = {route: [] for route in routes}
+    for turn in range(ENC_REPS):
+        for route in (routes if turn % 2 == 0 else routes[::-1]):
+            with mlp_route(route):
+                t0 = time.perf_counter()
+                cap.memory_from_pixels(px)
+                torch.cuda.synchronize()
+                times[route].append((time.perf_counter() - t0) * 1e3)
+    out = {}
+    for route in routes:
+        with mlp_route(route), profile(
+                activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILE_ENCODES):
+                cap.memory_from_pixels(px)
+            torch.cuda.synchronize()
+        by = {}
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA:
+                ms = getattr(e, "self_device_time_total", 0) / 1e3
+                if ms > 0:
+                    by[e.key[:60]] = ms / PROFILE_ENCODES
+        total = sum(by.values())
+        q1, q2, q3 = statistics.quantiles(times[route], n=4)
+        out[route] = {"ms": q2, "by_kernel": by}
+        print(f"{label} int8 bf16 B={PRETRAINED_BATCH} MLP {route}: encode "
+              f"median {q2:.3f} ms (quartiles {q1:.3f}-{q3:.3f}, {ENC_REPS} "
+              f"in alternating turns); device {total:.3f} ms an encode "
+              f"({PROFILE_ENCODES} traced), by kernel: " + "; ".join(
+                  f"{k} {v:.3f}" for k, v in sorted(
+                      by.items(), key=lambda kv: -kv[1])[:8])
+              + f"; {DEVICE_LINE[0] if DEVICE_LINE else ''}")
+    return out
 
 
 def decode_layer_inputs(torch, b, t, dtype, per_row, seed=SEED):
@@ -1792,7 +2114,7 @@ def check_wide_heads(torch):
          5e-3, fa.flash_attention_btd_fusedqkv, True,
          {"bound_ms": max(by_bytes, by_ops) * 1e3,
           "bound_by": "bytes" if by_bytes >= by_ops else "operations"},
-         rel=True)
+         layer_yardstick(torch, b, t, d, f, d // hd), rel=True)
     print(f"wide heads: {time.perf_counter() - t_phase:.1f} s")
     return lines
 
@@ -1819,7 +2141,7 @@ def hold_kernels(label, wrapper, want):
 
 def drive(torch, name, cap, px, reps):
     """The main path of one arm: every counter set to 0, `reps` encode and
-    decode calls, the counters read and held to PER_ENCODE. Returns
+    decode calls, the counters read and held to slice_per_encode. Returns
     captions/s (median), the counts and the last batch's memory."""
     reset_counts()
     seconds, enc_s = [], []
@@ -1845,8 +2167,8 @@ def drive(torch, name, cap, px, reps):
     print(f"slice bf16 B={b} {name}: {rate:.1f} captions/s (median of {reps} "
           f"runs {[round(s, 4) for s in seconds]} s; encode "
           f"{[round(s, 4) for s in enc_s]} s; {steps} decode steps)")
-    hold_launches(f"slice bf16 B={b} {name} encode", counts, PER_ENCODE[name],
-                  reps)
+    hold_launches(f"slice bf16 B={b} {name} encode", counts,
+                  slice_per_encode(cap.mcfg.vision, b)[name], reps)
     if not (bool(torch.isfinite(mem).all()) and mem.shape == (b, 1, 512)):
         raise AssertionError(f"{name}: bad memory {tuple(mem.shape)}")
     return rate, counts, tokens
@@ -2700,7 +3022,7 @@ def check_pretrained(torch, device="cuda"):
             "int8": Captioner(params, mcfg, ids, torch.bfloat16,
                               encoder_quant="int8", fused_decode=True),
         }
-        want = per_encode(full)
+        want = encode_launches(mcfg.vision, PRETRAINED_BATCH, 257)
         for arm, cap in arms.items():
             cap.memory_from_pixels(px)                          # warm-up
             torch.cuda.synchronize()
@@ -2745,6 +3067,7 @@ def check_pretrained(torch, device="cuda"):
         if not (held and cos > 0.999):
             raise AssertionError("CLIP-L bf16: a kernel path disagrees")
         del plains, mems, mem_p
+        mlp_turns = int8_mlp_turns(torch, "clip-l", arms["int8"], px, full)
         enc_ms = {arm: [] for arm in arms}
         for turn in range(ENC_REPS):
             for arm in (("float", "int8") if turn % 2 == 0
@@ -2853,7 +3176,7 @@ def check_pretrained(torch, device="cuda"):
     print(f"phase pretrained: {time.perf_counter() - t_phase:.1f} s")
     return {"counts": counts, "rates": rates,
             "enc_ms": {a: statistics.median(m) for a, m in enc_ms.items()},
-            "preprocess_ms": pre_ms}
+            "preprocess_ms": pre_ms, "mlp_turns": mlp_turns}
 
 
 def vit_h_config():
@@ -2963,7 +3286,7 @@ def check_vit_h(torch, device="cuda"):
     }
     wrapper = {"float": fa.flash_attention_btd,
                "int8": fa.flash_attention_btd_fusedqkv}
-    want = per_encode(full)
+    want = encode_launches(mcfg.vision, PRETRAINED_BATCH, 257)
     mems = {}
     for arm, cap in arms.items():
         cap.memory_from_pixels(px)                              # warm-up
@@ -2987,6 +3310,7 @@ def check_vit_h(torch, device="cuda"):
     print(f"pretrained vit-h bf16 B={PRETRAINED_BATCH}: int8 arm's cosine to "
           f"the float arm {cos:.6f} (printed, not held)")
     del mems
+    mlp_turns = int8_mlp_turns(torch, "vit-h", arms["int8"], px, full)
     times = {arm: [] for arm in arms}
     for turn in range(ENC_REPS):
         for arm in (("float", "int8") if turn % 2 == 0 else ("int8", "float")):
@@ -3033,7 +3357,8 @@ def check_vit_h(torch, device="cuda"):
               + f", {steps} fused greedy steps); "
               f"{DEVICE_LINE[0] if DEVICE_LINE else ''}")
     print(f"phase vit-h: {time.perf_counter() - t_phase:.1f} s")
-    return {"counts": counts, "rates": rates, "enc_ms": enc_ms}
+    return {"counts": counts, "rates": rates, "enc_ms": enc_ms,
+            "mlp_turns": mlp_turns}
 
 
 def dropout_inputs(torch, b, h, t, s, dtype, seed=SEED):
@@ -4408,8 +4733,10 @@ KERNELS = {
                   "int8"),
     "int8_linear": ("int8_gemm.cu", "mit_tpu/ops/pallas_int8_mlp.py:212",
                     "int8"),
-    "fused_int8_mlp": ("int8_gemm.cu", "mit_tpu/ops/pallas_int8_mlp.py:88",
-                       "int8"),
+    "int8_mlp_fused": ("int8_mlp_fused.cu",
+                       "mit_tpu/ops/pallas_int8_layer.py:297", "int8"),
+    "fused_int8_mlp": ("int8_mlp_fused.cu",
+                       "mit_tpu/ops/pallas_int8_mlp.py:88", "int8"),
     "fused_int8_vit_layer": ("int8_gemm.cu",
                              "mit_tpu/ops/pallas_int8_layer.py:263", "int8"),
     "flash_attention_dropout": ("flash_attention_dropout.cu",
@@ -4452,6 +4779,93 @@ def wide_lines(wide, counts):
                     "launches": counts[path][counter] if path else 0,
                     **line})
     return out
+
+
+def check_int8_paths(torch, device="cuda"):
+    """Phases 4b and 4c's int8 arms alone (`--int8-mlp`): CLIP ViT-L/14 and
+    ViT-H/14 at their published widths from checkpoints written in the run
+    (seeded weights), seeded uint8 64 x 480 x 640 through
+    device_preprocess, the int8 arm at bf16 batch 64: launches per encode
+    held, its memory within FLOOR_FACTOR times the plain int8 path's own
+    move under one bf16 ulp of the pixels, then int8_mlp_turns. Returns the
+    counts of each path."""
+    import tempfile
+
+    from mit_tpu_torch.data.preprocess import device_preprocess
+    from mit_tpu_torch.decode.api import Captioner
+    from mit_tpu_torch.models.vision import PRESETS
+
+    ids, counts = SpecialIds(), {}
+    u8 = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, 256, (PRETRAINED_BATCH, *UINT8_HW, 3), dtype=np.uint8)).to(device)
+    clip, vit_h = PRESETS[CLIP_L], vit_h_config()
+    towers = [
+        ("clip_l", CLIP_L, clip, "vision_model.",
+         {"model_type": "clip", "projection_dim": 768,
+          "vision_config": hf_vision_config(clip, "clip_vision_model")}),
+        ("vit_h", VIT_H, vit_h, "", hf_vision_config(vit_h, "vit")),
+    ]
+    for key, name, vcfg, prefix, config in towers:
+        with tempfile.TemporaryDirectory() as root:
+            path, seeded, *_ = write_tower(torch, root, key, vcfg, prefix,
+                                           "model.safetensors", config)
+            mcfg, params, _ = boot(torch, path, name, seeded, vcfg, device)
+            del seeded
+        px = device_preprocess(u8, name)
+        full = vcfg.num_layers - 1
+        cap = Captioner(params, mcfg, ids, torch.bfloat16,
+                        encoder_quant="int8")
+        plain = Captioner(params, mcfg, ids, torch.bfloat16,
+                          use_kernel=False, encoder_quant="int8")
+        cap.memory_from_pixels(px)                              # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        mem = cap.memory_from_pixels(px)
+        torch.cuda.synchronize()
+        counts[f"{key}_int8"] = read_counts()
+        hold_launches(f"{key} bf16 B={PRETRAINED_BATCH} int8 encode",
+                      counts[f"{key}_int8"],
+                      encode_launches(vcfg, PRETRAINED_BATCH, 257)["int8"])
+        hold_routes(f"{key} bf16 int8", attention=0,
+                    decode={"fused": 0, "unfused": 0})
+        mem_p = plain.memory_from_pixels(px)
+        floor = rel_l2(plain.memory_from_pixels(bf16_ulp_up(torch, px)), mem_p)
+        rel = rel_l2(mem, mem_p)
+        print(f"{key} int8 bf16 B={PRETRAINED_BATCH}: memory kernel vs plain "
+              f"relative L2 {rel:.3e} (limit {FLOOR_FACTOR} x {floor:.3e}, "
+              f"the plain path's move under one bf16 ulp of the pixels)")
+        if not (0 < floor and rel <= FLOOR_FACTOR * floor
+                and bool(torch.isfinite(mem).all())):
+            raise AssertionError(f"{key} int8 bf16: the kernel path disagrees")
+        del plain, mem_p
+        int8_mlp_turns(torch, key.replace("_", "-"), cap, px, full)
+        del cap, params
+    return counts
+
+
+def mlp_lines(int8, counts):
+    """Phase 3's fused-MLP lines other than the ViT-B path's as kernel
+    entries: (those whose shape a path runs on the kernel, with that path's
+    launches; those the port's rule keeps off every path, with 0). A line
+    whose path launched no fused MLP fails."""
+    source, replaces, _ = KERNELS["int8_mlp_fused"]
+    on, off = [], []
+    for label, line in int8.items():
+        if not label.startswith("int8_mlp_fused ("):
+            continue
+        path = line.get("path")
+        launches = counts[path]["int8_mlp_fused"] if path else 0
+        entry = {"name": label, "route": "cuda",
+                 "source": f"mit_tpu_torch/csrc/{source}",
+                 "replaces": replaces, "launches": launches,
+                 **{k: v for k, v in line.items() if k != "path"}}
+        if path is None:
+            off.append(entry)
+        elif launches == 0:
+            raise AssertionError(f"{label} was not launched on its path")
+        else:
+            on.append(entry)
+    return on, off
 
 
 def main() -> int:
@@ -4497,6 +4911,11 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--tp-encoder"]:
         check_tp_encoder(torch)
+        return 0
+    if sys.argv[1:] == ["--int8-mlp"]:
+        int8 = check_int8_kernels(torch)
+        on, off = mlp_lines(int8, check_int8_paths(torch))
+        print(json.dumps({"int8_mlp_kernels": on, "off_path": off}))
         return 0
     if sys.argv[1:] == ["--wide-heads"]:
         print(json.dumps({"wide_head_kernels": wide_lines(
@@ -4605,17 +5024,21 @@ def main() -> int:
         **{key: btd[key] for key in ("device_ms", "library_device_ms")
            if btd[key] is not None},
     })
-    lines = []
+    lines, off_path = [], []
     for name, (source, replaces, path) in KERNELS.items():
         launches = slice_["counts"][path][name]
+        line = {"name": name, "route": "cuda",
+                "source": f"mit_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": launches,
+                **results[name],
+                **({"tp": results_tp[name]} if name in results_tp else {})}
         if launches == 0:
             raise AssertionError(f"{name} was not launched on its path")
-        lines.append({"name": name, "route": "cuda",
-                      "source": f"mit_tpu_torch/csrc/{source}",
-                      "replaces": replaces, "launches": launches,
-                      **results[name],
-                      **({"tp": results_tp[name]} if name in results_tp
-                         else {})})
+        lines.append(line)
+    # the fused MLP half at CLIP-L's and ViT-H's widths (phases 4b, 4c)
+    on, off = mlp_lines(int8, slice_["counts"])
+    lines += on
+    off_path += off
     # the wide heads' instantiations on the ViT-H/14 path (phase 4c)
     wide_path = wide_lines(wide, vit_h["counts"])
     for line in wide_path:
@@ -4627,6 +5050,7 @@ def main() -> int:
     # beside the kernels of the paths: the any-shape kernels, which the
     # default models' geometries never reach, and every wide-head line
     print(json.dumps({"wide_head_kernels": wide_path}))
+    print(json.dumps({"off_path_kernels": off_path}))
     print(json.dumps({"any_shape_kernels": [
         {"name": name, "route": "cuda",
          "source": "mit_tpu_torch/csrc/attention_any_shape.cu", **line}

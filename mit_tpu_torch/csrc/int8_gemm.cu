@@ -5,7 +5,9 @@
 // (mit_tpu/ops/pallas_int8_mlp.py:212, behind int8_linear), the two GEMMs
 // of _mlp_kernel (:88, behind fused_int8_mlp) and the four GEMMs of the
 // whole-layer kernel (_dq in mit_tpu/ops/pallas_int8_layer.py:48, behind
-// fused_int8_vit_layer and fused_int8_vit_layer_split). Per element:
+// fused_int8_vit_layer and fused_int8_vit_layer_split); the MLP's two
+// wherever ops/int8_mlp.py mlp_kernel_for sends the MLP half to the
+// composition (batch 64) rather than to int8_mlp_fused.cu. Per element:
 //   acc = sum_k a8[m, k] * w8[k, n]                         exact int32
 //   y   = float(acc) * (sx[m] * sw[n]) [+ bias[n]]           f32
 //   y   = gelu(y) | quick_gelu(y)                            (optional)
@@ -56,16 +58,13 @@
 // The entry point returns cudaGetLastError() after its launch; the Python
 // wrapper raises when it is not cudaSuccess.
 
-#include <cuda.h>
-#include <stdint.h>
-
-#include "wgmma.cuh"
+#include "int8_common.cuh"
 
 namespace {
 
 constexpr int BM = 128;                 // rows a tile
 constexpr int BN = 128;                 // columns a tile
-constexpr int BK = 128;                 // bytes of K a stage (a swizzle row)
+constexpr int BK = TMA_K;               // bytes of K a stage (a swizzle row)
 constexpr int NT = BN / 8;              // 8-column fragments a 64-row half
 constexpr int STAGES = 4;
 constexpr int THREADS = 384;            // producer + two consumer warpgroups
@@ -78,10 +77,6 @@ constexpr int BARS = 2 * STAGES + 2;    // full, empty, the consumers' order
 constexpr int SMEM = STAGES * STAGE + 8 * EPI_WORDS * 4 +
                      8 * 2 * RES_BYTES + BARS * 8 +
                      1024;              // + room to align to 1024
-
-enum { ACT_NONE = 0, ACT_GELU = 1, ACT_QUICK_GELU = 2 };
-enum { RES_NONE = 0, RES_F32 = 1, RES_BF16 = 2 };
-enum { OUT_F32 = 0, OUT_BF16 = 1, OUT_S32 = 2 };
 
 // d (+)= a . b^T over k32: a (64 rows x 32 bytes) and b (128 rows x 32
 // bytes), both K-major int8 tiles in shared memory, exact int32 sums;
@@ -115,82 +110,6 @@ __device__ __forceinline__ void wgmma_s8(int (&d)[16][4],
         "+r"(d[14][0]), "+r"(d[14][1]), "+r"(d[14][2]), "+r"(d[14][3]),
         "+r"(d[15][0]), "+r"(d[15][1]), "+r"(d[15][2]), "+r"(d[15][3])
       : "l"(a), "l"(b), "r"(accumulate));
-}
-
-// keeps the compiler from moving reads or writes of d across the wgmma
-// fences and waits around it
-__device__ __forceinline__ void wg_touch_s32(int (&d)[NT][4]) {
-#pragma unroll
-  for (int i = 0; i < NT; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(d[i][j])::"memory");
-}
-
-__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count) : "memory");
-}
-// until the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
-  asm volatile(
-      "{\n.reg .pred p;\nWAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT;\n}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(unsigned bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_expect(unsigned bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   bar),
-               "r"(bytes)
-               : "memory");
-}
-// rows [row, row + box rows) x bytes [k, k + BK) of a tensor map's matrix
-// into shared memory, completing `bytes` of the barrier's phase
-__device__ __forceinline__ void tma_load(unsigned dst, const CUtensorMap* map,
-                                         int k, int row, unsigned bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
-      "l"(reinterpret_cast<unsigned long long>(map)), "r"(k), "r"(row),
-      "r"(bar)
-      : "memory");
-}
-
-// erf(z) = z * P(z^2), clamped to |z| <= 3 (pallas_int8_mlp.py:39-69)
-__device__ __forceinline__ float erf_poly(float z) {
-  z = fminf(fmaxf(z, -3.f), 3.f);
-  const float u = __fmul_rn(z, z);
-  float p = 3.8978985791e-06f;
-  p = __fadd_rn(__fmul_rn(p, u), -1.4152522556e-04f);
-  p = __fadd_rn(__fmul_rn(p, u), 2.1716450163e-03f);
-  p = __fadd_rn(__fmul_rn(p, u), -1.8627491535e-02f);
-  p = __fadd_rn(__fmul_rn(p, u), 1.0037558057e-01f);
-  p = __fadd_rn(__fmul_rn(p, u), -3.6740184481e-01f);
-  p = __fadd_rn(__fmul_rn(p, u), 1.1265645860e+00f);
-  return __fmul_rn(z, p);
-}
-
-// ACT is a template argument so that an element's code holds its own
-// activation alone (a runtime choice is compiled into predicated code that
-// computes every activation for every element)
-template <int ACT>
-__device__ __forceinline__ float epilogue(int acc, float s, float sw,
-                                          bool has_bias, float bias,
-                                          bool has_res, float res) {
-  float y = __fmul_rn(__int2float_rn(acc), __fmul_rn(s, sw));
-  if (has_bias) y = __fadd_rn(y, bias);
-  if (ACT == ACT_GELU) {
-    y = __fmul_rn(__fmul_rn(0.5f, y),
-                  __fadd_rn(1.f, erf_poly(__fmul_rn(y, 0.7071067811865475f))));
-  } else if (ACT == ACT_QUICK_GELU) {
-    y = __fmul_rn(y, __fdiv_rn(1.f, __fadd_rn(1.f, expf(-__fmul_rn(1.702f, y)))));
-  }
-  return has_res ? __fadd_rn(res, y) : y;
 }
 
 struct Args {
@@ -430,40 +349,6 @@ int8_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// the tensor map of a K-contiguous int8 matrix with `rows` rows: boxes of
-// 128 rows by BK bytes in the 128-byte swizzle, zeros past the edges
-cudaError_t encode_map(CUtensorMap* map, const void* base, int rows, int K) {
-  static EncodeTiled encode = nullptr;
-  if (encode == nullptr) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
-    if (e != cudaSuccess) return e;
-    if (found != cudaDriverEntryPointSuccess || fn == nullptr)
-      return cudaErrorNotSupported;
-    encode = reinterpret_cast<EncodeTiled>(fn);
-  }
-  const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)K};
-  const cuuint32_t box[2] = {BK, 128};
-  const cuuint32_t step[2] = {1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
-                            const_cast<void*>(base), dims, strides, box, step,
-                            CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B,
-                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 constexpr int MAX_DEVICES = 64;
 
 template <int OUT>
@@ -509,8 +394,8 @@ extern "C" int mit_int8_gemm(const void* a8, const void* bt, const void* sx,
       out_kind > OUT_S32)
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap ma, mb;
-  cudaError_t e = encode_map(&ma, a8, M, K);
-  if (e == cudaSuccess) e = encode_map(&mb, bt, N, K);
+  cudaError_t e = encode_map(&ma, a8, M, K, BM);
+  if (e == cudaSuccess) e = encode_map(&mb, bt, N, K, BN);
   if (e != cudaSuccess) return static_cast<int>(e);
   const Args a{static_cast<const float*>(sx), static_cast<const float*>(sw),
                static_cast<const float*>(bias), res, out, M, N, K, act,

@@ -25,8 +25,11 @@
 // K = 3,072), so the LayerNorm's mean, variance and normalise passes and
 // the amax and quantize passes read shared memory, and the row is read
 // from device memory once. The row max is one in-block reduction (warp
-// shuffles, then one word per warp). Fusing the quantize into the
-// producing GEMM's epilogue (a row amax across N tiles) is later work.
+// shuffles, then one word per warp). int8_mlp_fused.cu runs the MLP half's
+// two quantizers on chip (the hidden's row max across a cluster, the
+// LayerNorm's sums in this kernel's order) where ops/int8_mlp.py
+// mlp_kernel_for picks it: a few images and the CLS rows. At batch 64 the
+// MLP half still runs here and in int8_gemm.cu, faster on an H100.
 //
 // Every entry point returns cudaGetLastError() after its launch; the
 // Python wrapper raises when it is not cudaSuccess.

@@ -51,6 +51,9 @@ ENTRY_POINTS = {
     "mit_quantize_rows_f32": [_P] * 5 + [_I, _I, _F, _P],
     "mit_quantize_rows_bf16": [_P] * 5 + [_I, _I, _F, _P],
     "mit_int8_gemm": [_P] * 7 + [_I] * 6 + [_P],
+    "mit_int8_mlp_fused": [_P] * 10 + [_I] * 7 + [_F, _P],
+    # shared memory a block and clusters the card holds at once
+    "mit_int8_mlp_fused_info": [_I, _I, _P, _P],
     # the dropout entries end in the cell map (b_offset, h_total, h_offset)
     "mit_flash_attention_dropout_fwd":
         [_P] * 5 + [_I] * 7 + [_U, _U, _F] + [_I] * 3 + [_P],

@@ -4,7 +4,8 @@
 The TPU kernel ``fused_int8_vit_layer`` keeps a layer's 7.1 MB of int8
 weights resident in VMEM and runs the layer for one image in one kernel.
 An SM's 227 KB of shared memory cannot hold that, so on Hopper the layer
-is a sequence of the port's three CUDA kernels, with the same numerics:
+is six (or nine) launches of the port's four CUDA kernels, with the same
+numerics:
 
 1. LayerNorm 1 (f32) + row quantize        ``quantize_rows``
 2. QKV GEMM → bf16 (even at f32 compute)   ``int8_gemm``
@@ -12,10 +13,18 @@ is a sequence of the port's three CUDA kernels, with the same numerics:
    (``layer_numerics=True``)
 4. row quantize of the f32 context         ``quantize_rows``
 5. out-projection GEMM + residual, f32     ``int8_gemm``
-6. LayerNorm 2 + row quantize              ``quantize_rows``
-7. fc1 GEMM + GELU/quick_gelu → f32        ``int8_gemm``
-8. row quantize of the hidden              ``quantize_rows``
-9. fc2 GEMM + residual → x's dtype         ``int8_gemm``
+6. the MLP half: LayerNorm 2 + quantize →  ``int8_mlp_fused``
+   fc1 + GELU/quick_gelu → quantize → fc2
+   + residual → x's dtype
+
+Step 6 is one launch whose hidden stays in a thread block cluster's shared
+memory (``csrc/int8_mlp_fused.cu``) where ``int8_mlp.mlp_kernel_for`` picks
+it (the supported presets' (D, F), up to the rows at which it beat the
+composition on the card: a few images); elsewhere, a batch of 64 images
+among them, it is the composition ``quantize_rows`` → ``int8_gemm`` →
+``quantize_rows`` → ``int8_gemm`` (nine launches a layer), with the same
+numbers. ``<wrapper>.kernels`` counts the layers by the route of their MLP
+half.
 
 The residual stream stays f32 inside the layer; the layer's input and
 output are in x's dtype.
@@ -38,6 +47,8 @@ from mit_tpu_torch.ops.int8_mlp import (
     ACTS,
     int8_gemm,
     int8_gemm_reference,
+    _mlp_half,
+    mlp_half,
     quantize_rows,
     quantize_rows_reference,
 )
@@ -45,7 +56,13 @@ from mit_tpu_torch.ops.quant import QuantizedLinear
 
 
 def _layer(x, ln1, qkv, out, ln2, fc1, fc2, num_heads, eps, act, split,
-           quant, gemm, attn):
+           quant, gemm, attn, mlp=None):
+    """Steps 1-5, then ``mlp(x1, fc1, fc2, act, ln2, eps, residual=True,
+    out_dtype=x.dtype)`` for the MLP half (by default the composition of
+    ``quant`` and ``gemm``)."""
+    if mlp is None:
+        mlp = lambda *args, **kw: _mlp_half(*args, **kw, quant=quant,
+                                            gemm=gemm)
     b, t, d = x.shape
     xf = x.reshape(b * t, d)
     h8, sh = quant(xf, ln1, eps)
@@ -54,10 +71,7 @@ def _layer(x, ln1, qkv, out, ln2, fc1, fc2, num_heads, eps, act, split,
     c8, sc = quant(ctx.view(b * t, d))
     x1 = gemm(c8, sc, out, residual=xf,
               out_dtype=x.dtype if split else torch.float32)
-    h8, sh = quant(x1, ln2, eps)
-    mid = gemm(h8, sh, fc1, act=act, out_dtype=torch.float32)
-    m8, sm = quant(mid)
-    y = gemm(m8, sm, fc2, residual=x1, out_dtype=x.dtype)
+    y = mlp(x1, fc1, fc2, act, ln2, eps, residual=True, out_dtype=x.dtype)
     return y.view(b, t, d)
 
 
@@ -67,7 +81,8 @@ def _reference(x, ln1, qkv, out, ln2, fc1, fc2, num_heads, eps, act, split):
                   flash_attention_btd_fusedqkv_reference)
 
 
-def _kernels(x, ln1, qkv, out, ln2, fc1, fc2, num_heads, eps, act, split):
+def _kernels(x, ln1, qkv, out, ln2, fc1, fc2, num_heads, eps, act, split,
+             routes):
     if torch.is_grad_enabled() and x.requires_grad:
         raise RuntimeError("the fused int8 layer is forward-only")
     if x.device.type != "cuda":
@@ -79,9 +94,15 @@ def _kernels(x, ln1, qkv, out, ln2, fc1, fc2, num_heads, eps, act, split):
                          f"num_heads={num_heads}, got {tuple(x.shape)}")
     if act not in ACTS[1:]:
         raise ValueError(f"act must be 'gelu' or 'quick_gelu', got {act!r}")
+
+    def mlp(*args, **kw):
+        y, route = mlp_half(*args, **kw)
+        routes[route] += 1
+        return y
+
     return _layer(x.contiguous(), ln1, qkv, out, ln2, fc1, fc2, num_heads,
                   eps, act, split, quantize_rows, int8_gemm,
-                  flash_attention_btd_fusedqkv)
+                  flash_attention_btd_fusedqkv, mlp)
 
 
 def fused_int8_vit_layer_reference(
@@ -110,12 +131,14 @@ def fused_int8_vit_layer(
     if x.device.type == "cpu":
         return fused_int8_vit_layer_reference(x, ln1, qkv, out, ln2, fc1, fc2,
                                               num_heads, eps, act)
-    y = _kernels(x, ln1, qkv, out, ln2, fc1, fc2, num_heads, eps, act, False)
+    y = _kernels(x, ln1, qkv, out, ln2, fc1, fc2, num_heads, eps, act, False,
+                 fused_int8_vit_layer.kernels)
     fused_int8_vit_layer.launches += 1
     return y
 
 
 fused_int8_vit_layer.launches = 0
+fused_int8_vit_layer.kernels = {"fused": 0, "composition": 0}
 
 
 def fused_int8_vit_layer_split_reference(
@@ -138,9 +161,11 @@ def fused_int8_vit_layer_split(
     if x.device.type == "cpu":
         return fused_int8_vit_layer_split_reference(
             x, ln1, qkv, out, ln2, fc1, fc2, num_heads, eps, act)
-    y = _kernels(x, ln1, qkv, out, ln2, fc1, fc2, num_heads, eps, act, True)
+    y = _kernels(x, ln1, qkv, out, ln2, fc1, fc2, num_heads, eps, act, True,
+                 fused_int8_vit_layer_split.kernels)
     fused_int8_vit_layer_split.launches += 1
     return y
 
 
 fused_int8_vit_layer_split.launches = 0
+fused_int8_vit_layer_split.kernels = {"fused": 0, "composition": 0}

@@ -1,8 +1,9 @@
 """int8 (W8A8) GEMMs of the encoder: row quantization, the int8 GEMM with
-its epilogues, ``int8_linear`` and ``fused_int8_mlp`` (port of
-``mit_tpu/ops/pallas_int8_mlp.py``).
+its epilogues, the fused MLP half, ``int8_linear`` and ``fused_int8_mlp``
+(port of ``mit_tpu/ops/pallas_int8_mlp.py`` and of the MLP pass of
+``mit_tpu/ops/pallas_int8_layer.py``).
 
-Two hand-written CUDA kernels do the work on the card:
+Three hand-written CUDA kernels do the work on the card:
 
 - ``csrc/quantize_rows.cu``: (M, K) f32/bf16 → int8 codes and an f32 scale
   per row, optionally after a LayerNorm in f32 (the fused layer's
@@ -10,16 +11,27 @@ Two hand-written CUDA kernels do the work on the card:
 - ``csrc/int8_gemm.cu``: int8 (M, K) · int8 (K, N) → exact int32 →
   ``acc·(sx[m]·s_w[n]) + bias[n]`` → optional GELU (polynomial erf) or
   quick_gelu → optional f32/bf16 residual add → f32 or bf16 (or the raw
-  int32 accumulators, for checking).
+  int32 accumulators, for checking);
+- ``csrc/int8_mlp_fused.cu``: the whole MLP half, [LayerNorm →] quantize →
+  fc1 + act → quantize → fc2 [+ residual], in one launch: a cluster of 8
+  blocks holds 64 rows and keeps the f32 hidden and its int8 codes in
+  shared memory (the TPU kernels kept it in VMEM).
 
-``int8_linear`` (the TPU ``_linear_kernel``) is quantize + GEMM;
-``fused_int8_mlp`` (the TPU ``_mlp_kernel``) is quantize → fc1 + act →
-quantize → fc2. On the TPU each was one kernel with the weights resident in
-VMEM; on Hopper the f32 hidden makes a round trip through device memory.
+``int8_linear`` (the TPU ``_linear_kernel``) is quantize + GEMM.
+``fused_int8_mlp`` (the TPU ``_mlp_kernel``) and the fused layer's MLP
+half (``_mlp_half_kernel`` / ``_mlp_body``) go through :func:`mlp_half`:
+one ``int8_mlp_fused`` launch where :func:`mlp_kernel_for` names the
+kernel (the (D, F) pairs of the supported presets, up to the rows at which
+it beat the composition on the card: small batches and the CLS rows), else
+the composition quantize → fc1 + act → quantize → fc2, whose f32 hidden
+makes a round trip through device memory. Both routes give the same
+numbers (bit for bit on the card, up to the last ulp of ``expf`` in
+quick_gelu).
 
 Every wrapper takes its plain PyTorch version (``*_reference``) for CPU
 tensors only; a CUDA tensor launches the kernel or raises. Each counts its
-kernel launches in ``<wrapper>.launches``.
+kernel launches in ``<wrapper>.launches``; ``fused_int8_mlp.kernels`` counts
+its calls by route.
 """
 
 from __future__ import annotations
@@ -38,6 +50,20 @@ _OUT_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
 _RES_CODE = {None: 0, torch.float32: 1, torch.bfloat16: 2}
 # quantize_rows stages one row in shared memory as f32 (48 KB without opt-in)
 QUANT_MAX_K = 12288
+# the (D, F) pairs csrc/int8_mlp_fused.cu is built for: ViT-B/16, CLIP-B/32
+# and BLIP-base; CLIP ViT-L/14; ViT-H/14. A cluster of MLP_CLUSTER blocks
+# holds MLP_ROWS rows; block r owns F / MLP_CLUSTER hidden columns (two
+# warpgroups of chunks of MLP_CHUNK) and D / MLP_CLUSTER output columns.
+FUSED_MLP_SHAPES = ((768, 3072), (1024, 4096), (1280, 5120))
+MLP_CLUSTER, MLP_ROWS, MLP_CHUNK = 8, 64, 64
+# The most rows at which the card's path sends an MLP half to the fused
+# kernel, by (D, F): the largest batch of ViT-B's 197, CLIP-L's and ViT-H's
+# 257 tokens at which it beat the composition in turns on an H100 (PERF.md,
+# tools/mlp_phases.py --sweep). Past them its clusters run their phases one
+# after another in too many waves; below, the composition's four launches
+# cost more. The CLS rows of the last layer (the batch) always fit.
+MLP_KERNEL_MAX_ROWS = {(768, 3072): 16 * 197, (1024, 4096): 4 * 257,
+                       (1280, 5120): 2 * 257}
 
 # odd-polynomial least-squares fit of erf(z) = z * P(z^2) on |z| <= 3
 # (pallas_int8_mlp.py:39-46); csrc/int8_gemm.cu carries the same numbers
@@ -276,7 +302,7 @@ int8_gemm.launches = 0
 
 
 # ----------------------------------------------------------------------
-# int8_linear and fused_int8_mlp: compositions of the two kernels
+# int8_linear: quantize_rows then int8_gemm
 # ----------------------------------------------------------------------
 def _rows(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(-1, x.shape[-1]).contiguous()
@@ -285,13 +311,6 @@ def _rows(x: torch.Tensor) -> torch.Tensor:
 def _linear(x, q, out_dtype, quant, gemm):
     x8, sx = quant(_rows(x))
     return gemm(x8, sx, q, out_dtype=out_dtype).reshape(*x.shape[:-1], -1)
-
-
-def _mlp(x, q1, q2, act, out_dtype, quant, gemm):
-    x8, sx = quant(_rows(x))
-    h = gemm(x8, sx, q1, act=act, out_dtype=torch.float32)
-    h8, sh = quant(h)
-    return gemm(h8, sh, q2, out_dtype=out_dtype).reshape(*x.shape[:-1], -1)
 
 
 def _gemm_any_k(a8, sx, q: QuantizedLinear, **kw) -> torch.Tensor:
@@ -333,27 +352,159 @@ def int8_linear(x: torch.Tensor, q: QuantizedLinear,
 int8_linear.launches = 0
 
 
+# ----------------------------------------------------------------------
+# the MLP half: one fused kernel, or the composition of the two kernels
+# ----------------------------------------------------------------------
+def _mlp_half(x, q1, q2, act, ln, eps, residual, out_dtype, quant, gemm):
+    x8, sx = quant(x, ln, eps)
+    h = gemm(x8, sx, q1, act=act, out_dtype=torch.float32)
+    h8, sh = quant(h)
+    return gemm(h8, sh, q2, residual=x if residual else None,
+                out_dtype=out_dtype)
+
+
+def int8_mlp_fused_reference(x: torch.Tensor, q1: QuantizedLinear,
+                             q2: QuantizedLinear, act: str = "gelu",
+                             ln: Optional[dict] = None, eps: float = 0.0,
+                             residual: bool = False,
+                             out_dtype=torch.bfloat16) -> torch.Tensor:
+    """x (M, D) → [LayerNorm in f32] → quantize → fc1 + bias → act (f32) →
+    quantize → fc2 + bias [+ x] → (M, D) in ``out_dtype``."""
+    return _mlp_half(x, q1, q2, act, ln, eps, residual, out_dtype,
+                     quantize_rows_reference, int8_gemm_reference)
+
+
+def mlp_kernel_for(d: int, f: int, act: str, rows: int) -> str:
+    """The route of an MLP half of ``rows`` rows on the card: "fused" (one
+    ``int8_mlp_fused`` launch) at a (D, F) of ``MLP_KERNEL_MAX_ROWS`` up to
+    its rows, with gelu or quick_gelu; "composition" (``quantize_rows``,
+    ``int8_gemm``, ``quantize_rows``, ``int8_gemm``) at any other shape or
+    activation."""
+    fused = (rows <= MLP_KERNEL_MAX_ROWS.get((d, f), 0)
+             and act in ACTS[1:])
+    return "fused" if fused else "composition"
+
+
+def _check_mlp_fused(x, q1: QuantizedLinear, q2: QuantizedLinear, act, ln,
+                     out_dtype) -> None:
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"out_dtype must be float32 or bfloat16, got "
+                        f"{out_dtype}")
+    if act not in ACTS[1:]:
+        raise ValueError(f"act must be 'gelu' or 'quick_gelu', got {act!r}")
+    if x.dim() != 2 or x.shape[0] == 0 or not x.is_contiguous():
+        raise ValueError(f"x must be contiguous (M, D) with M > 0, got "
+                         f"{tuple(x.shape)}")
+    d = x.shape[1]
+    w1, w2 = q1.w8, q2.w8
+    if w1.dtype != torch.int8 or w2.dtype != torch.int8:
+        raise TypeError(f"w8 must be int8, got {w1.dtype}, {w2.dtype}")
+    if (w1.dim() != 2 or w2.dim() != 2 or w1.shape[0] != d
+            or tuple(w2.shape) != (w1.shape[1], d)):
+        raise ValueError(f"need fc1 (D, F) and fc2 (F, D) for D = {d}; got "
+                         f"{tuple(w1.shape)}, {tuple(w2.shape)}")
+    f = w1.shape[1]
+    if (d, f) not in FUSED_MLP_SHAPES:
+        raise ValueError(f"the fused MLP kernel takes (D, F) in "
+                         f"{FUSED_MLP_SHAPES}, got ({d}, {f})")
+    if not w1.t().is_contiguous() or not w2.t().is_contiguous():
+        raise ValueError("w8 must be stored K-contiguous per column "
+                         "(ops.quant.kernel_layout)")
+    vectors = [("fc1 scale", q1.scale, f), ("fc1 bias", q1.bias, f),
+               ("fc2 scale", q2.scale, d), ("fc2 bias", q2.bias, d)]
+    if ln is not None:
+        vectors += [("ln scale", ln["scale"], d), ("ln bias", ln["bias"], d)]
+    for name, v, size in vectors:
+        if v is None:
+            continue
+        if (v.dtype != torch.float32 or tuple(v.shape) != (size,)
+                or not v.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous float32 ({size},), "
+                             f"got {v.dtype} {tuple(v.shape)}")
+    tensors = [x, w1, w2, *(v for _, v, _ in vectors if v is not None)]
+    if any(t.device != x.device for t in tensors):
+        raise ValueError("the fused MLP's operands must be on one device")
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("x, the weights, scales, biases and LayerNorm "
+                         "parameters must start on a 16-byte boundary")
+
+
+def int8_mlp_fused(x: torch.Tensor, q1: QuantizedLinear, q2: QuantizedLinear,
+                   act: str = "gelu", ln: Optional[dict] = None,
+                   eps: float = 0.0, residual: bool = False,
+                   out_dtype=torch.bfloat16) -> torch.Tensor:
+    """The MLP half in one launch of ``csrc/int8_mlp_fused.cu``; see
+    :func:`int8_mlp_fused_reference`. On the card it takes the (D, F)
+    pairs of ``FUSED_MLP_SHAPES`` and raises at any other."""
+    if x.device.type == "cpu":
+        return int8_mlp_fused_reference(x, q1, q2, act, ln, eps, residual,
+                                        out_dtype)
+    _require_cuda(x, "int8_mlp_fused")
+    _check_mlp_fused(x, q1, q2, act, ln, out_dtype)
+
+    from mit_tpu_torch import kernels
+
+    m, d = x.shape
+    f = q1.w8.shape[1]
+    out = torch.empty((m, d), dtype=out_dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = kernels.lib().mit_int8_mlp_fused(
+            x.data_ptr(), _ptr(None if ln is None else ln["scale"]),
+            _ptr(None if ln is None else ln["bias"]), q1.w8.data_ptr(),
+            q1.scale.data_ptr(), _ptr(q1.bias), q2.w8.data_ptr(),
+            q2.scale.data_ptr(), _ptr(q2.bias), out.data_ptr(), m, d, f,
+            int(x.dtype == torch.bfloat16), _ACT_CODE[act], int(residual),
+            int(out_dtype == torch.bfloat16), float(eps), _stream(x),
+        )
+    kernels.check(rc, "mit_int8_mlp_fused")
+    int8_mlp_fused.launches += 1
+    return out
+
+
+int8_mlp_fused.launches = 0
+
+
+def mlp_half(x: torch.Tensor, q1: QuantizedLinear, q2: QuantizedLinear,
+             act: str, ln: Optional[dict] = None, eps: float = 0.0,
+             residual: bool = False, out_dtype=torch.bfloat16):
+    """The MLP half of (M, D) rows on the card, by :func:`mlp_kernel_for`:
+    one ``int8_mlp_fused`` launch, or the composition of ``quantize_rows``
+    and ``int8_gemm``. Returns (y, route)."""
+    route = mlp_kernel_for(x.shape[1], q1.w8.shape[-1], act, x.shape[0])
+    if route == "fused":
+        return int8_mlp_fused(x, q1, q2, act, ln, eps, residual,
+                              out_dtype), route
+    return _mlp_half(x, q1, q2, act, ln, eps, residual, out_dtype,
+                     quantize_rows, _gemm_any_k), route
+
+
 def fused_int8_mlp_reference(x: torch.Tensor, q1: QuantizedLinear,
                              q2: QuantizedLinear, act: str = "gelu",
                              out_dtype=torch.bfloat16) -> torch.Tensor:
     """quantize → fc1 + bias → act (f32) → quantize → fc2 + bias."""
-    return _mlp(x, q1, q2, act, out_dtype, quantize_rows_reference,
-                int8_gemm_reference)
+    return int8_mlp_fused_reference(
+        _rows(x), q1, q2, act, out_dtype=out_dtype,
+    ).reshape(*x.shape[:-1], -1)
 
 
 def fused_int8_mlp(x: torch.Tensor, q1: QuantizedLinear, q2: QuantizedLinear,
                    act: str = "gelu", out_dtype=torch.bfloat16) -> torch.Tensor:
     """The int8 transformer MLP (the TPU ``fused_int8_mlp``): (..., D) →
-    (..., D), the hidden in f32 between the two GEMMs."""
+    (..., D), the hidden in f32 between the two GEMMs; on the card through
+    :func:`mlp_half` (``fused_int8_mlp.kernels`` counts the routes)."""
     if x.device.type == "cpu":
         return fused_int8_mlp_reference(x, q1, q2, act, out_dtype)
     _require_cuda(x, "fused_int8_mlp")
     _check_float(x, "fused_int8_mlp")
     if act not in ACTS:
         raise ValueError(f"unknown act {act!r}; choose one of {ACTS}")
-    out = _mlp(x, q1, q2, act, out_dtype, quantize_rows, _gemm_any_k)
+    out, route = mlp_half(_rows(x), q1, q2, act, out_dtype=out_dtype)
+    fused_int8_mlp.kernels[route] += 1
     fused_int8_mlp.launches += 1
-    return out
+    return out.reshape(*x.shape[:-1], -1)
 
 
 fused_int8_mlp.launches = 0
+fused_int8_mlp.kernels = {"fused": 0, "composition": 0}

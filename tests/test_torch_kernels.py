@@ -444,6 +444,89 @@ def test_int8_wrappers_reject_what_they_do_not_take(cuda):
             1e-6)
 
 
+# the (D, F) pairs of csrc/int8_mlp_fused.cu: ViT-B, CLIP-L, ViT-H
+MLP_SHAPES = [(768, 3072), (1024, 4096), (1280, 5120)]
+
+
+def _mlp_composition(*args):
+    """The MLP half as four launches (quantize_rows, int8_gemm, twice)."""
+    return int8_mlp._mlp_half(*args, int8_mlp.quantize_rows,
+                              int8_mlp._gemm_any_k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["layer", "split", "mlp"])
+@pytest.mark.parametrize("act", ["gelu", "quick_gelu"])
+@pytest.mark.parametrize("m", [64, 197, 1037])
+@pytest.mark.parametrize("d,f", MLP_SHAPES, ids=["vit-b", "clip-l", "vit-h"])
+def test_int8_mlp_fused_matches_the_composition_on_card(cuda, d, f, m, act,
+                                                        form):
+    """One launch, bitwise the composition's with gelu. With quick_gelu the
+    two may differ by one ulp of expf, which can flip one hidden code and
+    so move its row: at most one row in a thousand (and at least one may)
+    differs. Within 1e-3 (the MLP) or 5e-3 (the layer's forms) relative L2
+    of the plain version."""
+    dtype = torch.float32 if form == "layer" else torch.bfloat16
+    x = _rows(m, d, dtype, cuda)
+    ln = None if form == "mlp" else _ln(d, cuda)
+    out_dtype = torch.float32 if form == "layer" else torch.bfloat16
+    args = (x, _qlinear(d, f, cuda, 5), _qlinear(f, d, cuda, 6), act, ln,
+            1e-6, form != "mlp", out_dtype)
+    before = int8_mlp.int8_mlp_fused.launches
+    y = int8_mlp.int8_mlp_fused(*args)
+    z = _mlp_composition(*args)
+    ref = int8_mlp.int8_mlp_fused_reference(*args)
+    torch.cuda.synchronize()
+    assert int8_mlp.int8_mlp_fused.launches == before + 1
+    assert y.shape == (m, d) and y.dtype == out_dtype
+    if act == "gelu":
+        assert torch.equal(y, z)
+    else:
+        assert (y != z).any(dim=1).sum().item() <= max(1, m // 1000)
+    assert _rel(y, ref) <= (1e-3 if form == "mlp" else 5e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", [False, True], ids=["mega", "split"])
+def test_int8_layer_routes_its_mlp_half_on_card(cuda, monkeypatch, split):
+    """With the route on at any rows of every geometry the fused kernel is
+    built for, the layer's MLP half at such a (D, F) is one int8_mlp_fused
+    launch; at another, the composition."""
+    monkeypatch.setattr(int8_mlp, "MLP_KERNEL_MAX_ROWS",
+                        {shape: 1 << 30 for shape in int8_mlp.FUSED_MLP_SHAPES})
+    fn = (int8_layer.fused_int8_vit_layer_split if split
+          else int8_layer.fused_int8_vit_layer)
+    for d, f, heads, route in ((768, 3072, 12, "fused"),
+                               (256, 1024, 4, "composition")):
+        x = _rows(2 * 70, d, torch.bfloat16, cuda).reshape(2, 70, d)
+        kernels_before = dict(fn.kernels)
+        launches = int8_mlp.int8_mlp_fused.launches
+        out = fn(x, *_layer_weights(d, f, cuda), heads, 1e-6)
+        torch.cuda.synchronize()
+        assert fn.kernels[route] == kernels_before[route] + 1
+        assert (int8_mlp.int8_mlp_fused.launches - launches
+                == (1 if route == "fused" else 0))
+        assert bool(torch.isfinite(out).all())
+
+
+@pytest.mark.cuda
+def test_int8_mlp_fused_rejects_what_it_does_not_take_on_card(cuda):
+    x = _rows(8, 768, torch.float32, cuda)
+    q1, q2 = _qlinear(768, 3072, cuda), _qlinear(3072, 768, cuda, 1)
+    with pytest.raises(ValueError, match="takes"):
+        int8_mlp.int8_mlp_fused(x[:, :128].contiguous(), _qlinear(128, 512, cuda),
+                                _qlinear(512, 128, cuda))
+    with pytest.raises(ValueError, match="16-byte"):
+        shifted = torch.zeros(8 * 768 + 1, device=cuda)[1:].view(8, 768)
+        int8_mlp.int8_mlp_fused(shifted, q1, q2)
+    with pytest.raises(TypeError):
+        int8_mlp.int8_mlp_fused(x.half(), q1, q2)
+    with pytest.raises(ValueError, match="act"):
+        int8_mlp.int8_mlp_fused(x, q1, q2, "none")
+    with pytest.raises(ValueError, match="K-contiguous"):
+        int8_mlp.int8_mlp_fused(x, q1._replace(w8=q1.w8.contiguous()), q2)
+
+
 @pytest.mark.parametrize("change,error", [
     (dict(k=40), ValueError),                 # K not a multiple of 16
     (dict(n=12), ValueError),                 # N not a multiple of 8
