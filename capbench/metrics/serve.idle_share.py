@@ -1,0 +1,12 @@
+"""Share of the profiled stretch of a served window in which no kernel or
+copy ran on the card (the union of the profiler's device intervals)."""
+
+TRAFFIC = ("serve_open_loop",)
+MOVES = "latency_p95_ms"
+UNIT = "%"
+
+
+def read(r):
+    if not r.window_s or r.busy_s is None:
+        return None
+    return 100.0 * (1.0 - r.busy_s / r.window_s)
