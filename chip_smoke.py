@@ -4897,9 +4897,11 @@ def main() -> int:
     print("== 2 build", flush=True)
     from mit_tpu_torch import kernels
 
-    t0 = time.perf_counter()
     kernels.lib()
-    print(f"build {time.perf_counter() - t0:.2f} s: {kernels.library_path().name}")
+    built = kernels.lib.built
+    print(f"build {built['seconds']:.2f} s (nvcc {built['nvcc']}), "
+          f"loaded in {kernels.lib.load_seconds:.2f} s: "
+          f"{kernels.library_path().name}")
     log = kernels.library_path().with_name(kernels.library_path().name + ".log")
     if log.exists():
         print(log.read_text().strip())

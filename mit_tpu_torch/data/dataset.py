@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from mit_tpu_torch.data.preprocess import HostPreprocessor
+from mit_tpu_torch.utils.profiling import span
 
 DUMMY_PATH = "error_loading_image_path"
 
@@ -188,15 +189,16 @@ def to_device(arrays: dict, device) -> Dict[str, torch.Tensor]:
     does not block."""
     device = torch.device(device)
     out = {}
-    for k, a in arrays.items():
-        t = a if isinstance(a, torch.Tensor) else \
-            torch.from_numpy(np.ascontiguousarray(a))
-        if t.dtype == torch.int32:
-            t = t.long()
-        if device.type == "cuda":
-            out[k] = t.pin_memory().to(device, non_blocking=True)
-        else:
-            out[k] = t.to(device)
+    with span("mit.train.feed"):
+        for k, a in arrays.items():
+            t = a if isinstance(a, torch.Tensor) else \
+                torch.from_numpy(np.ascontiguousarray(a))
+            if t.dtype == torch.int32:
+                t = t.long()
+            if device.type == "cuda":
+                out[k] = t.pin_memory().to(device, non_blocking=True)
+            else:
+                out[k] = t.to(device)
     return out
 
 

@@ -19,6 +19,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from mit_tpu_torch.utils.profiling import span
+
 OPENAI_MEAN = (0.48145466, 0.4578275, 0.40821073)
 OPENAI_STD = (0.26862954, 0.26130258, 0.27577711)
 
@@ -104,10 +106,11 @@ def device_preprocess(images_u8: torch.Tensor, encoder_name: str,
     """
     spec = spec_for_encoder(encoder_name)
     target = spec.target if image_size is None else (image_size, image_size)
-    x = images_u8.permute(0, 3, 1, 2).to(torch.float32)
-    x = F.interpolate(x, size=target, mode=spec.resample, antialias=True,
-                      align_corners=False)
-    stat = lambda v: torch.tensor(v, dtype=torch.float32,
-                                  device=x.device).view(1, 3, 1, 1)
-    # the resize keeps the input's channels-last strides; callers get NCHW
-    return ((x / 255.0 - stat(spec.mean)) / stat(spec.std)).contiguous()
+    with span("mit.preprocess"):
+        x = images_u8.permute(0, 3, 1, 2).to(torch.float32)
+        x = F.interpolate(x, size=target, mode=spec.resample, antialias=True,
+                          align_corners=False)
+        stat = lambda v: torch.tensor(v, dtype=torch.float32,
+                                      device=x.device).view(1, 3, 1, 1)
+        # the resize keeps the input's channels-last strides; callers get NCHW
+        return ((x / 255.0 - stat(spec.mean)) / stat(spec.std)).contiguous()

@@ -29,6 +29,7 @@ from mit_tpu_torch.models.model import (
     project_features,
 )
 from mit_tpu_torch.models.vision import quantize_vision_params
+from mit_tpu_torch.utils.profiling import span
 
 class Captioner:
     """Holds parameters (on their device), the model config and a
@@ -96,12 +97,13 @@ class Captioner:
     @torch.inference_mode()
     def memory_from_pixels(self, pixels: torch.Tensor) -> torch.Tensor:
         """Preprocessed NCHW f32 pixel batch → decoder memory (B, S, D)."""
-        pixels = pixels.to(device=self.device, dtype=torch.float32)
-        feats = encode_images(self.params, self.mcfg, pixels,
-                              self.compute_dtype, self.use_kernel,
-                              self.fused_layers)
-        return project_features(self.params, self.mcfg, feats,
-                                self.compute_dtype)
+        with span("mit.encode"):
+            pixels = pixels.to(device=self.device, dtype=torch.float32)
+            feats = encode_images(self.params, self.mcfg, pixels,
+                                  self.compute_dtype, self.use_kernel,
+                                  self.fused_layers)
+            return project_features(self.params, self.mcfg, feats,
+                                    self.compute_dtype)
 
     # ------------------------------------------------------------------
     def generate(self, image, start_token_id: Optional[int] = None,
@@ -142,41 +144,46 @@ class Captioner:
         or the full sequence in ``memory_mode="full"``. ``generator`` (on the
         memory's device) feeds ``method="sample"``; None seeds one with 0, as
         the JAX package's ``rng=None`` is ``PRNGKey(0)``."""
-        tok = self.tokenizer
-        start_id = tok.start_id if start_token_id is None else start_token_id
-        end_id = tok.end_id if end_token_id is None else end_token_id
-        # the decoder's positional table caps generation length
-        max_len = min(max_len, self.mcfg.decoder.max_seq_len)
-        dec, dcfg = self.params["decoder"], self.mcfg.decoder
-        common = dict(compute_dtype=self.compute_dtype, fused=self.fused_decode)
-        if method == "greedy":
-            tokens, lengths = greedy_generate(
-                dec, dcfg, memory, start_id, end_id, tok.pad_id, max_len,
-                **common,
-            )
-        elif method == "beam":
-            tokens, _ = beam_generate(
-                dec, dcfg, memory, start_id, end_id, tok.pad_id, max_len,
-                beam_size or self.beam_size, **common,
-            )
-            lengths = (tokens != tok.pad_id).sum(dim=1)
-        elif method == "sample":
-            if generator is None:
-                generator = torch.Generator(device=memory.device)
-                generator.manual_seed(0)
-            tokens, lengths = sample_generate(
-                dec, dcfg, memory, generator, start_id, end_id, tok.pad_id,
-                max_len, temperature=temperature, top_k=top_k, top_p=top_p,
-                **common,
-            )
-        else:
-            raise ValueError(
-                f"Unsupported generation method: {method}. "
-                "Choose 'greedy', 'beam' or 'sample'."
-            )
-        tokens = tokens.cpu().numpy()
-        lengths = lengths.cpu().numpy()
-        return [tokens[i, : lengths[i]].tolist() for i in range(tokens.shape[0])]
+        with span("mit.decode"):
+            tok = self.tokenizer
+            start_id = (tok.start_id if start_token_id is None
+                        else start_token_id)
+            end_id = tok.end_id if end_token_id is None else end_token_id
+            # the decoder's positional table caps generation length
+            max_len = min(max_len, self.mcfg.decoder.max_seq_len)
+            dec, dcfg = self.params["decoder"], self.mcfg.decoder
+            common = dict(compute_dtype=self.compute_dtype,
+                          fused=self.fused_decode)
+            if method == "greedy":
+                tokens, lengths = greedy_generate(
+                    dec, dcfg, memory, start_id, end_id, tok.pad_id, max_len,
+                    **common,
+                )
+            elif method == "beam":
+                tokens, _ = beam_generate(
+                    dec, dcfg, memory, start_id, end_id, tok.pad_id, max_len,
+                    beam_size or self.beam_size, **common,
+                )
+                lengths = (tokens != tok.pad_id).sum(dim=1)
+            elif method == "sample":
+                if generator is None:
+                    generator = torch.Generator(device=memory.device)
+                    generator.manual_seed(0)
+                tokens, lengths = sample_generate(
+                    dec, dcfg, memory, generator, start_id, end_id, tok.pad_id,
+                    max_len, temperature=temperature, top_k=top_k, top_p=top_p,
+                    **common,
+                )
+            else:
+                raise ValueError(
+                    f"Unsupported generation method: {method}. "
+                    "Choose 'greedy', 'beam' or 'sample'."
+                )
+            with span("mit.decode.readback"):
+                tokens = tokens.cpu().numpy()
+                lengths = lengths.cpu().numpy()
+                return [tokens[i, : lengths[i]].tolist()
+                        for i in range(tokens.shape[0])]
 
     # ------------------------------------------------------------------
     def postprocess(self, generated_ids: List[int]) -> str:

@@ -25,6 +25,7 @@ from typing import Optional, Tuple
 import torch
 
 from mit_tpu_torch.decode.greedy import (
+    all_finished,
     check_bucket_sizes,
     check_max_len,
     start_tokens,
@@ -37,6 +38,7 @@ from mit_tpu_torch.decode.step import (
     reindex_cache,
 )
 from mit_tpu_torch.models.decoder import DecoderConfig
+from mit_tpu_torch.utils.profiling import span
 
 _NEG = -1e30
 
@@ -75,9 +77,10 @@ def beam_generate(
     mem = memory.repeat_interleave(k, dim=0)
     mem_mask = (None if memory_padding_mask is None
                 else memory_padding_mask.repeat_interleave(k, dim=0))
-    cache = init_cache(params, cfg, mem, mem_mask, bucket_sizes[0],
-                       compute_dtype)
-    params = prepare_decode_params(params, compute_dtype, fused)
+    with span("mit.decode.prepare"):
+        cache = init_cache(params, cfg, mem, mem_mask, bucket_sizes[0],
+                           compute_dtype)
+        params = prepare_decode_params(params, compute_dtype, fused)
 
     tokens = start_tokens(b * k, max_len, start_id, pad_id, device)
     finished = torch.zeros((b, k), dtype=torch.bool, device=device)
@@ -91,27 +94,34 @@ def beam_generate(
                              _NEG)
 
     pos = 0
-    for i, bucket in enumerate(bucket_sizes):
-        if i > 0:
-            cache = grow_cache(cache, bucket)
-        while pos < min(bucket, max_len - 1) and not bool(finished.all()):
-            logits, cache = decoder_step(
-                params, cfg, tokens[:, pos], pos, cache, compute_dtype,
-                key_pad=(tokens == pad_id)[:, :bucket], fused=fused,
-            )
-            logp = torch.log_softmax(logits, dim=-1).reshape(b, k, v)
-            logp = torch.where(finished[..., None], pad_onehot, logp)
-            total = scores[..., None] + logp                       # (B, K, V)
-            scores, flat_idx = top_k_lowest_first(total.reshape(b, k * v), k)
-            src_beam = flat_idx // v                               # parent beam
-            new_tok = flat_idx % v
+    with span("mit.decode.loop"):
+        for i, bucket in enumerate(bucket_sizes):
+            if i > 0:
+                cache = grow_cache(cache, bucket)
+            while pos < min(bucket, max_len - 1) and \
+                    not all_finished(finished):
+                logits, cache = decoder_step(
+                    params, cfg, tokens[:, pos], pos, cache, compute_dtype,
+                    key_pad=(tokens == pad_id)[:, :bucket], fused=fused,
+                )
+                with span("mit.decode.select"):
+                    logp = torch.log_softmax(logits, dim=-1).reshape(b, k, v)
+                    logp = torch.where(finished[..., None], pad_onehot, logp)
+                    total = scores[..., None] + logp               # (B, K, V)
+                    scores, flat_idx = top_k_lowest_first(
+                        total.reshape(b, k * v), k)
+                    src_beam = flat_idx // v                       # parent beam
+                    new_tok = flat_idx % v
 
-            gather = (item_offset + src_beam).reshape(-1)          # (B*K,) rows
-            tokens = tokens.index_select(0, gather)
-            tokens[:, pos + 1] = new_tok.reshape(-1)
-            cache = reindex_cache(cache, gather)
-            finished = finished.gather(1, src_beam) | (new_tok == end_id)
-            pos += 1
+                    gather = (item_offset + src_beam).reshape(-1)  # (B*K,) rows
+                    tokens = tokens.index_select(0, gather)
+                    tokens[:, pos + 1] = new_tok.reshape(-1)
+                with span("mit.decode.reorder"):
+                    cache = reindex_cache(cache, gather)
+                with span("mit.decode.select"):
+                    finished = finished.gather(1, src_beam) | \
+                        (new_tok == end_id)
+                pos += 1
 
     # The best total log-probability, finished or not: finished beams
     # stopped accumulating, so raw sums compare fairly.

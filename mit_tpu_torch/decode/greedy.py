@@ -23,6 +23,7 @@ from mit_tpu_torch.decode.step import (
     prepare_decode_params,
 )
 from mit_tpu_torch.models.decoder import DecoderConfig
+from mit_tpu_torch.utils.profiling import span
 
 
 def _bucket_schedule(max_len: int, first: int = 16) -> Tuple[int, ...]:
@@ -71,22 +72,32 @@ def laddered_decode_loop(
     finished = torch.zeros(tokens.shape[0], dtype=torch.bool,
                            device=tokens.device)
     pos = 0
-    for i, bucket in enumerate(bucket_sizes):
-        if i > 0:
-            cache = grow_cache(cache, bucket)
-        # a step at pos needs cache slot pos, so this bucket serves pos < bucket
-        while pos < min(bucket, max_len - 1):
-            if bool(finished.all()):
-                return tokens
-            logits, cache = decoder_step(
-                params, cfg, tokens[:, pos], pos, cache, compute_dtype,
-                key_pad=(tokens == pad_id)[:, :bucket], fused=fused,
-            )
-            nxt = torch.where(finished, pad_id, select_fn(logits, generator))
-            tokens[:, pos + 1] = nxt
-            finished |= nxt == end_id
-            pos += 1
+    with span("mit.decode.loop"):
+        for i, bucket in enumerate(bucket_sizes):
+            if i > 0:
+                cache = grow_cache(cache, bucket)
+            # a step at pos needs cache slot pos, so this bucket serves
+            # pos < bucket
+            while pos < min(bucket, max_len - 1):
+                if all_finished(finished):
+                    return tokens
+                logits, cache = decoder_step(
+                    params, cfg, tokens[:, pos], pos, cache, compute_dtype,
+                    key_pad=(tokens == pad_id)[:, :bucket], fused=fused,
+                )
+                with span("mit.decode.select"):
+                    nxt = torch.where(finished, pad_id,
+                                      select_fn(logits, generator))
+                    tokens[:, pos + 1] = nxt
+                    finished |= nxt == end_id
+                pos += 1
     return tokens
+
+
+def all_finished(finished: torch.Tensor) -> bool:
+    """Whether every row has ended: the host's read-back before a step."""
+    with span("mit.decode.sync"):
+        return bool(finished.all())
 
 
 def start_tokens(batch: int, max_len: int, start_id: int, pad_id: int,
@@ -132,9 +143,10 @@ def greedy_generate(
     """
     check_max_len(max_len, cfg)
     bucket_sizes = check_bucket_sizes(bucket_sizes, max_len)
-    cache = init_cache(params, cfg, memory, memory_padding_mask,
-                       bucket_sizes[0], compute_dtype)
-    params = prepare_decode_params(params, compute_dtype, fused)
+    with span("mit.decode.prepare"):
+        cache = init_cache(params, cfg, memory, memory_padding_mask,
+                           bucket_sizes[0], compute_dtype)
+        params = prepare_decode_params(params, compute_dtype, fused)
     tokens = start_tokens(memory.shape[0], max_len, start_id, pad_id,
                           memory.device)
     tokens = laddered_decode_loop(params, cfg, cache, tokens, select_argmax,

@@ -24,6 +24,7 @@ from mit_tpu_torch.decode.greedy import (
 )
 from mit_tpu_torch.decode.step import init_cache, prepare_decode_params
 from mit_tpu_torch.models.decoder import DecoderConfig
+from mit_tpu_torch.utils.profiling import span
 
 _NEG = -1e30
 
@@ -78,9 +79,10 @@ def sample_generate(
     next-token rule. ``temperature=0`` degenerates to argmax (greedy)."""
     check_max_len(max_len, cfg)
     bucket_sizes = check_bucket_sizes(bucket_sizes, max_len)
-    cache = init_cache(params, cfg, memory, memory_padding_mask,
-                       bucket_sizes[0], compute_dtype)
-    prepared = prepare_decode_params(params, compute_dtype, fused)
+    with span("mit.decode.prepare"):
+        cache = init_cache(params, cfg, memory, memory_padding_mask,
+                           bucket_sizes[0], compute_dtype)
+        prepared = prepare_decode_params(params, compute_dtype, fused)
     tokens = start_tokens(memory.shape[0], max_len, start_id, pad_id,
                           memory.device)
 

@@ -54,6 +54,7 @@ from mit_tpu_torch.ops.decode_layer import (
 )
 from mit_tpu_torch.ops.masks import NEG_INF
 from mit_tpu_torch.ops.positional import sinusoid_table
+from mit_tpu_torch.utils.profiling import span
 
 
 class DecodeCache(NamedTuple):
@@ -204,6 +205,13 @@ def decoder_step(
     ``max_seq_len - 1``, as the JAX service's are, and a fresh row whose
     position lies outside the cache is not written.
     """
+    with span("mit.decode.step"):
+        return _decoder_step(params, cfg, tokens, pos, cache, compute_dtype,
+                             key_pad, fused)
+
+
+def _decoder_step(params, cfg, tokens, pos, cache, compute_dtype, key_pad,
+                  fused):
     h, d = cfg.num_heads, cfg.embed_dim
     fused = step_route(fused, tokens.device.type, cfg,
                        cache.cross_const is not None) == "fused"
@@ -303,8 +311,9 @@ def grow_cache(cache: DecodeCache, bucket: int) -> DecodeCache:
         out[:, : a.shape[1]] = a
         return out
 
-    return cache._replace(k=[grow(a) for a in cache.k],
-                          v=[grow(a) for a in cache.v])
+    with span("mit.decode.grow"):
+        return cache._replace(k=[grow(a) for a in cache.k],
+                              v=[grow(a) for a in cache.v])
 
 
 def reindex_cache(cache: DecodeCache, idx: torch.Tensor) -> DecodeCache:

@@ -21,6 +21,7 @@ import os
 import subprocess
 import tempfile
 import threading
+import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -129,17 +130,33 @@ def build() -> Path:
 
 
 def lib() -> ctypes.CDLL:
-    """The loaded kernel library, built on first call."""
+    """The loaded kernel library, built on first call.
+
+    The first call records ``lib.built``, ``{"nvcc": bool, "seconds": s}``:
+    whether this process ran ``nvcc`` for the library and the seconds the
+    build took (0 where it found the library built), and
+    ``lib.load_seconds``, the time to build or find it, load and bind it.
+    Both are None until then."""
     global _lib
     with _lock:
         if _lib is None:
-            so = ctypes.CDLL(str(build()))
+            t0 = time.perf_counter()
+            found = library_path().exists()
+            path = build()
+            built_s = 0.0 if found else time.perf_counter() - t0
+            so = ctypes.CDLL(str(path))
             for name, argtypes in ENTRY_POINTS.items():
                 fn = getattr(so, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
             _lib = so
+            lib.built = {"nvcc": not found, "seconds": built_s}
+            lib.load_seconds = time.perf_counter() - t0
     return _lib
+
+
+lib.built = None
+lib.load_seconds = None
 
 
 def check(rc: int, name: str) -> None:

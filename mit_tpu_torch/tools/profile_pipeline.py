@@ -11,8 +11,10 @@ downloaded), quantizes the encoder to int8, and runs in bf16
 ``device_preprocess`` → the encoder → the projection → ``greedy_generate``
 on seeded 224 x 224 uint8 images: once to warm up, once under
 ``torch.profiler``. Prints the traced pass's ``StepTimer`` summary and
-where the Chrome trace landed (open it in Perfetto). Runs on the card
-unless ``--device cpu`` asks for the CPU.
+where the Chrome trace landed (open it in Perfetto): the card's kernels
+under the program's own ``mit.*`` spans (``utils.profiling.span``:
+``mit.preprocess``, ``mit.decode.loop``, ``mit.decode.step``, ...). Runs
+on the card unless ``--device cpu`` asks for the CPU.
 """
 
 from __future__ import annotations

@@ -46,6 +46,7 @@ from mit_tpu_torch.models.model import (
 )
 from mit_tpu_torch.ops.attention import DropoutGenerators
 from mit_tpu_torch.parallel.collectives import all_reduce_sum
+from mit_tpu_torch.utils.profiling import span
 
 
 def tree_map(fn, *trees):
@@ -227,33 +228,38 @@ def make_train_step(
 
     def step(state: TrainState, frozen: dict, batch: dict, seed: int):
         device = batch["decoder_input_tokens"].device
-        gens = DropoutGenerators.for_step(seed, state.step, device)
-        params = tree_map(lambda p: p.detach().requires_grad_(), state.params)
-        shard = (mesh.step_shard(batch["decoder_input_tokens"].shape[0])
-                 if mesh is not None else None)
-        logits = forward(
-            merge_params(params, frozen), mcfg, batch[inputs],
-            batch["decoder_input_tokens"], False, gens, compute_dtype,
-            use_kernel, fused_dropout, remat, shard,
-        )
-        if mesh is None:
-            loss = objective = masked_cross_entropy(
-                logits, batch["target_tokens"], pad_id)
-        else:
-            total, count = _nll_sums(logits, batch["target_tokens"], pad_id)
-            sums = torch.stack([total.detach(), count])
+        with span("mit.train.forward"):
+            gens = DropoutGenerators.for_step(seed, state.step, device)
+            params = tree_map(lambda p: p.detach().requires_grad_(),
+                              state.params)
+            shard = (mesh.step_shard(batch["decoder_input_tokens"].shape[0])
+                     if mesh is not None else None)
+            logits = forward(
+                merge_params(params, frozen), mcfg, batch[inputs],
+                batch["decoder_input_tokens"], False, gens, compute_dtype,
+                use_kernel, fused_dropout, remat, shard,
+            )
+            if mesh is None:
+                loss = objective = masked_cross_entropy(
+                    logits, batch["target_tokens"], pad_id)
+            else:
+                total, count = _nll_sums(logits, batch["target_tokens"],
+                                         pad_id)
+                sums = torch.stack([total.detach(), count])
+                if data_group is not None:
+                    all_reduce_sum(sums, data_group)
+                denom = torch.clamp(sums[1], min=1.0)
+                objective, loss = total / denom, sums[0] / denom
+        with span("mit.train.backward"):
+            leaves = tree_leaves(params)
+            grads = list(torch.autograd.grad(objective, leaves,
+                                             allow_unused=True,
+                                             materialize_grads=True))
             if data_group is not None:
-                all_reduce_sum(sums, data_group)
-            denom = torch.clamp(sums[1], min=1.0)
-            objective, loss = total / denom, sums[0] / denom
-        leaves = tree_leaves(params)
-        grads = list(torch.autograd.grad(objective, leaves, allow_unused=True,
-                                         materialize_grads=True))
-        if data_group is not None:
-            grads = _sum_over(grads, data_group)
-        grads = _zero_pad_row_grad(tree_unflatten(params, grads),
-                                   mcfg.decoder.pad_idx)
-        with torch.no_grad():
+                grads = _sum_over(grads, data_group)
+            grads = _zero_pad_row_grad(tree_unflatten(params, grads),
+                                       mcfg.decoder.pad_idx)
+        with span("mit.train.optimizer"), torch.no_grad():
             norm = (_global_norm(grads, mesh) if mesh is not None
                     and optimizer.clip else None)
             new, opt_state = optimizer.update(grads, state.opt_state,

@@ -3,6 +3,9 @@
 - :func:`trace`: a ``torch.profiler`` trace of a block (host ops, and the
   card's kernels where there is a card), written into ``logdir`` as a
   Chrome trace (Perfetto or ``chrome://tracing`` read it);
+- :func:`span`: a named span of the program's own work (``mit.*``) in
+  whatever profiler records, on the clock of the card's kernels; free when
+  none records;
 - :func:`fence`: waits for the card's queued work behind a tensor;
 - :class:`StepTimer`: items per second over a rolling window of steps.
 """
@@ -15,6 +18,21 @@ import time
 from typing import Dict, List, Optional
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """``with span("mit.decode.step"): ...`` marks the block in the trace
+    of a profiler that records (``trace``, ``torch.profiler.profile``) as a
+    ``user_annotation`` on the same clock as the card's kernels and copies.
+    With no profiler recording it costs one flag read: it returns one
+    shared ``nullcontext``. It never synchronizes, reads nothing back and
+    changes no order of work."""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _OFF
 
 
 @contextlib.contextmanager

@@ -309,10 +309,22 @@ def _hold_to_plain(x, q1, q2, act, ln, residual, out_dtype, **plan):
     return y
 
 
+@pytest.fixture
+def one_thread():
+    """One intra-op thread: the replay's ~1,300 small float64 products each
+    open a parallel region, which under other test workers' load costs
+    seconds a case. The products of int8 values are exact either way."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.mark.parametrize("form", list(FORMS))
 @pytest.mark.parametrize("act", ["gelu", "quick_gelu"])
 @pytest.mark.parametrize("d,f", WIDE, ids=["vit-b", "clip-l", "vit-h"])
-def test_replay_at_the_kernels_widths_matches_plain(d, f, act, form):
+def test_replay_at_the_kernels_widths_matches_plain(d, f, act, form,
+                                                    one_thread):
     """The kernel's own constants (8 blocks, 64 rows, chunks of 64) at its
     three geometries; 130 rows: two tiles and a ragged third."""
     dtype, with_ln, out_dtype = FORMS[form]
@@ -322,7 +334,7 @@ def test_replay_at_the_kernels_widths_matches_plain(d, f, act, form):
 
 
 @pytest.mark.parametrize("m", [1, 63, 64, 65])
-def test_replay_ragged_rows(m):
+def test_replay_ragged_rows(m, one_thread):
     """Tiles of one row, one short of a tile, a whole tile, one past."""
     x = _x(m, 768, torch.float32, seed=m)
     y = _hold_to_plain(x, _qlinear(768, 3072, 4), _qlinear(3072, 768, 5),
