@@ -118,10 +118,13 @@ the script exits non-zero without printing the result line.
             (a) f32, 5 steps, the kernel path against the plain path
             (flash_attention_dropout_plain; the same seeds, so the same
             hash masks and the same other masks): losses within 1e-4
-            relative. (b) launches: 6 dropout forward and 6 backward per
-            step with fused dropout; 6 flash_attention_btd and no dropout
-            launch per step at dropout 0. (c) bf16, 30 steps on one batch:
-            the loss falls. (d) an eval step, then safetensors and train
+            relative. (b) launches: the graphed step runs the dropout
+            wrappers 6 times each way in its warm-up and 6 in its capture,
+            and its replays run 6 dropout forward and 6 backward kernels a
+            step in the device trace of (f), the launches of the kernels
+            line; 6 flash_attention_btd and no dropout launch in an eager
+            step at dropout 0. (c) bf16, 30 graphed steps on one batch (one
+            capture, then replays, no eager step): the loss falls. (d) an eval step, then safetensors and train
             state saved, restored, and one step from the restore equal to
             one step without it. (e) steps/s and images/s at bf16 batch 32,
             fused dropout on and off (the plain dropout path), median and
@@ -129,8 +132,8 @@ the script exits non-zero without printing the result line.
             fused-dropout steps under torch.profiler: device kernels and
             device-busy ms per step, busy share, the dropout kernels' ms per
             step. Every counter is set to 0 before the cache build and (c),
-            and read after them; every bf16 backward of (c) ran the
-            tensor-core kernel. Then remat (check_remat): (a) f32, 8 rows,
+            and read after them; every bf16 backward of (c)'s warm-up and
+            capture ran the tensor-core kernel. Then remat (check_remat): (a) f32, 8 rows,
             dropout 0.1, fused dropout on and off: loss and every gradient
             with remat against without, and one train step each way, within
             1e-6 relative (bitwise is printed); (b) one bf16 fused-dropout
@@ -3391,7 +3394,7 @@ def dropout_fwd_tiled(torch, da, q, k, v, pad, seed, causal, rate, warps,
     rc = kernels.lib().mit_flash_attention_dropout_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), pad.data_ptr(),
         out.data_ptr(), b, h, t, k.shape[2], int(causal), 1, warps,
-        seed & 0xFFFFFFFF, da._threshold(rate), 1.0 - rate,
+        seed & 0xFFFFFFFF, None, da._threshold(rate), 1.0 - rate,
         *(cells or (0, h, 0)), torch.cuda.current_stream().cuda_stream)
     kernels.check(rc, "mit_flash_attention_dropout_fwd")
     return out
@@ -3618,10 +3621,12 @@ def train_setup(torch):
 
 def trace_train(torch, mcfg, trainable, optimizer, batch, steps=TRACE_STEPS):
     """`steps` bf16 train steps with fused dropout under torch.profiler,
-    after one warm-up: device-busy ms per step, its share of the traced wall
-    time (the profiler's own host cost included), and the dropout-attention
-    kernels' device ms per step. The step is host-bound, so this, not
-    steps/s, shows a kernel's gain."""
+    after one warm-up (which captures the step's graph): device-busy ms per
+    step (the union of the device events' intervals, so that no time is
+    counted twice), its share of the traced wall time (the profiler's own
+    host cost included), and the dropout-attention kernels' device ms per
+    step. Steps/s moves with the host between calls; this shows a kernel's
+    gain."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3642,7 +3647,12 @@ def trace_train(torch, mcfg, trainable, optimizer, batch, steps=TRACE_STEPS):
         wall_ms = (time.perf_counter() - t0) * 1e3
     dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_us = lambda e: getattr(e, "self_device_time_total", 0)
-    total = sum(busy_us(e) for e in dev)
+    total, end = 0.0, float("-inf")
+    for a, b in sorted((e.time_range.start, e.time_range.end)
+                       for e in prof.events()
+                       if e.device_type == DeviceType.CUDA):
+        if b > end:
+            total, end = total + b - max(a, end), b
     if not dev or total <= 0:
         print("trace train: the profiler recorded no device time (not "
               "measured)")
@@ -3737,44 +3747,51 @@ def check_training(torch):
     step = steps(torch.bfloat16, True)
     state = init_train_state(trainable, optimizer)
     losses = []
+    # the graphed step: its first call runs the wrappers twice (the warm-up
+    # and the capture), and the replays run none
     for _ in range(BF16_STEPS):
         state, loss = step(state, {}, fixed, TRAIN_SEED)
         losses.append(loss)
     losses = [x.item() for x in losses]
     counts = read_counts()
     bwd_kernels = dict(flash_attention_dropout_bwd.kernels)
+    graph_calls = {"graph_captures": step.graph_captures,
+                   "graph_replays": step.graph_replays,
+                   "eager_steps": step.eager_steps}
     hold_routes("train cache build + bf16 steps",
                 attention=counts["flash_attention_btd"]
                 + counts["flash_attention_dropout"],
                 decode={"fused": 0, "unfused": 0})
-    per_step = {k: counts[k] / BF16_STEPS for k in
-                ("flash_attention_dropout", "flash_attention_dropout_bwd")}
     print(f"train cache: {tuple(cache.features.shape)} {cache.features.dtype} "
           f"from {TRAIN_IMAGES} images in {build_s:.3f} s, "
           f"flash_attention_btd launches {counts['flash_attention_btd']} "
           f"(want {11 * TRAIN_IMAGES // TRAIN_BATCH})")
-    print(f"train (c) bf16 B={TRAIN_BATCH} T={t}, {BF16_STEPS} steps on one "
-          f"batch: loss first {losses[0]:.6f}, last {losses[-1]:.6f}, min "
-          f"{min(losses):.6f}; (b) launches per step {per_step}, every "
-          f"other counter 0: {counts}; backward launches by kernel "
-          f"{bwd_kernels}")
+    print(f"train (c) bf16 B={TRAIN_BATCH} T={t}, {BF16_STEPS} graphed steps "
+          f"on one batch: loss first {losses[0]:.6f}, last {losses[-1]:.6f}, "
+          f"min {min(losses):.6f}; {graph_calls}; launches in the warm-up and "
+          f"the capture, every other counter 0: {counts}; backward launches "
+          f"by kernel {bwd_kernels}")
     want = {k: 0 for k in counts}
     want.update(flash_attention_btd=11 * TRAIN_IMAGES // TRAIN_BATCH,
-                flash_attention_dropout=6 * BF16_STEPS,
-                flash_attention_dropout_bwd=6 * BF16_STEPS)
+                flash_attention_dropout=2 * 6,
+                flash_attention_dropout_bwd=2 * 6)
     if counts != want:
         raise AssertionError(f"training launches {counts}, want {want}")
-    if bwd_kernels != {"tensor_cores": 6 * BF16_STEPS, "cuda_cores": 0,
+    if bwd_kernels != {"tensor_cores": 2 * 6, "cuda_cores": 0,
                        "any_shape": 0}:
         raise AssertionError(f"the bf16 backward ran {bwd_kernels}, want the "
                              f"tensor-core kernel only")
+    if graph_calls != {"graph_captures": 1, "graph_replays": BF16_STEPS - 1,
+                       "eager_steps": 0}:
+        raise AssertionError(f"the train step ran {graph_calls}, want one "
+                             f"capture and replays")
     if not (all(np.isfinite(losses)) and losses[-1] < 0.9 * losses[0]):
         raise AssertionError(f"bf16 loss did not fall: {losses}")
 
     # (b) at dropout 0: flash_attention_btd in the forward, no dropout kernel
     no_drop = mcfg._replace(decoder=mcfg.decoder._replace(dropout=0.0))
     reset_counts()
-    steps(torch.bfloat16, True, cfg=no_drop)(
+    steps(torch.bfloat16, True, cfg=no_drop).eager(
         init_train_state(trainable, optimizer), {}, fixed, TRAIN_SEED)
     torch.cuda.synchronize()
     counts0 = {k: v for k, v in read_counts().items() if v}
@@ -3827,14 +3844,16 @@ def check_training(torch):
             and np.isfinite(val)):
         raise AssertionError("save, restore and resume disagree")
 
-    # (e) throughput, fused dropout on and off, in alternating turns
+    # (e) throughput, fused dropout on and off, in alternating turns; the
+    # warm-up captures each step's graph
     runs = {True: [], False: []}
     st0 = init_train_state(trainable, optimizer)
+    step_of = {fused: steps(torch.bfloat16, fused) for fused in runs}
     for fused in (True, False):                               # warm-up
-        steps(torch.bfloat16, fused)(st0, {}, fixed, TRAIN_SEED)
+        step_of[fused](st0, {}, fixed, TRAIN_SEED)
     for turn in range(RUNS):
         for fused in ((True, False) if turn % 2 == 0 else (False, True)):
-            run, st = steps(torch.bfloat16, fused), st0
+            run, st = step_of[fused], st0
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             for i in range(RUN_STEPS):
@@ -3849,7 +3868,18 @@ def check_training(torch):
               f"{q2:.3f} steps/s median (quartiles {q1:.3f}-{q3:.3f}, "
               f"{RUNS} runs of {RUN_STEPS} steps), {q2 * TRAIN_BATCH:.1f} "
               f"images/s; runs {[round(x, 3) for x in sps]}")
-    trace_train(torch, mcfg, trainable, optimizer, fixed)
+    # the replayed step's own launches, which only the device trace sees
+    trace = trace_train(torch, mcfg, trainable, optimizer, fixed)
+    if trace is None:
+        raise AssertionError("the train trace recorded no device time")
+    replayed = {"flash_attention_dropout": trace["dropout_fwd"]["launches"],
+                "flash_attention_dropout_bwd": trace["dropout_bwd"]["launches"]}
+    if replayed != {"flash_attention_dropout": 6,
+                    "flash_attention_dropout_bwd": 6}:
+        raise AssertionError(f"the replayed step launched {replayed} dropout "
+                             f"kernels a step, want 6 each way")
+    counts = dict(counts, **{k: round(v * TRACE_STEPS)
+                             for k, v in replayed.items()})
     remat = check_remat(torch, mcfg, trainable, optimizer, batches)
     return {"counts": counts, "rates": rates, "remat": remat}
 
@@ -3944,9 +3974,11 @@ def check_remat(torch, mcfg, trainable, optimizer, batches):
 
     fixed = batches[0]
     st0 = init_train_state(trainable, optimizer)
+    # eager both ways: the counters count each launch, and remat's cost is
+    # not mixed with the graph's
     step = {remat: make_train_step(mcfg, optimizer, ids.pad_id,
                                    torch.bfloat16, from_features=True,
-                                   fused_dropout=True, remat=remat)
+                                   fused_dropout=True, remat=remat).eager
             for remat in (False, True)}
     for remat in (False, True):
         reset_counts()

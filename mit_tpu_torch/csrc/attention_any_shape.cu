@@ -237,8 +237,9 @@ attention_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       OutOf<T, LAYER>* __restrict__ out, Cells cq, Cells ck,
                       Cells co,
                       int Tq, int S, int hd, float scale, bool causal,
-                      bool norm_first, uint32_t seed, uint32_t threshold,
-                      float one_minus_r, CellMap cm) {
+                      bool norm_first, uint32_t seed,
+                      const uint32_t* __restrict__ seed_ptr,
+                      uint32_t threshold, float one_minus_r, CellMap cm) {
   extern __shared__ float smem[];
   float* qs = smem;                     // BR x hd
   float* ks = qs + BR * hd;             // KT x (hd + 1)
@@ -250,7 +251,8 @@ attention_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* vb = v + ck.at(b, h);
   const float* pad_row = pad != nullptr ? pad + (size_t)b * S : nullptr;
   const uint32_t base =
-      cell_base(seed, global_cell(b * gridDim.y + h, gridDim.y, cm));
+      cell_base(launch_seed(seed, seed_ptr),
+                global_cell(b * gridDim.y + h, gridDim.y, cm));
 
   stage_rows(qs, hd, q + cq.at(b, h), cq.ld, row0, BR, Tq, hd);
   float M[R], L[R];
@@ -344,6 +346,7 @@ dropout_bwd_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ dout, T* __restrict__ dq,
                         float* __restrict__ stats, int H, int Tq, int S,
                         int hd, float scale, bool causal, uint32_t seed,
+                        const uint32_t* __restrict__ seed_ptr,
                         uint32_t threshold, float inv, CellMap cm) {
   extern __shared__ float smem[];
   float* qs = smem;                     // BR x hd
@@ -356,7 +359,8 @@ dropout_bwd_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* kb = k + (size_t)cell * S * hd;
   const T* vb = v + (size_t)cell * S * hd;
   const float* pad_row = pad + (size_t)(cell / H) * S;
-  const uint32_t base = cell_base(seed, global_cell(cell, H, cm));
+  const uint32_t base =
+      cell_base(launch_seed(seed, seed_ptr), global_cell(cell, H, cm));
 
   stage_rows(qs, hd, q + (size_t)cell * Tq * hd, hd, row0, BR, Tq, hd);
   stage_rows(dos, hd, dout + (size_t)cell * Tq * hd, hd, row0, BR, Tq, hd);
@@ -458,6 +462,7 @@ dropout_bwd_keys_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const float* __restrict__ stats, T* __restrict__ dk,
                         T* __restrict__ dv, int H, int Tq, int S, int hd,
                         float scale, bool causal, uint32_t seed,
+                        const uint32_t* __restrict__ seed_ptr,
                         uint32_t threshold, float inv, CellMap cm) {
   extern __shared__ float smem[];
   float* ks = smem;                     // BR x hd
@@ -471,7 +476,8 @@ dropout_bwd_keys_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* dob = dout + (size_t)cell * Tq * hd;
   const float* pad_row = pad + (size_t)(cell / H) * S;
   const float* st = stats + (size_t)cell * Tq * 3;
-  const uint32_t base = cell_base(seed, global_cell(cell, H, cm));
+  const uint32_t base =
+      cell_base(launch_seed(seed, seed_ptr), global_cell(cell, H, cm));
 
   stage_rows(ks, hd, k + (size_t)cell * S * hd, hd, col0, BR, S, hd);
   stage_rows(vs, hd, v + (size_t)cell * S * hd, hd, col0, BR, S, hd);
@@ -556,7 +562,8 @@ template <typename T, bool DROPOUT, bool LAYER = false>
 int launch_rows(const void* q, const void* k, const void* v, const void* pad,
                 void* out, Cells cq, Cells ck, Cells co, int B, int H, int Tq,
                 int S, int hd, int causal, int norm_first, unsigned seed,
-                unsigned threshold, float one_minus_r, void* stream,
+                const unsigned* seed_ptr, unsigned threshold,
+                float one_minus_r, void* stream,
                 CellMap cm = CellMap{0, 0, 0}) {
   if (bad_shape(B, H, Tq, S, hd)) return static_cast<int>(cudaErrorInvalidValue);
   if (!DROPOUT) cm = CellMap{0, H, 0};
@@ -573,7 +580,8 @@ int launch_rows(const void* q, const void* k, const void* v, const void* pad,
           static_cast<const T*>(q), static_cast<const T*>(k),
           static_cast<const T*>(v), static_cast<const float*>(pad),
           static_cast<OutOf<T, LAYER>*>(out), cq, ck, co, Tq, S, hd, scale,
-          causal != 0, norm_first != 0, seed, threshold, one_minus_r, cm);
+          causal != 0, norm_first != 0, seed, seed_ptr, threshold,
+          one_minus_r, cm);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -581,7 +589,8 @@ template <typename T>
 int launch_bwd(const void* q, const void* k, const void* v, const void* pad,
                const void* dout, void* dq, void* dk, void* dv, void* stats,
                int B, int H, int Tq, int S, int hd, int causal, unsigned seed,
-               unsigned threshold, float inv, CellMap cm, void* stream) {
+               const unsigned* seed_ptr, unsigned threshold, float inv,
+               CellMap cm, void* stream) {
   if (bad_shape(B, H, Tq, S, hd) || Tq > 65535 * BR || S > 65535 * BR ||
       (long long)B * H > 2147483647LL || bad_map(H, cm))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -597,7 +606,7 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* pad,
           static_cast<const T*>(v), static_cast<const float*>(pad),
           static_cast<const T*>(dout), static_cast<T*>(dq),
           static_cast<float*>(stats), H, Tq, S, hd, scale, causal != 0, seed,
-          threshold, inv, cm);
+          seed_ptr, threshold, inv, cm);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   dropout_bwd_keys_kernel<T>
@@ -606,7 +615,7 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* pad,
           static_cast<const T*>(v), static_cast<const float*>(pad),
           static_cast<const T*>(dout), static_cast<const float*>(stats),
           static_cast<T*>(dk), static_cast<T*>(dv), H, Tq, S, hd, scale,
-          causal != 0, seed, threshold, inv, cm);
+          causal != 0, seed, seed_ptr, threshold, inv, cm);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -634,36 +643,38 @@ extern "C" int mit_attention_any_shape(const void* q, const void* k,
     if (!bf16 || causal || has_pad)
       return static_cast<int>(cudaErrorInvalidValue);
     return launch_rows<__nv_bfloat16, false, true>(
-        q, k, v, nullptr, out, cq, ck, co, B, H, Tq, S, hd, 0, 0, 0, 0, 1.f,
-        stream);
+        q, k, v, nullptr, out, cq, ck, co, B, H, Tq, S, hd, 0, 0, 0, nullptr, 0,
+        1.f, stream);
   }
   const int norm_first = mode;
   return bf16 ? launch_rows<__nv_bfloat16, false>(q, k, v, p, out, cq, ck, co,
                                                   B, H, Tq, S, hd, causal,
-                                                  norm_first, 0, 0, 1.f, stream)
+                                                  norm_first, 0, nullptr, 0,
+                                                  1.f, stream)
               : launch_rows<float, false>(q, k, v, p, out, cq, ck, co, B, H,
-                                          Tq, S, hd, causal, norm_first, 0, 0,
-                                          1.f, stream);
+                                          Tq, S, hd, causal, norm_first, 0,
+                                          nullptr, 0, 1.f, stream);
 }
 
 // Attention with dropout, forward. q, out: (B, H, T, hd); k, v:
 // (B, H, S, hd), contiguous, all f32 (bf16 = 0) or all bf16; pad: (B, S) f32.
-// b_offset, h_total, h_offset: the keep-mask's cell map (dropout_hash.cuh).
+// b_offset, h_total, h_offset: the keep-mask's cell map (dropout_hash.cuh);
+// seed_ptr: null, or a device word read in place of seed (launch_seed).
 extern "C" int mit_dropout_attention_any_shape_fwd(
     const void* q, const void* k, const void* v, const void* pad, void* out,
     int B, int H, int T, int S, int hd, int causal, int bf16, unsigned seed,
-    unsigned threshold, float one_minus_r, int b_offset, int h_total,
-    int h_offset, void* stream) {
+    const unsigned* seed_ptr, unsigned threshold, float one_minus_r,
+    int b_offset, int h_total, int h_offset, void* stream) {
   const Cells cq = cells_of(true, H, T, hd, hd);
   const Cells ck = cells_of(true, H, S, hd, hd);
   const CellMap cm{b_offset, h_total, h_offset};
   return bf16 ? launch_rows<__nv_bfloat16, true>(q, k, v, pad, out, cq, ck, cq,
                                                  B, H, T, S, hd, causal, 1,
-                                                 seed, threshold, one_minus_r,
-                                                 stream, cm)
+                                                 seed, seed_ptr, threshold,
+                                                 one_minus_r, stream, cm)
               : launch_rows<float, true>(q, k, v, pad, out, cq, ck, cq, B, H,
-                                         T, S, hd, causal, 1, seed, threshold,
-                                         one_minus_r, stream, cm);
+                                         T, S, hd, causal, 1, seed, seed_ptr,
+                                         threshold, one_minus_r, stream, cm);
 }
 
 // Attention with dropout, backward. The same q, k, v and pad, dout like q;
@@ -673,13 +684,13 @@ extern "C" int mit_dropout_attention_any_shape_bwd(
     const void* q, const void* k, const void* v, const void* pad,
     const void* dout, void* dq, void* dk, void* dv, void* stats, int B, int H,
     int T, int S, int hd, int causal, int bf16, unsigned seed,
-    unsigned threshold, float inv, int b_offset, int h_total, int h_offset,
-    void* stream) {
+    const unsigned* seed_ptr, unsigned threshold, float inv, int b_offset,
+    int h_total, int h_offset, void* stream) {
   const CellMap cm{b_offset, h_total, h_offset};
   return bf16 ? launch_bwd<__nv_bfloat16>(q, k, v, pad, dout, dq, dk, dv,
                                           stats, B, H, T, S, hd, causal, seed,
-                                          threshold, inv, cm, stream)
+                                          seed_ptr, threshold, inv, cm, stream)
               : launch_bwd<float>(q, k, v, pad, dout, dq, dk, dv, stats, B, H,
-                                  T, S, hd, causal, seed, threshold, inv, cm,
-                                  stream);
+                                  T, S, hd, causal, seed, seed_ptr, threshold,
+                                  inv, cm, stream);
 }

@@ -30,6 +30,14 @@ inline bool bad_map(int H, CellMap cm) {
   return cm.b_offset < 0 || cm.h_offset < 0 || cm.h_offset + H > cm.h_total;
 }
 
+// The seed a launch hashes: *seed_ptr where the entry point was given a
+// device pointer (a CUDA graph's replay then reads the seed staged there for
+// its step), else the seed passed by value.
+__device__ __forceinline__ uint32_t launch_seed(uint32_t seed,
+                                                const uint32_t* seed_ptr) {
+  return seed_ptr != nullptr ? *seed_ptr : seed;
+}
+
 // the part of the hash that depends on the cell and the seed only
 __device__ __forceinline__ uint32_t cell_base(uint32_t seed, uint32_t cell) {
   return (seed * 2654435761u) ^ (cell * 0x9E3779B9u);

@@ -146,8 +146,8 @@ __global__ void __launch_bounds__(THREADS)
 dropout_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    const T* __restrict__ v, const float* __restrict__ pad,
                    T* __restrict__ out, int H, int Tq, int S, bool causal,
-                   uint32_t seed, uint32_t threshold, float one_minus_r,
-                   CellMap cm) {
+                   uint32_t seed, const uint32_t* __restrict__ seed_ptr,
+                   uint32_t threshold, float one_minus_r, CellMap cm) {
   extern __shared__ float smem[];
   const int pld = S + 1;
   float* qs = smem;                  // BQ x LD
@@ -161,7 +161,8 @@ dropout_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const size_t qoff = ((size_t)cell * Tq + q0) * HD;
   const size_t kvoff = (size_t)cell * S * HD;
   const float* pad_row = pad + (size_t)(cell / H) * S;
-  const uint32_t base = cell_base(seed, global_cell(cell, H, cm));
+  const uint32_t base =
+      cell_base(launch_seed(seed, seed_ptr), global_cell(cell, H, cm));
 
   load_rows(qs, q + qoff, nq, nq);
   load_rows(ks, k + kvoff, S, S);
@@ -260,8 +261,9 @@ dropout_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
                       const __nv_bfloat16* __restrict__ v,
                       const float* __restrict__ pad,
                       __nv_bfloat16* __restrict__ out, int H, int Tq, int S,
-                      bool causal, uint32_t seed, uint32_t threshold,
-                      float one_minus_r, CellMap cm) {
+                      bool causal, uint32_t seed,
+                      const uint32_t* __restrict__ seed_ptr,
+                      uint32_t threshold, float one_minus_r, CellMap cm) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(
       smem_raw + ((1024 - smem_u32(smem_raw)) & 1023));
@@ -277,7 +279,8 @@ dropout_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
   const __nv_bfloat16* qb = q + ((size_t)cell * Tq + q0) * HD;
   const size_t kvoff = (size_t)cell * S * HD;
   const float* pad_row = pad + (size_t)(cell / H) * S;
-  const uint32_t base = cell_base(seed, global_cell(cell, H, cm));
+  const uint32_t base =
+      cell_base(launch_seed(seed, seed_ptr), global_cell(cell, H, cm));
 
   // whole tiles, zero past the last row: a product over a tile then needs
   // no test for where the rows end
@@ -522,8 +525,9 @@ dropout_bwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
                       __nv_bfloat16* __restrict__ dq,
                       __nv_bfloat16* __restrict__ dk,
                       __nv_bfloat16* __restrict__ dv, int H, int Tq, int S,
-                      bool causal, uint32_t seed, uint32_t threshold,
-                      float inv, CellMap cm) {
+                      bool causal, uint32_t seed,
+                      const uint32_t* __restrict__ seed_ptr,
+                      uint32_t threshold, float inv, CellMap cm) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   // Q, dO, K, V: 128 rows each (two tiles); then the pairs, 128 query rows
   // by 64 keys for each kind and key tile
@@ -545,7 +549,8 @@ dropout_bwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
   const size_t qoff = (size_t)cell * Tq * HD;
   const size_t kvoff = (size_t)cell * S * HD;
   const float* pad_row = pad + (size_t)(cell / H) * S;
-  const uint32_t base = cell_base(seed, global_cell(cell, H, cm));
+  const uint32_t base =
+      cell_base(launch_seed(seed, seed_ptr), global_cell(cell, H, cm));
 
   // every tile, zero past T or S: every product reads all 128 rows
   load_rows_async(qs, q + qoff, MAX_LEN, Tq, HD);
@@ -779,7 +784,8 @@ dropout_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    const T* __restrict__ v, const float* __restrict__ pad,
                    const T* __restrict__ dout, T* __restrict__ dq,
                    T* __restrict__ dk, T* __restrict__ dv, int H, int Tq,
-                   int S, bool causal, uint32_t seed, uint32_t threshold,
+                   int S, bool causal, uint32_t seed,
+                   const uint32_t* __restrict__ seed_ptr, uint32_t threshold,
                    float inv, CellMap cm) {
   extern __shared__ float smem[];
   const int pld = S + 1;
@@ -794,7 +800,8 @@ dropout_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const size_t qoff = (size_t)cell * Tq * HD;
   const size_t kvoff = (size_t)cell * S * HD;
   const float* pad_row = pad + (size_t)(cell / H) * S;
-  const uint32_t base = cell_base(seed, global_cell(cell, H, cm));
+  const uint32_t base =
+      cell_base(launch_seed(seed, seed_ptr), global_cell(cell, H, cm));
 
   load_rows(qs, q + qoff, Tq, Tq);
   load_rows(dos, dout + qoff, Tq, Tq);
@@ -880,10 +887,12 @@ dropout_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 __global__ void dump_mask_kernel(uint8_t* __restrict__ out, int H, int Tq,
-                                 int S, uint32_t seed, uint32_t threshold,
-                                 CellMap cm) {
+                                 int S, uint32_t seed,
+                                 const uint32_t* __restrict__ seed_ptr,
+                                 uint32_t threshold, CellMap cm) {
   const int cell = blockIdx.x;
-  const uint32_t base = cell_base(seed, global_cell(cell, H, cm));
+  const uint32_t base =
+      cell_base(launch_seed(seed, seed_ptr), global_cell(cell, H, cm));
   uint8_t* o = out + (size_t)cell * Tq * S;
   for (int i = threadIdx.x; i < Tq * S; i += blockDim.x)
     o[i] = keep_at(i / S, i % S, S, base, threshold) ? 1 : 0;
@@ -906,8 +915,8 @@ bool bad_shape(int cells, int Tq, int S) {
 template <typename T>
 int launch_fwd(const void* q, const void* k, const void* v, const void* pad,
                void* out, int B, int H, int Tq, int S, int causal,
-               unsigned seed, unsigned threshold, float one_minus_r,
-               CellMap cm, void* stream) {
+               unsigned seed, const unsigned* seed_ptr, unsigned threshold,
+               float one_minus_r, CellMap cm, void* stream) {
   if (bad_shape(B * H, Tq, S)) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = fwd_smem(S);
   cudaError_t err = cudaFuncSetAttribute(
@@ -918,7 +927,7 @@ int launch_fwd(const void* q, const void* k, const void* v, const void* pad,
   dropout_fwd_kernel<T><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const float*>(pad),
-      static_cast<T*>(out), H, Tq, S, causal != 0, seed, threshold,
+      static_cast<T*>(out), H, Tq, S, causal != 0, seed, seed_ptr, threshold,
       one_minus_r, cm);
   return static_cast<int>(cudaGetLastError());
 }
@@ -926,8 +935,8 @@ int launch_fwd(const void* q, const void* k, const void* v, const void* pad,
 template <int NW>
 int launch_fwd_tc(const void* q, const void* k, const void* v, const void* pad,
                   void* out, int B, int H, int Tq, int S, int causal,
-                  unsigned seed, unsigned threshold, float one_minus_r,
-                  CellMap cm, void* stream) {
+                  unsigned seed, const unsigned* seed_ptr, unsigned threshold,
+                  float one_minus_r, CellMap cm, void* stream) {
   if (bad_shape(B * H, Tq, S)) return static_cast<int>(cudaErrorInvalidValue);
   // the tiles, and the room to start them at 1024 bytes
   const int smem =
@@ -941,15 +950,16 @@ int launch_fwd_tc(const void* q, const void* k, const void* v, const void* pad,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(pad),
-      static_cast<__nv_bfloat16*>(out), H, Tq, S, causal != 0, seed, threshold,
-      one_minus_r, cm);
+      static_cast<__nv_bfloat16*>(out), H, Tq, S, causal != 0, seed, seed_ptr,
+      threshold, one_minus_r, cm);
   return static_cast<int>(cudaGetLastError());
 }
 
 int launch_bwd(const void* q, const void* k, const void* v, const void* pad,
                const void* dout, void* dq, void* dk, void* dv, int B, int H,
-               int Tq, int S, int causal, unsigned seed, unsigned threshold,
-               float inv, CellMap cm, void* stream) {
+               int Tq, int S, int causal, unsigned seed,
+               const unsigned* seed_ptr, unsigned threshold, float inv,
+               CellMap cm, void* stream) {
   if (bad_shape(B * H, Tq, S)) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = bwd_smem(Tq, S);
   cudaError_t err = cudaFuncSetAttribute(
@@ -961,15 +971,15 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* pad,
       static_cast<const float*>(v), static_cast<const float*>(pad),
       static_cast<const float*>(dout), static_cast<float*>(dq),
       static_cast<float*>(dk), static_cast<float*>(dv), H, Tq, S, causal != 0,
-      seed, threshold, inv, cm);
+      seed, seed_ptr, threshold, inv, cm);
   return static_cast<int>(cudaGetLastError());
 }
 
 int launch_bwd_tc(const void* q, const void* k, const void* v,
                   const void* pad, const void* dout, void* dq, void* dk,
                   void* dv, int B, int H, int Tq, int S, int causal,
-                  unsigned seed, unsigned threshold, float inv, CellMap cm,
-                  void* stream) {
+                  unsigned seed, const unsigned* seed_ptr, unsigned threshold,
+                  float inv, CellMap cm, void* stream) {
   if (bad_shape(B * H, Tq, S)) return static_cast<int>(cudaErrorInvalidValue);
   // Q, dO, K, V and the four pair arrays, and the room to start at 1024
   const int smem = (4 * KT + 4 * KT * KT) * TILE *
@@ -984,8 +994,8 @@ int launch_bwd_tc(const void* q, const void* k, const void* v,
       static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(pad),
       static_cast<const __nv_bfloat16*>(dout),
       static_cast<__nv_bfloat16*>(dq), static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), H, Tq, S, causal != 0, seed, threshold,
-      inv, cm);
+      static_cast<__nv_bfloat16*>(dv), H, Tq, S, causal != 0, seed, seed_ptr,
+      threshold, inv, cm);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -997,28 +1007,32 @@ int launch_bwd_tc(const void* q, const void* k, const void* v,
 // 16-byte boundaries); warps = 0: the CUDA-core kernel, the route of f32
 // and, for bf16, a yardstick for measurements. b_offset, h_total, h_offset:
 // the cell map of the keep-mask (dropout_hash.cuh; 0, H, 0 on one device).
+// seed_ptr: null, or a device word read in place of seed when the kernel
+// runs (launch_seed), as in every entry of this file.
 extern "C" int mit_flash_attention_dropout_fwd(
     const void* q, const void* k, const void* v, const void* pad, void* out,
     int B, int H, int T, int S, int causal, int bf16, int warps,
-    unsigned seed, unsigned threshold, float one_minus_r, int b_offset,
-    int h_total, int h_offset, void* stream) {
+    unsigned seed, const unsigned* seed_ptr, unsigned threshold,
+    float one_minus_r, int b_offset, int h_total, int h_offset,
+    void* stream) {
   const CellMap cm{b_offset, h_total, h_offset};
   if (bad_map(H, cm)) return static_cast<int>(cudaErrorInvalidValue);
   if (warps != 0) {
     if (!bf16) return static_cast<int>(cudaErrorInvalidValue);
     if (warps == 4)
       return launch_fwd_tc<4>(q, k, v, pad, out, B, H, T, S, causal, seed,
-                              threshold, one_minus_r, cm, stream);
+                              seed_ptr, threshold, one_minus_r, cm, stream);
     if (warps == 8)
       return launch_fwd_tc<8>(q, k, v, pad, out, B, H, T, S, causal, seed,
-                              threshold, one_minus_r, cm, stream);
+                              seed_ptr, threshold, one_minus_r, cm, stream);
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return bf16 ? launch_fwd<__nv_bfloat16>(q, k, v, pad, out, B, H, T, S,
-                                          causal, seed, threshold,
+                                          causal, seed, seed_ptr, threshold,
                                           one_minus_r, cm, stream)
               : launch_fwd<float>(q, k, v, pad, out, B, H, T, S, causal, seed,
-                                  threshold, one_minus_r, cm, stream);
+                                  seed_ptr, threshold, one_minus_r, cm,
+                                  stream);
 }
 
 // the same q, k, v and pad, dout like q; dq like q, dk and dv like k. bf16
@@ -1027,25 +1041,27 @@ extern "C" int mit_flash_attention_dropout_fwd(
 extern "C" int mit_flash_attention_dropout_bwd(
     const void* q, const void* k, const void* v, const void* pad,
     const void* dout, void* dq, void* dk, void* dv, int B, int H, int T,
-    int S, int causal, int bf16, unsigned seed, unsigned threshold, float inv,
-    int b_offset, int h_total, int h_offset, void* stream) {
+    int S, int causal, int bf16, unsigned seed, const unsigned* seed_ptr,
+    unsigned threshold, float inv, int b_offset, int h_total, int h_offset,
+    void* stream) {
   const CellMap cm{b_offset, h_total, h_offset};
   if (bad_map(H, cm)) return static_cast<int>(cudaErrorInvalidValue);
   return bf16 ? launch_bwd_tc(q, k, v, pad, dout, dq, dk, dv, B, H, T, S,
-                              causal, seed, threshold, inv, cm, stream)
+                              causal, seed, seed_ptr, threshold, inv, cm,
+                              stream)
               : launch_bwd(q, k, v, pad, dout, dq, dk, dv, B, H, T, S, causal,
-                           seed, threshold, inv, cm, stream);
+                           seed, seed_ptr, threshold, inv, cm, stream);
 }
 
 // out: (cells, T, S) bytes, 1 where kept; cells = B * H, under the cell map
 extern "C" int mit_dump_dropout_mask(void* out, int cells, int H, int T, int S,
-                                     unsigned seed, unsigned threshold,
-                                     int b_offset, int h_total, int h_offset,
-                                     void* stream) {
+                                     unsigned seed, const unsigned* seed_ptr,
+                                     unsigned threshold, int b_offset,
+                                     int h_total, int h_offset, void* stream) {
   const CellMap cm{b_offset, h_total, h_offset};
   if (cells <= 0 || H <= 0 || cells % H || T <= 0 || S <= 0 || bad_map(H, cm))
     return static_cast<int>(cudaErrorInvalidValue);
   dump_mask_kernel<<<cells, 256, 0, (cudaStream_t)stream>>>(
-      static_cast<uint8_t*>(out), H, T, S, seed, threshold, cm);
+      static_cast<uint8_t*>(out), H, T, S, seed, seed_ptr, threshold, cm);
   return static_cast<int>(cudaGetLastError());
 }

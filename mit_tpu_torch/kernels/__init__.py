@@ -55,18 +55,21 @@ ENTRY_POINTS = {
     "mit_int8_mlp_fused": [_P] * 10 + [_I] * 7 + [_F, _P],
     # shared memory a block and clusters the card holds at once
     "mit_int8_mlp_fused_info": [_I, _I, _P, _P],
-    # the dropout entries end in the cell map (b_offset, h_total, h_offset)
+    # the dropout entries take the seed by value and a device pointer to it
+    # (null: the value), and end in the cell map (b_offset, h_total,
+    # h_offset)
     "mit_flash_attention_dropout_fwd":
-        [_P] * 5 + [_I] * 7 + [_U, _U, _F] + [_I] * 3 + [_P],
+        [_P] * 5 + [_I] * 7 + [_U, _P, _U, _F] + [_I] * 3 + [_P],
     "mit_flash_attention_dropout_bwd":
-        [_P] * 8 + [_I] * 6 + [_U, _U, _F] + [_I] * 3 + [_P],
-    "mit_dump_dropout_mask": [_P] + [_I] * 4 + [_U, _U] + [_I] * 3 + [_P],
+        [_P] * 8 + [_I] * 6 + [_U, _P, _U, _F] + [_I] * 3 + [_P],
+    "mit_dump_dropout_mask":
+        [_P] + [_I] * 4 + [_U, _P, _U] + [_I] * 3 + [_P],
     # the shapes the tiled attention kernels do not take
     "mit_attention_any_shape": [_P] * 5 + [_I] * 13 + [_P],
     "mit_dropout_attention_any_shape_fwd":
-        [_P] * 5 + [_I] * 7 + [_U, _U, _F] + [_I] * 3 + [_P],
+        [_P] * 5 + [_I] * 7 + [_U, _P, _U, _F] + [_I] * 3 + [_P],
     "mit_dropout_attention_any_shape_bwd":
-        [_P] * 9 + [_I] * 7 + [_U, _U, _F] + [_I] * 3 + [_P],
+        [_P] * 9 + [_I] * 7 + [_U, _P, _U, _F] + [_I] * 3 + [_P],
 }
 
 _lib = None

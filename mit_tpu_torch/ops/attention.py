@@ -11,8 +11,12 @@ its ``host`` generator draws, on the CPU, the int32 seed of each fused
 dropout-attention call (a seed read back from the device would put a sync
 into every layer). :meth:`DropoutGenerators.for_step` derives both from
 (seed, step), the counterpart of ``fold_in(rng, step)``, so a resumed run
-draws the masks of an uninterrupted one. Library functions never read the
-environment: ``fused_dropout`` comes from the caller.
+draws the masks of an uninterrupted one. A forward captured into a CUDA
+graph gives its generators :class:`SeedSlots`: each fused call then takes
+a device slot in place of a host draw, and the step stages into the slots
+the draws the host generator would have made (:meth:`DropoutGenerators.
+kernel_seeds`). Library functions never read the environment:
+``fused_dropout`` comes from the caller.
 
 Under a device mesh a :class:`~mit_tpu_torch.parallel.collectives.Shard`
 (``shard``) says which rows, heads and FFN columns this rank holds. Every
@@ -57,21 +61,68 @@ def _splitmix64(x: int) -> int:
     return x ^ (x >> 31)
 
 
+class SeedSlots:
+    """Device slots for the fused kernel's seeds of one forward: the i-th
+    fused call takes the 0-dim int32 view ``buffer[i]``, which the kernels
+    read when they run, so a CUDA graph's replay finds the seeds staged
+    there for its step. Without a buffer every call takes a fresh zero,
+    and ``taken`` counts the calls."""
+
+    def __init__(self, buffer: Optional[torch.Tensor] = None, device=None):
+        self.buffer, self.device, self.taken = buffer, device, 0
+
+    def take(self) -> torch.Tensor:
+        i, self.taken = self.taken, self.taken + 1
+        if self.buffer is None:
+            return torch.zeros((), dtype=torch.int32, device=self.device)
+        return self.buffer[i]
+
+
 class DropoutGenerators(NamedTuple):
     """The dropout streams of one forward pass."""
 
     device: torch.Generator     # Bernoulli masks, on the activations' device
     host: torch.Generator       # the fused kernel's int32 seeds, on the CPU
+    # where set, the fused calls take device slots in place of host draws
+    seeds: Optional[SeedSlots] = None
+
+    @staticmethod
+    def step_seeds(seed: int, step: int) -> tuple:
+        """(device generator's seed, host generator's seed) of (seed,
+        step)."""
+        base = _splitmix64(_splitmix64(seed & _M64) ^ (step & _M64))
+        return _splitmix64(base ^ 1) >> 1, _splitmix64(base ^ 2) >> 1
 
     @classmethod
     def for_step(cls, seed: int, step: int, device) -> "DropoutGenerators":
         """Both generators as a pure function of (seed, step)."""
-        base = _splitmix64(_splitmix64(seed & _M64) ^ (step & _M64))
+        dev_seed, host_seed = cls.step_seeds(seed, step)
         dev = torch.Generator(device=device)
-        dev.manual_seed(_splitmix64(base ^ 1) >> 1)
+        dev.manual_seed(dev_seed)
         host = torch.Generator()
-        host.manual_seed(_splitmix64(base ^ 2) >> 1)
+        host.manual_seed(host_seed)
         return cls(dev, host)
+
+    @classmethod
+    def kernel_seeds(cls, seed: int, step: int, n: int) -> list:
+        """The seeds the first ``n`` fused calls of (seed, step)'s forward
+        draw, in order: the host generator of :meth:`for_step` and the
+        draws of :func:`kernel_seed`."""
+        host = torch.Generator()
+        host.manual_seed(cls.step_seeds(seed, step)[1])
+        return [_draw_seed(host) for _ in range(n)]
+
+
+def _draw_seed(host: torch.Generator) -> int:
+    return int(torch.randint(0, 2**31 - 1, (), generator=host))
+
+
+def kernel_seed(generator: DropoutGenerators):
+    """The seed of the next fused dropout-attention call: a host int drawn
+    from ``generator.host``, or the next of ``generator.seeds``' slots."""
+    if generator.seeds is not None:
+        return generator.seeds.take()
+    return _draw_seed(generator.host)
 
 
 def _linear(x, params, w, b, cd):
@@ -185,7 +236,7 @@ def multihead_attention(
             )
         if pad_add is None:
             pad_add = torch.zeros((b, s), dtype=torch.float32, device=q.device)
-        seed = int(torch.randint(0, 2**31 - 1, (), generator=generator.host))
+        seed = kernel_seed(generator)
         attend = flash_attention_dropout if use_kernel else \
             flash_attention_dropout_plain
         multihead_attention.routes["kernel" if use_kernel else "plain"] += 1

@@ -36,6 +36,12 @@ probabilities and mask never exist in device memory in either pass:
   device, for comparison with the kernels on the card.
 - :func:`dump_dropout_mask` is the (B, H, T, S) keep-mask as the kernels
   draw it: the dump kernel on a CUDA device, :func:`keep_mask` on the CPU.
+- **The seed** is a host int, or, for the kernels alone, a 0-dim int32
+  tensor on the inputs' device. The kernels take an int by value and read
+  a tensor when they run (its address goes to the C entry, which reads it
+  in place of the value), so a CUDA graph that captured the launches
+  replays them with whatever seed was staged into that tensor. The plain
+  versions take an int only.
 
 ``flash_attention_dropout_fwd.launches``, ``flash_attention_dropout_bwd.
 launches`` and ``dump_dropout_mask.launches`` count kernel launches;
@@ -154,6 +160,9 @@ def _global_cells(b: int, h: int, cells=None, device=None) -> torch.Tensor:
 
 
 def _cells_mask(b, h, t, s, seed, rate, device, cells=None):
+    if isinstance(seed, torch.Tensor):
+        raise ValueError("a seed tensor is read by the kernels alone; the "
+                         "plain versions take an int")
     return keep_mask(t, s, rate, seed, _global_cells(b, h, cells, device),
                      device).reshape(b, h, t, s)
 
@@ -250,6 +259,28 @@ def _check_rate(rate: float) -> None:
         raise ValueError(f"dropout rate must be in [0, 1), got {rate}")
 
 
+def _as_seed(seed):
+    """A seed as the wrappers take it: a host int, or a 0-dim int32 tensor
+    kept as it is."""
+    if not isinstance(seed, torch.Tensor):
+        return int(seed)
+    if seed.dtype != torch.int32 or seed.dim() != 0:
+        raise ValueError(f"a seed tensor must be 0-dim int32, got "
+                         f"{seed.dtype} {tuple(seed.shape)}")
+    return seed
+
+
+def _launch_seed(seed, device) -> tuple:
+    """(value, pointer) of a launch's seed: an int by value and a null
+    pointer, or a tensor on ``device`` by its address (value 0)."""
+    seed = _as_seed(seed)
+    if not isinstance(seed, torch.Tensor):
+        return seed & _M32, None
+    if seed.device != device:
+        raise ValueError(f"the seed is on {seed.device}, the inputs on {device}")
+    return 0, seed.data_ptr()
+
+
 def _stream(x):
     return torch.cuda.current_stream(x.device).cuda_stream
 
@@ -258,7 +289,7 @@ def _bf16(x) -> int:
     return int(x.dtype == torch.bfloat16)
 
 
-def flash_attention_dropout_fwd(q, k, v, pad_add, seed: int, causal: bool,
+def flash_attention_dropout_fwd(q, k, v, pad_add, seed, causal: bool,
                                 rate: float, cells=None) -> torch.Tensor:
     """Forward: the plain version for CPU tensors, a kernel for CUDA.
 
@@ -274,6 +305,7 @@ def flash_attention_dropout_fwd(q, k, v, pad_add, seed: int, causal: bool,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_dropout has no kernel for {q.device}")
     _check_cuda_inputs(q, k, v, pad_add)
+    seed, seed_ptr = _launch_seed(seed, q.device)
 
     from mit_tpu_torch import kernels
 
@@ -287,7 +319,8 @@ def flash_attention_dropout_fwd(q, k, v, pad_add, seed: int, causal: bool,
             rc = kernels.lib().mit_dropout_attention_any_shape_fwd(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), pad_add.data_ptr(),
                 out.data_ptr(), b, h, t, s, hd, int(causal), _bf16(q),
-                seed & _M32, _threshold(rate), 1.0 - rate, *cmap, _stream(q),
+                seed, seed_ptr, _threshold(rate), 1.0 - rate, *cmap,
+                _stream(q),
             )
     else:
         name = "mit_flash_attention_dropout_fwd"
@@ -298,7 +331,8 @@ def flash_attention_dropout_fwd(q, k, v, pad_add, seed: int, causal: bool,
             rc = kernels.lib().mit_flash_attention_dropout_fwd(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), pad_add.data_ptr(),
                 out.data_ptr(), b, h, t, s, int(causal), _bf16(q), warps,
-                seed & _M32, _threshold(rate), 1.0 - rate, *cmap, _stream(q),
+                seed, seed_ptr, _threshold(rate), 1.0 - rate, *cmap,
+                _stream(q),
             )
     kernels.check(rc, name)
     flash_attention_dropout_fwd.launches += 1
@@ -308,8 +342,8 @@ def flash_attention_dropout_fwd(q, k, v, pad_add, seed: int, causal: bool,
 flash_attention_dropout_fwd.launches = 0
 
 
-def flash_attention_dropout_bwd(q, k, v, pad_add, do, seed: int,
-                                causal: bool, rate: float, cells=None):
+def flash_attention_dropout_bwd(q, k, v, pad_add, do, seed, causal: bool,
+                                rate: float, cells=None):
     """Backward → (dq, dk, dv): the plain formulas for CPU tensors, for
     CUDA the kernel :func:`dropout_bwd_kernel_for` names."""
     _check_rate(rate)
@@ -319,6 +353,7 @@ def flash_attention_dropout_bwd(q, k, v, pad_add, do, seed: int,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_dropout has no kernel for {q.device}")
     _check_cuda_inputs(q, k, v, pad_add, do)
+    seed, seed_ptr = _launch_seed(seed, q.device)
 
     from mit_tpu_torch import kernels
 
@@ -337,7 +372,7 @@ def flash_attention_dropout_bwd(q, k, v, pad_add, do, seed: int,
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), pad_add.data_ptr(),
                 do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                 stats.data_ptr(), b, h, t, s, hd, int(causal), _bf16(q),
-                seed & _M32, _threshold(rate), 1.0 / (1.0 - rate), *cmap,
+                seed, seed_ptr, _threshold(rate), 1.0 / (1.0 - rate), *cmap,
                 _stream(q),
             )
     else:
@@ -349,7 +384,7 @@ def flash_attention_dropout_bwd(q, k, v, pad_add, do, seed: int,
             rc = kernels.lib().mit_flash_attention_dropout_bwd(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), pad_add.data_ptr(),
                 do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                b, h, t, s, int(causal), _bf16(q), seed & _M32,
+                b, h, t, s, int(causal), _bf16(q), seed, seed_ptr,
                 _threshold(rate), 1.0 / (1.0 - rate), *cmap, _stream(q),
             )
     kernels.check(rc, name)
@@ -385,31 +420,32 @@ class _DropoutAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None, None, None
 
 
-def flash_attention_dropout(q, k, v, pad_add, seed: int, causal: bool = True,
+def flash_attention_dropout(q, k, v, pad_add, seed, causal: bool = True,
                             rate: float = 0.1, cells=None) -> torch.Tensor:
     """Fused attention with dropout on the probabilities.
 
-    q (B, H, T, hd); k/v (B, H, S, hd); pad_add (B, S) additive f32; seed a
-    host int, the dropout stream (the same seed gives the same mask, which
-    makes the backward exact); ``cells`` the cell map (b_offset, h_total,
-    h_offset) of a mesh rank, None on one device. Differentiable in q, k
-    and v.
+    q (B, H, T, hd); k/v (B, H, S, hd); pad_add (B, S) additive f32; seed
+    the dropout stream, a host int or (the kernels) a 0-dim int32 tensor on
+    q's CUDA device that the backward reads again, so it must hold the same
+    value until then (the same seed gives the same mask, which makes the
+    backward exact); ``cells`` the cell map (b_offset, h_total, h_offset) of a mesh
+    rank, None on one device. Differentiable in q, k and v.
     """
-    return _DropoutAttention.apply(q, k, v, pad_add, int(seed), bool(causal),
-                                   float(rate), True, cells)
+    return _DropoutAttention.apply(q, k, v, pad_add, _as_seed(seed),
+                                   bool(causal), float(rate), True, cells)
 
 
-def flash_attention_dropout_plain(q, k, v, pad_add, seed: int,
+def flash_attention_dropout_plain(q, k, v, pad_add, seed,
                                   causal: bool = True, rate: float = 0.1,
                                   cells=None) -> torch.Tensor:
     """:func:`flash_attention_dropout` through the plain forward and
     backward on any device: the kernels' comparison on the card."""
     _check_rate(rate)
-    return _DropoutAttention.apply(q, k, v, pad_add, int(seed), bool(causal),
-                                   float(rate), False, cells)
+    return _DropoutAttention.apply(q, k, v, pad_add, _as_seed(seed),
+                                   bool(causal), float(rate), False, cells)
 
 
-def dump_dropout_mask(b: int, h: int, t: int, s: int, seed: int, rate: float,
+def dump_dropout_mask(b: int, h: int, t: int, s: int, seed, rate: float,
                       device="cpu", cells=None) -> torch.Tensor:
     """(B, H, T, S) bool keep-mask exactly as the kernels draw it at the
     cell map ``cells``: the dump kernel on a CUDA device, :func:`keep_mask`
@@ -417,6 +453,7 @@ def dump_dropout_mask(b: int, h: int, t: int, s: int, seed: int, rate: float,
     _check_rate(rate)
     device = torch.device(device)
     cmap = _cell_map(cells, h)
+    seed = _as_seed(seed)
     if device.type == "cpu":
         return _cells_mask(b, h, t, s, seed, rate, device, cells)
     if device.type != "cuda":
@@ -427,9 +464,10 @@ def dump_dropout_mask(b: int, h: int, t: int, s: int, seed: int, rate: float,
     from mit_tpu_torch import kernels
 
     out = torch.empty((b, h, t, s), dtype=torch.bool, device=device)
+    seed, seed_ptr = _launch_seed(seed, out.device)
     with torch.cuda.device(device):
         rc = kernels.lib().mit_dump_dropout_mask(
-            out.data_ptr(), b * h, h, t, s, seed & _M32, _threshold(rate),
+            out.data_ptr(), b * h, h, t, s, seed, seed_ptr, _threshold(rate),
             *cmap, torch.cuda.current_stream(device).cuda_stream,
         )
     kernels.check(rc, "mit_dump_dropout_mask")

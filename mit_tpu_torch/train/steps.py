@@ -19,6 +19,19 @@ and leaves its argument intact. The loss stays on the device; nothing in a
 step reads a value back to the host. Each step's dropout streams are a
 function of (seed, step) (:meth:`DropoutGenerators.for_step`).
 
+On one CUDA device (no mesh, no remat, the kernels) the step replays its
+body from a CUDA graph, captured in its first call for the signature of
+the batch (shapes, dtypes, device) and the frozen tensors; a call of
+another signature, like any other call, runs the body eagerly. The
+graph reads its inputs from static buffers that each call fills first: the
+state (unless it is the state the step returned last, which they already
+hold), the batch, the fused kernel's seeds (drawn on the host as the eager
+forward draws them), the optimizer's step size and bias corrections (the
+same f32 values), and the device generator, reseeded so that the replay
+draws the eager step's Bernoulli masks. The graph updates the state in
+place; each call returns copies, so a state it returned is never written
+again. Graphed and eager steps are equal bit for bit.
+
 Under a device mesh (``mesh``, the distributed form of
 ``parallel.mesh``) a step runs this rank's rows of the batch and its shard
 of the parameters, and equals the single-device step:
@@ -44,7 +57,7 @@ from mit_tpu_torch.models.model import (
     merge_params,
     model_forward,
 )
-from mit_tpu_torch.ops.attention import DropoutGenerators
+from mit_tpu_torch.ops.attention import DropoutGenerators, SeedSlots
 from mit_tpu_torch.parallel.collectives import all_reduce_sum
 from mit_tpu_torch.utils.profiling import span
 
@@ -131,9 +144,24 @@ class Optimizer(NamedTuple):
         zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)
         return OptState(0, tree_map(zeros, params), tree_map(zeros, params))
 
-    def update(self, grads: dict, state: OptState, params: dict, norm=None):
+    def scalars(self, count: int) -> tuple:
+        """(step size, first and second bias corrections) of the update
+        after ``count`` updates, as f32: the schedule's rate at ``count``,
+        negated, and ``1 - b ** (count + 1)``."""
+        f32 = np.float32
+        return (-f32(self.schedule(count)),
+                f32(1) - f32(self.b1) ** (count + 1),
+                f32(1) - f32(self.b2) ** (count + 1))
+
+    def update(self, grads: dict, state: OptState, params: dict, norm=None,
+               scalars=None, in_place: bool = False):
         """(params', state') from the step's gradients; ``norm``, when given,
-        is their global norm (a mesh rank holds only some of them)."""
+        is their global norm (a mesh rank holds only some of them).
+
+        ``scalars``: :meth:`scalars` as 0-dim f32 device tensors, read when
+        the update runs (a CUDA graph's inputs); None makes them here from
+        ``state.count``. ``in_place`` writes params', mu' and nu' into the
+        tensors of ``params`` and ``state``."""
         g = tree_leaves(grads)
         if self.clip:
             if norm is None:
@@ -141,25 +169,27 @@ class Optimizer(NamedTuple):
                                       for x in g))
             trigger = norm < self.clip
             g = [torch.where(trigger, x, (x / norm) * self.clip) for x in g]
-        f32 = np.float32
-        count = state.count + 1
-        bias_correction = lambda b: torch.full(
-            (), float(f32(1) - f32(b) ** count), dtype=torch.float32,
-            device=g[0].device)
-        bc1, bc2 = bias_correction(self.b1), bias_correction(self.b2)
-        step_size = -float(self.schedule(state.count))    # f32, exactly
+        if scalars is None:
+            step_size, bc1, bc2 = self.scalars(state.count)
+            fill = lambda c: torch.full((), float(c), dtype=torch.float32,
+                                        device=g[0].device)
+            # f32 values exactly; a Python scalar multiplies in f32
+            step_size, bc1, bc2 = float(step_size), fill(bc1), fill(bc2)
+        else:
+            step_size, bc1, bc2 = scalars
         mu, nu, new = [], [], []
         for x, m, v, p in zip(g, tree_leaves(state.mu), tree_leaves(state.nu),
                               tree_leaves(params)):
-            m = (1 - self.b1) * x + self.b1 * m
-            v = (1 - self.b2) * (x * x) + self.b2 * v
+            into = (m, v, p) if in_place else (None, None, None)
+            m = torch.add((1 - self.b1) * x, self.b1 * m, out=into[0])
+            v = torch.add((1 - self.b2) * (x * x), self.b2 * v, out=into[1])
             u = (m / bc1) / (torch.sqrt(v / bc2) + self.eps)
             u = u + self.weight_decay * p
-            new.append(p + step_size * u)
+            new.append(torch.add(p, step_size * u, out=into[2]))
             mu.append(m)
             nu.append(v)
         return (tree_unflatten(params, new),
-                OptState(count, tree_unflatten(params, mu),
+                OptState(state.count + 1, tree_unflatten(params, mu),
                          tree_unflatten(params, nu)))
 
 
@@ -220,16 +250,24 @@ def make_train_step(
     True)``, which then runs split over "model") or the replicated int8 one,
     ``batch`` this rank's rows (``shard_batch``), and the returned loss is
     the global one.
+
+    The step is a :class:`TrainStep`: a batch on a CUDA device replays a
+    CUDA graph where neither ``mesh`` nor ``remat`` is set and
+    ``use_kernel`` is (the module's docstring); ``step.eager`` is the same
+    step run eagerly, and ``step.graph_captures``, ``.graph_replays`` and
+    ``.eager_steps`` count the calls by the way they ran.
     """
     forward = forward_from_features if from_features else model_forward
     inputs = "features" if from_features else "images"
     data_group = (mesh.group("data") if mesh is not None
                   and mesh.shape["data"] > 1 else None)
 
-    def step(state: TrainState, frozen: dict, batch: dict, seed: int):
-        device = batch["decoder_input_tokens"].device
+    def body(state: TrainState, frozen: dict, batch: dict, streams: Callable,
+             scalars=None, in_place: bool = False):
+        """The step from the dropout streams that ``streams()`` makes;
+        ``scalars`` and ``in_place`` as :meth:`Optimizer.update`'s."""
         with span("mit.train.forward"):
-            gens = DropoutGenerators.for_step(seed, state.step, device)
+            gens = streams()
             params = tree_map(lambda p: p.detach().requires_grad_(),
                               state.params)
             shard = (mesh.step_shard(batch["decoder_input_tokens"].shape[0])
@@ -263,10 +301,188 @@ def make_train_step(
             norm = (_global_norm(grads, mesh) if mesh is not None
                     and optimizer.clip else None)
             new, opt_state = optimizer.update(grads, state.opt_state,
-                                              state.params, norm)
+                                              state.params, norm, scalars,
+                                              in_place)
         return TrainState(state.step + 1, new, opt_state), loss.detach()
 
-    return step
+    def eager(state: TrainState, frozen: dict, batch: dict, seed: int):
+        device = batch["decoder_input_tokens"].device
+        return body(state, frozen, batch, lambda: DropoutGenerators.for_step(
+            seed, state.step, device))
+
+    return TrainStep(eager, body, optimizer,
+                     (inputs, "decoder_input_tokens", "target_tokens"),
+                     graphs=mesh is None and not remat and use_kernel)
+
+
+def _warm_up(fn: Callable, device: torch.device):
+    """``fn()`` on a side stream, as a capture wants what it records run
+    once before (lazy initialisation: the kernel library, cuBLAS's
+    workspaces, autograd's device threads)."""
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        out = fn()
+    torch.cuda.current_stream(device).wait_stream(side)
+    return out
+
+
+def _capture(fn: Callable, generator: torch.Generator, device: torch.device):
+    """(replay, outputs): ``fn``'s work captured into a CUDA graph; each
+    replay draws from ``generator`` at its seed and offset as they stand
+    when the replay starts."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.device(device):
+        graph.register_generator_state(generator)
+        with torch.cuda.graph(graph):
+            out = fn()
+    return graph.replay, out
+
+
+def _state_leaves(state: TrainState) -> list:
+    return (tree_leaves(state.params) + tree_leaves(state.opt_state.mu)
+            + tree_leaves(state.opt_state.nu))
+
+
+def _state_of(state: TrainState, leaves: list, step: int,
+              count: int) -> TrainState:
+    """A state of ``state``'s trees over ``leaves`` (params, mu, nu)."""
+    n = len(leaves) // 3
+    tree = lambda i: tree_unflatten(state.params, leaves[i * n:(i + 1) * n])
+    return TrainState(step, tree(0), OptState(count, tree(1), tree(2)))
+
+
+def staged_words(optimizer: Optimizer, seed: int, state: TrainState,
+                 seeds: int) -> np.ndarray:
+    """The int32 words a graphed step stages for ``state``'s step: the
+    ``seeds`` fused calls' seeds (:meth:`DropoutGenerators.kernel_seeds`),
+    then the bits of the f32 step size and bias corrections
+    (:meth:`Optimizer.scalars`)."""
+    return np.concatenate([
+        np.asarray(DropoutGenerators.kernel_seeds(seed, state.step, seeds),
+                   np.int32),
+        np.asarray(optimizer.scalars(state.opt_state.count),
+                   np.float32).view(np.int32)])
+
+
+class _Graph(NamedTuple):
+    """The captured step and the buffers it reads besides the state."""
+
+    key: tuple                  # the signature it was captured for
+    replay: Callable
+    loss: torch.Tensor          # the loss the replay writes
+    batch: dict                 # the batch, by key
+    staged: torch.Tensor        # int32: :func:`staged_words`
+    seeds: int                  # fused calls, each reading one seed
+    generator: torch.Generator  # the device stream of the Bernoulli masks
+    frozen: list                # the frozen leaves it read, kept alive
+
+
+class TrainStep:
+    """The train step that :func:`make_train_step` returns: a CUDA graph
+    of the step's body, captured for the signature of its first call and
+    replayed for every call of that signature where the step allows it,
+    ``eager`` otherwise. ``graph_captures`` counts the calls that captured
+    the graph (and replayed it once), ``graph_replays`` the calls that
+    replayed it, ``eager_steps`` those that ran ``eager``."""
+
+    def __init__(self, eager: Callable, body: Callable, optimizer: Optimizer,
+                 keys: tuple, graphs: bool):
+        self.eager = eager
+        self._body, self._optimizer, self._keys = body, optimizer, keys
+        self._graphs_allowed = graphs
+        self._graph = None
+        self._static = None     # the state's leaves: params, mu, nu
+        self._held = None       # the state whose values they hold
+        self.graph_captures = self.graph_replays = self.eager_steps = 0
+
+    def __call__(self, state: TrainState, frozen: dict, batch: dict,
+                 seed: int):
+        device = batch[self._keys[1]].device
+        key = self._signature(frozen, batch, device)
+        graph = self._graph
+        if key is None or graph is not None and key != graph.key:
+            self.eager_steps += 1
+            return self.eager(state, frozen, batch, seed)
+        if graph is None:
+            self._hold(state)
+            graph = self._graph = self._capture_graph(key, state, frozen,
+                                                      batch, device)
+            self.graph_captures += 1
+        else:
+            self.graph_replays += 1
+        with span("mit.train.stage"):
+            self._hold(state)
+            for k, buf in graph.batch.items():
+                buf.copy_(batch[k], non_blocking=True)
+            graph.generator.manual_seed(
+                DropoutGenerators.step_seeds(seed, state.step)[0])
+            # fresh pinned memory each call: the copy runs after the host
+            # has moved on
+            graph.staged.copy_(torch.from_numpy(staged_words(
+                self._optimizer, seed, state, graph.seeds)).pin_memory(),
+                non_blocking=True)
+        with span("mit.train.replay"):
+            graph.replay()
+            return self._release(state, graph.loss)
+
+    def _signature(self, frozen: dict, batch: dict, device):
+        """The graph's key for this call, None where it runs eagerly."""
+        if not (self._graphs_allowed and device.type == "cuda") or any(
+                batch[k].device != device for k in self._keys):
+            return None
+        return (tuple((tuple(batch[k].shape), batch[k].dtype)
+                      for k in self._keys), device,
+                tuple(map(id, tree_leaves(frozen))))
+
+    def _hold(self, state: TrainState) -> None:
+        """The static buffers take ``state``'s values, unless they hold
+        them already."""
+        if state is self._held:
+            return
+        leaves = _state_leaves(state)
+        if self._static is None:
+            self._static = [torch.empty_like(x) for x in leaves]
+        torch._foreach_copy_(self._static, leaves)
+        self._held = state
+
+    def _release(self, state: TrainState, loss: torch.Tensor) -> tuple:
+        """(the state after ``state``, the loss) as fresh copies of the
+        static buffers, which a later replay leaves alone; the buffers
+        hold it."""
+        copies = [torch.empty_like(x) for x in self._static]
+        torch._foreach_copy_(copies, self._static)
+        self._held = _state_of(state, copies, state.step + 1,
+                               state.opt_state.count + 1)
+        return self._held, loss.clone()
+
+    def _capture_graph(self, key: tuple, state: TrainState, frozen: dict,
+                       batch: dict, device) -> _Graph:
+        """Warm up, then capture the body over the static state, a copy of
+        the batch, the seeds' slots and the scalars, updating the state in
+        place."""
+        static = _state_of(state, self._static, state.step,
+                           state.opt_state.count)
+        inputs = {k: batch[k].clone() for k in self._keys}
+        generator = torch.Generator(device=device)
+
+        def run(slots, scalars=None, in_place=False):
+            slots.taken = 0
+            streams = lambda: DropoutGenerators(generator, None, slots)
+            return self._body(static, frozen, inputs, streams, scalars,
+                              in_place)[1]
+
+        counted = SeedSlots(device=device)
+        _warm_up(lambda: run(counted), device)
+        staged = torch.zeros(counted.taken + 3, dtype=torch.int32,
+                             device=device)
+        scalars = staged[counted.taken:].view(torch.float32)
+        slots = SeedSlots(staged[:counted.taken])
+        replay, loss = _capture(
+            lambda: run(slots, tuple(scalars), in_place=True), generator,
+            device)
+        return _Graph(key, replay, loss, inputs, staged, counted.taken,
+                      generator, tree_leaves(frozen))
 
 
 def _sum_over(tensors: list, group) -> list:

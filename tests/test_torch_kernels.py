@@ -739,6 +739,40 @@ def test_dropout_kernels_reject_what_they_do_not_take(cuda):
         fwd(wide, wide, wide, torch.zeros(1, 9, device=cuda), 0, True, 0.1)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,h,t", [(32, 8, 99), (2, 2, 160)],
+                         ids=["tiled", "any_shape"])
+def test_dropout_seed_through_the_pointer_is_the_seed_by_value_on_card(
+        cuda, dtype, b, h, t):
+    """The forward, the backward and ``dump_dropout_mask`` with the seed in
+    a 0-dim int32 device tensor (its address to the C entry, read when the
+    kernel runs) equal the launches that take the same seed by value, bit
+    for bit; a tensor holding another seed gives that seed's results, so
+    the kernels read the pointer."""
+    assert dropout_attention.dropout_kernel_for(64, t, t) == \
+        ("tiled" if t <= 128 else "any_shape")
+    q, k, v, pad = _heads(b, h, t, t, dtype, cuda)
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(4)
+                     ).to(cuda, dtype)
+    fwd = dropout_attention.flash_attention_dropout_fwd
+    bwd = dropout_attention.flash_attention_dropout_bwd
+    dump = lambda seed: dropout_attention.dump_dropout_mask(b, h, t, t, seed,
+                                                            0.1, cuda)
+    masks = []
+    for seed in (2**31 - 5, 77):
+        on_card = torch.tensor(seed, dtype=torch.int32, device=cuda)
+        assert torch.equal(fwd(q, k, v, pad, on_card, True, 0.1),
+                           fwd(q, k, v, pad, seed, True, 0.1))
+        for got, want in zip(bwd(q, k, v, pad, do, on_card, True, 0.1),
+                             bwd(q, k, v, pad, do, seed, True, 0.1)):
+            assert torch.equal(got, want)
+        masks.append(dump(on_card))
+        assert torch.equal(masks[-1], dump(seed))
+    assert not torch.equal(*masks)
+
+
 # ----------------------------------------------------------------------
 # the fused decode layer and the (B, H, T, hd) attention kernel
 # ----------------------------------------------------------------------
@@ -1045,8 +1079,8 @@ def _dropout_fwd_tiled(q, k, v, pad, seed, causal, rate, warps):
     rc = kernels.lib().mit_flash_attention_dropout_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), pad.data_ptr(),
         out.data_ptr(), b, h, t, k.shape[2], int(causal), 1, warps,
-        seed & 0xFFFFFFFF, dropout_attention._threshold(rate), 1.0 - rate, 0, h, 0,
-        torch.cuda.current_stream().cuda_stream)
+        seed & 0xFFFFFFFF, None, dropout_attention._threshold(rate),
+        1.0 - rate, 0, h, 0, torch.cuda.current_stream().cuda_stream)
     kernels.check(rc, "mit_flash_attention_dropout_fwd")
     return out
 
