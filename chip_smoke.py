@@ -29,6 +29,17 @@ the script exits non-zero without printing the result line.
               tilings (one warpgroup of 64 query rows a block, or two) at
               the encoder shape; the same comparison for the fused-QKV
               entry, both bf16 modes;
+            - moe_experts (csrc/moe_experts.cu), the grouped SwiGLU experts
+              of Kimi-VL-A3B (D 2048, F 1408, 64 experts, 6 a token),
+              against their plain composition at a decode step's 384 routes
+              and a prefill's 30,720, and with half the experts given no
+              rows (limit 2e-2 of the largest output); timed beside the
+              composition and torch._grouped_mm (check_moe_kernel); then
+              on the Kimi-VL path at the published widths, one batch of 64
+              replayed under the profiler: 1,664 expert kernels, the
+              counters' calls and rows alike (check_kimi_vl_path; `python3
+              chip_smoke.py --moe` runs phases 1, 2 and these alone, then
+              one JSON line);
             - quantize_rows, without and with its LayerNorm, on (12608, 768)
               and (12608, 3072) f32 and bf16 rows with an all-zero row:
               codes and scales bitwise equal without the LayerNorm, codes
@@ -638,6 +649,173 @@ def device_ms(torch, fn, iters=TIMED_ITERS):
     total = sum(getattr(e, "self_device_time_total", 0)
                 for e in prof.key_averages())
     return total / iters / 1e3 if total > 0 else None
+
+
+# the grouped expert kernel's shapes: Kimi-VL-A3B's experts (D 2048,
+# F 1408, 64 experts, 6 a token) at a decode step of 64 rows and at the
+# prefill of 64 x 80 tokens
+MOE_SHAPES = (("decode", 64), ("prefill", 5120))
+MOE_D, MOE_F, MOE_E, MOE_K = 2048, 1408, 64, 6
+
+
+def moe_bound(hit, routes, d=MOE_D, f=MOE_F):
+    """The hit experts' three matrices and the routed rows in and out read
+    or written once; 2 x 3 x D x F operations a route."""
+    return bound(hit * 3 * d * f * 2 + routes * d * 2 * 2,
+                 2 * 3 * d * f * routes, "bf16")
+
+
+def grouped_mm_call(torch, x, token, offsets, wg, wu, wd):
+    """The yardstick: the same SwiGLU through ``torch._grouped_mm`` on the
+    gathered rows (three grouped products), or None where this torch lacks
+    it or refuses the shapes."""
+    gm = getattr(torch, "_grouped_mm", None)
+    if gm is None:
+        return None
+    offs = offsets[1:].contiguous()
+    rows = x[token.long()]
+
+    def call():
+        g = gm(rows, wg, offs=offs)
+        u = gm(rows, wu, offs=offs)
+        return gm(torch.nn.functional.silu(g) * u, wd, offs=offs)
+    try:
+        call()
+        torch.cuda.synchronize()
+    except (RuntimeError, TypeError) as e:
+        print(f"torch._grouped_mm refused: {str(e).splitlines()[0]}")
+        return None
+    return call
+
+
+def check_moe_kernel(torch):
+    """The grouped SwiGLU expert kernel (``csrc/moe_experts.cu``) against
+    its plain composition at the decode and prefill shapes, with half the
+    experts given no rows in a second case; times against the composition
+    and ``torch._grouped_mm``."""
+    from mit_tpu_torch.ops import moe
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    d, f, e, k = MOE_D, MOE_F, MOE_E, MOE_K
+    w = lambda *shape: (torch.randn(shape, generator=g, device="cuda")
+                        * 0.02).to(torch.bfloat16)
+    wg, wu, wd = w(e, d, f), w(e, d, f), w(e, f, d)
+    results = {}
+    for label, t in MOE_SHAPES:
+        x = torch.randn((t, d), generator=g, device="cuda").to(torch.bfloat16)
+        for experts in (e, e // 2):
+            idx = torch.rand((t, experts), generator=g,
+                             device="cuda").topk(k, -1).indices
+            _, token, offsets = moe.group_routes(idx, e)
+            kern = lambda: moe.grouped_swiglu(x, token, offsets, wg, wu, wd)
+            plain = lambda: moe.grouped_swiglu_plain(x, token, offsets, wg,
+                                                     wu, wd)
+            want = plain().float()
+            before = moe.moe_experts.launches
+            got = kern().float()
+            launches = moe.moe_experts.launches - before
+            err = float((got - want).abs().max() / want.abs().max())
+            name = f"moe_experts_{label}" + ("" if experts == e
+                                             else "_half_idle")
+            print(f"check {name}: routes {t * k} over {experts} experts, "
+                  f"max |kernel - plain| / max |plain| {err:.3e}, "
+                  f"{launches} launches")
+            if not err <= 2e-2:
+                raise AssertionError(f"{name}: error {err}")
+            if experts != e:
+                continue
+            runs = timed_turns(torch, kern, plain)
+            lib = grouped_mm_call(torch, x, token, offsets, wg, wu, wd)
+            report(results, name, err, runs, f"({t} x {k} routes, E {e})",
+                   moe_bound(int((offsets[1:] > offsets[:-1]).sum()), t * k),
+                   None if lib is None else cuda_ms(torch, lib),
+                   device_ms(torch, kern),
+                   None if lib is None else device_ms(torch, lib))
+    return results
+
+
+# the Kimi-VL path as the benchmark's cell runs it: 64 photos' image tokens
+# (64 each after the 2 x 2 merge), a 16-id prompt, 32 greedy tokens
+KIMI_BATCH, KIMI_IMAGE_TOKENS, KIMI_PROMPT, KIMI_NEW = 64, 64, 16, 32
+
+
+def check_kimi_vl_path(torch):
+    """The grouped expert kernel on the Kimi-VL path: ``Captioner`` at the
+    published widths (``KIMI_VL_A3B``, its 33 GB of bf16 weights drawn on
+    the card with the cell's scales), one batch of ``KIMI_BATCH`` rows of
+    random image tokens through ``generate_from_memory``. The first batch
+    captures the decode step; the second replays it under the profiler,
+    which must see two expert kernels a call: the prefill's and every
+    step's, one call a MoE layer, 2 x 26 x 32 = 1,664 a batch. The expert
+    layer's device-side counters must count the same calls and rows, the
+    host launch the prefill's kernels alone and the step replay 31 times.
+    → the launches and counters of the profiled batch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mit_tpu_torch.decode.api import Captioner
+    from mit_tpu_torch.models import kimi_vl as kv
+    from mit_tpu_torch.models.model import ModelConfig
+    from mit_tpu_torch.models.vision import config_for_encoder
+    from mit_tpu_torch.ops import moe
+
+    cfg = kv.KIMI_VL_A3B
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    tree: dict = {}
+    for path, shape in kv.param_shapes(cfg).items():
+        if kv.is_norm_scale(path):
+            leaf = torch.ones(shape, device="cuda", dtype=torch.bfloat16)
+        else:
+            std = {"lm/embed": 1.0, "lm/layers/wo": 0.006,
+                   "lm/dense/w_down": 0.002, "lm/moe/w_down": 0.002,
+                   "lm/moe/shared_down": 0.002}.get(path, 0.02)
+            leaf = torch.randn(shape, generator=g, device="cuda",
+                               dtype=torch.bfloat16).mul_(std)
+        kv.put(tree, path, leaf)
+    name = "openai/clip-vit-large-patch14"
+    mcfg = ModelConfig(name, config_for_encoder(name), cfg, "full",
+                       "kimi_vl")
+    cap = Captioner({"encoder": {}, **tree}, mcfg, None)
+    memory = torch.randn((KIMI_BATCH, KIMI_IMAGE_TOKENS, cfg.hidden_size),
+                         generator=g, device="cuda", dtype=torch.bfloat16)
+    prompt = torch.randint(0, cfg.vocab_size, (KIMI_PROMPT,), generator=g,
+                           device="cuda").cpu()
+    run = lambda: cap.generate_from_memory(
+        memory, prompt_ids=prompt, max_new_tokens=KIMI_NEW, end_token_id=-1)
+    first = run()
+    torch.cuda.synchronize()
+    moe.reset_counters()
+    replays = cap.steps.graph_replays
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        again = run()
+        torch.cuda.synchronize()
+    kernels = {e.key: e.count for e in prof.key_averages()
+               if "moe_gate_up_kernel" in e.key or "moe_down_kernel" in e.key}
+    n_moe, steps = cfg.n_moe_layers, KIMI_NEW - 1
+    calls = {"prefill": n_moe, "decode": n_moe * steps}
+    k = cfg.num_experts_per_tok
+    rows = {"prefill": n_moe * KIMI_BATCH * (KIMI_IMAGE_TOKENS + KIMI_PROMPT)
+            * k, "decode": n_moe * steps * KIMI_BATCH * k}
+    out = {"launches": sum(kernels.values()), "kernels": kernels,
+           "moe_experts.calls": dict(moe.moe_experts.calls),
+           "moe_experts.rows": dict(moe.moe_experts.rows),
+           "moe_experts.experts_hit": dict(moe.moe_experts.experts_hit),
+           "moe_experts.launches": moe.moe_experts.launches,
+           "graph_replays": cap.steps.graph_replays - replays,
+           "graph_captures": cap.steps.graph_captures,
+           "same_tokens": first == again,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print(f"check kimi_vl_path: {out}")
+    want = 2 * (calls["prefill"] + calls["decode"])
+    if not (out["launches"] == want and out["moe_experts.calls"] == calls
+            and out["moe_experts.rows"] == rows
+            and out["moe_experts.launches"] == 2 * n_moe
+            and out["graph_replays"] == steps and out["graph_captures"] == 1
+            and out["same_tokens"]):
+        raise AssertionError(f"kimi_vl_path: {want} expert kernels, calls "
+                             f"{calls} and rows {rows} wanted")
+    del cap, tree
+    torch.cuda.empty_cache()
+    return out
 
 
 def check_bf16_design(torch):
@@ -4951,6 +5129,11 @@ def main() -> int:
         on, off = mlp_lines(int8, check_int8_paths(torch))
         print(json.dumps({"int8_mlp_kernels": on, "off_path": off}))
         return 0
+    if sys.argv[1:] == ["--moe"]:
+        moe_kernels = check_moe_kernel(torch)
+        moe_kernels["kimi_vl_path"] = check_kimi_vl_path(torch)
+        print(json.dumps({"moe_kernels": moe_kernels}))
+        return 0
     if sys.argv[1:] == ["--wide-heads"]:
         print(json.dumps({"wide_head_kernels": wide_lines(
             check_wide_heads(torch), check_vit_h(torch)["counts"])}))
@@ -4965,6 +5148,8 @@ def main() -> int:
     bhtd = check_bhtd_kernel(torch)
     any_shape = check_any_shape_kernels(torch)
     wide = check_wide_heads(torch)
+    moe_kernels = check_moe_kernel(torch)
+    moe_kernels["kimi_vl_path"] = check_kimi_vl_path(torch)
 
     print("== 4 slice", flush=True)
     slice_ = check_slice(torch)
@@ -5085,6 +5270,9 @@ def main() -> int:
     # default models' geometries never reach, and every wide-head line
     print(json.dumps({"wide_head_kernels": wide_path}))
     print(json.dumps({"off_path_kernels": off_path}))
+    # the grouped expert kernel runs on the kimi_vl path, which the slice
+    # does not drive: its lines stand apart
+    print(json.dumps({"moe_kernels": moe_kernels}))
     print(json.dumps({"any_shape_kernels": [
         {"name": name, "route": "cuda",
          "source": "mit_tpu_torch/csrc/attention_any_shape.cu", **line}

@@ -145,6 +145,11 @@ class Config:
     # of optimizer state — weights are never lost. Short sanity runs that
     # never resume can raise this to skip the transfer entirely.
     TRAIN_STATE_INTERVAL: int = 1
+    # The language side of the captioner: "decoder" (the reference's 6 x 512
+    # Transformer above) or "kimi_vl" (Kimi-VL-A3B's language model and
+    # projector over the encoder's patches; greedy decoding only, no
+    # training, service, beam search, sampling or int8 arm yet).
+    LANGUAGE_MODEL: str = "decoder"
 
     # --- Derived paths (reference config.py:17-24, 121-124) ---
     @property

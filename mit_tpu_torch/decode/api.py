@@ -50,7 +50,18 @@ class Captioner:
     It is off by default, as ``MIT_FUSED_DECODE`` is in the JAX package: it
     changes bf16 numerics. ``beam_size`` is the default of ``method="beam"``
     (the config's ``BEAM_SIZE``).
+
+    A ``ModelConfig`` whose ``language_model`` is "kimi_vl" makes a
+    :class:`~mit_tpu_torch.decode.kimi_vl.KimiVLCaptioner` instead: the
+    family is chosen here, once.
     """
+
+    def __new__(cls, params, mcfg, *args, **kwargs):
+        if cls is Captioner and mcfg.language_model == "kimi_vl":
+            from mit_tpu_torch.decode.kimi_vl import KimiVLCaptioner
+
+            cls = KimiVLCaptioner
+        return super().__new__(cls)
 
     def __init__(
         self,
@@ -213,6 +224,15 @@ class Captioner:
         return [self.postprocess(s) for s in ids]
 
 
+def _reference_layout_only(cfg) -> None:
+    language_model = getattr(cfg, "LANGUAGE_MODEL", "decoder")
+    if language_model != "decoder":
+        raise NotImplementedError(
+            "checkpoints hold the 'decoder' language model only; a "
+            f"{language_model!r} captioner takes its weights as a tree "
+            "(Captioner(params, ModelConfig.build(cfg), tokenizer))")
+
+
 def load_captioner(checkpoint_path: str, cfg, compute_dtype=torch.float32,
                    device="cuda", encoder_quant: str = "none",
                    fused_decode: bool = False) -> Captioner:
@@ -220,6 +240,7 @@ def load_captioner(checkpoint_path: str, cfg, compute_dtype=torch.float32,
     tokenizer files of ``cfg`` (a ``mit_tpu_torch.config.Config``):
     tokenizer → model config with the actual vocab size → weights onto
     ``device``, the encoder quantized as ``encoder_quant`` says."""
+    _reference_layout_only(cfg)
     # imported here: the tokenizer needs the ``regex`` package, which the
     # captioning path over token ids does not
     from mit_tpu_torch.text.tokenizer import get_tokenizer
@@ -250,6 +271,7 @@ def pretrained_captioner(
     decoder and projection drawn from ``cfg.RANDOM_SEED``, both overwritten
     by ``decoder_checkpoint`` (a reference-layout safetensors file) when one
     is given. A repo id is fetched only with ``local_files_only=False``."""
+    _reference_layout_only(cfg)
     from mit_tpu_torch.text.tokenizer import get_tokenizer
     from mit_tpu_torch.train.checkpoint import load_safetensors
 

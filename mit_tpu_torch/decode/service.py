@@ -349,6 +349,10 @@ class CaptionService:
         if method not in ("greedy", "beam", "sample"):
             raise ValueError(
                 f"method must be 'greedy', 'beam' or 'sample', got {method!r}")
+        if captioner.mcfg.language_model != "decoder":
+            raise NotImplementedError(
+                "CaptionService serves the 'decoder' language model only, "
+                f"not {captioner.mcfg.language_model!r}")
         if cache_len is not None and cache_len < 4:
             raise ValueError(
                 f"cache_len={cache_len} leaves no room to decode (START and at "

@@ -70,6 +70,9 @@ ENTRY_POINTS = {
         [_P] * 5 + [_I] * 7 + [_U, _P, _U, _F] + [_I] * 3 + [_P],
     "mit_dropout_attention_any_shape_bwd":
         [_P] * 9 + [_I] * 7 + [_U, _P, _U, _F] + [_I] * 3 + [_P],
+    # the grouped SwiGLU experts: x, token, offsets, three weights, the
+    # hidden and the output; D, F, E, routes, row tiles; the stream
+    "mit_moe_experts": [_P] * 8 + [_I] * 5 + [_P],
 }
 
 _lib = None

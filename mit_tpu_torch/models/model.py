@@ -37,15 +37,36 @@ from mit_tpu_torch.models.vision import (
 
 
 class ModelConfig(NamedTuple):
+    """``language_model`` chooses the family of the language side:
+    "decoder", the reference project's post-LN Transformer (``decoder`` a
+    :class:`DecoderConfig`), or "kimi_vl", Kimi-VL-A3B's sparse decoder
+    behind its projector (``decoder`` a
+    :class:`~mit_tpu_torch.models.kimi_vl.KimiVLConfig`, memory "full")."""
+
     encoder_name: str
     vision: VisionConfig
     decoder: DecoderConfig
     memory_mode: str = "cls"            # "cls" | "full"
+    language_model: str = "decoder"     # "decoder" | "kimi_vl"
 
     @classmethod
     def build(cls, cfg, vocab_size: Optional[int] = None) -> "ModelConfig":
         """From a ``mit_tpu_torch.config.Config``; the tokenizer's actual vocab
-        size, when given, overrides ``cfg.VOCAB_SIZE``."""
+        size, when given, overrides ``cfg.VOCAB_SIZE``. ``LANGUAGE_MODEL``
+        "kimi_vl" takes Kimi-VL-A3B's published shape with the encoder's
+        width as the projector's input, and the full patch memory."""
+        # a config of the JAX package's has no LANGUAGE_MODEL: the decoder
+        language_model = getattr(cfg, "LANGUAGE_MODEL", "decoder")
+        if language_model == "kimi_vl":
+            from mit_tpu_torch.models.kimi_vl import KIMI_VL_A3B
+
+            vision = config_for_encoder(cfg.ENCODER_MODEL_NAME)
+            return cls(cfg.ENCODER_MODEL_NAME, vision,
+                       KIMI_VL_A3B._replace(vision_width=vision.hidden_size),
+                       "full", "kimi_vl")
+        if language_model != "decoder":
+            raise ValueError("LANGUAGE_MODEL must be 'decoder' or 'kimi_vl', "
+                             f"got {language_model!r}")
         decoder = DecoderConfig(
             vocab_size=vocab_size if vocab_size is not None else cfg.VOCAB_SIZE,
             embed_dim=cfg.DECODER_EMBED_DIM,

@@ -179,6 +179,12 @@ def train(
     if fused_dropout is None:
         fused_dropout = os.environ.get("MIT_FUSED_DROPOUT") == "1"
     t_setup = time.time()
+    # a config of the JAX package's has no LANGUAGE_MODEL: the decoder
+    language_model = getattr(cfg, "LANGUAGE_MODEL", "decoder")
+    if language_model != "decoder":
+        raise NotImplementedError(
+            f"training runs the 'decoder' language model only, not "
+            f"{language_model!r}")
     if cfg.ENCODER_QUANT not in ("none", "int8"):
         raise ValueError(
             f"ENCODER_QUANT must be 'none' or 'int8', got {cfg.ENCODER_QUANT!r}")

@@ -257,6 +257,10 @@ def make_train_step(
     step run eagerly, and ``step.graph_captures``, ``.graph_replays`` and
     ``.eager_steps`` count the calls by the way they ran.
     """
+    if mcfg.language_model != "decoder":
+        raise NotImplementedError(
+            "make_train_step trains the 'decoder' language model only, not "
+            f"{mcfg.language_model!r}")
     forward = forward_from_features if from_features else model_forward
     inputs = "features" if from_features else "images"
     data_group = (mesh.group("data") if mesh is not None
