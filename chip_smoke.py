@@ -1013,6 +1013,68 @@ def read_counts():
     return {name: fn.launches for name, fn in wrappers().items()}
 
 
+def graph_counts(cap):
+    """(captures, replays, eager steps) of a captioner's decode graphs."""
+    g = cap.decode_graphs
+    return g.graph_captures, g.graph_replays, g.eager_steps
+
+
+def hold_graphs(label, cap, before, steps):
+    """A fused captioner's decode loops since ``before`` (its graph_counts
+    then) took ``steps`` steps, each replayed from its graphs or run
+    eagerly. → the steps Python ran through ``decoder_step``: the eager
+    ones and a warm-up and a capture a graph (a replay counts no route and
+    no launch)."""
+    captures, replays, eager = (a - b for a, b in
+                                zip(graph_counts(cap), before))
+    print(f"decode graphs {label}: {captures} captured, {replays} steps "
+          f"replayed, {eager} eager (want {steps} steps)")
+    if replays + eager != steps:
+        raise AssertionError(f"{label}: {replays} replayed + {eager} eager "
+                             f"steps, want {steps}")
+    return eager + 2 * captures
+
+
+def layer_kernels(prof):
+    """The decode-layer kernel's launches in a profile's device events."""
+    from torch.autograd import DeviceType
+
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and "decode_layer_kernel" in e.key)
+
+
+def hold_layer_kernels(label, cap, before, launches, layers):
+    """A fused captioner's decode under the profiler, since ``before`` (its
+    graph_counts then): every step replayed from graphs it already held,
+    and the device trace holds ``launches`` decode-layer kernels, ``layers``
+    a replayed step. → the steps replayed."""
+    captures, replays, eager = (a - b for a, b in
+                                zip(graph_counts(cap), before))
+    print(f"decode graphs {label}, traced: {replays} steps replayed, "
+          f"{eager} eager, {captures} captured; {launches} decode_layer_kernel "
+          f"launches on the device (want {layers} x {replays})")
+    if captures or eager or not replays or launches != layers * replays:
+        raise AssertionError(f"{label}: the replayed steps did not launch "
+                             f"{layers} decode-layer kernels each")
+    return replays
+
+
+def traced_decode(torch, cap, mem, label, layers, **kw):
+    """One decode of ``cap`` over ``mem`` (``generate_from_memory``'s
+    keywords ``kw``) replayed under the profiler and held by
+    hold_layer_kernels. → its token lists."""
+    from torch.profiler import ProfilerActivity, profile
+
+    before = graph_counts(cap)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tokens = cap.generate_from_memory(mem, **kw)
+        torch.cuda.synchronize()
+    hold_layer_kernels(label, cap, before, layer_kernels(prof), layers)
+    return tokens
+
+
 def timed_turns(torch, kern, plain):
     """Mean ms of kernel and plain, in turns plain, kernel, kernel, plain."""
     runs = {"plain": [], "kernel": []}
@@ -2477,22 +2539,37 @@ def check_slice(torch):
             "counts": counts}
 
 
-def trace_decode(torch, cap, mem, label, max_len=33):
-    """One greedy generation of max_len - 1 steps under torch.profiler:
-    device kernels per step, device-busy time per step and its share of the
-    traced wall time, and the kernels that take most of it."""
+def trace_decode(torch, cap, mem, label, layers, **kw):
+    """One generation at the served max_len (``generate_from_memory``'s
+    keywords ``kw``) under torch.profiler, after a warm-up that captures a
+    fused captioner's graphs: device kernels per step, device-busy time per
+    step and its share of the traced wall time, and the kernels that take
+    most of it. A fused captioner's steps all replay, with ``layers``
+    decode-layer kernels each on the device (hold_layer_kernels); an
+    unfused one launches none."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    cap.generate_from_memory(mem, max_len=max_len)             # warm-up
+    cap.generate_from_memory(mem, **kw)                         # warm-up
     torch.cuda.synchronize()
+    before = graph_counts(cap)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        cap.generate_from_memory(mem, max_len=max_len)
+        cap.generate_from_memory(mem, **kw)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    steps = max_len - 1
-    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    _, replays, eager = (a - b for a, b in zip(graph_counts(cap), before))
+    steps = replays + eager
+    launches = layer_kernels(prof)
+    if cap.fused_decode:
+        hold_layer_kernels(label, cap, before, launches, layers)
+    elif launches:
+        raise AssertionError(f"{label}: {launches} decode-layer kernels on "
+                             "the unfused route")
+    # the program's spans ("mit.*") reach the device events as ranges
+    # that overlap the kernels they hold: left out, as the kernels count
+    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+           and not e.key.startswith("mit.")]
     busy_us = lambda e: getattr(e, "self_device_time_total", 0)
     total = sum(busy_us(e) for e in dev)
     if not dev or total <= 0:
@@ -2506,10 +2583,10 @@ def trace_decode(torch, cap, mem, label, max_len=33):
         on_path = (f"; fused_decode_layer on the path {n / steps:.1f} launches "
                    f"a step, {sum(busy_us(e) for e in layer) / n / 1e3:.4f} "
                    f"ms of device time a launch")
-    print(f"trace {label} bf16 B={mem.shape[0]}, {steps} steps: "
-          f"{sum(e.count for e in dev) / steps:.1f} device kernels and copies "
-          f"per step, device busy {total / steps / 1e3:.3f} ms per step, "
-          f"traced wall {wall_ms / steps:.3f} ms per step (busy share "
+    print(f"trace {label} bf16 B={mem.shape[0]}, {steps} steps ({replays} "
+          f"replayed): {sum(e.count for e in dev) / steps:.1f} device kernels "
+          f"and copies per step, device busy {total / steps / 1e3:.3f} ms per "
+          f"step, traced wall {wall_ms / steps:.3f} ms per step (busy share "
           f"{total / 1e3 / wall_ms:.3f}); most device time: "
           + "; ".join(f"{e.key[:48]} {busy_us(e) / steps / 1e3:.3f} ms x "
                       f"{e.count / steps:.1f}" for e in top) + on_path)
@@ -2543,24 +2620,27 @@ def check_decode_routes(torch):
     fused = Captioner(params, mcfg, ids, torch.float32, fused_decode=True)
     mem = unfused.memory_from_pixels(pixels[:8])
     tok_u = unfused.generate_from_memory(mem)
+    before = graph_counts(fused)
     reset_counts()
-    tok_f = fused.generate_from_memory(mem)
+    tok_f = fused.generate_from_memory(mem)         # captures, then replays
     steps = max(len(t) for t in tok_f) - 1
     launches = read_counts()["fused_decode_layer"]
+    ran = hold_graphs("f32 greedy fused", fused, before, steps)
     hold_routes("decode f32 greedy fused", attention=0,
-                decode={"fused": steps, "unfused": 0})
+                decode={"fused": ran, "unfused": 0})
     kernel_fn = step_mod.fused_decode_layer
     step_mod.fused_decode_layer = fused_decode_layer_plain
     try:                                  # the same route on the plain version
-        tok_p = fused.generate_from_memory(mem)
+        tok_p = Captioner(params, mcfg, ids, torch.float32,
+                          fused_decode=True).generate_from_memory(mem)
     finally:
         step_mod.fused_decode_layer = kernel_fn
     print(f"decode f32 B=8 greedy: fused == unfused tokens {tok_f == tok_u}, "
           f"kernel == plain version tokens {tok_f == tok_p}; {steps} steps, "
           f"{launches} fused_decode_layer launches (want "
-          f"{dcfg.num_layers * steps}); lengths {[len(t) for t in tok_f]}")
+          f"{dcfg.num_layers * ran}); lengths {[len(t) for t in tok_f]}")
     if not (tok_f == tok_u and tok_f == tok_p
-            and launches == dcfg.num_layers * steps):
+            and launches == dcfg.num_layers * ran):
         raise AssertionError("f32 greedy: the fused route disagrees")
 
     beams = {}
@@ -2598,15 +2678,18 @@ def check_decode_routes(torch):
     if not (same and same_plain and finite and close and one == tok_f
             and cold == tok_f and s1 == s2 and s1 != tok_f):
         raise AssertionError("f32 beam or sampling: the fused route disagrees")
+    check_graphed_beam(torch, params, mcfg, ids, fused.memory_from_pixels(
+        pixels.to("cuda")), torch.float32)
     del unfused, fused
 
-    # bf16, batch 64
+    # bf16, batch 64; each captioner warmed up at the served max_len, so
+    # the fused one has captured its greedy graphs and replays from here on
     caps = {False: Captioner(params, mcfg, ids, torch.bfloat16),
             True: Captioner(params, mcfg, ids, torch.bfloat16,
                             fused_decode=True)}
     mem = caps[True].memory_from_pixels(pixels.to("cuda"))
     for cap in caps.values():                                  # warm-up
-        cap.generate_from_memory(mem, max_len=20)
+        cap.generate_from_memory(mem)
     torch.cuda.synchronize()
 
     # one fused step: which ops run between the embedding and the logits
@@ -2634,8 +2717,11 @@ def check_decode_routes(torch):
     if one_step != dcfg.num_layers or products != 1 or banned:
         raise AssertionError("the fused step runs unfused layer ops")
 
-    # the counted and timed main path: greedy, fused against unfused
+    # the counted and timed main path: greedy, fused (replayed) against
+    # unfused (eager)
     seconds = {False: [], True: []}
+    steps = {}
+    before = graph_counts(caps[True])
     reset_counts()
     for turn in range(DECODE_REPS):
         for route in ((True, False) if turn % 2 == 0 else (False, True)):
@@ -2643,46 +2729,107 @@ def check_decode_routes(torch):
             t0 = time.perf_counter()
             tokens = caps[route].generate_from_memory(mem)
             seconds[route].append(time.perf_counter() - t0)
-            steps = max(len(t) for t in tokens) - 1
+            steps[route] = max(len(t) for t in tokens) - 1
             assert len(tokens) == 64 and all(
                 t[0] == ids.start_id and 2 <= len(t) <= 100
                 and all(0 <= x < dcfg.vocab_size for x in t) for t in tokens)
     counts = read_counts()
+    # the replays run no Python: the fused route counts no step and no
+    # host launch here; trace_decode counts its kernels on the device
+    ran = hold_graphs("bf16 greedy fused, replayed", caps[True], before,
+                      steps[True] * DECODE_REPS)
     hold_routes("decode bf16 greedy, fused and unfused in turns", attention=0,
-                decode={"fused": steps * DECODE_REPS,
-                        "unfused": steps * DECODE_REPS})
+                decode={"fused": ran, "unfused": steps[False] * DECODE_REPS})
     want = {k: 0 for k in counts}
-    want["fused_decode_layer"] = dcfg.num_layers * steps * DECODE_REPS
+    want["fused_decode_layer"] = dcfg.num_layers * ran
     rates = {}
     for route, secs in seconds.items():
         label = "fused" if route else "unfused"
         rates[label] = 64 / statistics.median(secs)
         print(f"decode bf16 B=64 greedy {label}: {rates[label]:.1f} captions/s, "
-              f"{statistics.median(secs) / steps * 1e3:.3f} ms per step "
+              f"{statistics.median(secs) / steps[route] * 1e3:.3f} ms per step "
               f"(median of {DECODE_REPS} runs {[round(x, 4) for x in secs]} s, "
-              f"{steps} steps, encoder not included)")
+              f"{steps[route]} steps, encoder not included)")
     print(f"decode bf16 B=64 greedy fused: {counts['fused_decode_layer']} "
-          f"launches in {DECODE_REPS} runs = {dcfg.num_layers} per step, "
-          f"every other counter 0")
+          f"host launches in {DECODE_REPS} replayed runs (want "
+          f"{want['fused_decode_layer']}), every other counter 0")
     if counts != want:
         raise AssertionError(f"fused greedy launches {counts}, want {want}")
 
     for route in (True, False):
         trace_decode(torch, caps[route], mem,
-                     "greedy fused" if route else "greedy unfused")
+                     "greedy fused" if route else "greedy unfused",
+                     dcfg.num_layers)
+    # beam K=3, 192 rows: the fused captioner of the beam cell's shape,
+    # whose warm-up captures the beam graphs; the unfused one steps eagerly
+    beam_caps = {True: Captioner(params, mcfg, ids, torch.bfloat16,
+                                 fused_decode=True), False: caps[False]}
+    beam_kw = dict(method="beam", beam_size=3)
     for route in (True, False):
+        beam_caps[route].generate_from_memory(mem, **beam_kw)   # warm-up
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        tokens = caps[route].generate_from_memory(mem, method="beam",
-                                                  beam_size=3)
+        tokens = beam_caps[route].generate_from_memory(mem, **beam_kw)
         dt = time.perf_counter() - t0
-        steps = max(len(t) for t in tokens) - 1
+        n = max(len(t) for t in tokens) - 1
         label = "fused" if route else "unfused"
         rates[f"beam_{label}"] = 64 / dt
         print(f"decode bf16 B=64 beam K=3 {label}: {64 / dt:.1f} captions/s, "
-              f"{dt / steps * 1e3:.3f} ms per step (one run of {dt:.4f} s, "
-              f"{steps} steps, 192 rows)")
+              f"{dt / n * 1e3:.3f} ms per step (one run of {dt:.4f} s, "
+              f"{n} steps, 192 rows)")
+    trace_decode(torch, beam_caps[True], mem, "beam K=3 fused",
+                 dcfg.num_layers, **beam_kw)
+    check_graphed_beam(torch, params, mcfg, ids, mem, torch.bfloat16)
     return {"counts": counts, "rates": rates}
+
+
+def check_graphed_beam(torch, params, mcfg, ids, mem, dtype):
+    """The beam loop at the beam cell's shape, B 64 and K 3 (192 rows), on
+    the fused route: replayed from a holder's graphs, it equals the eager
+    kernel loop bit for bit in tokens and scores, and (f32) the eager loop
+    on the kernel's plain version in tokens, its scores within 1e-5."""
+    from mit_tpu_torch.decode import step as step_mod
+    from mit_tpu_torch.decode.beam import beam_generate
+    from mit_tpu_torch.decode.graphs import DecodeGraphs
+    from mit_tpu_torch.decode.greedy import _bucket_schedule
+    from mit_tpu_torch.ops.decode_layer import fused_decode_layer_plain
+
+    dcfg = mcfg.decoder
+    holder = DecodeGraphs()
+    run = lambda steps=None: beam_generate(
+        params["decoder"], dcfg, mem, ids.start_id, ids.end_id, ids.pad_id,
+        dcfg.max_seq_len, 3, compute_dtype=dtype, fused=True, steps=steps)
+    run(holder)                                                # captures
+    graphed = run(holder)
+    eager = run()
+    same = torch.equal(graphed[0], eager[0]) and torch.equal(graphed[1],
+                                                             eager[1])
+    plain_ok = True
+    line = ""
+    if dtype == torch.float32:
+        kernel_fn = step_mod.fused_decode_layer
+        step_mod.fused_decode_layer = fused_decode_layer_plain
+        try:
+            plain = run()
+        finally:
+            step_mod.fused_decode_layer = kernel_fn
+        rows = (graphed[0] == plain[0]).all(dim=1)
+        err = (graphed[1] - plain[1]).abs().max().item()
+        plain_ok = bool(rows.all()) and torch.allclose(
+            graphed[1], plain[1], rtol=1e-5, atol=1e-5)
+        line = (f"; graphed == plain version tokens in {int(rows.sum())} of "
+                f"{rows.numel()} items, scores max_abs_diff {err:.3e} "
+                f"(rtol = atol = 1e-5)")
+    name = str(dtype).replace("torch.", "")
+    print(f"decode {name} B={mem.shape[0]} beam K=3 graphed: "
+          f"{holder.graph_captures} graphs, {holder.graph_replays} steps "
+          f"replayed, {holder.eager_steps} eager; graphed == eager kernel "
+          f"tokens and "
+          f"scores bit for bit {same}" + line)
+    if not (same and plain_ok and holder.eager_steps == 0
+            and holder.graph_captures == 2 * len(
+                _bucket_schedule(dcfg.max_seq_len))):
+        raise AssertionError(f"{name} graphed beam: disagrees")
 
 
 def service_setup(torch, device="cuda"):
@@ -3165,11 +3312,13 @@ def check_pretrained(torch, device="cuda"):
         err = (mem_k - mem_p).abs().max().item()
         tok_k = kern.generate_from_memory(mem_k)
         tok_p = plain.generate_from_memory(mem_p)
+        before = graph_counts(fused)
         reset_counts()
         tok_f = fused.generate_from_memory(mem_k)
         steps = max(len(t) for t in tok_f) - 1
-        hold_routes("clip-l f32 fused greedy",
-                    decode={"fused": steps, "unfused": 0})
+        hold_routes("clip-l f32 fused greedy", decode={
+            "fused": hold_graphs("clip-l f32 fused greedy", fused, before,
+                                 steps), "unfused": 0})
         same = tok_k == tok_p == tok_f
         print(f"pretrained clip-l f32 B={F32_BATCH}: memory kernel vs plain "
               f"max_abs_err={err:.3e} (limit 1e-4); greedy tokens kernel == "
@@ -3263,6 +3412,7 @@ def check_pretrained(torch, device="cuda"):
             timer = StepTimer()
             cap.generate_from_memory(cap.memory_from_pixels(                # warm-up
                 device_preprocess(u8.to(device), CLIP_L)))
+            before = graph_counts(cap)
             reset_counts()
             split = {"upload": [], "preprocess+encode": [], "decode": []}
             for _ in range(REPS):
@@ -3281,11 +3431,19 @@ def check_pretrained(torch, device="cuda"):
                     split[key].append(dt * 1e3)
             steps = max(len(t) for t in tokens) - 1
             got = read_counts()
+            # the warm-up captured the loop's graphs: the timed steps replay,
+            # with no host launch of the decode layer; one more batch
+            # under the profiler counts its kernels on the device
+            ran = hold_graphs(f"clip-l bf16 {arm} uint8 to caption", cap,
+                              before, steps * REPS)
             hold_routes(f"clip-l bf16 {arm} uint8 to caption",
-                        decode={"fused": steps * REPS, "unfused": 0})
+                        decode={"fused": ran, "unfused": 0})
             hold_launches(f"clip-l bf16 {arm} uint8 to caption", got,
                           dict(want[arm], fused_decode_layer=(
-                              mcfg.decoder.num_layers * steps)), REPS)
+                              mcfg.decoder.num_layers * ran // REPS)), REPS)
+            traced_decode(torch, cap, mem,
+                          f"clip-l bf16 {arm} uint8 to caption",
+                          mcfg.decoder.num_layers)
             rates[arm] = timer.items_per_sec
             print(f"pretrained clip-l bf16 B={PRETRAINED_BATCH} {arm}: encode "
                   f"median {q2:.3f} ms (quartiles {q1:.3f}-{q3:.3f}, "
@@ -3429,10 +3587,13 @@ def check_vit_h(torch, device="cuda"):
     err = (mem_k - mem_p).abs().max().item()
     tok_k = kern.generate_from_memory(mem_k)
     tok_p = plain.generate_from_memory(mem_p)
+    before = graph_counts(fused)
     reset_counts()
     tok_f = fused.generate_from_memory(mem_k)
     steps = max(len(t) for t in tok_f) - 1
-    hold_routes("vit-h f32 fused greedy", decode={"fused": steps, "unfused": 0})
+    hold_routes("vit-h f32 fused greedy", decode={
+        "fused": hold_graphs("vit-h f32 fused greedy", fused, before, steps),
+        "unfused": 0})
     same = tok_k == tok_p == tok_f
     print(f"pretrained vit-h f32 B={F32_BATCH}: memory kernel vs plain "
           f"max_abs_err={err:.3e} (limit 1e-4); greedy tokens kernel == plain "
@@ -3505,6 +3666,7 @@ def check_vit_h(torch, device="cuda"):
         timer = StepTimer()
         cap.generate_from_memory(cap.memory_from_pixels(                # warm-up
             device_preprocess(u8_dev, VIT_H)))
+        before = graph_counts(cap)
         reset_counts()
         split = {"upload": [], "preprocess+encode": [], "decode": []}
         for _ in range(REPS):
@@ -3522,11 +3684,18 @@ def check_vit_h(torch, device="cuda"):
                 split[key].append(dt * 1e3)
         steps = max(len(t) for t in tokens) - 1
         got = read_counts()
+        # the warm-up captured the loop's graphs: the timed steps replay,
+        # with no host launch of the decode layer; one more batch
+        # under the profiler counts its kernels on the device
+        ran = hold_graphs(f"vit-h bf16 {arm} uint8 to caption", cap, before,
+                          steps * REPS)
         hold_routes(f"vit-h bf16 {arm} uint8 to caption",
-                    decode={"fused": steps * REPS, "unfused": 0})
+                    decode={"fused": ran, "unfused": 0})
         hold_launches(f"vit-h bf16 {arm} uint8 to caption", got,
                       dict(want[arm], fused_decode_layer=(
-                          mcfg.decoder.num_layers * steps)), REPS)
+                          mcfg.decoder.num_layers * ran // REPS)), REPS)
+        traced_decode(torch, cap, mem, f"vit-h bf16 {arm} uint8 to caption",
+                      mcfg.decoder.num_layers)
         rates[arm] = timer.items_per_sec
         print(f"pretrained vit-h bf16 B={PRETRAINED_BATCH} {arm}: encode "
               f"median {q2:.3f} ms (quartiles {q1:.3f}-{q3:.3f}, {ENC_REPS} "

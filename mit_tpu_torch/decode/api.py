@@ -20,6 +20,7 @@ import torch
 
 from mit_tpu_torch.data.preprocess import HostPreprocessor
 from mit_tpu_torch.decode.beam import beam_generate
+from mit_tpu_torch.decode.graphs import DecodeGraphs
 from mit_tpu_torch.decode.greedy import greedy_generate
 from mit_tpu_torch.decode.sampling import sample_generate
 from mit_tpu_torch.models.model import (
@@ -49,7 +50,13 @@ class Captioner:
     decode-layer kernel (``decoder_step(fused=True)``), under every method.
     It is off by default, as ``MIT_FUSED_DECODE`` is in the JAX package: it
     changes bf16 numerics. ``beam_size`` is the default of ``method="beam"``
-    (the config's ``BEAM_SIZE``).
+    (the config's ``BEAM_SIZE``). On the card the greedy and beam loops
+    of the first (batch, beams, ``max_len``, method) the fused route meets
+    replay CUDA graphs kept in ``decode_graphs``
+    (:class:`~mit_tpu_torch.decode.graphs.DecodeGraphs`); other calls
+    step eagerly. Those graphs decode with the weights as the first such
+    call prepared them: change the decoder's weights in place after it
+    and they do not see it, so build a new captioner instead.
 
     A ``ModelConfig`` whose ``language_model`` is "kimi_vl" makes a
     :class:`~mit_tpu_torch.decode.kimi_vl.KimiVLCaptioner` instead: the
@@ -94,6 +101,7 @@ class Captioner:
         self.fused_layers = fused_layers
         self.fused_decode = fused_decode
         self.beam_size = beam_size
+        self.decode_graphs = DecodeGraphs()
         self.device = params["decoder"]["token_embedding"].device
         self.preprocessor = HostPreprocessor(
             mcfg.encoder_name, image_size=mcfg.vision.image_size
@@ -168,12 +176,13 @@ class Captioner:
             if method == "greedy":
                 tokens, lengths = greedy_generate(
                     dec, dcfg, memory, start_id, end_id, tok.pad_id, max_len,
-                    **common,
+                    steps=self.decode_graphs, **common,
                 )
             elif method == "beam":
                 tokens, _ = beam_generate(
                     dec, dcfg, memory, start_id, end_id, tok.pad_id, max_len,
-                    beam_size or self.beam_size, **common,
+                    beam_size or self.beam_size, steps=self.decode_graphs,
+                    **common,
                 )
                 lengths = (tokens != tok.pad_id).sum(dim=1)
             elif method == "sample":

@@ -5,8 +5,9 @@ END (later positions hold PAD) and stop the loop when every row has ended.
 The KV cache grows through a ladder of sizes (16, 32, ..., max_len), so
 short captions never pay the attention reads of a max_len-sized cache.
 ``lax.while_loop``'s early exit becomes a host check of ``finished.all()``
-before each step. :func:`laddered_decode_loop` takes the rule that picks
-the next token, so greedy decoding and sampling share it.
+before each step, under :func:`~mit_tpu_torch.decode.graphs.ladder`.
+:func:`laddered_decode_loop` takes the rule that picks the next token, so
+greedy decoding and sampling share it.
 """
 
 from __future__ import annotations
@@ -15,8 +16,15 @@ from typing import Optional, Tuple
 
 import torch
 
+from mit_tpu_torch.decode.graphs import (
+    DecodeGraphs,
+    LoopState,
+    engages,
+    ladder,
+)
 from mit_tpu_torch.decode.step import (
     DecodeCache,
+    cross_const,
     decoder_step,
     grow_cache,
     init_cache,
@@ -66,38 +74,36 @@ def laddered_decode_loop(
     bucket_sizes: Tuple[int, ...],
     compute_dtype,
     fused: bool = False,
+    steps: Optional[DecodeGraphs] = None,
 ) -> torch.Tensor:
     """The token loop over the cache ladder → tokens. ``select_fn`` picks
-    each step's next tokens from the logits; finished rows get PAD."""
+    each step's next tokens from the logits; finished rows get PAD.
+    ``steps`` counts the steps in its ``eager_steps``."""
     finished = torch.zeros(tokens.shape[0], dtype=torch.bool,
                            device=tokens.device)
-    pos = 0
     with span("mit.decode.loop"):
-        for i, bucket in enumerate(bucket_sizes):
-            if i > 0:
-                cache = grow_cache(cache, bucket)
-            # a step at pos needs cache slot pos, so this bucket serves
-            # pos < bucket
-            while pos < min(bucket, max_len - 1):
-                if all_finished(finished):
-                    return tokens
-                logits, cache = decoder_step(
-                    params, cfg, tokens[:, pos], pos, cache, compute_dtype,
-                    key_pad=(tokens == pad_id)[:, :bucket], fused=fused,
-                )
-                with span("mit.decode.select"):
-                    nxt = torch.where(finished, pad_id,
-                                      select_fn(logits, generator))
-                    tokens[:, pos + 1] = nxt
-                    finished |= nxt == end_id
-                pos += 1
+        for i, pos, grows in ladder(bucket_sizes, max_len, lambda: finished):
+            if grows:
+                cache = grow_cache(cache, bucket_sizes[i])
+            logits, cache = decoder_step(
+                params, cfg, tokens[:, pos], pos, cache, compute_dtype,
+                key_pad=(tokens == pad_id)[:, :bucket_sizes[i]], fused=fused,
+            )
+            if steps is not None:
+                steps.eager_steps += 1
+            with span("mit.decode.select"):
+                tokens[:, pos + 1] = next_tokens(
+                    select_fn(logits, generator), finished, pad_id, end_id)
     return tokens
 
 
-def all_finished(finished: torch.Tensor) -> bool:
-    """Whether every row has ended: the host's read-back before a step."""
-    with span("mit.decode.sync"):
-        return bool(finished.all())
+def next_tokens(picked: torch.Tensor, finished: torch.Tensor, pad_id: int,
+                end_id) -> torch.Tensor:
+    """A step's tokens: ``picked`` (B,), PAD in the rows already finished.
+    ``finished`` (B,) takes in place the rows that chose END."""
+    nxt = torch.where(finished, pad_id, picked)
+    finished |= nxt == end_id
+    return nxt
 
 
 def start_tokens(batch: int, max_len: int, start_id: int, pad_id: int,
@@ -134,15 +140,24 @@ def greedy_generate(
     compute_dtype=torch.float32,
     bucket_sizes: Optional[Tuple[int, ...]] = None,
     fused: bool = False,
+    steps: Optional[DecodeGraphs] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """→ (tokens (B, max_len) int64 incl. the leading START, lengths (B,)).
 
     ``lengths`` counts tokens incl. START and END (when generated);
     positions past a row's END hold PAD. ``fused`` runs every step's layers
-    in the fused decode-layer kernel.
+    in the fused decode-layer kernel. ``steps`` (one a caller, kept across
+    calls) replays the loop from CUDA graphs where it engages
+    (:mod:`~mit_tpu_torch.decode.graphs`); without it every step runs
+    eagerly.
     """
     check_max_len(max_len, cfg)
     bucket_sizes = check_bucket_sizes(bucket_sizes, max_len)
+    if steps is not None and engages(fused, cfg, memory, memory_padding_mask):
+        out = replay_greedy(steps, params, cfg, memory, start_id, end_id,
+                            pad_id, max_len, bucket_sizes, compute_dtype)
+        if out is not None:
+            return out
     with span("mit.decode.prepare"):
         cache = init_cache(params, cfg, memory, memory_padding_mask,
                            bucket_sizes[0], compute_dtype)
@@ -151,8 +166,46 @@ def greedy_generate(
                           memory.device)
     tokens = laddered_decode_loop(params, cfg, cache, tokens, select_argmax,
                                   None, end_id, pad_id, max_len, bucket_sizes,
-                                  compute_dtype, fused)
+                                  compute_dtype, fused, steps)
     return tokens, (tokens != pad_id).sum(dim=1)
+
+
+def replay_greedy(steps: DecodeGraphs, params: dict, cfg: DecoderConfig,
+                  memory: torch.Tensor, start_id: int, end_id: int,
+                  pad_id: int, max_len: int, bucket_sizes: Tuple[int, ...],
+                  compute_dtype):
+    """:func:`greedy_generate`'s fused loop over CLS ``memory`` (B, 1, D),
+    replayed by ``steps`` → (tokens, lengths), or None where the call is
+    not the holder's key (the caller then steps eagerly)."""
+    b, device = memory.shape[0], memory.device
+    st = steps.loop(
+        params, (cfg, b, 1, max_len, bucket_sizes, compute_dtype, pad_id,
+                 "greedy"), device,
+        lambda: GreedyLoop(
+            prepare_decode_params(params, compute_dtype, True), cfg, b, (b,),
+            max_len, bucket_sizes, compute_dtype, pad_id, device, 1),
+        lambda: cross_const(params["layers"]["cross"], memory, compute_dtype),
+        start_id, end_id, max_len)
+    if st is None:
+        return None
+    tokens = st.tokens.clone()
+    return tokens, (tokens != pad_id).sum(dim=1)
+
+
+class GreedyLoop(LoopState):
+    """The greedy loop's static state (:class:`~mit_tpu_torch.decode.graphs.
+    LoopState`, one cache set)."""
+
+    def iteration(self, i: int, p: int) -> None:
+        """The fused step (:meth:`~mit_tpu_torch.decode.graphs.LoopState.
+        step`), the argmax, PAD after END, the token written at
+        ``pos + 1``."""
+        logits = self.step(i, p)
+        with span("mit.decode.select"):
+            nxt = next_tokens(select_argmax(logits), self.finished,
+                              self.pad_id, self.end)
+            self.tokens.index_copy_(1, self.pos.view(1) + 1, nxt[:, None])
+            self.pos += 1
 
 
 @torch.inference_mode()
