@@ -17,18 +17,13 @@ the script exits non-zero without printing the result line.
             - flash_attention_btd in f32 (limit 1e-4) and bf16 (limit 2e-2)
               at the encoder shape (64, 197, 768), the decoder shape
               (64, 100, 512, causal, a pad that masks every key of batch
-              row 0) and the 577-token shape (8, 577, 768); the f32 kernel
-              also against the port's first CUDA-core kernel (reached only
-              from here), with that kernel's time beside it;
+              row 0) and the 577-token shape (8, 577, 768);
             - the bf16 tensor-core kernel of flash_attention_btd against the
-              CUDA-core kernel it replaced (reached only from here) and the
               plain version at those shapes and at CLIP ViT-L's (8, 257,
-              1024), limit 2e-2 each way, the fully masked batch row uniform;
-              its time beside the CUDA-core kernel's, the profiler's device
-              time, the bound and the library call; then a table of its
-              tilings (one warpgroup of 64 query rows a block, or two) at
-              the encoder shape; the same comparison for the fused-QKV
-              entry, both bf16 modes;
+              1024), limit 2e-2, the fully masked batch row uniform; its
+              time, the profiler's device time, the bound and the library
+              call; then a table of its tilings (one warpgroup of 64 query
+              rows a block, or two) at the encoder shape;
             - moe_experts (csrc/moe_experts.cu), the grouped SwiGLU experts
               of Kimi-VL-A3B (D 2048, F 1408, 64 experts, 6 a token),
               against their plain composition at a decode step's 384 routes
@@ -117,10 +112,9 @@ the script exits non-zero without printing the result line.
             keep_mask at (32, 8, 99, 99). The
             bf16 forward (tensor cores) also has its keep-mask recovered
             from its output (q = k = 0, v one-hot) and compared bit for bit
-            with keep_mask at those shapes and (2, 2, 128, 128), at both of
-            its tilings, then a table of its tilings beside the CUDA-core
-            kernel it replaced and the library call with dropout (CUDA
-            events and the profiler's device time).
+            with keep_mask at those shapes and (2, 2, 128, 128), then its
+            time beside the library call with dropout (CUDA events and the
+            profiler's device time).
 5. train    Training at the default model's full width: a random ViT-B/16
             builds the CLS feature cache of 64 pixel images made in the run
             (FeatureCache.build, through flash_attention_btd); decoder 6 x
@@ -167,9 +161,8 @@ the script exits non-zero without printing the result line.
             and one launch captured in a CUDA graph and replayed: the same
             outputs); and flash_attention (the
             (B, H, T, hd) kernel) at (8, 12, 577, 64), f32 (1e-5) and bf16
-            (2e-2), and at the causal padded decoder shape (64, 8, 100, 64),
-            each also against the first CUDA-core kernel; at the 577-token
-            shape that kernel's time, the profiler's device time, and
+            (2e-2), and at the causal padded decoder shape (64, 8, 100, 64);
+            at the 577-token shape the profiler's device time, and
             flash_attention_btd on the same numbers in (B, T, D).
             Phase 3 then holds the kernels of csrc/attention_any_shape.cu,
             which take the shapes the tiled kernels do not: every attention
@@ -578,26 +571,6 @@ def cuda_ms(torch, fn, iters=TIMED_ITERS):
     return start.elapsed_time(end) / iters
 
 
-def cudacore_bf16(torch, q, k, v, pad, causal, layer=False):
-    """bf16 attention through the CUDA-core kernel, which every bf16 call ran
-    before the tensor-core kernel: the yardstick of the redesign, reached
-    only from here. q, k, v: (B, T|S, D) with unit column stride (the column
-    blocks of a fused qkv tensor will do)."""
-    from mit_tpu_torch import kernels
-
-    b, t, d = q.shape
-    out = torch.empty((b, t, d), device=q.device,
-                      dtype=torch.float32 if layer else torch.bfloat16)
-    rc = kernels.lib().mit_flash_attention_btd_bf16_cudacore(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        None if pad is None else pad.data_ptr(), out.data_ptr(), b, t,
-        k.shape[1], d, q.stride(1), k.stride(1), int(causal),
-        int(pad is not None), int(layer),
-        torch.cuda.current_stream().cuda_stream)
-    kernels.check(rc, "mit_flash_attention_btd_bf16_cudacore")
-    return out
-
-
 def tiled_bf16(torch, q, k, v, pad, causal, tiling, hd=64):
     """The tensor-core kernel at a tiling other than the wrapper's."""
     from mit_tpu_torch import kernels
@@ -610,27 +583,6 @@ def tiled_bf16(torch, q, k, v, pad, causal, tiling, hd=64):
         k.shape[1], d, hd, int(causal), int(pad is not None), *tiling,
         torch.cuda.current_stream().cuda_stream)
     kernels.check(rc, "mit_flash_attention_btd_bf16")
-    return out
-
-
-def first_kernel(torch, q, k, v, pad, causal):
-    """Attention through the port's first CUDA-core kernel, which f32 calls
-    and every (B, H, T, hd) call ran before their redesign: a yardstick,
-    reached only from here. q (B, T, D) f32 with k, v (B, S, D), or q
-    (B, H, T, 64) f32 or bf16 with k, v (B, H, S, 64), all contiguous."""
-    from mit_tpu_torch import kernels
-
-    bhtd = q.dim() == 4
-    b, t = (q.shape[0], q.shape[2]) if bhtd else q.shape[:2]
-    h = q.shape[1] if bhtd else q.shape[2] // 64
-    out = torch.empty_like(q)
-    rc = kernels.lib().mit_flash_attention_v1(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        None if pad is None else pad.data_ptr(), out.data_ptr(), b, h, t,
-        k.shape[-2], int(causal), int(pad is not None),
-        int(q.dtype == torch.bfloat16), int(bhtd),
-        torch.cuda.current_stream().cuda_stream)
-    kernels.check(rc, "mit_flash_attention_v1")
     return out
 
 
@@ -819,9 +771,10 @@ def check_kimi_vl_path(torch):
 
 
 def check_bf16_design(torch):
-    """The tensor-core kernel against the CUDA-core kernel it replaced, at
-    every bf16 shape of SHAPES and at CLIP ViT-L's (8, 257, 1024); then the
-    table of tilings at the encoder shape."""
+    """The tensor-core kernel against the plain version at every bf16 shape
+    of SHAPES and at CLIP ViT-L's (8, 257, 1024), with its time, device
+    time, bound and library call; then the table of tilings at the encoder
+    shape."""
     from mit_tpu_torch.ops.flash_attention import (
         BF16_WARPS,
         bf16_tiling,
@@ -832,47 +785,37 @@ def check_bf16_design(torch):
     dtype = torch.bfloat16
     for name, b, t, d, padded in SHAPES + [("vit-l", 8, 257, 1024, False)]:
         q, k, v, pad = attention_inputs(torch, b, t, d, padded, dtype)
-        out = flash_attention_btd(q, k, v, pad, padded, 64)
-        old = cudacore_bf16(torch, q, k, v, pad, padded)
+        kern = lambda: flash_attention_btd(q, k, v, pad, padded, 64)
+        out = kern()
         ref = flash_attention_btd_reference(q, k, v, pad, padded, 64)
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
-        err_old = (old.float() - ref.float()).abs().max().item()
-        diff = (out.float() - old.float()).abs().max().item()
         uniform = True
         if padded:      # batch row 0: every key padded, so uniform over them
             want = torch.stack([v[0, :i + 1].float().mean(0)
                                 for i in range(t)])
             uniform = bool((out[0].float() - want).abs().max()
                            <= TOL["bfloat16"])
-        runs = timed_turns(
-            torch, lambda: flash_attention_btd(q, k, v, pad, padded, 64),
-            lambda: cudacore_bf16(torch, q, k, v, pad, padded))
         bound_ = attention_bound(b, d // 64, t, t, dtype,
                                  extra_bytes=b * t * 4 if padded else 0)
         lib = sdpa_ms(torch, heads_view(q), heads_view(k), heads_view(v),
                       padded, pad)
-        dev = device_ms(
-            torch, lambda: flash_attention_btd(q, k, v, pad, padded, 64))
-        print(f"bf16 tensor-core vs CUDA-core {name:8s} B={b} T=S={t} D={d} "
+        dev = device_ms(torch, kern)
+        print(f"bf16 tensor-core {name:8s} B={b} T=S={t} D={d} "
               f"causal+pad={padded} tiling {bf16_tiling(t)}: max_abs_err vs "
-              f"plain {err:.3e} (CUDA-core kernel {err_old:.3e}), vs the "
-              f"CUDA-core kernel {diff:.3e}, limit 2e-02; fully masked row "
-              f"uniform={uniform}; tensor-core {runs['kernel']} ms (device "
+              f"plain {err:.3e}, limit 2e-02; fully masked row "
+              f"uniform={uniform}; {cuda_ms(torch, kern):.4f} ms (device "
               f"time {'not measured' if dev is None else f'{dev:.4f} ms'}), "
-              f"CUDA-core {runs['plain']} ms, bound "
-              f"{bound_['bound_ms']:.5f} ms by "
-              f"{bound_['bound_by']}, library call {lib:.4f} ms")
-        if not (max(err, diff) <= TOL["bfloat16"] and uniform
+              f"bound {bound_['bound_ms']:.5f} ms by {bound_['bound_by']}, "
+              f"library call {lib:.4f} ms")
+        if not (err <= TOL["bfloat16"] and uniform
                 and bool(torch.isfinite(out).all())):
             raise AssertionError(f"bf16 tensor-core kernel disagrees: {name}")
 
     _, b, t, d, _ = SHAPES[0]
     q, k, v, _ = attention_inputs(torch, b, t, d, False, dtype)
     ref = flash_attention_btd_reference(q, k, v, None, False, 64)
-    was_ms = cuda_ms(torch,
-                     lambda: cudacore_bf16(torch, q, k, v, None, False))
-    cells = [f"CUDA-core kernel {was_ms:.4f}"]
+    cells = []
     for tiling in [bf16_tiling(t, w) for w in BF16_WARPS]:
         out = tiled_bf16(torch, q, k, v, None, False, tiling)
         torch.cuda.synchronize()
@@ -927,21 +870,11 @@ def check_kernels(torch):
         times[dname]["library_ms"] = cuda_ms(torch, lib)
         times[dname]["device_ms"] = device_ms(torch, kern)
         times[dname]["library_device_ms"] = device_ms(torch, lib)
-        was = ""
-        if dtype == torch.float32:
-            old = first_kernel(torch, q, k, v, pad, padded)
-            torch.cuda.synchronize()
-            diff = (old - kern()).abs().max().item()
-            if not diff <= TOL[dname]:
-                raise AssertionError(f"f32 kernel against the first: {diff}")
-            was = (f", the first CUDA-core kernel "
-                   f"{cuda_ms(torch, lambda: first_kernel(torch, q, k, v, pad, padded)):.4f}"
-                   f" ms (max abs difference {diff:.3e})")
         print(f"time at encoder shape {dname:8s} kernel {runs['kernel']} ms, "
               f"plain {runs['plain']} ms (mean of {TIMED_ITERS} calls each); "
               f"bound {times[dname]['bound_ms']:.5f} ms by "
               f"{times[dname]['bound_by']}, library call "
-              f"{times[dname]['library_ms']:.4f} ms{was}")
+              f"{times[dname]['library_ms']:.4f} ms")
     return errors, times
 
 
@@ -1342,20 +1275,6 @@ def check_int8_kernels(torch):
               f"{err:.3e} limit={limit:.0e} out={str(out.dtype)[6:]}")
         if not err <= limit or torch.isnan(out).any():
             raise AssertionError("flash_attention_btd_fusedqkv disagrees")
-        if dtype == torch.bfloat16:
-            blocks = qkv.split(768, dim=-1)
-            was = cudacore_bf16(torch, *blocks, None, False, layer)
-            torch.cuda.synchronize()
-            diff = (out.float() - was.float()).abs().max().item()
-            was_ms = cuda_ms(torch, lambda: cudacore_bf16(
-                torch, *blocks, None, False, layer))
-            now_ms = cuda_ms(torch, lambda: flash_attention_btd_fusedqkv(
-                qkv, 64, layer))
-            print(f"     tensor-core vs CUDA-core kernel, layer_numerics="
-                  f"{layer}: max_abs_diff {diff:.3e} (limit {limit:.0e}); "
-                  f"{now_ms:.4f} ms against {was_ms:.4f} ms")
-            if not diff <= limit:
-                raise AssertionError("fused qkv: the two bf16 kernels disagree")
         if dtype == torch.bfloat16 and not layer:
             runs = timed_turns(
                 torch, lambda: flash_attention_btd_fusedqkv(qkv, 64),
@@ -1942,13 +1861,6 @@ def check_bhtd_kernel(torch):
                   f"limit={BHTD_TOL[dname]:.0e} finite={finite}")
             if not (finite and err <= BHTD_TOL[dname]):
                 raise AssertionError(f"flash_attention disagrees: {name} {dname}")
-            old = first_kernel(torch, q, k, v, pad, padded)
-            torch.cuda.synchronize()
-            diff = (out.float() - old.float()).abs().max().item()
-            if not diff <= BHTD_TOL[dname]:
-                raise AssertionError(
-                    f"flash_attention against the first kernel: {name} "
-                    f"{dname} {diff}")
             if name != "blip384":
                 continue
             runs = timed_turns(
@@ -1963,11 +1875,9 @@ def check_bhtd_kernel(torch):
                    attention_bound(b, h, t, t, dtype),
                    sdpa_ms(torch, q, k, v), dev,
                    device_ms(torch, sdpa_call(torch, q, k, v)))
-            # beside it: the kernel it replaced, the card's own time, and
-            # flash_attention_btd on the same numbers in (B, T, D), the
-            # kernel takes_bhtd passes over at this shape
-            was_ms = cuda_ms(
-                torch, lambda: first_kernel(torch, q, k, v, pad, padded))
+            # beside it: the card's own time, and flash_attention_btd on the
+            # same numbers in (B, T, D), the kernel takes_bhtd passes over at
+            # this shape
             merged = [x.transpose(1, 2).reshape(b, t, h * 64).contiguous()
                       for x in (q, k, v)]
             btd = lambda: flash_attention_btd(*merged, pad, padded, 64)
@@ -1976,9 +1886,8 @@ def check_bhtd_kernel(torch):
             btd_ms, btd_dev = cuda_ms(torch, btd), device_ms(torch, btd)
             lib_dev = device_ms(torch, sdpa_call(torch, q, k, v))
             fmt = lambda x: "not measured" if x is None else f"{x:.4f}"
-            print(f"design flash_attention {what}: the first CUDA-core "
-                  f"kernel {was_ms:.4f} ms (max abs difference {diff:.3e}); "
-                  f"now {statistics.mean(runs['kernel']):.4f} ms, device "
+            print(f"design flash_attention {what}: "
+                  f"{statistics.mean(runs['kernel']):.4f} ms, device "
                   f"time {fmt(dev)} ms; flash_attention_btd at ({b}, {t}, "
                   f"{h * 64}) {btd_ms:.4f} ms, device time {fmt(btd_dev)} "
                   f"ms, max_abs_err against this reference {btd_err:.3e}; "
@@ -3724,30 +3633,7 @@ def dropout_inputs(torch, b, h, t, s, dtype, seed=SEED):
     return q, k, v, torch.from_numpy(pad).cuda(), do
 
 
-DROPOUT_FWD_WARPS = (4, 8)      # the tilings of the bf16 dropout forward
-
-
-def dropout_fwd_tiled(torch, da, q, k, v, pad, seed, causal, rate, warps,
-                      cells=None):
-    """The tiled bf16 dropout forward at a tiling of the C entry point: 4 or
-    8 warps a block on the tensor cores (64 query rows a warpgroup of 4), or
-    0 for the CUDA-core kernel it replaced. The wrapper takes da.FWD_WARPS;
-    the others are reached only from here, for the design table. ``cells``:
-    the cell map (b_offset, h_total, h_offset), None for (0, H, 0)."""
-    from mit_tpu_torch import kernels
-
-    b, h, t, _ = q.shape
-    out = torch.empty_like(q)
-    rc = kernels.lib().mit_flash_attention_dropout_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), pad.data_ptr(),
-        out.data_ptr(), b, h, t, k.shape[2], int(causal), 1, warps,
-        seed & 0xFFFFFFFF, None, da._threshold(rate), 1.0 - rate,
-        *(cells or (0, h, 0)), torch.cuda.current_stream().cuda_stream)
-    kernels.check(rc, "mit_flash_attention_dropout_fwd")
-    return out
-
-
-def recovered_keep_mask(torch, da, b, h, t, s, seed, rate, causal, warps,
+def recovered_keep_mask(torch, da, b, h, t, s, seed, rate, causal,
                         cells=None):
     """The bf16 forward kernel's keep-mask at the cell map ``cells``, read
     off its output: q = k = 0 makes p uniform over the visible keys, and v
@@ -3762,16 +3648,16 @@ def recovered_keep_mask(torch, da, b, h, t, s, seed, rate, causal, warps,
         n = min(64, s - c0)
         v = torch.zeros(b, h, s, 64, device="cuda", dtype=dt)
         v[:, :, c0 + torch.arange(n), torch.arange(n)] = 1.0
-        out = dropout_fwd_tiled(torch, da, q, k, v, pad, seed, causal, rate,
-                                warps, cells)
+        out = da.flash_attention_dropout_fwd(q, k, v, pad, seed, causal, rate,
+                                             cells)
         got[..., c0:c0 + n] = out[..., :n] > 0
     return got
 
 
 def check_dropout_forward_design(torch, da, seed, rate):
     """The bf16 forward on the tensor cores: its keep-mask recovered bit for
-    bit at every tiling, then the table of its tilings beside the CUDA-core
-    kernel it replaced, at the training shape."""
+    bit, then its time beside the library call with dropout, at the
+    training shape."""
     for name, b, h, t, s, causal in DROPOUT_SHAPES + [
             ("full", 2, 2, 128, 128, True)]:
         for r_seed, r_rate in ((seed, rate), (2**31 - 2, 0.5)):
@@ -3781,39 +3667,32 @@ def check_dropout_forward_design(torch, da, seed, rate):
             if causal:
                 want = want & torch.ones(t, s, dtype=torch.bool,
                                          device="cuda").tril()
-            same = {w: torch.equal(recovered_keep_mask(
-                torch, da, b, h, t, s, r_seed, r_rate, causal, w), want)
-                for w in DROPOUT_FWD_WARPS}
+            same = torch.equal(recovered_keep_mask(
+                torch, da, b, h, t, s, r_seed, r_rate, causal), want)
             torch.cuda.synchronize()
             print(f"flash_attention_dropout forward, keep-mask recovered from "
                   f"the output, {name} ({b}, {h}, {t}, {s}) causal={causal} "
                   f"seed {r_seed} rate {r_rate}: bitwise equal to keep_mask "
-                  f"by warps a block {same}")
-            if not all(same.values()):
+                  f"{same}")
+            if not same:
                 raise AssertionError("the forward kernel draws another mask")
 
     _, b, h, t, s, causal = DROPOUT_SHAPES[0]
     q, k, v, pad, _ = dropout_inputs(torch, b, h, t, s, torch.bfloat16)
     ref = da.flash_attention_dropout_reference(q, k, v, pad, seed, causal, rate)
-    cells = []
     fmt = lambda x: "not measured" if x is None else f"{x:.4f}"
-    for warps in (0,) + DROPOUT_FWD_WARPS:
-        fn = lambda: dropout_fwd_tiled(torch, da, q, k, v, pad, seed, causal,
-                                       rate, warps)
-        err = (fn().float() - ref.float()).abs().max().item()
-        if not err <= DROPOUT_TOL["bfloat16"][0]:
-            raise AssertionError(f"dropout forward, warps {warps}: {err}")
-        label = ("CUDA-core kernel" if warps == 0 else
-                 f"{warps} warps, {warps * 16} rows a block "
-                 f"({-(-t // (warps * 16))} blocks a cell)")
-        cells.append(f"{label} {cuda_ms(torch, fn):.4f} (device time "
-                     f"{fmt(device_ms(torch, fn))}, max_abs_err {err:.3e})")
+    fn = lambda: da.flash_attention_dropout_fwd(q, k, v, pad, seed, causal,
+                                                rate)
+    err = (fn().float() - ref.float()).abs().max().item()
+    if not err <= DROPOUT_TOL["bfloat16"][0]:
+        raise AssertionError(f"dropout forward: {err}")
     lib = sdpa_call(torch, q, k, v, True, pad, dropout_p=rate)
-    cells.append(f"the library call with dropout {cuda_ms(torch, lib):.4f} "
-                 f"(device time {fmt(device_ms(torch, lib))})")
     print(f"design flash_attention_dropout forward ({b}, {h}, {t}, {s}, 64) "
-          f"bf16, ms (the wrapper takes {da.FWD_WARPS} warps): "
-          + "; ".join(cells))
+          f"bf16, ms: 4 warps, 64 rows a block ({-(-t // 64)} blocks a cell) "
+          f"{cuda_ms(torch, fn):.4f} (device time {fmt(device_ms(torch, fn))}"
+          f", max_abs_err {err:.3e}); the library call with dropout "
+          f"{cuda_ms(torch, lib):.4f} (device time "
+          f"{fmt(device_ms(torch, lib))})")
 
 
 def check_dropout_kernels(torch):
@@ -4128,7 +4007,7 @@ def check_training(torch):
                        "any_shape": 0}:
         raise AssertionError(f"the bf16 backward ran {bwd_kernels}, want the "
                              f"tensor-core kernel only")
-    if graph_calls != {"graph_captures": 1, "graph_replays": BF16_STEPS - 1,
+    if graph_calls != {"graph_captures": 1, "graph_replays": BF16_STEPS,
                        "eager_steps": 0}:
         raise AssertionError(f"the train step ran {graph_calls}, want one "
                              f"capture and replays")
@@ -4572,8 +4451,7 @@ def check_cell_map(torch):
     fwd_tol, bwd_tol = DROPOUT_TOL["bfloat16"]
     q, k, v, pad, do = dropout_inputs(torch, b, h, t, s, torch.bfloat16)
     whole = da.dump_dropout_mask(b, h, t, s, seed, rate, "cuda")
-    recovered = recovered_keep_mask(torch, da, b, h, t, s, seed, rate, causal,
-                                    da.FWD_WARPS)
+    recovered = recovered_keep_mask(torch, da, b, h, t, s, seed, rate, causal)
     out = da.flash_attention_dropout_fwd(q, k, v, pad, seed, causal, rate)
     grads = da.flash_attention_dropout_bwd(q, k, v, pad, do, seed, causal,
                                            rate)
@@ -4591,7 +4469,7 @@ def check_cell_map(torch):
                 plain = da.dump_dropout_mask(lb, lh, t, s, seed, rate, "cpu",
                                              cells).cuda()
                 fmask = recovered_keep_mask(torch, da, lb, lh, t, s, seed,
-                                            rate, causal, da.FWD_WARPS, cells)
+                                            rate, causal, cells)
                 args = (part(q), part(k), part(v), pad[rows].contiguous())
                 got = da.flash_attention_dropout_fwd(*args, seed, causal, rate,
                                                      cells)

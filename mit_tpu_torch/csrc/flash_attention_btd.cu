@@ -17,9 +17,7 @@
 // the tensor cores; f32 inputs (which must keep full f32 products: TF32
 // would keep 10 mantissa bits) take flash_attention_f32_kernel, on the CUDA
 // cores. Both serve the (B, T, D), the fused-QKV and the (B, H, T, 64)
-// entries. A third, flash_attention_btd_kernel, is the first CUDA-core
-// kernel of the port, which every entry ran before those two: it is reached
-// only through the entries named *_cudacore and *_v1, for measurements.
+// entries.
 //
 // The bf16 kernel: what bounds it on the H100, and what the design does.
 // At the encoder's shape (B = 64, T = S = 197, 12 heads) the function moves
@@ -180,217 +178,10 @@
 
 namespace {
 
-constexpr int BQ = 32;          // query rows per block
-constexpr int BK = 64;          // key rows per tile
-constexpr int THREADS = 128;    // 16 column lanes x 8 row lanes
-constexpr int LD = HD + 1;      // padded shared-memory row: no bank conflicts
-constexpr int PLD = BK + 1;
 constexpr float NEG_INF = -1e9f;
 constexpr float SCALE = 0.125f;                        // 1/sqrt(64), exact
 constexpr float SCALE2 = 0.18033688011112042f;         // log2(e)/sqrt(64)
 constexpr float LOG2E = 1.4426950408889634f;
-
-// ----------------------------------------------------------------------
-// The first CUDA-core kernel (f32 and bf16, both layouts): two walks over
-// the keys with q.k^T in both, 4 x 4 register tiles of scalars, synchronous
-// converting loads. No path of the port runs it; the *_cudacore and *_v1
-// entries keep it so that a run can time the kernels above against it.
-// ----------------------------------------------------------------------
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
-// p is rounded to v's dtype before P.V, as the reference casts it.
-__device__ __forceinline__ float round_like(float x, const float*) {
-  return x;
-}
-__device__ __forceinline__ float round_like(float x, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// rows [0, nrows) x HD columns of a row-major matrix with row stride `ld`
-// into dst (row stride LD, f32); rows past `valid` are zero.
-template <typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int nrows,
-                                          int valid, int ld) {
-  for (int i = threadIdx.x; i < nrows * HD; i += THREADS) {
-    const int r = i / HD, c = i % HD;
-    dst[r * LD + c] = r < valid ? to_f32(src[(size_t)r * ld + c]) : 0.f;
-  }
-}
-
-// Masked, scaled scores of this thread's 4 x 4 cells: rows ty + 8i of the
-// query tile, columns tx + 16j of the key tile. Columns past S are -inf so
-// they drop out of the max and the sum.
-__device__ __forceinline__ void tile_scores(float s[4][4], const float* qs,
-                                            const float* ks, int q0, int k0,
-                                            int S, const float* pad_row,
-                                            bool causal, int tx, int ty,
-                                            float scale) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-  for (int d = 0; d < HD; ++d) {
-    float qv[4], kv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) qv[i] = qs[(ty + 8 * i) * LD + d];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) kv[j] = ks[(tx + 16 * j) * LD + d];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 8 * i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = k0 + tx + 16 * j;
-      float x = s[i][j] * scale;
-      if (causal) x += col <= row ? 0.f : NEG_INF;
-      if (pad_row != nullptr && col < S) x += pad_row[col];
-      s[i][j] = col < S ? x : -INFINITY;
-    }
-  }
-}
-
-// q rows have stride ldq, k and v rows stride ldkv, out rows stride D
-// (the model width); head h is columns h*64 .. h*64+63 of each. With BHTD
-// the tensors are (B, H, T|S, 64): ldq = ldkv = D = 64 and head h of batch b
-// starts (b*H + h) * (Tq or S) rows in.
-template <typename T, typename OutT, bool LAYER, bool BHTD>
-__global__ void __launch_bounds__(THREADS)
-flash_attention_btd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v,
-                           const float* __restrict__ pad,
-                           OutT* __restrict__ out, int Tq, int S, int D,
-                           int ldq, int ldkv, bool causal) {
-  __shared__ float qs[BQ * LD];
-  __shared__ float kvs[BK * LD];   // the K tile, then the V tile
-  __shared__ float ps[BQ * PLD];
-
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-
-  const size_t cell = BHTD ? (size_t)b * gridDim.y + h : (size_t)b;
-  const int col0 = BHTD ? 0 : h * HD;
-  const T* qb = q + (cell * Tq + q0) * ldq + col0;
-  const T* kb = k + cell * S * ldkv + col0;
-  const T* vb = v + cell * S * ldkv + col0;
-  const float* pad_row = pad != nullptr ? pad + (size_t)b * S : nullptr;
-  const float scale = LAYER ? SCALE2 : SCALE;
-
-  load_tile(qs, qb, BQ, min(BQ, Tq - q0), ldq);
-
-  float s[4][4];
-
-  // Pass 1: exact row max over every key tile (BHTD: and the row sum).
-  float m[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
-  float l[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int k0 = 0; k0 < S; k0 += BK) {
-    __syncthreads();
-    load_tile(kvs, kb + (size_t)k0 * ldkv, BK, min(BK, S - k0), ldkv);
-    __syncthreads();
-    tile_scores(s, qs, kvs, q0, k0, S, pad_row, causal, tx, ty, scale);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mt = m[i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) mt = fmaxf(mt, s[i][j]);
-      // this thread's columns so far may all lie past S: then mt is -inf
-      if (BHTD && mt > -INFINITY) {
-        float sum = l[i] * expf(m[i] - mt);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) sum += expf(s[i][j] - mt);
-        l[i] = sum;
-      }
-      m[i] = mt;
-    }
-  }
-  // the 16 lanes that share a row are one half-warp
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float mine = m[i];
-#pragma unroll
-    for (int off = 8; off > 0; off >>= 1)
-      m[i] = fmaxf(m[i], __shfl_xor_sync(0xffffffffu, m[i], off));
-    if (BHTD) {
-      l[i] *= expf(mine - m[i]);     // 0 * exp(-inf) = 0 for an empty lane
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        l[i] += __shfl_xor_sync(0xffffffffu, l[i], off);
-    }
-  }
-
-  // Pass 2: p = exp(s - max), its row sum, and P.V (BHTD: p / rowsum, P.V).
-  float o[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) o[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < S; k0 += BK) {
-    __syncthreads();
-    load_tile(kvs, kb + (size_t)k0 * ldkv, BK, min(BK, S - k0), ldkv);
-    __syncthreads();
-    tile_scores(s, qs, kvs, q0, k0, S, pad_row, causal, tx, ty, scale);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float p = LAYER ? exp2f(s[i][j] - m[i]) : expf(s[i][j] - m[i]);
-        if (BHTD) p = __fdiv_rn(p, l[i]);
-        else l[i] += p;
-        ps[(ty + 8 * i) * PLD + tx + 16 * j] = round_like(p, v);
-      }
-    __syncthreads();
-    load_tile(kvs, vb + (size_t)k0 * ldkv, BK, min(BK, S - k0), ldkv);
-    __syncthreads();
-#pragma unroll 8
-    for (int c = 0; c < BK; ++c) {
-      float pv[4], vv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = ps[(ty + 8 * i) * PLD + c];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) vv[j] = kvs[c * LD + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) o[i][j] = fmaf(pv[i], vv[j], o[i][j]);
-    }
-  }
-  if (!BHTD) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        l[i] += __shfl_xor_sync(0xffffffffu, l[i], off);
-  }
-
-  OutT* ob = out + (cell * Tq + q0) * D + col0;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 8 * i;
-    if (q0 + r >= Tq) continue;
-    const float inv = LAYER ? __fdiv_rn(1.f, l[i]) : 0.f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      store(ob + (size_t)r * D + tx + 16 * j,
-            BHTD ? o[i][j]
-                 : LAYER ? __fmul_rn(o[i][j], inv) : o[i][j] / l[i]);
-  }
-}
 
 // ----------------------------------------------------------------------
 // f32 on the CUDA cores (see the head of this file)
@@ -1270,22 +1061,6 @@ int launch_f32(const void* q, const void* k, const void* v, const void* pad,
 #undef MIT_F32_CASE
 }
 
-// the first CUDA-core kernel, for the measuring entries
-template <typename T, typename OutT = T, bool LAYER = false,
-          bool BHTD = false>
-int launch_v1(const void* q, const void* k, const void* v, const void* pad,
-              void* out, int B, int Tq, int S, int D, int ldq, int ldkv,
-              int causal, int has_pad, void* stream, int heads = 0) {
-  const dim3 grid((Tq + BQ - 1) / BQ, BHTD ? heads : D / HD, B);
-  flash_attention_btd_kernel<T, OutT, LAYER, BHTD>
-      <<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-          static_cast<const T*>(q), static_cast<const T*>(k),
-          static_cast<const T*>(v),
-          has_pad ? static_cast<const float*>(pad) : nullptr,
-          static_cast<OutT*>(out), Tq, S, D, ldq, ldkv, causal != 0);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 // Every entry below takes heads of hd columns: 64, or 72 to 128 in
@@ -1365,44 +1140,4 @@ extern "C" int mit_flash_attention_bhtd(const void* q, const void* k,
                                       stream);
   return launch_f32(q, k, v, pad, out, B, H, Tq, S, hd, hd, hd, causal,
                     has_pad, 1, hd, stream);
-}
-
-// For measurements only, not for the port's paths: bf16 (B, T, D) through
-// the first CUDA-core kernel, as every bf16 call ran before the tensor-core
-// kernel. q rows have stride ldq, k and v rows stride ldkv (elements), so the
-// column blocks of a fused (B, T, 3D) tensor can be passed as three pointers.
-// layer = 0: bf16 out; layer = 1: f32 out with the whole-layer numerics.
-extern "C" int mit_flash_attention_btd_bf16_cudacore(
-    const void* q, const void* k, const void* v, const void* pad, void* out,
-    int B, int Tq, int S, int D, int ldq, int ldkv, int causal, int has_pad,
-    int layer, void* stream) {
-  if (layer)
-    return launch_v1<__nv_bfloat16, float, true>(q, k, v, pad, out, B, Tq, S,
-                                                 D, ldq, ldkv, causal, has_pad,
-                                                 stream);
-  return launch_v1<__nv_bfloat16>(q, k, v, pad, out, B, Tq, S, D, ldq, ldkv,
-                                  causal, has_pad, stream);
-}
-
-// For measurements only: the first CUDA-core kernel at the shapes the f32
-// kernel and the NORM mode took over. bhtd = 0: f32 (B, T, H*64) tensors;
-// bhtd = 1: (B, H, T, 64) tensors, f32 or bf16.
-extern "C" int mit_flash_attention_v1(const void* q, const void* k,
-                                      const void* v, const void* pad,
-                                      void* out, int B, int H, int Tq, int S,
-                                      int causal, int has_pad, int is_bf16,
-                                      int bhtd, void* stream) {
-  if (B < 1 || B > 65535 || H < 1 || H > 65535 || Tq < 1 || S < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (!bhtd) {
-    if (is_bf16) return static_cast<int>(cudaErrorInvalidValue);
-    return launch_v1<float>(q, k, v, pad, out, B, Tq, S, H * HD, H * HD,
-                            H * HD, causal, has_pad, stream);
-  }
-  if (is_bf16)
-    return launch_v1<__nv_bfloat16, __nv_bfloat16, false, true>(
-        q, k, v, pad, out, B, Tq, S, HD, HD, HD, causal, has_pad, stream, H);
-  return launch_v1<float, float, false, true>(q, k, v, pad, out, B, Tq, S, HD,
-                                              HD, HD, causal, has_pad, stream,
-                                              H);
 }

@@ -229,8 +229,9 @@ dropout_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // cell and that key. The pieces are laid out for the backward to take:
 // load_cell_async, the fragment map, masked_score and keep_at on it.
 //
-// A block has NW warps, 4 or 8: one warpgroup and 64 query rows (two blocks
-// a cell at T = 99) or two and 128 (one block a cell, K and V loaded once).
+// A block has NW warps: the entry launches 4, one warpgroup and 64 query
+// rows (two blocks a cell at T = 99). The template also takes 8, two
+// warpgroups and 128 rows (one block a cell, K and V loaded once).
 // ----------------------------------------------------------------------
 constexpr int KT = MAX_LEN / 64;      // key tiles a cell
 // a row whose max is below this has seen only masked keys
@@ -912,7 +913,6 @@ bool bad_shape(int cells, int Tq, int S) {
   return cells <= 0 || Tq <= 0 || S <= 0 || Tq > MAX_LEN || S > MAX_LEN;
 }
 
-template <typename T>
 int launch_fwd(const void* q, const void* k, const void* v, const void* pad,
                void* out, int B, int H, int Tq, int S, int causal,
                unsigned seed, const unsigned* seed_ptr, unsigned threshold,
@@ -920,15 +920,15 @@ int launch_fwd(const void* q, const void* k, const void* v, const void* pad,
   if (bad_shape(B * H, Tq, S)) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = fwd_smem(S);
   cudaError_t err = cudaFuncSetAttribute(
-      dropout_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      dropout_fwd_kernel<float>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(B * H, (Tq + BQ - 1) / BQ);
-  dropout_fwd_kernel<T><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const float*>(pad),
-      static_cast<T*>(out), H, Tq, S, causal != 0, seed, seed_ptr, threshold,
-      one_minus_r, cm);
+  dropout_fwd_kernel<float><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(pad),
+      static_cast<float*>(out), H, Tq, S, causal != 0, seed, seed_ptr,
+      threshold, one_minus_r, cm);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1002,37 +1002,23 @@ int launch_bwd_tc(const void* q, const void* k, const void* v,
 }  // namespace
 
 // q, out: (B, H, T, 64); k, v: (B, H, S, 64), contiguous, all f32 (bf16 = 0)
-// or all bf16 (bf16 = 1); pad: (B, S) f32. T, S <= 128. warps = 4 or 8: the
-// tensor-core kernel with that many warps a block (bf16 only, tensors at
-// 16-byte boundaries); warps = 0: the CUDA-core kernel, the route of f32
-// and, for bf16, a yardstick for measurements. b_offset, h_total, h_offset:
-// the cell map of the keep-mask (dropout_hash.cuh; 0, H, 0 on one device).
-// seed_ptr: null, or a device word read in place of seed when the kernel
-// runs (launch_seed), as in every entry of this file.
+// or all bf16 (bf16 = 1); pad: (B, S) f32. T, S <= 128. bf16 runs the
+// tensor-core kernel, 4 warps a block (tensors at 16-byte boundaries), f32
+// the CUDA-core kernel. b_offset, h_total, h_offset: the cell map of the
+// keep-mask (dropout_hash.cuh; 0, H, 0 on one device). seed_ptr: null, or a
+// device word read in place of seed when the kernel runs (launch_seed), as
+// in every entry of this file.
 extern "C" int mit_flash_attention_dropout_fwd(
     const void* q, const void* k, const void* v, const void* pad, void* out,
-    int B, int H, int T, int S, int causal, int bf16, int warps,
-    unsigned seed, const unsigned* seed_ptr, unsigned threshold,
-    float one_minus_r, int b_offset, int h_total, int h_offset,
-    void* stream) {
+    int B, int H, int T, int S, int causal, int bf16, unsigned seed,
+    const unsigned* seed_ptr, unsigned threshold, float one_minus_r,
+    int b_offset, int h_total, int h_offset, void* stream) {
   const CellMap cm{b_offset, h_total, h_offset};
   if (bad_map(H, cm)) return static_cast<int>(cudaErrorInvalidValue);
-  if (warps != 0) {
-    if (!bf16) return static_cast<int>(cudaErrorInvalidValue);
-    if (warps == 4)
-      return launch_fwd_tc<4>(q, k, v, pad, out, B, H, T, S, causal, seed,
-                              seed_ptr, threshold, one_minus_r, cm, stream);
-    if (warps == 8)
-      return launch_fwd_tc<8>(q, k, v, pad, out, B, H, T, S, causal, seed,
-                              seed_ptr, threshold, one_minus_r, cm, stream);
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return bf16 ? launch_fwd<__nv_bfloat16>(q, k, v, pad, out, B, H, T, S,
-                                          causal, seed, seed_ptr, threshold,
-                                          one_minus_r, cm, stream)
-              : launch_fwd<float>(q, k, v, pad, out, B, H, T, S, causal, seed,
-                                  seed_ptr, threshold, one_minus_r, cm,
-                                  stream);
+  return bf16 ? launch_fwd_tc<4>(q, k, v, pad, out, B, H, T, S, causal, seed,
+                                 seed_ptr, threshold, one_minus_r, cm, stream)
+              : launch_fwd(q, k, v, pad, out, B, H, T, S, causal, seed,
+                           seed_ptr, threshold, one_minus_r, cm, stream);
 }
 
 // the same q, k, v and pad, dout like q; dq like q, dk and dv like k. bf16

@@ -7,32 +7,30 @@ with the host's read of ``finished.all()`` before each step.
 :class:`DecodeGraphs` is how one captioner runs the greedy and beam loops.
 A loop engages it only where the graphed iteration is the eager fused
 route's own work (:func:`engages`): CUDA tensors, the fused step over the
-CLS cross constant. For the first such loop it meets, keyed by (weights,
-decoder config, batch, beams, ``max_len``, bucket ladder, compute dtype,
-PAD id, method, device), it keeps the loop's state in static buffers
-(:class:`LoopState`: the prepared weights, the K/V caches of every bucket
-of the ladder, the tokens, the finished flags, a position counter and the
-END id) and captures one whole iteration of the loop at each bucket as a
-CUDA graph (beam search: two a bucket, one from each of two cache sets,
-so the beams' cache gather writes the other set instead of a fresh
-cache). Every later call of that key resets the state, copies in the
-cross-attention constant and replays under the same :func:`ladder`, so
-the steps taken, the tokens and the beam scores are the eager fused
-route's, bit for bit. Every other key, and every loop that does not
-engage, steps eagerly through the loop's own code.
+CLS cross constant. Under the rule of :mod:`mit_tpu_torch.utils.cuda_graphs`,
+keyed by (weights, decoder config, batch, beams, ``max_len``, bucket
+ladder, compute dtype, PAD id, method, device), it keeps the first key's
+loop state in static buffers (:class:`LoopState`: the prepared weights, the
+K/V caches of every bucket of the ladder, the tokens, the finished flags, a
+position counter and the END id) and captures one whole iteration of the
+loop at each bucket as a CUDA graph (beam search: two a bucket, one from
+each of two cache sets, so the beams' cache gather writes the other set
+instead of a fresh cache). Every later call of that key resets the state,
+copies in the cross-attention constant and replays under the same
+:func:`ladder`, so the steps taken, the tokens and the beam scores are the
+eager fused route's, bit for bit. Every loop that does not engage steps
+through the loop's own code.
 
 The weights are prepared (cast and packed) once, at the first call of the
 key, and kept: the holder does not see a later in-place change to them.
 
-:func:`capture` warms every bucket's iteration up on a side stream first
-(building the kernels and their workspaces) and captures all buckets at
-the first call, so a later batch never captures. A replay runs none of
-the iteration's Python: ``decoder_step.routes`` and
-``fused_decode_layer.launches`` count the warm-ups and captures only, and
-the spans inside the iteration reach a trace only from them; each replay
-runs under ``mit.decode.replay``. Counters: ``graph_captures``,
-``graph_replays`` (iterations replayed) and ``eager_steps`` (steps run
-eagerly through a loop given this holder).
+:func:`capture` captures all buckets at the first call, so a later batch
+never captures. A replay runs none of the iteration's Python:
+``decoder_step.routes`` and ``fused_decode_layer.launches`` count the
+warm-ups and captures only, and the spans inside the iteration reach a
+trace only from them; each replay runs under ``mit.decode.replay``.
+``graph_replays`` counts iterations replayed, ``eager_steps`` the steps
+run eagerly through a loop given this holder.
 """
 
 from __future__ import annotations
@@ -43,6 +41,7 @@ import torch
 
 from mit_tpu_torch.decode.step import DecodeCache, decoder_step, step_route
 from mit_tpu_torch.models.decoder import DecoderConfig
+from mit_tpu_torch.utils import cuda_graphs
 from mit_tpu_torch.utils.profiling import span
 
 
@@ -80,24 +79,17 @@ def engages(fused: bool, cfg: DecoderConfig, memory,
 
 
 def capture(st: "LoopState", device: torch.device) -> dict:
-    """→ {(bucket index, cache set): CUDA graph} of ``st``'s iteration,
-    each run once from position 0 on a side stream (kernels built,
-    workspaces made) and then captured. All share one memory pool: they
-    replay one at a time on one stream, and none keeps a tensor of its own
-    between replays."""
+    """→ {(bucket index, cache set): CUDA graph} of ``st``'s iteration, each
+    warmed up from position 0. All share one memory pool: they replay one
+    at a time on one stream, and none keeps a tensor of its own between
+    replays."""
     pool = torch.cuda.graph_pool_handle()
     graphs = {}
     for i in range(len(st.buckets)):
         for p in range(st.sets):
             st.pos.zero_()                 # the warm-up writes inside max_len
-            side = torch.cuda.Stream(device)
-            side.wait_stream(torch.cuda.current_stream(device))
-            with torch.cuda.stream(side):
-                st.iteration(i, p)
-            torch.cuda.current_stream(device).wait_stream(side)
-            graphs[i, p] = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graphs[i, p], pool=pool):
-                st.iteration(i, p)
+            graphs[i, p], _ = cuda_graphs.capture(
+                lambda: st.iteration(i, p), device, pool)
     return graphs
 
 
@@ -173,15 +165,14 @@ class LoopState:
         raise NotImplementedError
 
 
-class DecodeGraphs:
+class DecodeGraphs(cuda_graphs.GraphHolder):
     """One captioner's graphs of its decode loops (see the module
-    docstring). Counters: ``graph_captures``, ``graph_replays`` and
-    ``eager_steps``."""
+    docstring)."""
 
-    def __init__(self):
-        self.key = self.state = self.source = None
-        self.graphs = {}
-        self.graph_captures = self.graph_replays = self.eager_steps = 0
+    @property
+    def state(self) -> Optional[LoopState]:
+        """The first key's static state; None before it is captured."""
+        return None if self.held is None else self.held[0]
 
     def loop(self, params: dict, key: tuple, device: torch.device, build,
              cross, start_id: int, end_id: int,
@@ -192,17 +183,18 @@ class DecodeGraphs:
         cross-attention constant. → the state after the loop, or None for
         any key but the first, whose loop steps eagerly. The caller has
         checked that the loop :func:`engages`."""
-        key = (id(params), device) + key
-        if self.key not in (None, key):
-            return None
-        if self.state is None:
+        def captured():
             st = build()
             with span("mit.decode.capture"):
-                self.graphs = capture(st, device)
-            self.graph_captures += len(self.graphs)
+                graphs = capture(st, device)
+            self.graph_captures += len(graphs)
             # the weights stay referenced, so their id keys them
-            self.key, self.state, self.source = key, st, params
-        st = self.state
+            return st, graphs, params
+
+        held = self.held_for((id(params), device) + key, captured)
+        if held is None:
+            return None
+        st, graphs, _ = held
         with span("mit.decode.prepare"):
             st.reset(cross(), start_id, end_id)
         p = 0
@@ -212,8 +204,7 @@ class DecodeGraphs:
                 if grows:
                     st.grow(i, p)
                 with span("mit.decode.replay"):
-                    self.graph_replays += 1
-                    self.graphs[i, p].replay()
+                    self.replay(graphs[i, p])
                 # a step from set p leaves the next step's caches in the
                 # next set
                 p = (p + 1) % st.sets

@@ -43,11 +43,7 @@ ENTRY_POINTS = {
     "mit_flash_attention_btd_f32": [_P] * 5 + [_I] * 7 + [_P],
     "mit_flash_attention_btd_bf16": [_P] * 5 + [_I] * 9 + [_P],
     "mit_flash_attention_fusedqkv": [_P] * 2 + [_I] * 7 + [_P],
-    # for measurements only: bf16 through the CUDA-core kernel
-    "mit_flash_attention_btd_bf16_cudacore": [_P] * 5 + [_I] * 9 + [_P],
     "mit_flash_attention_bhtd": [_P] * 5 + [_I] * 10 + [_P],
-    # for measurements only: the first CUDA-core kernel, f32 and (B, H, T, hd)
-    "mit_flash_attention_v1": [_P] * 5 + [_I] * 8 + [_P],
     "mit_fused_decode_layer": [_P] * 25 + [_I] * 8 + [_LL, _F, _P],
     "mit_quantize_rows_f32": [_P] * 5 + [_I, _I, _F, _P],
     "mit_quantize_rows_bf16": [_P] * 5 + [_I, _I, _F, _P],
@@ -59,7 +55,7 @@ ENTRY_POINTS = {
     # (null: the value), and end in the cell map (b_offset, h_total,
     # h_offset)
     "mit_flash_attention_dropout_fwd":
-        [_P] * 5 + [_I] * 7 + [_U, _P, _U, _F] + [_I] * 3 + [_P],
+        [_P] * 5 + [_I] * 6 + [_U, _P, _U, _F] + [_I] * 3 + [_P],
     "mit_flash_attention_dropout_bwd":
         [_P] * 8 + [_I] * 6 + [_U, _P, _U, _F] + [_I] * 3 + [_P],
     "mit_dump_dropout_mask":

@@ -36,6 +36,7 @@ import torch.nn.functional as F
 from mit_tpu_torch.ops.attention import layer_norm
 from mit_tpu_torch.ops.mla import mla_decode, mla_prefill, rms_norm
 from mit_tpu_torch.ops.moe import moe_layer, swiglu
+from mit_tpu_torch.utils.cuda_graphs import GraphHolder, capture
 from mit_tpu_torch.utils.profiling import span
 
 class KimiVLConfig(NamedTuple):
@@ -345,58 +346,40 @@ def decode_step(lm: dict, cfg: KimiVLConfig, layers: tuple,
     st.col.add_(1)
 
 
-class DecodeSteps:
-    """How one captioner runs its decode steps. On the card the first shape
+class DecodeSteps(GraphHolder):
+    """How one captioner runs its decode steps, under the rule of
+    :mod:`mit_tpu_torch.utils.cuda_graphs`: on the card the first shape
     (batch, length, new tokens, dtype) it meets is captured as one CUDA
     graph of :func:`decode_step` on a :class:`DecodeState` kept here, and
     every later call of that shape replays it: the step's 2,000-odd
     launches in one call, so the host's issue no longer holds the card.
     Any other shape, and CPU tensors, step eagerly on a fresh state. The
-    capture runs one step eagerly on a side stream first (building and
-    warming every kernel and the expert layer's device-side sums). A replay
-    runs none of the step's Python: the expert layer's device-side counters
-    count its work, its host launch counter does not, and spans inside the
-    step reach a trace at the warm-up only. Counters: ``graph_captures``,
-    ``graph_replays`` (steps replayed) and ``eager_steps``."""
-
-    def __init__(self):
-        self.key = self.state = self.graph = None
-        self.graph_captures = self.graph_replays = self.eager_steps = 0
+    capture's warm-up builds and warms every kernel and the expert layer's
+    device-side sums. A replay runs none of the step's Python: the expert
+    layer's device-side counters count its work, its host launch counter
+    does not, and spans inside the step reach a trace at the warm-up only.
+    ``graph_replays`` counts steps replayed."""
 
     def bind(self, lm: dict, cfg: KimiVLConfig, layers: tuple, key: tuple):
         """→ (state, step) for one generation of ``key`` = (batch, length,
         new tokens, dtype, device)."""
-        dev = key[-1]
-        if dev.type == "cuda" and self.key in (None, key):
-            if self.graph is None:
-                self.state = DecodeState(cfg, *key)
-                self.graph = self._capture(lm, cfg, layers, self.state)
-                self.key = key
-                self.graph_captures += 1
-            return self.state, self._replay
+        def build():
+            st = DecodeState(cfg, *key)
+            graph, _ = capture(lambda: decode_step(lm, cfg, layers, st),
+                               key[-1])
+            self.graph_captures += 1
+            return st, graph
+
+        held = self.held_for(key if key[-1].type == "cuda" else None, build)
+        if held is not None:
+            st, graph = held
+            return st, lambda: self.replay(graph)
         st = DecodeState(cfg, *key)
 
         def step():
             self.eager_steps += 1
             decode_step(lm, cfg, layers, st)
         return st, step
-
-    @staticmethod
-    def _capture(lm, cfg, layers, st) -> "torch.cuda.CUDAGraph":
-        dev = st.cache.device
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            decode_step(lm, cfg, layers, st)
-        torch.cuda.current_stream(dev).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            decode_step(lm, cfg, layers, st)
-        return graph
-
-    def _replay(self) -> None:
-        self.graph_replays += 1
-        self.graph.replay()
 
 
 def greedy_generate_vlm(lm: dict, cfg: KimiVLConfig, layers: tuple,

@@ -69,9 +69,6 @@ from mit_tpu_torch.ops.masks import causal_mask
 TILED_HEAD_DIM = 64         # the head width the tiled kernels are laid out for
 TILED_MAX_LEN = 128         # and the most queries and keys they hold on chip
 MAX_HEAD_DIM = 256          # the any-shape kernels: 8 columns a lane
-# warps a block of the bf16 forward (tensor-core) kernel: one warpgroup of
-# 64 query rows, two blocks a cell at the decoder's T = 99
-FWD_WARPS = 4
 _M32 = 0xFFFFFFFF
 
 
@@ -294,9 +291,9 @@ def flash_attention_dropout_fwd(q, k, v, pad_add, seed, causal: bool,
     """Forward: the plain version for CPU tensors, a kernel for CUDA.
 
     At the tiled kernels' shapes bf16 tensors run the tensor-core kernel
-    with ``FWD_WARPS`` warps a block (64 query rows a warpgroup of 4) and
-    f32 tensors the CUDA-core kernel, which keeps full f32 products; every
-    other shape runs the any-shape kernel.
+    (a warpgroup of 4 warps to 64 query rows) and f32 tensors the CUDA-core
+    kernel, which keeps full f32 products; every other shape runs the
+    any-shape kernel.
     """
     _check_rate(rate)
     if q.device.type == "cpu":
@@ -324,13 +321,12 @@ def flash_attention_dropout_fwd(q, k, v, pad_add, seed, causal: bool,
             )
     else:
         name = "mit_flash_attention_dropout_fwd"
-        warps = FWD_WARPS if q.dtype == torch.bfloat16 else 0
-        if warps and any(x.data_ptr() % 16 for x in (q, k, v)):
+        if _bf16(q) and any(x.data_ptr() % 16 for x in (q, k, v)):
             raise ValueError("q, k and v must start at 16-byte boundaries")
         with torch.cuda.device(q.device):
             rc = kernels.lib().mit_flash_attention_dropout_fwd(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), pad_add.data_ptr(),
-                out.data_ptr(), b, h, t, s, int(causal), _bf16(q), warps,
+                out.data_ptr(), b, h, t, s, int(causal), _bf16(q),
                 seed, seed_ptr, _threshold(rate), 1.0 - rate, *cmap,
                 _stream(q),
             )

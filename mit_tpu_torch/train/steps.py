@@ -59,6 +59,7 @@ from mit_tpu_torch.models.model import (
 )
 from mit_tpu_torch.ops.attention import DropoutGenerators, SeedSlots
 from mit_tpu_torch.parallel.collectives import all_reduce_sum
+from mit_tpu_torch.utils.cuda_graphs import GraphHolder, capture
 from mit_tpu_torch.utils.profiling import span
 
 
@@ -319,30 +320,6 @@ def make_train_step(
                      graphs=mesh is None and not remat and use_kernel)
 
 
-def _warm_up(fn: Callable, device: torch.device):
-    """``fn()`` on a side stream, as a capture wants what it records run
-    once before (lazy initialisation: the kernel library, cuBLAS's
-    workspaces, autograd's device threads)."""
-    side = torch.cuda.Stream(device)
-    side.wait_stream(torch.cuda.current_stream(device))
-    with torch.cuda.stream(side):
-        out = fn()
-    torch.cuda.current_stream(device).wait_stream(side)
-    return out
-
-
-def _capture(fn: Callable, generator: torch.Generator, device: torch.device):
-    """(replay, outputs): ``fn``'s work captured into a CUDA graph; each
-    replay draws from ``generator`` at its seed and offset as they stand
-    when the replay starts."""
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.device(device):
-        graph.register_generator_state(generator)
-        with torch.cuda.graph(graph):
-            out = fn()
-    return graph.replay, out
-
-
 def _state_leaves(state: TrainState) -> list:
     return (tree_leaves(state.params) + tree_leaves(state.opt_state.mu)
             + tree_leaves(state.opt_state.nu))
@@ -372,8 +349,7 @@ def staged_words(optimizer: Optimizer, seed: int, state: TrainState,
 class _Graph(NamedTuple):
     """The captured step and the buffers it reads besides the state."""
 
-    key: tuple                  # the signature it was captured for
-    replay: Callable
+    graph: torch.cuda.CUDAGraph
     loss: torch.Tensor          # the loss the replay writes
     batch: dict                 # the batch, by key
     staged: torch.Tensor        # int32: :func:`staged_words`
@@ -382,39 +358,31 @@ class _Graph(NamedTuple):
     frozen: list                # the frozen leaves it read, kept alive
 
 
-class TrainStep:
+class TrainStep(GraphHolder):
     """The train step that :func:`make_train_step` returns: a CUDA graph
     of the step's body, captured for the signature of its first call and
     replayed for every call of that signature where the step allows it,
-    ``eager`` otherwise. ``graph_captures`` counts the calls that captured
-    the graph (and replayed it once), ``graph_replays`` the calls that
-    replayed it, ``eager_steps`` those that ran ``eager``."""
+    ``eager`` otherwise (the rule of :mod:`mit_tpu_torch.utils.cuda_graphs`;
+    ``eager_steps`` counts the calls that ran ``eager``)."""
 
     def __init__(self, eager: Callable, body: Callable, optimizer: Optimizer,
                  keys: tuple, graphs: bool):
+        super().__init__()
         self.eager = eager
         self._body, self._optimizer, self._keys = body, optimizer, keys
         self._graphs_allowed = graphs
-        self._graph = None
         self._static = None     # the state's leaves: params, mu, nu
-        self._held = None       # the state whose values they hold
-        self.graph_captures = self.graph_replays = self.eager_steps = 0
+        self._static_state = None  # the state whose values they hold
 
     def __call__(self, state: TrainState, frozen: dict, batch: dict,
                  seed: int):
         device = batch[self._keys[1]].device
-        key = self._signature(frozen, batch, device)
-        graph = self._graph
-        if key is None or graph is not None and key != graph.key:
+        graph = self.held_for(
+            self._signature(frozen, batch, device),
+            lambda: self._capture_graph(state, frozen, batch, device))
+        if graph is None:
             self.eager_steps += 1
             return self.eager(state, frozen, batch, seed)
-        if graph is None:
-            self._hold(state)
-            graph = self._graph = self._capture_graph(key, state, frozen,
-                                                      batch, device)
-            self.graph_captures += 1
-        else:
-            self.graph_replays += 1
         with span("mit.train.stage"):
             self._hold(state)
             for k, buf in graph.batch.items():
@@ -427,7 +395,7 @@ class TrainStep:
                 self._optimizer, seed, state, graph.seeds)).pin_memory(),
                 non_blocking=True)
         with span("mit.train.replay"):
-            graph.replay()
+            self.replay(graph.graph)
             return self._release(state, graph.loss)
 
     def _signature(self, frozen: dict, batch: dict, device):
@@ -442,13 +410,13 @@ class TrainStep:
     def _hold(self, state: TrainState) -> None:
         """The static buffers take ``state``'s values, unless they hold
         them already."""
-        if state is self._held:
+        if state is self._static_state:
             return
         leaves = _state_leaves(state)
         if self._static is None:
             self._static = [torch.empty_like(x) for x in leaves]
         torch._foreach_copy_(self._static, leaves)
-        self._held = state
+        self._static_state = state
 
     def _release(self, state: TrainState, loss: torch.Tensor) -> tuple:
         """(the state after ``state``, the loss) as fresh copies of the
@@ -456,36 +424,41 @@ class TrainStep:
         hold it."""
         copies = [torch.empty_like(x) for x in self._static]
         torch._foreach_copy_(copies, self._static)
-        self._held = _state_of(state, copies, state.step + 1,
-                               state.opt_state.count + 1)
-        return self._held, loss.clone()
+        self._static_state = _state_of(state, copies, state.step + 1,
+                                       state.opt_state.count + 1)
+        return self._static_state, loss.clone()
 
-    def _capture_graph(self, key: tuple, state: TrainState, frozen: dict,
-                       batch: dict, device) -> _Graph:
-        """Warm up, then capture the body over the static state, a copy of
-        the batch, the seeds' slots and the scalars, updating the state in
-        place."""
+    def _capture_graph(self, state: TrainState, frozen: dict, batch: dict,
+                       device) -> _Graph:
+        """Capture the body over the static state, a copy of the batch, the
+        seeds' slots and the scalars, updating the state in place. Its
+        warm-up counts the fused calls' seeds and updates nothing in place;
+        the words they and the scalars are staged in are made after it."""
+        self._hold(state)
         static = _state_of(state, self._static, state.step,
                            state.opt_state.count)
         inputs = {k: batch[k].clone() for k in self._keys}
         generator = torch.Generator(device=device)
-
-        def run(slots, scalars=None, in_place=False):
-            slots.taken = 0
-            streams = lambda: DropoutGenerators(generator, None, slots)
-            return self._body(static, frozen, inputs, streams, scalars,
-                              in_place)[1]
-
         counted = SeedSlots(device=device)
-        _warm_up(lambda: run(counted), device)
-        staged = torch.zeros(counted.taken + 3, dtype=torch.int32,
-                             device=device)
-        scalars = staged[counted.taken:].view(torch.float32)
-        slots = SeedSlots(staged[:counted.taken])
-        replay, loss = _capture(
-            lambda: run(slots, tuple(scalars), in_place=True), generator,
-            device)
-        return _Graph(key, replay, loss, inputs, staged, counted.taken,
+        staged = []
+
+        def run():
+            if not staged:          # the warm-up
+                loss = self._body(static, frozen, inputs, lambda:
+                                  DropoutGenerators(generator, None,
+                                                    counted))[1]
+                staged.append(torch.zeros(counted.taken + 3,
+                                          dtype=torch.int32, device=device))
+                return loss
+            slots = SeedSlots(staged[0][:counted.taken])
+            scalars = tuple(staged[0][counted.taken:].view(torch.float32))
+            return self._body(static, frozen, inputs, lambda:
+                              DropoutGenerators(generator, None, slots),
+                              scalars, True)[1]
+
+        graph, loss = capture(run, device, generator=generator)
+        self.graph_captures += 1
+        return _Graph(graph, loss, inputs, staged[0], counted.taken,
                       generator, tree_leaves(frozen))
 
 

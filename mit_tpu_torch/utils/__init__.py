@@ -1,1 +1,1 @@
-"""Utilities: profiling and step timing."""
+"""Utilities: profiling, step timing and replay from CUDA graphs."""

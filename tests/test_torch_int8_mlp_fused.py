@@ -529,3 +529,20 @@ def test_every_entry_point_is_defined_with_its_arguments(name):
     entries = _c_entries()
     assert name in entries, f"{name} is not defined in csrc/*.cu"
     assert entries[name] == len(kernels.ENTRY_POINTS[name])
+
+
+# a diagnostic of the fused MLP kernel's occupancy, which no path of the port
+# calls: the smoke prints it
+UNCALLED_ENTRIES = {"mit_int8_mlp_fused_info"}
+
+
+@pytest.mark.parametrize("name", sorted(kernels.ENTRY_POINTS))
+def test_every_entry_point_is_named_by_the_port(name):
+    """Each C entry is named, as a string, by a module of the port other than
+    the table of entries: the library exports nothing that only a
+    measurement reaches."""
+    root = kernels.CSRC.parent
+    named = [path for path in root.rglob("*.py")
+             if path != root / "kernels" / "__init__.py"
+             and f'"{name}"' in path.read_text()]
+    assert bool(named) != (name in UNCALLED_ENTRIES), named

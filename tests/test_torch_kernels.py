@@ -1070,22 +1070,7 @@ def test_flash_attention_bhtd_bf16_tilings_on_card(cuda, warps):
         assert (out.float() - ref.float()).abs().max().item() <= 2e-2
 
 
-def _dropout_fwd_tiled(q, k, v, pad, seed, causal, rate, warps):
-    """The tiled bf16 dropout forward at a tiling of the C entry point: 4 or
-    8 warps a block on the tensor cores, 0 for the CUDA-core kernel (the
-    wrapper takes ``FWD_WARPS``)."""
-    b, h, t, _ = q.shape
-    out = torch.empty_like(q)
-    rc = kernels.lib().mit_flash_attention_dropout_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), pad.data_ptr(),
-        out.data_ptr(), b, h, t, k.shape[2], int(causal), 1, warps,
-        seed & 0xFFFFFFFF, None, dropout_attention._threshold(rate),
-        1.0 - rate, 0, h, 0, torch.cuda.current_stream().cuda_stream)
-    kernels.check(rc, "mit_flash_attention_dropout_fwd")
-    return out
-
-
-def _recovered_keep_mask(b, h, t, s, seed, rate, causal, device, warps):
+def _recovered_keep_mask(b, h, t, s, seed, rate, causal, device):
     """The forward kernel's keep-mask, read off its output: q = k = 0 makes p
     uniform over the visible keys, and v one-hot over 64 keys at a time makes
     out[r, c] = pd[r, key c], which is positive iff the key is kept."""
@@ -1098,25 +1083,25 @@ def _recovered_keep_mask(b, h, t, s, seed, rate, causal, device, warps):
         n = min(64, s - c0)
         v = torch.zeros(b, h, s, 64, device=device, dtype=dtype)
         v[:, :, c0 + torch.arange(n), torch.arange(n)] = 1.0
-        out = _dropout_fwd_tiled(q, k, v, pad, seed, causal, rate, warps)
+        out = dropout_attention.flash_attention_dropout_fwd(q, k, v, pad, seed,
+                                                            causal, rate)
         got[..., c0:c0 + n] = out[..., :n] > 0
     return got
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("warps", [4, 8, 0], ids=["tc4", "tc8", "cudacore"])
 @pytest.mark.parametrize("seed,rate", [(20261016, 0.1), (2**31 - 2, 0.5)])
 @pytest.mark.parametrize("b,h,t,s", [(32, 8, 99, 99), (3, 2, 7, 9),
                                      (2, 2, 128, 128), (2, 3, 100, 37)])
 def test_dropout_forward_keep_mask_is_bitwise_plain_on_card(cuda, b, h, t, s,
-                                                            seed, rate, warps):
+                                                            seed, rate):
     """The keep bit each accumulator element of the bf16 forward draws is
     ``keep_mask``'s for the (row, key) it stands for: an output tolerance
     would not see a wrong bit on a small probability."""
     want = dropout_attention.keep_mask(
         t, s, rate, seed, torch.arange(b * h, device=cuda)).reshape(b, h, t, s)
     for causal in (False, True):
-        got = _recovered_keep_mask(b, h, t, s, seed, rate, causal, cuda, warps)
+        got = _recovered_keep_mask(b, h, t, s, seed, rate, causal, cuda)
         torch.cuda.synchronize()
         visible = torch.ones(t, s, dtype=torch.bool, device=cuda)
         if causal:
@@ -1125,22 +1110,21 @@ def test_dropout_forward_keep_mask_is_bitwise_plain_on_card(cuda, b, h, t, s,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("warps", [4, 8])
 @pytest.mark.parametrize("b,h,t,s,causal", DROPOUT_SHAPES + [(2, 2, 65, 64, True),
                                                              (2, 2, 64, 65, False)])
-def test_dropout_forward_tilings_match_plain_on_card(cuda, warps, b, h, t, s,
+def test_dropout_forward_tilings_match_plain_on_card(cuda, b, h, t, s,
                                                      causal):
-    """Both tilings of the bf16 tensor-core forward, and the CUDA-core kernel
-    it replaced, against the plain version."""
+    """The bf16 tensor-core forward against the plain version, at a query
+    block's and a key tile's edges too."""
     q, k, v, pad = _heads(b, h, t, s, torch.bfloat16, cuda)
     ref = dropout_attention.flash_attention_dropout_reference(
         q, k, v, pad, 1234, causal, 0.1)
-    for w in (warps, 0):
-        out = _dropout_fwd_tiled(q, k, v, pad, 1234, causal, 0.1, w)
-        torch.cuda.synchronize()
-        assert torch.isfinite(out).all()
-        assert (out.float() - ref.float()).abs().max().item() <= \
-            TOL[torch.bfloat16]
+    out = dropout_attention.flash_attention_dropout_fwd(q, k, v, pad, 1234,
+                                                        causal, 0.1)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert (out.float() - ref.float()).abs().max().item() <= \
+        TOL[torch.bfloat16]
 
 
 # ----------------------------------------------------------------------

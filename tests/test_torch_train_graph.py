@@ -307,7 +307,7 @@ def test_graphed_step_equals_eager_on_card(cuda, shape, b, fused):
     for got, want in zip(graphed, eager):
         _assert_same(got, want)
     assert (step.graph_captures, step.graph_replays, step.eager_steps) == \
-        (1, 4, 0)
+        (1, 5, 0)
 
 
 @pytest.mark.cuda
@@ -372,7 +372,7 @@ def test_graph_counters_on_card(cuda):
         _assert_same(step(state, {}, batch, 7), step.eager(state, {}, batch,
                                                             7))
     assert (step.graph_captures, step.graph_replays, step.eager_steps) == \
-        (1, 2, 1)
+        (1, 3, 1)
     for kw in (dict(remat=True), dict(use_kernel=False)):
         other = make(**kw)
         other(state, {}, _batch(mcfg, 3, cuda), 7)
@@ -406,4 +406,4 @@ def test_graphed_step_from_pixels_equals_eager_on_card(cuda, quant):
     torch.cuda.synchronize()
     for got, want in zip(graphed, eager):
         _assert_same(got, want)
-    assert (step.graph_captures, step.graph_replays) == (1, 2)
+    assert (step.graph_captures, step.graph_replays) == (1, 3)
