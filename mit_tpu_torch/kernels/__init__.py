@@ -23,6 +23,9 @@ import tempfile
 import threading
 import time
 from pathlib import Path
+from typing import Optional
+
+import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -69,6 +72,11 @@ ENTRY_POINTS = {
     # the grouped SwiGLU experts: x, token, offsets, three weights, the
     # hidden and the output; D, F, E, routes, row tiles; the stream
     "mit_moe_experts": [_P] * 8 + [_I] * 5 + [_P],
+    # the float encoder's elementwise passes: x, a, bias, LayerNorm scale
+    # and shift, y, h; M, D, the row strides of x and a, dtype, eps; the
+    # stream. Then a, bias, out; M, F, act, dtype; the stream
+    "mit_add_layer_norm": [_P] * 7 + [_I] * 2 + [_LL] * 2 + [_I, _F, _P],
+    "mit_bias_act": [_P] * 3 + [_I] * 4 + [_P],
 }
 
 _lib = None
@@ -165,3 +173,25 @@ def check(rc: int, name: str) -> None:
     """Raise if a C entry point reported a CUDA error."""
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
+
+
+def stream(x: torch.Tensor) -> int:
+    """The current stream of x's device, as an entry point takes it."""
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def ptr(x: Optional[torch.Tensor]):
+    """x's device address, or None (a null pointer) for no tensor."""
+    return None if x is None else x.data_ptr()
+
+
+def require_cuda(x: torch.Tensor, name: str) -> None:
+    """Raise unless x is a CUDA tensor that records no gradient: the
+    forward-only wrappers' refusal."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{name} has no kernel for {x.device}")
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise RuntimeError(
+            f"{name} is forward-only; run it under torch.no_grad() or "
+            "torch.inference_mode()"
+        )

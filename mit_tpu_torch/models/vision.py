@@ -4,7 +4,9 @@
 One generic pre-LN ViT; family differences are data: pre/post LayerNorm,
 GELU (exact erf) or quick_gelu, patch-projection bias, LayerNorm eps. The
 patch embedding is a matmul over unfolded patches. Self-attention runs
-through :func:`~mit_tpu_torch.ops.flash_attention.flash_attention_btd`.
+through :func:`~mit_tpu_torch.ops.flash_attention.flash_attention_btd`, and
+the residual adds, biases, LayerNorms and activations between the products
+through the two kernels of :mod:`mit_tpu_torch.ops.encoder_fused`.
 
 Under a device mesh the float encoder splits over "model" as the decoder
 does (Megatron's layout, ``parallel.mesh.vision_param_specs(tp=True)``):
@@ -24,10 +26,15 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from mit_tpu_torch.models.convert import layer_params, params_from_jax
 from mit_tpu_torch.ops.attention import layer_norm, multihead_attention
+from mit_tpu_torch.ops.encoder_fused import (
+    add_layer_norm,
+    add_layer_norm_reference,
+    bias_act,
+    bias_act_reference,
+)
 from mit_tpu_torch.ops.flash_attention import (
     flash_attention_btd_fusedqkv,
     flash_attention_btd_fusedqkv_reference,
@@ -192,10 +199,6 @@ def init_vision_params(generator: torch.Generator, cfg: VisionConfig,
     return params_from_jax(params, device)
 
 
-def _quick_gelu(x):
-    return x * torch.sigmoid(1.702 * x)
-
-
 def _patchify(pixel_values: torch.Tensor, patch: int) -> torch.Tensor:
     """(B, 3, H, W) NCHW → (B, N, 3*patch*patch), torch Conv2d flattening
     order (C, kH, kW) and row-major patch grid."""
@@ -221,15 +224,27 @@ def vision_forward(
     in CLS-memory mode. ``use_kernel`` sends the self-attention of every
     full layer through ``flash_attention_btd``.
 
+    Between the products the elementwise work runs in two kernels
+    (``ops/encoder_fused.py``): each sublayer boundary is one
+    :func:`add_layer_norm` (the residual add, the product's bias and the
+    next LayerNorm: ``ln_pre``, ``ln1``, ``ln2``, ``ln_post``, or none after
+    the last layer of a tower without ``ln_post``), and fc1's bias and
+    activation one :func:`bias_act`. A tower of L layers makes 2L + 1
+    boundaries (2L + 2 with ``ln_pre``) and L activations, with or without
+    ``cls_only``; the attention hands over its out-projection before
+    ``bo`` (``multihead_attention(out_bias=False)``). ``use_kernel=False``
+    runs the attention's and both kernels' plain versions.
+
     ``shard`` with a "model" group: ``params`` are this rank's piece of the
     tree (``shard_tree`` with ``vision_param_specs(tp=True)``), and every
-    rank returns the whole output.
+    rank returns the whole output: the boundaries take the sums over
+    "model", so the replicated biases apply once.
     """
     cd = compute_dtype
     eps = cfg.layer_norm_eps
     b = pixel_values.shape[0]
     d = cfg.hidden_size
-    act = _quick_gelu if cfg.hidden_act == "quick_gelu" else F.gelu
+    act = "quick_gelu" if cfg.hidden_act == "quick_gelu" else "gelu"
     group = shard.group if shard is not None else None
     heads = cfg.num_heads
     if group is not None:
@@ -240,6 +255,18 @@ def vision_forward(
                 f"attention columns, got {width}")
         heads //= shard.m
     hd = d // cfg.num_heads
+    boundary_fn = add_layer_norm if use_kernel else add_layer_norm_reference
+    bias_act_fn = bias_act if use_kernel else bias_act_reference
+
+    def boundary(x, a, bias, ln):
+        return boundary_fn(x, a, bias, ln, eps)
+
+    def mlp(x, h, layer, ln_next):
+        # column-parallel fc1, row-parallel fc2: b2 after the sum
+        f = bias_act_fn(copy_to_model(h, group) @ layer["fc1"].to(cd),
+                        layer["b1"], act)
+        return boundary(x, reduce_from_model(f @ layer["fc2"].to(cd), group),
+                        layer["b2"], ln_next)
 
     x = _patchify(pixel_values.to(cd), cfg.patch_size) @ params["patch_w"].to(cd)
     if cfg.patch_bias:
@@ -247,30 +274,27 @@ def vision_forward(
     cls = params["cls"].to(cd).expand(b, 1, d)
     x = torch.cat([cls, x], dim=1) + params["pos"].to(cd)[None]
     if cfg.ln_pre:
-        x = layer_norm(params["ln_pre"], x, eps)
-
-    def mlp(x, layer):
-        # column-parallel fc1, row-parallel fc2: b2 after the sum
-        h = layer_norm(layer["ln2"], x, eps)
-        h = act(copy_to_model(h, group) @ layer["fc1"].to(cd)
-                + layer["b1"].to(cd))
-        return x + (reduce_from_model(h @ layer["fc2"].to(cd), group)
-                    + layer["b2"].to(cd))
+        x = boundary(None, x, None, params["ln_pre"])[1]
+    layers = [layer_params(params["layers"], i) for i in range(cfg.num_layers)]
+    # the LayerNorm after each layer: the next layer's ln1, then ln_post
+    ln_next = [layer["ln1"] for layer in layers[1:]] + [
+        params["ln_post"] if cfg.ln_post else None]
+    x, h = boundary(None, x, None, layers[0]["ln1"])
 
     n_full = cfg.num_layers - 1 if cls_only else cfg.num_layers
     for i in range(n_full):
-        layer = layer_params(params["layers"], i)
-        h = layer_norm(layer["ln1"], x, eps)
-        x = x + multihead_attention(
+        layer = layers[i]
+        a = multihead_attention(
             layer["attn"], h, h, cfg.num_heads, compute_dtype=cd,
-            use_kernel=use_kernel, shard=shard,
+            use_kernel=use_kernel, shard=shard, out_bias=False,
         )
-        x = mlp(x, layer)
+        x, h = boundary(x, a, layer["attn"]["bo"], layer["ln2"])
+        x, h = mlp(x, h, layer, ln_next[i])
 
     if cls_only:
-        layer = layer_params(params["layers"], cfg.num_layers - 1)
+        layer = layers[-1]
         attn = layer["attn"]
-        h = copy_to_model(layer_norm(layer["ln1"], x, eps), group)
+        h = copy_to_model(h, group)
         # keys/values over the full sequence, query = the CLS row only; this
         # rank's heads
         q1 = h[:, :1] @ attn["wq"].to(cd) + attn["bq"].to(cd)
@@ -285,14 +309,13 @@ def vision_forward(
         ctx = torch.einsum(
             "bhs,bshd->bhd", probs.to(cd), v.reshape(b, s, heads, hd)
         )
-        a = (reduce_from_model(ctx.reshape(b, 1, heads * hd)
-                               @ attn["wo"].to(cd), group)
-             + attn["bo"].to(cd))
-        x = mlp(x[:, :1] + a, layer)
+        a = reduce_from_model(ctx.reshape(b, 1, heads * hd)
+                              @ attn["wo"].to(cd), group)
+        x, h = boundary(x[:, :1], a, attn["bo"], layer["ln2"])
+        x, h = mlp(x, h, layer, ln_next[-1])
 
-    if cfg.ln_post:
-        x = layer_norm(params["ln_post"], x, eps)
-    return x
+    return h if cfg.ln_post else x
+
 
 
 # ----------------------------------------------------------------------

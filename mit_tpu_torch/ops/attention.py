@@ -126,7 +126,11 @@ def kernel_seed(generator: DropoutGenerators):
 
 
 def _linear(x, params, w, b, cd):
-    return x.to(cd) @ params[w].to(cd) + params[b].to(cd)
+    """x @ params[w] + params[b] in one ``addmm``: the bias is added to the
+    product's accumulator, so the sum rounds to ``cd`` once."""
+    rows = x.to(cd).reshape(-1, x.shape[-1])
+    out = torch.addmm(params[b].to(cd), rows, params[w].to(cd))
+    return out.view(*x.shape[:-1], out.shape[-1])
 
 
 def keep_mask_for(shape, rate: float, generator: DropoutGenerators, device,
@@ -182,6 +186,7 @@ def multihead_attention(
     deterministic: bool = True,
     fused_dropout: bool = False,
     shard: Optional[Shard] = None,
+    out_bias: bool = True,
 ) -> torch.Tensor:
     """q_in (B, T, D) attends over kv_in (B, S, D) → (B, T, D).
 
@@ -209,6 +214,10 @@ def multihead_attention(
 
     ``num_heads`` is the model's; under ``shard`` with a "model" group,
     ``params`` hold this rank's heads (``num_heads / m`` of them).
+
+    ``out_bias=False`` returns the out-projection's sum before ``bo``: the
+    float encoder adds ``bo`` with the residual and the next LayerNorm
+    (``ops.encoder_fused.add_layer_norm``).
     """
     cd = compute_dtype
     b, t, d = q_in.shape
@@ -227,7 +236,7 @@ def multihead_attention(
 
     def out_proj(ctx):
         part = reduce_from_model(ctx @ params["wo"].to(cd), group)
-        return part + params["bo"].to(cd)
+        return part + params["bo"].to(cd) if out_bias else part
 
     if dropout_active and fused_dropout:
         if mask is not None:

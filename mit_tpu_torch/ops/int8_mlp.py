@@ -41,6 +41,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from mit_tpu_torch.kernels import ptr, require_cuda, stream
 from mit_tpu_torch.ops.quant import QuantizedLinear, dynamic_quantize, int8_accumulate
 
 ACTS = ("none", "gelu", "quick_gelu")
@@ -107,24 +108,6 @@ def _ln(x: torch.Tensor, ln: dict, eps: float) -> torch.Tensor:
     return (x - mean) * torch.rsqrt(var + eps) * ln["scale"] + ln["bias"]
 
 
-def _stream(x: torch.Tensor) -> int:
-    return torch.cuda.current_stream(x.device).cuda_stream
-
-
-def _ptr(x: Optional[torch.Tensor]):
-    return None if x is None else x.data_ptr()
-
-
-def _require_cuda(x: torch.Tensor, name: str) -> None:
-    if x.device.type != "cuda":
-        raise ValueError(f"{name} has no kernel for {x.device}")
-    if torch.is_grad_enabled() and x.requires_grad:
-        raise RuntimeError(
-            f"{name} is forward-only; run it under torch.no_grad() or "
-            "torch.inference_mode()"
-        )
-
-
 # ----------------------------------------------------------------------
 # quantize_rows
 # ----------------------------------------------------------------------
@@ -170,7 +153,7 @@ def quantize_rows(x: torch.Tensor, ln: Optional[dict] = None,
     """
     if x.device.type == "cpu":
         return quantize_rows_reference(x, ln, eps)
-    _require_cuda(x, "quantize_rows")
+    require_cuda(x, "quantize_rows")
     _check_quantize_rows(x, ln)
 
     from mit_tpu_torch import kernels
@@ -182,9 +165,9 @@ def quantize_rows(x: torch.Tensor, ln: Optional[dict] = None,
             else "mit_quantize_rows_f32")
     with torch.cuda.device(x.device):
         rc = getattr(kernels.lib(), name)(
-            x.data_ptr(), _ptr(None if ln is None else ln["scale"]),
-            _ptr(None if ln is None else ln["bias"]), x8.data_ptr(),
-            sx.data_ptr(), m, k, float(eps), _stream(x),
+            x.data_ptr(), ptr(None if ln is None else ln["scale"]),
+            ptr(None if ln is None else ln["bias"]), x8.data_ptr(),
+            sx.data_ptr(), m, k, float(eps), stream(x),
         )
     kernels.check(rc, name)
     quantize_rows.launches += 1
@@ -277,7 +260,7 @@ def int8_gemm(a8: torch.Tensor, sx: torch.Tensor, q: QuantizedLinear,
     """The int8 GEMM with its epilogue; see :func:`int8_gemm_reference`."""
     if a8.device.type == "cpu":
         return int8_gemm_reference(a8, sx, q, act, residual, out_dtype)
-    _require_cuda(a8, "int8_gemm")
+    require_cuda(a8, "int8_gemm")
     _check_gemm(a8, sx, q, act, residual, out_dtype)
 
     from mit_tpu_torch import kernels
@@ -288,10 +271,10 @@ def int8_gemm(a8: torch.Tensor, sx: torch.Tensor, q: QuantizedLinear,
     with torch.cuda.device(a8.device):
         rc = kernels.lib().mit_int8_gemm(
             a8.data_ptr(), q.w8.data_ptr(), sx.data_ptr(),
-            q.scale.data_ptr(), _ptr(q.bias), _ptr(residual), out.data_ptr(),
+            q.scale.data_ptr(), ptr(q.bias), ptr(residual), out.data_ptr(),
             m, n, k, _ACT_CODE[act],
             _RES_CODE[None if residual is None else residual.dtype],
-            _OUT_CODE[out_dtype], _stream(a8),
+            _OUT_CODE[out_dtype], stream(a8),
         )
     kernels.check(rc, "mit_int8_gemm")
     int8_gemm.launches += 1
@@ -342,7 +325,7 @@ def int8_linear(x: torch.Tensor, q: QuantizedLinear,
     (the TPU ``int8_linear``): ``quantize_rows`` then ``int8_gemm``."""
     if x.device.type == "cpu":
         return int8_linear_reference(x, q, out_dtype)
-    _require_cuda(x, "int8_linear")
+    require_cuda(x, "int8_linear")
     _check_float(x, "int8_linear")
     out = _linear(x, q, out_dtype, quantize_rows, _gemm_any_k)
     int8_linear.launches += 1
@@ -441,7 +424,7 @@ def int8_mlp_fused(x: torch.Tensor, q1: QuantizedLinear, q2: QuantizedLinear,
     if x.device.type == "cpu":
         return int8_mlp_fused_reference(x, q1, q2, act, ln, eps, residual,
                                         out_dtype)
-    _require_cuda(x, "int8_mlp_fused")
+    require_cuda(x, "int8_mlp_fused")
     _check_mlp_fused(x, q1, q2, act, ln, out_dtype)
 
     from mit_tpu_torch import kernels
@@ -451,12 +434,12 @@ def int8_mlp_fused(x: torch.Tensor, q1: QuantizedLinear, q2: QuantizedLinear,
     out = torch.empty((m, d), dtype=out_dtype, device=x.device)
     with torch.cuda.device(x.device):
         rc = kernels.lib().mit_int8_mlp_fused(
-            x.data_ptr(), _ptr(None if ln is None else ln["scale"]),
-            _ptr(None if ln is None else ln["bias"]), q1.w8.data_ptr(),
-            q1.scale.data_ptr(), _ptr(q1.bias), q2.w8.data_ptr(),
-            q2.scale.data_ptr(), _ptr(q2.bias), out.data_ptr(), m, d, f,
+            x.data_ptr(), ptr(None if ln is None else ln["scale"]),
+            ptr(None if ln is None else ln["bias"]), q1.w8.data_ptr(),
+            q1.scale.data_ptr(), ptr(q1.bias), q2.w8.data_ptr(),
+            q2.scale.data_ptr(), ptr(q2.bias), out.data_ptr(), m, d, f,
             int(x.dtype == torch.bfloat16), _ACT_CODE[act], int(residual),
-            int(out_dtype == torch.bfloat16), float(eps), _stream(x),
+            int(out_dtype == torch.bfloat16), float(eps), stream(x),
         )
     kernels.check(rc, "mit_int8_mlp_fused")
     int8_mlp_fused.launches += 1
@@ -496,7 +479,7 @@ def fused_int8_mlp(x: torch.Tensor, q1: QuantizedLinear, q2: QuantizedLinear,
     :func:`mlp_half` (``fused_int8_mlp.kernels`` counts the routes)."""
     if x.device.type == "cpu":
         return fused_int8_mlp_reference(x, q1, q2, act, out_dtype)
-    _require_cuda(x, "fused_int8_mlp")
+    require_cuda(x, "fused_int8_mlp")
     _check_float(x, "fused_int8_mlp")
     if act not in ACTS:
         raise ValueError(f"unknown act {act!r}; choose one of {ACTS}")

@@ -15,7 +15,12 @@ import pytest
 import torch
 
 from mit_tpu_torch import kernels
-from mit_tpu_torch.ops import dropout_attention, int8_layer, int8_mlp
+from mit_tpu_torch.ops import (
+    dropout_attention,
+    encoder_fused,
+    int8_layer,
+    int8_mlp,
+)
 from mit_tpu_torch.ops.flash_attention import (
     BF16_WARPS,
     _check_cuda_inputs,
@@ -1624,3 +1629,192 @@ def test_dropout_cell_map_gives_the_global_launchs_slice_on_card(
             assert torch.equal(got, part(out))
             for x, y in zip(got_g, grads):
                 assert torch.equal(x, part(y))
+
+
+# ----------------------------------------------------------------------
+# the float encoder's elementwise passes (csrc/encoder_fused.cu)
+# ----------------------------------------------------------------------
+def _boundary_inputs(m, d, dtype, device, seed, which):
+    """x, a, bias, ln of one boundary; ``which``: "boundary" (all four),
+    "no_residual" (a and ln: ln_pre, layer 0's ln1), "no_ln" (no h: the
+    last boundary of a tower without ln_post), "cls_rows" (x the CLS rows
+    of a (m, 9, d) stream)."""
+    g = torch.Generator().manual_seed(seed)
+    stream = (torch.randn(m, 9, d, generator=g) * 2).to(device, dtype)
+    x = stream[:, :1] if which == "cls_rows" else stream[:, 0]
+    a = (torch.randn(*x.shape, generator=g) + 0.5).to(device, dtype)
+    bias = (torch.randn(d, generator=g) * 0.3).to(device)
+    ln = {"scale": (1 + 0.2 * torch.randn(d, generator=g)).to(device),
+          "bias": (0.1 * torch.randn(d, generator=g)).to(device)}
+    if which == "no_residual":
+        return None, a, None, ln
+    return x, a, bias, None if which == "no_ln" else ln
+
+
+def _within_one_rounding(got, want):
+    """The LayerNorm's sums in another order: f32 within 1e-5; bf16 within
+    one rounding (the spacing of bf16 at |want|) beyond that 1e-5, which
+    an h near 0 needs, where the scale's and the shift's terms cancel."""
+    if got.dtype == torch.bfloat16:
+        hf = want.float().abs().clamp_min(torch.finfo(torch.bfloat16).tiny)
+        ulp = torch.exp2(torch.floor(torch.log2(hf))) * 2.0 ** -7
+        gap = (got.float() - want.float()).abs()
+        assert bool((gap <= ulp + 1e-5).all()), (gap - ulp).max().item()
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["boundary", "no_residual", "no_ln",
+                                   "cls_rows"])
+@pytest.mark.parametrize("m,d", [(64 * 257, 1024), (64 * 197, 768),
+                                 (37, 1280), (5, 48), (3, 2048)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_add_layer_norm_kernel_matches_plain_on_card(cuda, dtype, m, d,
+                                                     which):
+    """At the main path's shapes (CLIP-L's and ViT-B's batch 64), ragged and
+    the widest: y bitwise the plain version's, h within one rounding."""
+    x, a, bias, ln = _boundary_inputs(m, d, dtype, cuda, d, which)
+    before = encoder_fused.add_layer_norm.launches
+    with torch.no_grad():
+        y, h = encoder_fused.add_layer_norm(x, a, bias, ln, 1e-5)
+        y_p, h_p = encoder_fused.add_layer_norm_reference(x, a, bias, ln,
+                                                          1e-5)
+    torch.cuda.synchronize()
+    assert encoder_fused.add_layer_norm.launches == before + 1
+    assert torch.equal(y, y_p) and y.shape == a.shape
+    if ln is None:
+        assert h is None
+    else:
+        assert h.is_contiguous() and h.shape == a.shape
+        _within_one_rounding(h, h_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", ["gelu", "quick_gelu"])
+@pytest.mark.parametrize("m,f", [(64 * 257, 4096), (64 * 197, 3072),
+                                 (37, 5120), (3, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_bias_act_kernel_matches_plain_on_card(cuda, dtype, m, f, act):
+    """At fc1's shapes of the main paths and a ragged one: bitwise the
+    plain composition's (bias cast, add, the activation's rounded steps)."""
+    g = torch.Generator().manual_seed(f)
+    a = (torch.randn(m, f, generator=g) * 3).to(cuda, dtype)
+    bias = (torch.randn(f, generator=g) * 0.3).to(cuda)
+    before = encoder_fused.bias_act.launches
+    with torch.no_grad():
+        out = encoder_fused.bias_act(a, bias, act)
+        want = encoder_fused.bias_act_reference(a, bias, act)
+    torch.cuda.synchronize()
+    assert encoder_fused.bias_act.launches == before + 1
+    diff = (out.float() - want.float()).abs().max().item()
+    assert torch.equal(out, want), diff
+
+
+@pytest.mark.cuda
+def test_encoder_fused_wrappers_refuse_on_card(cuda):
+    x, a, bias, ln = _boundary_inputs(4, 768, torch.bfloat16, cuda, 0,
+                                      "boundary")
+    ef = encoder_fused
+    with pytest.raises(TypeError):
+        ef.add_layer_norm(None, a.half(), None, ln, 1e-5)
+    with pytest.raises(ValueError, match="16-byte"):
+        ef.add_layer_norm(None, a[:, 1:761], None,
+                          {k: v[:760].contiguous() for k, v in ln.items()},
+                          1e-5)
+    with pytest.raises(ValueError):
+        ef.add_layer_norm(x, a, bias.to(torch.bfloat16), ln, 1e-5)
+    with pytest.raises(ValueError):
+        ef.add_layer_norm(x, a, bias, {"scale": ln["scale"].cpu(),
+                                       "bias": ln["bias"]}, 1e-5)
+    with pytest.raises(ValueError):
+        ef.add_layer_norm(None, torch.zeros(4, 2056, device=cuda,
+                                            dtype=torch.bfloat16),
+                          None, {"scale": torch.ones(2056, device=cuda),
+                                 "bias": torch.zeros(2056, device=cuda)},
+                          1e-5)
+    with pytest.raises(ValueError):
+        ef.bias_act(a[:, :764].contiguous(), bias[:764].contiguous(), "gelu")
+    with pytest.raises(ValueError):
+        ef.bias_act(a.t(), torch.zeros(4, device=cuda), "gelu")
+    with pytest.raises(ValueError, match="unknown act"):
+        ef.bias_act(a, bias, "relu")
+    grad = a.float().requires_grad_()
+    with pytest.raises(RuntimeError, match="forward-only"):
+        ef.bias_act(grad, bias, "gelu")
+
+
+def _drawn_tower(preset, device):
+    """A preset's float encoder with its biases and LayerNorm parameters
+    drawn (an initializer's zeros and ones would hide a bias or a scale
+    applied in the wrong place)."""
+    from mit_tpu_torch.models.vision import PRESETS, init_vision_params
+
+    vcfg = PRESETS[preset]
+    g = torch.Generator().manual_seed(0)
+    params = init_vision_params(g, vcfg)
+
+    def draw(tree):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                draw(v)
+            elif k.startswith("b") or k in ("scale", "patch_b"):
+                tree[k] = v + 0.05 * torch.randn(v.shape, generator=g)
+    draw(params)
+    return vcfg, {k: ({kk: ({k3: t.to(device) for k3, t in vv.items()}
+                            if isinstance(vv, dict) else vv.to(device))
+                       for kk, vv in v.items()} if isinstance(v, dict)
+                      else v.to(device)) for k, v in params.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("preset", ["google/vit-base-patch16-224-in21k",
+                                    "openai/clip-vit-large-patch14"],
+                         ids=["vit_b16", "clip_l14"])
+def test_float_encode_matches_the_old_composition_on_card(cuda, monkeypatch,
+                                                          preset, dtype):
+    """The whole float encode at batch 4, CLS and full memory, against the
+    same encode with both kernels' wrappers replaced by the old composition
+    (their plain versions): f32 within 1e-5 of the largest value, bf16
+    within 2e-2 relative L2. An encode of L layers launches 2L + 1
+    add_layer_norm kernels (one more with ln_pre) and L bias_act kernels,
+    and runs no LayerNorm composition."""
+    from mit_tpu_torch.models import vision
+
+    vcfg, params = _drawn_tower(preset, cuda)
+    px = torch.from_numpy(np.random.default_rng(3).normal(
+        size=(4, 3, 224, 224)).astype(np.float32)).to(cuda)
+    ef = encoder_fused
+    n_ln = 2 * vcfg.num_layers + 1 + vcfg.ln_pre
+    def no_composition(*args, **kw):
+        raise AssertionError("the kernel path ran a LayerNorm composition")
+
+    for cls_only in (False, True):
+        before = (ef.add_layer_norm.launches, ef.bias_act.launches)
+        with monkeypatch.context() as m, torch.no_grad():
+            m.setattr(vision, "layer_norm", no_composition)
+            m.setattr(ef, "layer_norm", no_composition)
+            got = vision.vision_forward(params, vcfg, px, dtype,
+                                        cls_only=cls_only)
+        after = (ef.add_layer_norm.launches, ef.bias_act.launches)
+        assert tuple(x - y for x, y in zip(after, before)) == (
+            n_ln, vcfg.num_layers)
+        with monkeypatch.context() as m:
+            m.setattr(vision, "add_layer_norm", ef.add_layer_norm_reference)
+            m.setattr(vision, "bias_act", ef.bias_act_reference)
+            with torch.no_grad():
+                want = vision.vision_forward(params, vcfg, px, dtype,
+                                             cls_only=cls_only)
+        assert (ef.add_layer_norm.launches, ef.bias_act.launches) == after
+        torch.cuda.synchronize()
+        g, w = got.float(), want.float()
+        if dtype == torch.float32:
+            err = (g - w).abs().max().item() / w.abs().max().item()
+            assert err <= 1e-5, err
+        else:
+            rel = ((g - w).norm() / w.norm()).item()
+            assert rel <= 2e-2, rel
